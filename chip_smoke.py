@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Smoke run of corda_tpu_torch's ECDSA verification path on one CUDA card.
+"""Smoke run of corda_tpu_torch's verification paths on one CUDA card.
 
     python3 chip_smoke.py [--out PATH]
 
 Phases (any failure raises and exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from corda_tpu_torch/csrc with nvcc;
+  2. build the CUDA kernels from corda_tpu_torch/csrc with nvcc (one
+     process per source, all started together);
   3. hold each ladder kernel against its plain torch version on the card
-     (p256 and secp256k1, B=256, full 264-bit scan, edge rows u1=0,
-     u2=0, Q=G and u2=n-u1 with Q=G) — equal normalised points; time
-     each kernel and its plain version at the main path's chunk (4096,
-     scalars below n) and hold them equal there too;
-  4. the main path: a 16,384-row p256 flush (256 distinct signed
-     requests with tampered rows, tiled) through
-     CudaBatchVerifier(batch_sizes=(128, 1024, 4096)).verify_batch_async
-     (...).chunks(), then 4,096 secp256k1 rows; every row must equal the
-     CPU reference for its distinct request and its construction label,
-     and each kernel's launch counter must have moved;
-  5. print the kernel table as one JSON line, then the result line
+     — the Weierstrass ladders on p256 and secp256k1 at B=256 (edge rows
+     u1=0, u2=0, Q=G and u2=n-u1 with Q=G), the Edwards ladders on
+     ed25519 at B=256 and a ragged B=130 (edge rows s=0, k=0,
+     A=identity, s=L, s+L, all-264-bit scalars, A of order 2 and 4):
+     equal normalised points, X*Y == Z*T for the Edwards outputs, and
+     the first 8 rows equal to refmath; time each kernel and its plain
+     version at the main path's chunk (4096, main-path scalars) and
+     hold them equal there too;
+  4. count and time the torch prologue and epilogue per 4096 chunk
+     (ecdsa_scalars; ed_decompress_neg_batch, ed_ext_to_affine);
+  5. the main path through CudaBatchVerifier(batch_sizes=(128, 1024,
+     4096)).verify_batch_async(...).chunks(): a 16,384-row p256 flush,
+     a 4,096-row secp256k1 batch, a 16,384-row ed25519 flush, a
+     4,096-row ed25519 batch with windowed=True, and a 16,384-row mixed
+     call (even thirds ed25519 / secp256k1 / p256). Each is built from
+     256 distinct signed requests per scheme with tampered rows (and
+     the ed25519 edge rows), tiled; every row must equal the CPU
+     reference of its distinct request. The launch counters are set to 0
+     just before each path and read just after; each path must have
+     launched its kernels;
+  6. print the kernel table as one JSON line, then the result line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
@@ -35,6 +46,7 @@ import time
 CHUNK = 4096
 FLUSH = 16384
 PARITY_B = 256
+RAGGED_B = 130
 DISTINCT = 256
 IMAD_PER_SM_PER_CLK = 64     # CUDA C Programming Guide, throughput table, cc 9.0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -79,6 +91,25 @@ def _affine(curve, X, Y, Z):
     return out
 
 
+def _ed_affine(curve, X, Y, Z, T):
+    """Host normalisation of [22, B] extended Montgomery limbs: affine
+    (x, y) ints per row; raises unless X*Y == Z*T (mod p)."""
+    from corda_tpu_torch.crypto import limbs as L
+
+    p = curve.p
+    out = []
+    for i, (x, y, z, t) in enumerate(zip(*(L.batch_to_ints(c.cpu().numpy()) for c in (X, Y, Z, T)))):
+        if (x * y - z * t) % p:
+            raise RuntimeError(f"{curve.name} row {i}: X*Y != Z*T")
+        zi = pow(z, -1, p)
+        out.append(((x * zi) % p, (y * zi) % p))
+    return out
+
+
+def _normalise(curve, pt):
+    return _ed_affine(curve, *pt) if len(pt) == 4 else _affine(curve, *pt)
+
+
 def _max_err(curve, got, want, label: str) -> int:
     """Largest coordinate difference of the normalised points; raises
     unless every row is equal (integers: equality is the tolerance)."""
@@ -86,7 +117,7 @@ def _max_err(curve, got, want, label: str) -> int:
 
     torch.cuda.synchronize()
     err = 0
-    for i, (a, b) in enumerate(zip(_affine(curve, *got), _affine(curve, *want))):
+    for i, (a, b) in enumerate(zip(_normalise(curve, got), _normalise(curve, want))):
         if a != b:
             raise RuntimeError(f"{label} row {i}: kernel {a} != plain {b}")
         if a is not None:
@@ -123,27 +154,113 @@ def _ladder_inputs(curve, batch: int, seed: int, device, wide: bool = True):
     return (dev(u1s), dev(u2s), qx_m, qy_m), (u1s, u2s, qs)
 
 
-def _ladder_ops(curve, windowed: bool, u1s, u2s) -> int:
-    """IMAD-rate instructions the ladders need for these scalars: each
-    row scans only its scalars' bits (w=4 windows for the windowed
-    ladder). A 256-bit Montgomery multiply is 8x8 + 8x8 products of
-    32x32->64 bits (2 instructions each) + 8 low-half products; an
-    RCB15 add is 12 multiplies + 2 by 3b + 3 by a (none where a = 0);
-    5 multiplies convert Q in and R out; the entry folds add 2 x 4 x 8
-    products."""
-    mul = 2 * (64 + 64) + 8
-    per_add = 14 + (3 if curve.a % curve.p else 0)
+def _ed_inputs(batch: int, seed: int, device, wide: bool = True):
+    """s, k, ax_m, ay_m for the Edwards ladders at `batch` rows. With
+    `wide`, the edge rows come first (s=0, k=0, A=identity, s=L, s+L,
+    all-264-bit scalars, A of order 2 and of order 4) and every 4th row
+    uses all 264 digit bits; else s, k < L and A in the prime-order
+    subgroup, as the main path gives them (but for s + L rows)."""
+    import torch
+
+    from corda_tpu_torch.crypto import limbs as L
+    from corda_tpu_torch.crypto import modmath as M
+    from corda_tpu_torch.crypto import refmath
+    from corda_tpu_torch.crypto.curves import ED25519 as c
+
+    rng = random.Random(seed)
+    B = (c.gx, c.gy)
+    distinct = [refmath.ed_mul(c, rng.randrange(1, c.L), B) for _ in range(16)]
+    ss, ks, As = [], [], []
+    if wide:
+        sqrt_m1 = pow(2, (c.p - 1) // 4, c.p)
+        ss = [0, 5, 9, c.L, c.L + 3, rng.getrandbits(264), 6, 10]
+        ks = [7, 0, 4, 8, 6, rng.getrandbits(264), 5, 3]
+        As = [distinct[0], distinct[1], (0, 1), distinct[2], distinct[3], distinct[4],
+              (0, c.p - 1), (sqrt_m1, 0)]
+    for i in range(len(ss), batch):
+        top = wide and i % 4 == 0
+        ss.append(rng.getrandbits(264) if top else rng.randrange(c.L))
+        ks.append(rng.getrandbits(264) if top else rng.randrange(c.L))
+        As.append(distinct[i % 16])
+
+    def dev(xs):
+        return torch.from_numpy(L.ints_to_batch(xs)).to(device)
+
+    ax_m = M.to_mont(c.fp, dev([a[0] for a in As]))
+    ay_m = M.to_mont(c.fp, dev([a[1] for a in As]))
+    return (dev(ss), dev(ks), ax_m, ay_m), (ss, ks, As)
+
+
+MUL_OPS = 2 * (64 + 64) + 8   # 256-bit Montgomery multiply: 8x8 + 8x8 products (2 IMAD each) + 8 low halves
+SQR_OPS = 2 * (36 + 64) + 8   # a square: 36 distinct products
+
+
+def _cost(mults: int, squares: int = 0) -> int:
+    return mults * MUL_OPS + squares * SQR_OPS
+
+
+# add-2008-hwcd-3: 8M + 1 by 2d; madd-2008-hwcd-3 (Z2 = 1): 7M + 1; dbl-2008-hwcd (a = -1): 4M + 4S
+ED_COST = {"add": _cost(9), "madd": _cost(8), "dbl": _cost(4, 4)}
+
+
+def _wei_cost(curve) -> dict:
+    """RCB15 complete formulas (Renes-Costello-Batina 2016, table 1) for
+    a = 0 or a = -3: add 12M + 2 by b, mixed add 11M + 2 by b, doubling
+    6M + 2S + 1 by 3b (a = 0) or 8M + 3S + 2 by b (a = -3)."""
+    a = curve.a % curve.p
+    if a not in (0, curve.p - 3):
+        raise ValueError(f"{curve.name}: no dedicated formulas for a = {curve.a}")
+    return {"add": _cost(14), "madd": _cost(13), "dbl": _cost(7, 2) if a == 0 else _cost(10, 3)}
+
+
+def _step_adds(cost: dict, windowed: bool, x: int, y: int, i: int) -> list:
+    """Costs of the adds step i (bit i, or w=4 window i) of R = x*P + y*Q
+    needs: none for a zero bit or digit, a mixed add where the operand is
+    affine (P, Q, the constant P table), a full add for P + Q or a Q
+    multiple."""
+    if not windowed:
+        pair = ((x >> i) & 1, (y >> i) & 1)
+        return [] if pair == (0, 0) else [cost["add"] if pair == (1, 1) else cost["madd"]]
+    ds, dk = (x >> 4 * i) & 15, (y >> 4 * i) & 15
+    return [cost["madd"]] * (ds > 0) + [cost["madd"] if dk == 1 else cost["add"]] * (dk > 0)
+
+
+def _ladder_ops(cost: dict, conv_mults: int, windowed: bool, xs, ys) -> int:
+    """IMAD-rate instructions the kernel's schedule (plain Shamir, or w=4
+    windows) needs for these scalars: each row scans only its scalars'
+    bits; doublings at the dedicated doubling formula's cost; no add of
+    the identity, and the top step's add a copy; the table the row needs
+    (P + Q, or Q multiples 2..15 as 7 doublings and 7 mixed adds; the P
+    table is constant). `conv_mults` multiplies convert the point in and
+    the result out; the entry folds of the two input coordinates add
+    2 x 4 x 8 products."""
+    width = 4 if windowed else 1
     ops = 0
-    for a, b in zip(u1s, u2s):
-        bits = max(a.bit_length(), b.bit_length(), 1)
-        adds = 14 + 6 * -(-bits // 4) if windowed else 1 + 2 * bits
-        ops += (adds * per_add + 5) * mul + 2 * 4 * 8 * 2
+    for x, y in zip(xs, ys):
+        steps = -(-max(x.bit_length(), y.bit_length()) // width)
+        if steps:
+            adds = [_step_adds(cost, windowed, x, y, i) for i in range(steps)]
+            ops += sum(map(sum, adds)) - max(adds[-1]) + width * (steps - 1) * cost["dbl"]
+            if windowed and y:
+                ops += 7 * (cost["dbl"] + cost["madd"])
+            elif not windowed and x & y:
+                ops += cost["madd"]
+        ops += conv_mults * MUL_OPS + 2 * 4 * 8 * 2
     return ops
+
+
+def _wei_ops(curve, windowed: bool, u1s, u2s) -> int:
+    return _ladder_ops(_wei_cost(curve), 5, windowed, u1s, u2s)
+
+
+def _ed_ops(windowed: bool, ss, ks) -> int:
+    # 2 multiplies by 2^248 in, T = x*y, 4 multiplies by 2^264 out
+    return _ladder_ops(ED_COST, 7, windowed, ss, ks)
 
 
 def phase_parity(device, report: dict) -> None:
     from corda_tpu_torch.crypto import cuda_ec, refmath
-    from corda_tpu_torch.crypto.curves import SECP256K1, SECP256R1
+    from corda_tpu_torch.crypto.curves import ED25519, SECP256K1, SECP256R1
 
     kernels = {
         "wei_ladder_windowed": (cuda_ec.wei_ladder_windowed_cuda, cuda_ec.wei_ladder_windowed_plain),
@@ -168,43 +285,83 @@ def phase_parity(device, report: dict) -> None:
             print(f"parity {name} {curve.name} B={PARITY_B}: {PARITY_B} rows equal")
         report[name] = {"max_abs_err": float(err)}
 
+    c = ED25519
+    ed_kernels = {
+        "ed_ladder_windowed": (cuda_ec.ed_ladder_windowed_cuda, cuda_ec.ed_ladder_windowed_plain),
+        "ed_ladder": (cuda_ec.ed_ladder_cuda, cuda_ec.ed_ladder_plain),
+    }
+    for name, (kern, plain) in ed_kernels.items():
+        err = 0
+        for batch in (PARITY_B, RAGGED_B):
+            args, (ss, ks, As) = _ed_inputs(batch, 7, device)
+            out = kern(c, *args)
+            err = max(err, _max_err(c, out, plain(c, *args), f"{name} B={batch}"))
+            got = _ed_affine(c, *out)
+            B = (c.gx, c.gy)
+            for i in range(8):   # and against refmath
+                ref = refmath.ed_add(c, refmath.ed_mul(c, ss[i], B), refmath.ed_mul(c, ks[i], As[i]))
+                if ref != got[i]:
+                    raise RuntimeError(f"{name} row {i}: {got[i]} != refmath {ref}")
+            print(f"parity {name} ed25519 B={batch}: {batch} rows equal")
+        report[name] = {"max_abs_err": float(err)}
+
+
+def _time_kernel(report: dict, name: str, curve, kern, plain, args, ops: int,
+                 nbytes: int, rate: float, source: str, replaces: str) -> None:
+    """Kernel ms (CUDA events, 5 launches), plain ms (one call, host
+    clock around synchronise), equality at this size, and the bound."""
+    import torch
+
+    ms = _cuda_ms(lambda: kern(curve, *args), reps=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain(curve, *args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _max_err(curve, kern(curve, *args), want, f"{name} {curve.name} B={CHUNK}")
+    report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+    ops_ms, bytes_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    report[name].update(
+        route="cuda", source=source, replaces=replaces,
+        ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=None,
+    )
+    print(f"time {name} {curve.name} B={CHUNK}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+          f"bound {max(ops_ms, bytes_ms):.3f} ms ({ops / CHUNK:.0f} IMAD/signature)")
+
 
 def phase_timing(device, report: dict) -> None:
     import torch
 
     from corda_tpu_torch.crypto import cuda_ec
-    from corda_tpu_torch.crypto.curves import SECP256R1, SECP256K1
+    from corda_tpu_torch.crypto.curves import ED25519, SECP256K1, SECP256R1
 
     clock_mhz = float(_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     rate = IMAD_PER_SM_PER_CLK * sms * clock_mhz * 1e6
     print(f"bound model: {IMAD_PER_SM_PER_CLK} IMAD/clk/SM x {sms} SMs x {clock_mhz:.0f} MHz")
-    specs = {
+    wei = {
         "wei_ladder_windowed": (SECP256R1, True, cuda_ec.wei_ladder_windowed_cuda,
                                 cuda_ec.wei_ladder_windowed_plain, "corda_tpu/crypto/pallas_ec.py:182"),
         "wei_ladder": (SECP256K1, False, cuda_ec.wei_ladder_cuda,
                        cuda_ec.wei_ladder_plain, "corda_tpu/crypto/pallas_ec.py:113"),
     }
-    for name, (curve, windowed, kern, plain, replaces) in specs.items():
+    for name, (curve, windowed, kern, plain, replaces) in wei.items():
         args, (u1s, u2s, _) = _ladder_inputs(curve, CHUNK, 11, device, wide=False)
-        ms = _cuda_ms(lambda: kern(curve, *args), reps=5)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = plain(curve, *args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = _max_err(curve, kern(curve, *args), want, f"{name} {curve.name} B={CHUNK}")
-        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
-        ops = _ladder_ops(curve, windowed, u1s, u2s)
-        nbytes = 7 * 22 * 4 * CHUNK      # 4 inputs read, 3 outputs written
-        ops_ms, bytes_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        report[name].update(
-            route="cuda", source="corda_tpu_torch/csrc/wei_ladder.cu", replaces=replaces,
-            ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=None,
-        )
-        print(f"time {name} {curve.name} B={CHUNK}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-              f"bound {max(ops_ms, bytes_ms):.3f} ms ({ops / CHUNK:.0f} IMAD/signature)")
+        _time_kernel(report, name, curve, kern, plain, args, _wei_ops(curve, windowed, u1s, u2s),
+                     7 * 22 * 4 * CHUNK,      # 4 inputs read, 3 outputs written
+                     rate, "corda_tpu_torch/csrc/wei_ladder.cu", replaces)
+    ed = {
+        "ed_ladder_windowed": (True, cuda_ec.ed_ladder_windowed_cuda,
+                               cuda_ec.ed_ladder_windowed_plain, "corda_tpu/crypto/pallas_ec.py:249"),
+        "ed_ladder": (False, cuda_ec.ed_ladder_cuda,
+                      cuda_ec.ed_ladder_plain, "corda_tpu/crypto/pallas_ec.py:311"),
+    }
+    args, (ss, ks, _) = _ed_inputs(CHUNK, 13, device, wide=False)
+    for name, (windowed, kern, plain, replaces) in ed.items():
+        _time_kernel(report, name, ED25519, kern, plain, args, _ed_ops(windowed, ss, ks),
+                     8 * 22 * 4 * CHUNK,      # 4 inputs read, 4 outputs written
+                     rate, "corda_tpu_torch/csrc/ed_ladder.cu", replaces)
 
 
 def _count_torch_ops(fn) -> int:
@@ -227,75 +384,129 @@ def _count_torch_ops(fn) -> int:
     return Count.n
 
 
+def _torch_phase(label: str, fn) -> None:
+    ms = _cuda_ms(fn, reps=2)
+    ops = _count_torch_ops(fn)
+    print(f"time {label} B={CHUNK}: {ms:.1f} ms, {ops} torch ops = {ms * 1e3 / ops:.1f} us/op")
+
+
 def phase_prologue(device) -> None:
     import torch
 
     from corda_tpu_torch.crypto import limbs as L
-    from corda_tpu_torch.crypto.curves import SECP256R1
+    from corda_tpu_torch.crypto import modmath as M
+    from corda_tpu_torch.crypto import refmath
+    from corda_tpu_torch.crypto.curves import ED25519, SECP256R1
+    from corda_tpu_torch.crypto.ec import ed_ext_to_affine
     from corda_tpu_torch.crypto.ecdsa import ecdsa_scalars
+    from corda_tpu_torch.crypto.eddsa import ed_decompress_neg_batch
 
     rng = random.Random(3)
-    z, r, s = (
-        torch.from_numpy(L.ints_to_batch([rng.randrange(1, SECP256R1.n) for _ in range(CHUNK)])).to(device)
-        for _ in range(3)
-    )
-    ms = _cuda_ms(lambda: ecdsa_scalars(SECP256R1, z, r, s), reps=2)
-    ops = _count_torch_ops(lambda: ecdsa_scalars(SECP256R1, z, r, s))
-    print(f"time prologue ecdsa_scalars (mont_inv mod n as torch ops) p256 B={CHUNK}: {ms:.1f} ms, "
-          f"{ops} torch ops = {ms * 1e3 / ops:.1f} us/op")
+
+    def dev(xs):
+        return torch.from_numpy(L.ints_to_batch(xs)).to(device)
+
+    z, r, s = (dev([rng.randrange(1, SECP256R1.n) for _ in range(CHUNK)]) for _ in range(3))
+    _torch_phase("prologue ecdsa_scalars (mont_inv mod n as torch ops) p256",
+                 lambda: ecdsa_scalars(SECP256R1, z, r, s))
+    c = ED25519
+    pts = [refmath.ed_mul(c, rng.randrange(1, c.L), (c.gx, c.gy)) for _ in range(16)]
+    y_raw = dev([pts[i % 16][1] for i in range(CHUNK)])
+    a_sign = torch.tensor([pts[i % 16][0] & 1 for i in range(CHUNK)], dtype=torch.int32, device=device)
+    _torch_phase("prologue ed_decompress_neg_batch (252-bit sqrt pow as torch ops)",
+                 lambda: ed_decompress_neg_batch(y_raw, a_sign))
+    ext = tuple(M.to_mont(c.fp, dev([rng.randrange(1, c.p) for _ in range(CHUNK)])) for _ in range(4))
+    _torch_phase("epilogue ed_ext_to_affine (mont_inv mod p as torch ops)",
+                 lambda: ed_ext_to_affine(c.fp, ext))
 
 
-def _flush(verifier, reqs, distinct_ok, tile: int, label: str) -> None:
+def _dispatch_order(reqs) -> list:
+    """Request indices in the order the verifier dispatches them: one
+    bucket per scheme, in the order of each scheme's first row."""
+    buckets: dict = {}
+    for i, r in enumerate(reqs):
+        buckets.setdefault(r.key.scheme_id, []).append(i)
+    return [i for idxs in buckets.values() for i in idxs]
+
+
+def _flush(verifier, reqs, expect, label: str) -> None:
     t0 = time.perf_counter()
     pv = verifier.verify_batch_async(reqs)
-    seen, order = 0, []
+    streamed = []
     for idxs, vals in pv.chunks():
-        order.append(idxs[0])
         for i, ok in zip(idxs, vals):
-            if ok != distinct_ok[i % tile]:
-                raise RuntimeError(f"{label} row {i}: device {ok} != CPU {distinct_ok[i % tile]}")
-        seen += len(vals)
+            if ok != expect[i]:
+                raise RuntimeError(f"{label} row {i}: device {ok} != CPU {expect[i]}")
+        streamed.extend(idxs)
     wall = time.perf_counter() - t0
-    if seen != len(reqs) or order != sorted(order):
-        raise RuntimeError(f"{label}: {seen} rows streamed of {len(reqs)}, chunk order {order}")
+    if streamed != _dispatch_order(reqs):
+        raise RuntimeError(f"{label}: {len(streamed)} rows of {len(reqs)} streamed, "
+                           "not once each in dispatch order")
     dev_s = pv.device_seconds()
     print(f"main {label}: {len(reqs)} rows in {wall:.3f} s = {len(reqs) / wall:.0f} verifies/s; "
           f"host staging {pv.stage_seconds:.3f} s, device (chunk events, summed) {dev_s:.3f} s")
 
 
+COUNTERS = {
+    "wei_ladder_windowed": "wei_ladder_windowed_launches",
+    "wei_ladder": "wei_ladder_launches",
+    "ed_ladder_windowed": "ed_ladder_windowed_launches",
+    "ed_ladder": "ed_ladder_launches",
+}
+
+
 def phase_main(device, report: dict) -> None:
     from corda_tpu_torch.crypto import cuda_ec, schemes
     from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier, CudaBatchVerifier
-    from corda_tpu_torch.testing.selfcheck import TAMPERED_KINDS, build_requests
+    from corda_tpu_torch.testing.selfcheck import (
+        TAMPERED_KINDS,
+        build_requests,
+        ed25519_edge_requests,
+    )
 
-    runs = []
-    for sid, rows, label in (
-        (schemes.ECDSA_SECP256R1_SHA256, FLUSH, "p256 flush"),
-        (schemes.ECDSA_SECP256K1_SHA256, CHUNK, "secp256k1 batch"),
-    ):
-        distinct = build_requests(DISTINCT, seed=sid, scheme_ids=(sid,))
-        ok = CpuBatchVerifier().verify_batch(distinct)
-        labels = [i % 8 not in TAMPERED_KINDS for i in range(DISTINCT)]
-        if ok != labels:
-            raise RuntimeError(f"{label}: CPU reference disagrees with the construction labels")
-        runs.append(((distinct * (rows // DISTINCT))[:rows], ok, label))
-    verifier = CudaBatchVerifier(batch_sizes=(128, 1024, 4096), device=device)
-    for reqs, ok, label in runs:     # warm-up: allocator, library load
-        _flush(verifier, reqs[:DISTINCT], ok, DISTINCT, label + " warm-up")
+    p256, k1, ed = (schemes.ECDSA_SECP256R1_SHA256, schemes.ECDSA_SECP256K1_SHA256,
+                    schemes.EDDSA_ED25519_SHA512)
+    distinct, ok = {}, {}
+    for sid in (p256, k1, ed):
+        edges = [r for _, r in ed25519_edge_requests()] if sid == ed else []
+        n = DISTINCT - len(edges)
+        distinct[sid] = build_requests(n, seed=sid, scheme_ids=(sid,)) + edges
+        ok[sid] = CpuBatchVerifier().verify_batch(distinct[sid])
+        if ok[sid][:n] != [i % 8 not in TAMPERED_KINDS for i in range(n)]:
+            raise RuntimeError(f"scheme {sid}: CPU reference disagrees with the construction labels")
 
-    cuda_ec.wei_ladder_launches = 0
-    cuda_ec.wei_ladder_windowed_launches = 0
-    for reqs, ok, label in runs:
-        _flush(verifier, reqs, ok, DISTINCT, label)
-    launches = {
-        "wei_ladder_windowed": cuda_ec.wei_ladder_windowed_launches,
-        "wei_ladder": cuda_ec.wei_ladder_launches,
-    }
-    print(f"main launches: {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise RuntimeError(f"{name} was not launched on the main path")
-        report[name]["launches"] = n
+    def tiled(sids, rows):
+        """rows requests cycling over sids, each scheme's distinct set
+        tiled; with the CPU reference's decision per row"""
+        picks = [(sids[i % len(sids)], (i // len(sids)) % DISTINCT) for i in range(rows)]
+        return [distinct[s][j] for s, j in picks], [ok[s][j] for s, j in picks]
+
+    plain = CudaBatchVerifier(batch_sizes=(128, 1024, 4096), device=device)
+    windowed = CudaBatchVerifier(batch_sizes=(128, 1024, 4096), device=device, windowed=True)
+    # (label, verifier, schemes, rows, kernels that must launch)
+    paths = [
+        ("p256 flush", plain, (p256,), FLUSH, ("wei_ladder_windowed",)),
+        ("secp256k1 batch", plain, (k1,), CHUNK, ("wei_ladder",)),
+        ("ed25519 flush", plain, (ed,), FLUSH, ("ed_ladder",)),
+        ("ed25519 windowed batch", windowed, (ed,), CHUNK, ("ed_ladder_windowed",)),
+        ("mixed flush (ed25519 / secp256k1 / p256)", plain, (ed, k1, p256), FLUSH,
+         ("ed_ladder", "wei_ladder", "wei_ladder_windowed")),
+    ]
+    for label, verifier, sids, _, _ in paths:    # warm-up: allocator, library load
+        reqs, expect = tiled(sids, DISTINCT)
+        _flush(verifier, reqs, expect, label + " warm-up")
+
+    for label, verifier, sids, rows, must in paths:
+        reqs, expect = tiled(sids, rows)
+        for counter in COUNTERS.values():
+            setattr(cuda_ec, counter, 0)
+        _flush(verifier, reqs, expect, label)
+        launches = {name: getattr(cuda_ec, counter) for name, counter in COUNTERS.items()}
+        print(f"main {label} launches: {launches}")
+        for name in must:
+            if launches[name] == 0:
+                raise RuntimeError(f"{name} was not launched on the {label}")
+            report[name].setdefault("launches", launches[name])
 
 
 def main(argv=None) -> int:

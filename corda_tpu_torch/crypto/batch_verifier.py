@@ -1,21 +1,23 @@
 """BatchSignatureVerifier SPI — the verification seam, on the card.
 
-Port of corda_tpu/crypto/batch_verifier.py for the ECDSA schemes.
-Callers hand `verify_batch` a sequence of (key, signature, message)
+Port of corda_tpu/crypto/batch_verifier.py for the EC schemes
+(ed25519, the default, and ECDSA over secp256r1 and secp256k1). Callers
+hand `verify_batch` a sequence of (key, signature, message)
 requests and get one bool per request, in order.
 
 Implementations:
   * CpuBatchVerifier  — pure-python reference semantics (refmath), one
     request at a time on the host: the bit-exactness anchor.
   * CudaBatchVerifier — the TpuBatchVerifier counterpart: per-scheme
-    buckets, padding to the configured batch sizes, chunking at the
-    largest, staging into pinned host buffers, the torch prologue and
-    the CUDA ladder kernel on the card, and a non-blocking copy of each
-    chunk's result back to the host behind a CUDA event, so
-    PendingVerification.chunks() streams: it waits for compute only.
+    buckets (one call may mix schemes), padding to the configured batch
+    sizes, chunking at the largest, staging into pinned host buffers,
+    the torch prologue and the CUDA ladder kernel on the card, and a
+    non-blocking copy of each chunk's result back to the host behind a
+    CUDA event, so PendingVerification.chunks() streams: it waits for
+    compute only.
 
-Schemes without a kernel in this slice (ed25519, RSA, SPHINCS,
-composite) raise UnsupportedScheme; nothing is routed to the CPU. A
+Schemes without a kernel in the port (RSA, SPHINCS, composite) raise
+UnsupportedScheme; nothing is routed to the CPU. A
 CUDA error or a refused launch raises DeviceFaultError, the class the
 batching notary's degraded mode catches.
 """
@@ -25,6 +27,7 @@ from __future__ import annotations
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
+from functools import partial
 from typing import Optional, Sequence
 
 import numpy as np
@@ -33,6 +36,7 @@ import torch
 from . import encodings, schemes
 from .cuda_ec import DeviceFaultError
 from .ecdsa import ecdsa_verify_packed
+from .eddsa import ed25519_verify_packed
 
 
 @dataclass(frozen=True)
@@ -45,7 +49,11 @@ class VerificationRequest:
 
 
 SCHEME_KERNELS = frozenset(
-    {schemes.ECDSA_SECP256K1_SHA256, schemes.ECDSA_SECP256R1_SHA256}
+    {
+        schemes.ECDSA_SECP256K1_SHA256,
+        schemes.ECDSA_SECP256R1_SHA256,
+        schemes.EDDSA_ED25519_SHA512,
+    }
 )
 
 
@@ -81,6 +89,20 @@ def _device_faults(what: str):
         if isinstance(e, _CUDA_ERRORS) or "CUDA" in str(e):
             raise DeviceFaultError(f"{what}: {e}") from e
         raise
+
+
+_TORCH_DTYPES = {
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.bool_): torch.bool,
+}
+
+
+def _pinned(a: np.ndarray) -> torch.Tensor:
+    """A pinned host tensor holding `a`, written once."""
+    h = torch.empty(a.shape, dtype=_TORCH_DTYPES[a.dtype], pin_memory=True)
+    h.numpy()[:] = a
+    return h
 
 
 @dataclass
@@ -129,49 +151,45 @@ class CudaBatchVerifier(BatchSignatureVerifier):
                 return b
         return self.batch_sizes[-1]
 
-    def _run_chunk(self, curve, packed: np.ndarray, valid: np.ndarray, idxs, n):
+    def _run_chunk(self, verify, arrays: tuple, idxs, n):
+        """Run verify(*tensors) on one chunk's staged numpy arrays: as
+        they are on the CPU path; on the card through pinned buffers
+        and non-blocking copies, with the result copied back behind the
+        chunk's event."""
         if self.device.type == "cpu":
-            res = ecdsa_verify_packed(
-                curve, torch.from_numpy(packed.copy()),
-                torch.from_numpy(valid.copy()), windowed=self.windowed,
-            )
-            return _Chunk(res, idxs, n)
+            return _Chunk(verify(*(torch.from_numpy(a.copy()) for a in arrays)), idxs, n)
         with _device_faults("verify dispatch"), torch.cuda.device(self.device):
-            pk_host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
-            pk_host.numpy()[:] = packed
-            va_host = torch.empty(valid.shape, dtype=torch.bool, pin_memory=True)
-            va_host.numpy()[:] = valid
+            hosts = tuple(_pinned(a) for a in arrays)
             started = torch.cuda.Event(enable_timing=True)
             done = torch.cuda.Event(enable_timing=True)
             started.record()
-            res = ecdsa_verify_packed(
-                curve,
-                pk_host.to(self.device, non_blocking=True),
-                va_host.to(self.device, non_blocking=True),
-                windowed=self.windowed,
-            )
+            res = verify(*(h.to(self.device, non_blocking=True) for h in hosts))
             out = torch.empty(res.shape, dtype=torch.bool, pin_memory=True)
             out.copy_(res, non_blocking=True)
             done.record()
-        return _Chunk(out, idxs, n, started, done, (pk_host, va_host))
+        return _Chunk(out, idxs, n, started, done, hosts)
 
     def _dispatch(self, scheme_id: int, items: list, idxs: list):
         """Stage + launch one scheme bucket, chunking at the largest
         batch size; returns ([_Chunk], host staging seconds) without
         waiting for the device, so staging chunk k+1 overlaps chunk k's
         device work."""
-        curve = schemes.WCURVE[scheme_id]
+        if scheme_id == schemes.EDDSA_ED25519_SHA512:
+            stage = encodings.stage_ed25519_packed
+            verify = partial(ed25519_verify_packed, windowed=self.windowed)
+        else:
+            curve = schemes.WCURVE[scheme_id]
+            stage = partial(encodings.stage_ecdsa_packed, curve)
+            verify = partial(ecdsa_verify_packed, curve, windowed=self.windowed)
         max_b = self.batch_sizes[-1]
         chunks, stage_s = [], 0.0
         for off in range(0, len(items), max_b):
             chunk = items[off : off + max_b]
             t0 = time.perf_counter()
-            packed, valid = encodings.stage_ecdsa_packed(
-                curve, chunk, self._pick_batch(len(chunk))
-            )
+            arrays = stage(chunk, self._pick_batch(len(chunk)))
             stage_s += time.perf_counter() - t0
             chunks.append(
-                self._run_chunk(curve, packed, valid, idxs[off : off + len(chunk)], len(chunk))
+                self._run_chunk(verify, arrays, idxs[off : off + len(chunk)], len(chunk))
             )
         return chunks, stage_s
 

@@ -7,8 +7,9 @@ started together) into a shared library with a plain C interface under
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/corda_tpu_torch/lib<name>-<hash>.so
 
-The library name carries a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. ptxas's report
+The library name carries a hash of the source, of every shared header
+(`csrc/*.cuh`) and of the flags, so an edited source or header rebuilds
+and an unchanged one is reused. ptxas's report
 (registers, spills, shared memory per kernel) is kept beside each
 library as `<lib>.log`. A missing nvcc or a failed compile raises
 KernelBuildError: there is no fallback to the torch path.
@@ -61,8 +62,11 @@ def sources() -> list[Path]:
 
 
 def library_path(src: Path) -> Path:
-    """Content-addressed library path of one source."""
+    """Content-addressed library path of one source: keyed on the source,
+    every header in its directory and the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -1,24 +1,28 @@
-"""CUDA ladder kernels for the ECDSA double-scalar multiply, and their
-plain torch versions.
+"""CUDA ladder kernels for the double-scalar multiplies of signature
+verification, and their plain torch versions.
 
-Port of the Weierstrass half of corda_tpu/crypto/pallas_ec.py:
+Port of corda_tpu/crypto/pallas_ec.py:
 
-  kernel (csrc/wei_ladder.cu)      replaces                         plain version
-  wei_ladder_windowed_kernel       pallas_ec.wei_ladder_windowed_pallas  wei_ladder_windowed_plain
-  wei_ladder_kernel                pallas_ec.wei_ladder_pallas           wei_ladder_plain
+  kernel                                     replaces                              plain version
+  wei_ladder_windowed_kernel (wei_ladder.cu) pallas_ec.wei_ladder_windowed_pallas  wei_ladder_windowed_plain
+  wei_ladder_kernel          (wei_ladder.cu) pallas_ec.wei_ladder_pallas           wei_ladder_plain
+  ed_ladder_windowed_kernel  (ed_ladder.cu)  pallas_ec.ed_ladder_windowed_pallas   ed_ladder_windowed_plain
+  ed_ladder_kernel           (ed_ladder.cu)  pallas_ec.ed_ladder_pallas            ed_ladder_plain
 
-Interface, as the TPU kernels: R = u1*G + u2*Q with u1, u2 canonical
-[22, B] int32 digits and qx_m, qy_m the affine Q in the R = 2^264
-Montgomery domain; returns projective (X, Y, Z) in that domain. Both
-scan all 264 digit bits (scalars < 2^256 make the top bits add the
-identity, which the complete formulas absorb). The kernels return
-canonical digits, the plain versions lazily reduced ones: compare
-normalised points.
+Interface, as the TPU kernels: R = u1*G + u2*Q (ECDSA) or R = s*B + k*A
+(ed25519) with canonical [22, B] int32 scalar digits and the affine Q
+or A in the R = 2^264 Montgomery domain; returns projective (X, Y, Z)
+or extended (X, Y, Z, T) in that domain. All scan every one of the 264
+digit bits (zero top bits add the identity, which the complete
+formulas absorb). The kernels return canonical digits, the plain
+versions lazily reduced ones: compare normalised points.
 
-`wei_ladder` and `wei_ladder_windowed` dispatch on the tensors' device:
-the plain version for CPU tensors only; on CUDA tensors they launch
-the kernel or raise. Each launch adds one to the module's counter
-(`wei_ladder_launches`, `wei_ladder_windowed_launches`).
+`wei_ladder`, `wei_ladder_windowed`, `ed_ladder` and
+`ed_ladder_windowed` dispatch on the tensors' device: the plain version
+for CPU tensors only; on CUDA tensors they launch the kernel or raise.
+Each launch adds one to the module's counter (`wei_ladder_launches`,
+`wei_ladder_windowed_launches`, `ed_ladder_launches`,
+`ed_ladder_windowed_launches`).
 """
 
 from __future__ import annotations
@@ -30,9 +34,13 @@ import numpy as np
 import torch
 
 from . import build
-from .curves import WeierstrassCurve
+from .curves import EdwardsCurve, WeierstrassCurve
 from .ec import (
+    _b_table_mont,
     _g_table_mont,
+    ed_affine_to_ext,
+    ed_double_scalar_mul,
+    ed_double_scalar_mul_windowed,
     wei_affine_to_proj,
     wei_double_scalar_mul,
     wei_double_scalar_mul_windowed,
@@ -43,6 +51,8 @@ LADDER_BITS = NLIMB * 12     # 264: every digit bit, as the TPU kernels scan
 
 wei_ladder_launches = 0
 wei_ladder_windowed_launches = 0
+ed_ladder_launches = 0
+ed_ladder_windowed_launches = 0
 
 
 class DeviceFaultError(RuntimeError):
@@ -85,6 +95,18 @@ def wei_ladder_windowed_plain(curve: WeierstrassCurve, u1, u2, qx_m, qy_m):
     return wei_double_scalar_mul_windowed(curve, u1, u2, Q, nbits=LADDER_BITS)
 
 
+def ed_ladder_plain(curve: EdwardsCurve, s, k, ax_m, ay_m):
+    """Plain Edwards bit ladder over all 264 digit bits."""
+    A = ed_affine_to_ext(curve.fp, ax_m, ay_m)
+    return ed_double_scalar_mul(curve, s, k, A, nbits=LADDER_BITS)
+
+
+def ed_ladder_windowed_plain(curve: EdwardsCurve, s, k, ax_m, ay_m):
+    """w=4 fixed-window Edwards ladder over all 264 digit bits."""
+    A = ed_affine_to_ext(curve.fp, ax_m, ay_m)
+    return ed_double_scalar_mul_windowed(curve, s, k, A, nbits=LADDER_BITS)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 
@@ -95,92 +117,137 @@ def _words(x: int) -> list[int]:
 
 @lru_cache(maxsize=None)
 def kernel_params(curve: WeierstrassCurve) -> np.ndarray:
-    """The kernel's CurveParams struct as uint32 words (host constants
+    """wei_ladder.cu's CurveParams struct as uint32 words (host constants
     in the kernel's R = 2^256 Montgomery domain)."""
     p = curve.p
     R = 1 << 256
-    one = R % p
-    if one >> 225:
-        # load_coord's four folds need 2^256 mod p < 2^225
-        raise ValueError(f"{curve.name}: 2^256 mod p too large for the kernel")
+    one = _fold_constant(curve)
     g = [[0] * 8 + _words(one) + [0] * 8]            # entry 0: infinity
     g += [
         _words(x) + _words(y) + _words(one)
         for x, y in _g_table_mont(curve, 16, r_bits=256)
     ]
     words = (
-        _words(p)
-        + _words(one)
-        + _words(1 << 248)
-        + _words((1 << R_BITS) % p)
+        _field_words(curve)
         + _words((curve.a % p) * R % p)
         + _words((3 * curve.b % p) * R % p)
-        + [(-pow(p, -1, 1 << 32)) % (1 << 32)]
+        + [_pinv32(p)]
         + [w for entry in g for w in entry]
     )
     return np.array(words, dtype=np.uint32)
 
 
-_LIB_SIGNED = False
+@lru_cache(maxsize=None)
+def ed_kernel_params(curve: EdwardsCurve) -> np.ndarray:
+    """ed_ladder.cu's EdParams struct as uint32 words: p, 2^256 mod p,
+    2^248, 2^264 mod p, 2d in the R = 2^256 domain, -p^-1 mod 2^32, and
+    the B table (entry 0 = the identity (0, 1, 1, 0), entry j = j*B as
+    (x, y, 1, xy)) in the R = 2^256 domain."""
+    p = curve.p
+    one = _fold_constant(curve)
+    b = [[0] * 8 + _words(one) + _words(one) + [0] * 8]   # entry 0: identity
+    b += [
+        _words(x) + _words(y) + _words(one) + _words(t)
+        for x, y, t in _b_table_mont(curve, 16, r_bits=256)
+    ]
+    words = (
+        _field_words(curve)
+        + _words(2 * curve.d % p * (1 << 256) % p)
+        + [_pinv32(p)]
+        + [w for entry in b for w in entry]
+    )
+    return np.array(words, dtype=np.uint32)
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB_SIGNED
-    lib = build.load("wei_ladder")
-    if not _LIB_SIGNED:
+def _fold_constant(curve) -> int:
+    one = (1 << 256) % curve.p
+    if one >> 225:
+        # load_coord's four folds need 2^256 mod p < 2^225
+        raise ValueError(f"{curve.name}: 2^256 mod p too large for the kernel")
+    return one
+
+
+def _field_words(curve) -> list[int]:
+    """The leading p, one, c_in, c_out words both structs share."""
+    p = curve.p
+    return _words(p) + _words(_fold_constant(curve)) + _words(1 << 248) + _words((1 << R_BITS) % p)
+
+
+def _pinv32(p: int) -> int:
+    return (-pow(p, -1, 1 << 32)) % (1 << 32)
+
+
+# per library: (launch entry, params-size entry, number of outputs)
+_ENTRIES = {
+    "wei_ladder": ("corda_wei_ladder", "corda_wei_params_words", 3),
+    "ed_ladder": ("corda_ed_ladder", "corda_ed_params_words", 4),
+}
+_SIGNED: set[str] = set()
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    if name not in _SIGNED:
+        launch, words, n_out = _ENTRIES[name]
         p = ctypes.c_void_p
-        lib.corda_wei_ladder.argtypes = [
-            ctypes.c_int, p, p, p, p, p, p, p, p, ctypes.c_int, p,
-        ]
-        lib.corda_wei_ladder.restype = ctypes.c_int
-        lib.corda_wei_params_words.argtypes = []
-        lib.corda_wei_params_words.restype = ctypes.c_int
+        getattr(lib, launch).argtypes = [ctypes.c_int] + [p] * (5 + n_out) + [ctypes.c_int, p]
+        getattr(lib, launch).restype = ctypes.c_int
+        getattr(lib, words).argtypes = []
+        getattr(lib, words).restype = ctypes.c_int
         lib.corda_cuda_error_string.argtypes = [ctypes.c_int]
         lib.corda_cuda_error_string.restype = ctypes.c_char_p
-        _LIB_SIGNED = True
+        _SIGNED.add(name)
     return lib
 
 
-def _check_operands(u1, u2, qx_m, qy_m) -> None:
-    for name, t in (("u1", u1), ("u2", u2), ("qx_m", qx_m), ("qy_m", qy_m)):
+def _check_operands(names, tensors) -> None:
+    first = tensors[0]
+    for name, t in zip(names, tensors):
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the CUDA ladder needs a CUDA tensor")
-        if t.device != u1.device:
-            raise ValueError(f"{name} is on {t.device}, u1 on {u1.device}")
+        if t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}, {names[0]} on {first.device}")
         if t.dtype != torch.int32:
             raise ValueError(f"{name} has dtype {t.dtype}, need int32")
-        if t.dim() != 2 or t.shape[0] != NLIMB or t.shape[1] != u1.shape[1]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, need ({NLIMB}, {u1.shape[1]})")
+        if t.dim() != 2 or t.shape[0] != NLIMB or t.shape[1] != first.shape[1]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, need ({NLIMB}, {first.shape[1]})")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    if u1.shape[1] == 0:
+    if first.shape[1] == 0:
         raise ValueError("empty batch")
 
 
-def _launch(windowed: bool, curve, u1, u2, qx_m, qy_m):
-    _check_operands(u1, u2, qx_m, qy_m)
-    lib = _lib()
-    params = kernel_params(curve)
-    if lib.corda_wei_params_words() != params.size:
-        raise build.KernelBuildError("CurveParams layout differs between kernel and wrapper")
-    X, Y, Z = (torch.empty_like(u1) for _ in range(3))
-    with torch.cuda.device(u1.device):
-        stream = torch.cuda.current_stream(u1.device).cuda_stream
-        rc = lib.corda_wei_ladder(
+def _launch(name: str, windowed: bool, params: np.ndarray, names, ins):
+    """Launch csrc/<name>.cu's ladder on `ins` (four [22, B] int32 CUDA
+    tensors); returns the output tensors."""
+    _check_operands(names, ins)
+    lib = _lib(name)
+    launch, words, n_out = _ENTRIES[name]
+    if getattr(lib, words)() != params.size:
+        raise build.KernelBuildError(f"{name}: parameter layout differs between kernel and wrapper")
+    outs = [torch.empty_like(ins[0]) for _ in range(n_out)]
+    dev = ins[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, launch)(
             int(windowed), params.ctypes.data,
-            u1.data_ptr(), u2.data_ptr(), qx_m.data_ptr(), qy_m.data_ptr(),
-            X.data_ptr(), Y.data_ptr(), Z.data_ptr(), u1.shape[1], stream,
+            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+            ins[0].shape[1], stream,
         )
     if rc != 0:
         msg = lib.corda_cuda_error_string(rc).decode()
-        raise DeviceFaultError(f"wei_ladder launch failed: {msg} (cudaError {rc})")
-    return X, Y, Z
+        raise DeviceFaultError(f"{name} launch failed: {msg} (cudaError {rc})")
+    return tuple(outs)
+
+
+_WEI_NAMES = ("u1", "u2", "qx_m", "qy_m")
+_ED_NAMES = ("s", "k", "ax_m", "ay_m")
 
 
 def wei_ladder_cuda(curve: WeierstrassCurve, u1, u2, qx_m, qy_m):
     """Launch the plain-ladder kernel (CUDA tensors only)."""
     global wei_ladder_launches
-    out = _launch(False, curve, u1, u2, qx_m, qy_m)
+    out = _launch("wei_ladder", False, kernel_params(curve), _WEI_NAMES, (u1, u2, qx_m, qy_m))
     wei_ladder_launches += 1
     return out
 
@@ -188,7 +255,7 @@ def wei_ladder_cuda(curve: WeierstrassCurve, u1, u2, qx_m, qy_m):
 def wei_ladder_windowed_cuda(curve: WeierstrassCurve, u1, u2, qx_m, qy_m):
     """Launch the windowed-ladder kernel (CUDA tensors only)."""
     global wei_ladder_windowed_launches
-    out = _launch(True, curve, u1, u2, qx_m, qy_m)
+    out = _launch("wei_ladder", True, kernel_params(curve), _WEI_NAMES, (u1, u2, qx_m, qy_m))
     wei_ladder_windowed_launches += 1
     return out
 
@@ -207,3 +274,35 @@ def wei_ladder_windowed(curve: WeierstrassCurve, u1, u2, qx_m, qy_m):
     if u1.device.type == "cpu":
         return wei_ladder_windowed_plain(curve, u1, u2, qx_m, qy_m)
     return wei_ladder_windowed_cuda(curve, u1, u2, qx_m, qy_m)
+
+
+def ed_ladder_cuda(curve: EdwardsCurve, s, k, ax_m, ay_m):
+    """Launch the plain Edwards ladder kernel (CUDA tensors only)."""
+    global ed_ladder_launches
+    out = _launch("ed_ladder", False, ed_kernel_params(curve), _ED_NAMES, (s, k, ax_m, ay_m))
+    ed_ladder_launches += 1
+    return out
+
+
+def ed_ladder_windowed_cuda(curve: EdwardsCurve, s, k, ax_m, ay_m):
+    """Launch the windowed Edwards ladder kernel (CUDA tensors only)."""
+    global ed_ladder_windowed_launches
+    out = _launch("ed_ladder", True, ed_kernel_params(curve), _ED_NAMES, (s, k, ax_m, ay_m))
+    ed_ladder_windowed_launches += 1
+    return out
+
+
+def ed_ladder(curve: EdwardsCurve, s, k, ax_m, ay_m):
+    """R = s*B + k*A, plain bit ladder: the plain version for CPU
+    tensors, the CUDA kernel otherwise (or raise)."""
+    if s.device.type == "cpu":
+        return ed_ladder_plain(curve, s, k, ax_m, ay_m)
+    return ed_ladder_cuda(curve, s, k, ax_m, ay_m)
+
+
+def ed_ladder_windowed(curve: EdwardsCurve, s, k, ax_m, ay_m):
+    """R = s*B + k*A, w=4 windowed ladder: the plain version for CPU
+    tensors, the CUDA kernel otherwise (or raise)."""
+    if s.device.type == "cpu":
+        return ed_ladder_windowed_plain(curve, s, k, ax_m, ay_m)
+    return ed_ladder_windowed_cuda(curve, s, k, ax_m, ay_m)

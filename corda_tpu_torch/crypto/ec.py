@@ -1,11 +1,16 @@
-"""Batched short-Weierstrass point arithmetic (torch).
+"""Batched elliptic-curve point arithmetic (torch).
 
-Port of the Weierstrass half of corda_tpu/crypto/ec.py. Complete
-homogeneous-projective addition (Renes–Costello–Batina 2015,
-Algorithm 1, arbitrary a): one formula valid for every input pair —
-doubling, inverses and the point at infinity (0:1:0) — so scalar
-multiplication is a fixed-shape branch-free loop.
+Port of corda_tpu/crypto/ec.py.
 
+  * Short Weierstrass (secp256r1, secp256k1): complete
+    homogeneous-projective addition (Renes–Costello–Batina 2015,
+    Algorithm 1, arbitrary a): one formula valid for every input pair —
+    doubling, inverses and the point at infinity (0:1:0).
+  * Twisted Edwards (ed25519, a = -1): unified addition in extended
+    coordinates (X:Y:Z:T) (add-2008-hwcd-3), complete because d is not
+    a square; the identity is (0:1:1:0).
+
+Either way scalar multiplication is a fixed-shape branch-free loop.
 Points are tuples of [NLIMB, B] Montgomery-domain (R = 2^264) limb
 tensors. These functions are the plain versions the CUDA ladder
 kernels in cuda_ec.py are held against.
@@ -18,7 +23,7 @@ from functools import partial
 import torch
 
 from . import refmath
-from .curves import WeierstrassCurve
+from .curves import EdwardsCurve, WeierstrassCurve
 from .limbs import NLIMB, R_BITS
 from .modmath import (
     MontCtx,
@@ -33,6 +38,7 @@ from .modmath import (
     mont_one,
     select,
     sub_mod,
+    to_mont,
 )
 
 
@@ -227,5 +233,153 @@ def wei_double_scalar_mul_windowed(
 def wei_proj_to_affine(ctx: MontCtx, P):
     """(x, y) Montgomery-domain affine; undefined (zeros) at infinity."""
     X, Y, Z = P
+    zi = mont_inv(ctx, Z)
+    return mont_mul(ctx, X, zi), mont_mul(ctx, Y, zi)
+
+
+# ---------------------------------------------------------------------------
+# twisted Edwards (ed25519), extended coordinates (X:Y:Z:T)
+
+
+def ed_identity(ctx: MontCtx, batch: int, device):
+    z = torch.zeros((NLIMB, batch), dtype=torch.int32, device=device)
+    one = mont_one(ctx, batch, device)
+    return (z, one, one, z)
+
+
+def ed_affine_to_ext(ctx: MontCtx, x_m, y_m):
+    one = mont_one(ctx, x_m.shape[1], x_m.device)
+    return (x_m, y_m, one, mont_mul(ctx, x_m, y_m))
+
+
+def ed_add(curve: EdwardsCurve, P, Q):
+    """Unified extended-coordinates addition (add-2008-hwcd-3), a=-1.
+
+    8 field muls + 1 mul by 2d; complete for ed25519 (d non-square).
+    """
+    ctx = curve.fp
+    X1, Y1, Z1, T1 = P
+    X2, Y2, Z2, T2 = Q
+    mul = partial(mont_mul, ctx)
+    add = partial(add_mod, ctx)
+    sub = partial(sub_mod, ctx)
+
+    A = mul(sub(Y1, X1), sub(Y2, X2))
+    B = mul(add(Y1, X1), add(Y2, X2))
+    C = mont_mul_const(ctx, mul(T1, T2), curve.d2_mont)
+    ZZ = mul(Z1, Z2)
+    D = add(ZZ, ZZ)
+    E = sub(B, A)
+    F = sub(D, C)
+    G = add(D, C)
+    H = add(B, A)
+    return (mul(E, F), mul(G, H), mul(F, G), mul(E, H))
+
+
+def ed_select(mask, P, Q):
+    return tuple(select(mask, p, q) for p, q in zip(P, Q))
+
+
+def ed_double_scalar_mul(curve: EdwardsCurve, s, k, A, nbits: int = 256):
+    """R = s*B + k*A batched over the Edwards curve (B = base point):
+    nbits unified doublings + nbits adds selected from {0, B, A, B+A}."""
+    ctx = curve.fp
+    batch, device = s.shape[1], s.device
+    bx = to_mont(ctx, const_batch(curve.gx, batch, device))
+    by = to_mont(ctx, const_batch(curve.gy, batch, device))
+    Bp = ed_affine_to_ext(ctx, bx, by)
+    BA = ed_add(curve, Bp, A)
+    ident = ed_identity(ctx, batch, device)
+
+    acc = ident
+    for bit_idx in range(nbits - 1, -1, -1):
+        acc = ed_add(curve, acc, acc)
+        bs = get_bit(s, bit_idx).bool()
+        bk = get_bit(k, bit_idx).bool()
+        lo = ed_select(bs, Bp, ident)
+        hi = ed_select(bs, BA, A)
+        acc = ed_add(curve, acc, ed_select(bk, hi, lo))
+    return acc
+
+
+def ed_table_select(digit, entries):
+    """Branch-free table lookup over extended-coordinate points."""
+    out = entries[0]
+    for j in range(1, len(entries)):
+        out = ed_select(digit == j, entries[j], out)
+    return out
+
+
+def _b_table_mont(curve: EdwardsCurve, size: int, r_bits: int = R_BITS):
+    """Host-computed multiples 1..size-1 of the ed25519 base point as
+    Montgomery-domain affine (x, y, x*y) int triples (Montgomery radix
+    2^r_bits)."""
+    shift = 1 << r_bits
+    pts = []
+    P = None
+    for _ in range(size - 1):
+        P = (
+            (curve.gx, curve.gy)
+            if P is None
+            else refmath.ed_add(curve, P, (curve.gx, curve.gy))
+        )
+        pts.append(
+            (
+                (P[0] * shift) % curve.p,
+                (P[1] * shift) % curve.p,
+                (P[0] * P[1] * shift) % curve.p,
+            )
+        )
+    return pts
+
+
+def ed_window_tables(curve: EdwardsCurve, A, batch: int, w: int = 4):
+    """(b_tab, a_tab) for the windowed Edwards double-scalar-mult: entry
+    0 of both is the identity (0, 1, 1, 0), B entries are host
+    constants (x, y, 1, xy), A entries a unified-add chain
+    (a_tab[j] = a_tab[j-1] + A). The same conventions as the reference
+    and the CUDA kernel."""
+    ctx = curve.fp
+    device = A[0].device
+    ident = ed_identity(ctx, batch, device)
+    one = mont_one(ctx, batch, device)
+    b_tab = [ident] + [
+        (
+            const_batch(bx_i, batch, device),
+            const_batch(by_i, batch, device),
+            one,
+            const_batch(bt_i, batch, device),
+        )
+        for bx_i, by_i, bt_i in _b_table_mont(curve, 1 << w)
+    ]
+    a_tab = [ident, A]
+    for _ in range(2, 1 << w):
+        a_tab.append(ed_add(curve, a_tab[-1], A))
+    return b_tab, a_tab
+
+
+def ed_double_scalar_mul_windowed(
+    curve: EdwardsCurve, s, k, A, nbits: int = 256, w: int = 4
+):
+    """R = s*B + k*A — fixed-window variant of ed_double_scalar_mul:
+    per w-bit window w unified doublings + one add from the constant B
+    table + one from the per-batch A table (the identity entries need
+    no branch)."""
+    if nbits % w:
+        raise ValueError(f"nbits {nbits} is not a multiple of w {w}")
+    batch = s.shape[1]
+    b_tab, a_tab = ed_window_tables(curve, A, batch, w)
+    acc = ed_identity(curve.fp, batch, s.device)
+    for win_idx in range(nbits // w - 1, -1, -1):
+        for _ in range(w):
+            acc = ed_add(curve, acc, acc)
+        acc = ed_add(curve, acc, ed_table_select(window_digit(s, win_idx, w), b_tab))
+        acc = ed_add(curve, acc, ed_table_select(window_digit(k, win_idx, w), a_tab))
+    return acc
+
+
+def ed_ext_to_affine(ctx: MontCtx, P):
+    """(x, y) Montgomery-domain affine of an extended point."""
+    X, Y, Z, _ = P
     zi = mont_inv(ctx, Z)
     return mont_mul(ctx, X, zi), mont_mul(ctx, Y, zi)

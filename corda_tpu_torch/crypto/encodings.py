@@ -1,10 +1,11 @@
-"""Host-side wire encodings and batch staging for the ECDSA path.
+"""Host-side wire encodings and batch staging for the ECDSA and ed25519
+paths.
 
-Port of the ECDSA half of corda_tpu/crypto/encodings.py. Everything
+Port of corda_tpu/crypto/encodings.py (the EC parts). Everything
 consensus-critical about *parsing* signatures lives here, on the host:
-strict DER for ECDSA and SEC1 points. Malformed inputs are rejected
-before device dispatch; the device only sees well-formed field elements
-plus a validity mask.
+strict DER for ECDSA, SEC1 points, ed25519 lengths and SHA-512 mod L.
+Malformed inputs are rejected before device dispatch; the device only
+sees fixed-width records plus a validity mask.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Optional
 import numpy as np
 
 from . import refmath
-from .curves import WeierstrassCurve
+from .curves import ED25519, WeierstrassCurve
+from .limbs import ints_to_batch
 
 
 # ---------------------------------------------------------------------------
@@ -233,3 +235,111 @@ def _sec1_bytes(curve: WeierstrassCurve, data: bytes) -> Optional[bytes]:
             return None
         return pt[0].to_bytes(32, "big") + pt[1].to_bytes(32, "big")
     return None
+
+
+# ---------------------------------------------------------------------------
+# ed25519
+
+
+ED25519_RECORD_BYTES = 128   # s | k | A.y | R.y, 32-byte big-endian each
+
+
+def stage_ed25519_packed(
+    items: list[tuple[bytes, bytes, bytes]],  # (pubkey32, sig64, message)
+    batch: int,
+):
+    """Compact staging for ed25519_verify_packed: ONE [batch, 128] uint8
+    array + [batch] int32 A-sign bits + [batch] int32 R-sign bits +
+    [batch] valid mask.
+
+    The host keeps SHA-512 (k = H(R||A||M) mod L) and the length checks;
+    the decoding of A runs on the device (eddsa.ed_decompress_neg_batch).
+    s is staged raw (not reduced mod L), as the reference verifies it.
+    Padding and malformed rows carry benign values (s = k = 0, A.y =
+    R.y = 1) and valid=False. This is the reference's Python loop; its
+    native C codec is not ported yet.
+    """
+    n_items = len(items)
+    if n_items > batch:
+        raise ValueError(f"{n_items} items do not fit a batch of {batch}")
+    benign = b"\x00" * 64 + _ONE32 * 2
+    records = []
+    a_signs = np.zeros(batch, dtype=np.int32)
+    r_signs = np.zeros(batch, dtype=np.int32)
+    valid = np.zeros(batch, dtype=bool)
+    mask255 = (1 << 255) - 1
+    for i, (pub, sig, msg) in enumerate(items):
+        if len(sig) != 64 or len(pub) != 32:
+            records.append(benign)
+            continue
+        s = int.from_bytes(sig[32:], "little")
+        k = int.from_bytes(hashlib.sha512(sig[:32] + pub + msg).digest(), "little") % ED25519.L
+        aenc = int.from_bytes(pub, "little")
+        renc = int.from_bytes(sig[:32], "little")
+        records.append(
+            s.to_bytes(32, "big")
+            + k.to_bytes(32, "big")
+            + (aenc & mask255).to_bytes(32, "big")
+            + (renc & mask255).to_bytes(32, "big")
+        )
+        a_signs[i] = (aenc >> 255) & 1
+        r_signs[i] = (renc >> 255) & 1
+        valid[i] = True
+    records.extend([benign] * (batch - n_items))
+    packed = np.frombuffer(b"".join(records), dtype=np.uint8).reshape(
+        batch, ED25519_RECORD_BYTES
+    )
+    return packed, a_signs, r_signs, valid
+
+
+def stage_ed25519_batch(
+    items: list[tuple[bytes, bytes, bytes]],  # (pubkey32, sig64, message)
+    batch: int,
+):
+    """Host prefilter + limb staging for the limb-level
+    eddsa.ed25519_verify_batch: A decoded on the host (refmath), -A.x
+    staged. Failed and padding rows carry A = B, s = k = 0 and
+    valid=False."""
+    c = ED25519
+    n_items = len(items)
+    if n_items > batch:
+        raise ValueError(f"{n_items} items do not fit a batch of {batch}")
+    ss, ks, naxs, nays, eys = [], [], [], [], []
+    signs = np.zeros(batch, dtype=np.int32)
+    valid = np.zeros(batch, dtype=bool)
+    for i, (pub, sig, msg) in enumerate(items):
+        ok = len(sig) == 64 and len(pub) == 32
+        A = refmath.ed_decompress(c, pub) if ok else None
+        if A is None:
+            ok = False
+            A = (c.gx, c.gy)
+            s = k = 0
+            ey, sign = 1, 0
+        else:
+            s = int.from_bytes(sig[32:], "little")
+            k = int.from_bytes(hashlib.sha512(sig[:32] + pub + msg).digest(), "little") % c.L
+            renc = int.from_bytes(sig[:32], "little")
+            ey = renc & ((1 << 255) - 1)
+            sign = (renc >> 255) & 1
+        ss.append(s)
+        ks.append(k)
+        naxs.append((c.p - A[0]) % c.p)
+        nays.append(A[1])
+        eys.append(ey)
+        signs[i] = sign
+        valid[i] = ok
+    pad = batch - n_items
+    ss += [0] * pad
+    ks += [0] * pad
+    naxs += [(c.p - c.gx) % c.p] * pad
+    nays += [c.gy] * pad
+    eys += [1] * pad
+    return dict(
+        s=ints_to_batch(ss),
+        k=ints_to_batch(ks),
+        nax=ints_to_batch(naxs),
+        nay=ints_to_batch(nays),
+        exp_y=ints_to_batch(eys),
+        exp_sign=signs,
+        valid_in=valid,
+    )

@@ -19,8 +19,9 @@
 // Inside, field elements are 8 x 32-bit words in the R = 2^256
 // Montgomery domain, always fully reduced to [0, p). Entry converts
 // each coordinate with one fold + one Montgomery multiply by 2^248;
-// exit multiplies by 2^264 mod p and splits into 12-bit digits. The
-// complete RCB15 formulas (Algorithm 1, generic a, including the
+// exit multiplies by 2^264 mod p and splits into 12-bit digits (the
+// field arithmetic and these conversions are in field256.cuh, shared
+// with ed_ladder.cu). The complete RCB15 formulas (Algorithm 1, generic a, including the
 // multiplies by a) are kept: completeness is what makes accept/reject
 // at infinity exact.
 //
@@ -41,11 +42,10 @@
 // later work.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
 
-#define NLIMB 22
-#define NW 8                 // 32-bit words per field element
+#include "field256.cuh"
+
 #define PT (3 * NW)          // words per projective point
 #define GSTRIDE (PT + 1)     // padded G-table entry stride (bank spread)
 #define BLOCK 128
@@ -60,91 +60,6 @@ struct CurveParams {
     uint32_t pinv;           // -p^-1 mod 2^32
     uint32_t g[16][PT];      // G multiples 0..15, projective, entry 0 = infinity
 };
-
-// ---------------------------------------------------------------------------
-// field arithmetic, 8 x 32-bit words, values in [0, p)
-
-// r = t - p if t (with top carry word `hi`) >= p, else t
-__device__ __forceinline__ void cond_sub_p(uint32_t r[NW], const uint32_t t[NW],
-                                           uint32_t hi, const CurveParams& P) {
-    uint32_t d[NW];
-    uint64_t br = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-        uint64_t x = (uint64_t)t[j] - P.p[j] - br;
-        d[j] = (uint32_t)x;
-        br = (x >> 32) & 1;
-    }
-    const bool use_d = hi != 0 || br == 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) r[j] = use_d ? d[j] : t[j];
-}
-
-// Montgomery product a*b*2^-256 mod p (CIOS); a, b < 2^256, result < p
-__device__ __forceinline__ void fe_mul(uint32_t r[NW], const uint32_t a[NW],
-                                       const uint32_t b[NW], const CurveParams& P) {
-    uint32_t t[NW + 2];
-#pragma unroll
-    for (int j = 0; j < NW + 2; ++j) t[j] = 0;
-#pragma unroll
-    for (int i = 0; i < NW; ++i) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < NW; ++j) {
-            c += (uint64_t)a[j] * b[i] + t[j];
-            t[j] = (uint32_t)c;
-            c >>= 32;
-        }
-        c += t[NW];
-        t[NW] = (uint32_t)c;
-        t[NW + 1] = (uint32_t)(c >> 32);
-        const uint32_t m = t[0] * P.pinv;
-        c = ((uint64_t)m * P.p[0] + t[0]) >> 32;
-#pragma unroll
-        for (int j = 1; j < NW; ++j) {
-            c += (uint64_t)m * P.p[j] + t[j];
-            t[j - 1] = (uint32_t)c;
-            c >>= 32;
-        }
-        c += t[NW];
-        t[NW - 1] = (uint32_t)c;
-        t[NW] = t[NW + 1] + (uint32_t)(c >> 32);
-    }
-    cond_sub_p(r, t, t[NW], P);
-}
-
-__device__ __forceinline__ void fe_add(uint32_t r[NW], const uint32_t a[NW],
-                                       const uint32_t b[NW], const CurveParams& P) {
-    uint32_t s[NW];
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-        c += (uint64_t)a[j] + b[j];
-        s[j] = (uint32_t)c;
-        c >>= 32;
-    }
-    cond_sub_p(r, s, (uint32_t)c, P);
-}
-
-__device__ __forceinline__ void fe_sub(uint32_t r[NW], const uint32_t a[NW],
-                                       const uint32_t b[NW], const CurveParams& P) {
-    uint32_t d[NW];
-    uint64_t br = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-        uint64_t x = (uint64_t)a[j] - b[j] - br;
-        d[j] = (uint32_t)x;
-        br = (x >> 32) & 1;
-    }
-    const uint32_t mask = 0u - (uint32_t)br;   // add p back on borrow
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-        c += (uint64_t)d[j] + (P.p[j] & mask);
-        r[j] = (uint32_t)c;
-        c >>= 32;
-    }
-}
 
 // ---------------------------------------------------------------------------
 // complete projective addition, RCB15 Algorithm 1 (generic a);
@@ -211,80 +126,7 @@ __device__ __forceinline__ void wei_add(uint32_t out[PT], const uint32_t p1[PT],
 }
 
 // ---------------------------------------------------------------------------
-// domain conversion at entry and exit
-
-// [22, B] digits (R = 2^264 domain, bounded non-negative) -> 8 words in
-// the R = 2^256 domain, fully reduced
-__device__ __forceinline__ void load_coord(uint32_t r[NW], const int32_t* src,
-                                           int batch, int col, const CurveParams& P) {
-    uint32_t v[NW + 1];
-#pragma unroll
-    for (int j = 0; j <= NW; ++j) v[j] = 0;
-#pragma unroll
-    for (int i = 0; i < NLIMB; ++i) {
-        const int bit = 12 * i;
-        const int w = bit >> 5;
-        const uint64_t sh = (uint64_t)(uint32_t)src[i * batch + col] << (bit & 31);
-        uint64_t c = (uint64_t)v[w] + (uint32_t)sh;
-        v[w] = (uint32_t)c;
-        c = (c >> 32) + (sh >> 32);
-#pragma unroll
-        for (int k = w + 1; k <= NW; ++k) {
-            c += v[k];
-            v[k] = (uint32_t)c;
-            c >>= 32;
-        }
-    }
-    // fold the word above 2^256 back in: 2^256 == one (mod p). Digits
-    // < 2^31 give v < 2^284; four folds bring the top word to 0 for
-    // both curves (2^256 mod p < 2^225), then v < 2^256 < 2p.
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-        const uint32_t h = v[NW];
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < NW; ++j) {
-            c += (uint64_t)h * P.one[j] + v[j];
-            v[j] = (uint32_t)c;
-            c >>= 32;
-        }
-        v[NW] = (uint32_t)c;
-    }
-    uint32_t red[NW];
-    cond_sub_p(red, v, 0, P);
-    fe_mul(r, red, P.c_in, P);   // x * 2^264 * 2^248 / 2^256 = x * 2^256
-}
-
-// 8 words (R = 2^256 domain) -> canonical [22, B] digits (R = 2^264 domain)
-__device__ __forceinline__ void store_coord(int32_t* dst, const uint32_t a[NW],
-                                            int batch, int col, const CurveParams& P) {
-    uint32_t r[NW];
-    fe_mul(r, a, P.c_out, P);    // x * 2^256 * 2^264 / 2^256 = x * 2^264
-#pragma unroll
-    for (int i = 0; i < NLIMB; ++i) {
-        const int bit = 12 * i;
-        const int w = bit >> 5;
-        const int s = bit & 31;
-        uint32_t d = w < NW ? r[w] >> s : 0;
-        if (s > 20 && w + 1 < NW) d |= r[w + 1] << (32 - s);
-        dst[i * batch + col] = (int32_t)(d & 0xFFF);
-    }
-}
-
-__device__ __forceinline__ void load_g_table(uint32_t* gsh, const CurveParams& P) {
-    if (threadIdx.x == 0) {
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-#pragma unroll
-            for (int k = 0; k < PT; ++k) gsh[e * GSTRIDE + k] = P.g[e][k];
-    }
-    __syncthreads();
-}
-
-__device__ __forceinline__ void copy_pt(uint32_t dst[PT], const uint32_t* src) {
-#pragma unroll
-    for (int k = 0; k < PT; ++k) dst[k] = src[k];
-}
+// entry and exit (load_coord / store_coord: field256.cuh)
 
 __device__ __forceinline__ void load_q(uint32_t q[PT], const int32_t* qx, const int32_t* qy,
                                        int batch, int col, const CurveParams& P) {
@@ -323,37 +165,37 @@ wei_ladder_windowed_kernel(const CurveParams P, const int32_t* __restrict__ u1,
                            const int32_t* __restrict__ qy, int32_t* __restrict__ X,
                            int32_t* __restrict__ Y, int32_t* __restrict__ Z, int batch) {
     __shared__ uint32_t gsh[16 * GSTRIDE];
-    load_g_table(gsh, P);
+    load_table16<PT, GSTRIDE>(gsh, P.g);
     const int col = blockIdx.x * BLOCK + threadIdx.x;
     if (col >= batch) return;
 
     uint32_t qt[16][PT];             // per-signature Q multiples, local memory
     uint32_t acc[PT], op[PT];
     load_q(acc, qx, qy, batch, col, P);
-    copy_pt(qt[0], P.g[0]);          // infinity
-    copy_pt(qt[1], acc);
+    copy_words<PT>(qt[0], P.g[0]);          // infinity
+    copy_words<PT>(qt[1], acc);
 #pragma unroll 1
     for (int step = 0; step < W_STEPS; ++step) {
         if (step < W_BUILD) {
-            copy_pt(op, qt[1]);
+            copy_words<PT>(op, qt[1]);
         } else {
-            if (step == W_BUILD) copy_pt(acc, P.g[0]);
+            if (step == W_BUILD) copy_words<PT>(acc, P.g[0]);
             const int win = (step - W_BUILD) / 6;          // 0 = top window
             const int kind = (step - W_BUILD) % 6;         // 0-3 double, 4 G, 5 Q
             const int limb = NLIMB - 1 - win / 3;
             const int shift = 8 - 4 * (win % 3);
             if (kind < 4) {
-                copy_pt(op, acc);
+                copy_words<PT>(op, acc);
             } else if (kind == 4) {
                 const int d1 = ((uint32_t)u1[limb * batch + col] >> shift) & 15;
-                copy_pt(op, gsh + d1 * GSTRIDE);
+                copy_words<PT>(op, gsh + d1 * GSTRIDE);
             } else {
                 const int d2 = ((uint32_t)u2[limb * batch + col] >> shift) & 15;
-                copy_pt(op, qt[d2]);
+                copy_words<PT>(op, qt[d2]);
             }
         }
         wei_add(acc, acc, op, P);
-        if (step < W_BUILD) copy_pt(qt[step + 2], acc);
+        if (step < W_BUILD) copy_words<PT>(qt[step + 2], acc);
     }
     store_pt(X, Y, Z, acc, batch, col, P);
 }
@@ -369,34 +211,34 @@ wei_ladder_kernel(const CurveParams P, const int32_t* __restrict__ u1,
                   const int32_t* __restrict__ qy, int32_t* __restrict__ X,
                   int32_t* __restrict__ Y, int32_t* __restrict__ Z, int batch) {
     __shared__ uint32_t gsh[16 * GSTRIDE];
-    load_g_table(gsh, P);
+    load_table16<PT, GSTRIDE>(gsh, P.g);
     const int col = blockIdx.x * BLOCK + threadIdx.x;
     if (col >= batch) return;
 
     uint32_t tab[4][PT];
     uint32_t acc[PT], op[PT];
-    copy_pt(tab[0], P.g[0]);
-    copy_pt(tab[1], P.g[1]);
+    copy_words<PT>(tab[0], P.g[0]);
+    copy_words<PT>(tab[1], P.g[1]);
     load_q(tab[2], qx, qy, batch, col, P);
-    copy_pt(acc, P.g[1]);
+    copy_words<PT>(acc, P.g[1]);
 #pragma unroll 1
     for (int step = 0; step < P_STEPS; ++step) {
         if (step == 0) {
-            copy_pt(op, tab[2]);
+            copy_words<PT>(op, tab[2]);
         } else {
-            if (step == 1) copy_pt(acc, P.g[0]);
+            if (step == 1) copy_words<PT>(acc, P.g[0]);
             const int bit = NLIMB * 12 - 1 - (step - 1) / 2;
             if ((step - 1) % 2 == 0) {
-                copy_pt(op, acc);
+                copy_words<PT>(op, acc);
             } else {
                 const int limb = bit / 12, sh = bit % 12;
                 const int idx = (((uint32_t)u1[limb * batch + col] >> sh) & 1) |
                                 ((((uint32_t)u2[limb * batch + col] >> sh) & 1) << 1);
-                copy_pt(op, tab[idx]);
+                copy_words<PT>(op, tab[idx]);
             }
         }
         wei_add(acc, acc, op, P);
-        if (step == 0) copy_pt(tab[3], acc);
+        if (step == 0) copy_words<PT>(tab[3], acc);
     }
     store_pt(X, Y, Z, acc, batch, col, P);
 }

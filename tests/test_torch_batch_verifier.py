@@ -17,7 +17,11 @@ from corda_tpu.testing import tpu_selfcheck  # noqa: E402
 from corda_tpu_torch import convert  # noqa: E402
 from corda_tpu_torch.crypto import batch_verifier as BV  # noqa: E402
 from corda_tpu_torch.crypto import cuda_ec, schemes  # noqa: E402
-from corda_tpu_torch.testing.selfcheck import TAMPERED_KINDS, build_requests  # noqa: E402
+from corda_tpu_torch.testing.selfcheck import (  # noqa: E402
+    TAMPERED_KINDS,
+    build_requests,
+    ed25519_edge_requests,
+)
 
 N = 40
 
@@ -30,10 +34,10 @@ def corpus():
 
 
 def test_cuda_verifier_on_cpu_matches_references(corpus):
-    """A mixed p256/k1 corpus of 40 rows, padded and chunked at
-    batch_sizes=(8, 16): equal to the reference's CpuBatchVerifier, to
-    the port's CpuBatchVerifier and to the construction labels; chunks
-    stream in dispatch order; exact."""
+    """A mixed p256/k1/ed25519 corpus of 40 rows (one call, bucketed per
+    scheme), padded and chunked at batch_sizes=(8, 16): equal to the
+    reference's CpuBatchVerifier, to the port's CpuBatchVerifier and to
+    the construction labels; chunks stream in dispatch order; exact."""
     reqs, want = corpus
     assert BV.CpuBatchVerifier().verify_batch(reqs) == want
     assert want == [i % 8 not in TAMPERED_KINDS for i in range(N)]
@@ -46,23 +50,37 @@ def test_cuda_verifier_on_cpu_matches_references(corpus):
         firsts.append(idxs[0])
         assert len(idxs) == len(vals) <= 16
         seen.update(zip(idxs, vals))
-    # p256 rows (even indices) dispatch first: 16 + 4, then k1: 16 + 4
-    p256 = [i for i in range(N) if i % 2 == 0]
-    k1 = [i for i in range(N) if i % 2 == 1]
-    assert firsts == [p256[0], p256[16], k1[0], k1[16]]
+    # buckets dispatch in order of first appearance, p256 (i % 3 == 0:
+    # 14 rows), k1 (13), ed25519 (13), one chunk of <= 16 each
+    assert firsts == [0, 1, 2]
     assert [seen[i] for i in range(N)] == want
     assert pv.result() == want
-    assert (cuda_ec.wei_ladder_launches, cuda_ec.wei_ladder_windowed_launches) == (0, 0)
+    assert (cuda_ec.wei_ladder_launches, cuda_ec.wei_ladder_windowed_launches,
+            cuda_ec.ed_ladder_launches, cuda_ec.ed_ladder_windowed_launches) == (0, 0, 0, 0)
+
+
+def test_mixed_corpus_with_ed25519_edges_matches_references():
+    """ed25519 edge rows (s + L, A.y >= p, R.y >= p, A = identity, the
+    x = 0 rule, A off the curve, small-order A) mixed with p256 and k1
+    rows, through CudaBatchVerifier(device="cpu") with each ladder
+    choice: equal to the reference's and the port's CpuBatchVerifier;
+    exact."""
+    reqs = [r for _, r in ed25519_edge_requests(seed=9)]
+    reqs += build_requests(6, seed=8, scheme_ids=(schemes.ECDSA_SECP256R1_SHA256,
+                                                 schemes.ECDSA_SECP256K1_SHA256))
+    want = J_BV.CpuBatchVerifier().verify_batch(reqs)
+    assert BV.CpuBatchVerifier().verify_batch(reqs) == want
+    for windowed in (None, True):
+        v = BV.CudaBatchVerifier(batch_sizes=(16,), device="cpu", windowed=windowed)
+        assert v.verify_batch(reqs) == want
 
 
 def test_requests_from_reference(corpus):
-    """Requests built by the reference package convert by duck typing;
-    the port verifies the reference's ECDSA rows as the reference does
-    (ed25519 is the next slice); exact."""
-    jreqs = [
-        r for r in tpu_selfcheck.build_requests(12, seed=3)
-        if r.key.scheme_id != J_S.EDDSA_ED25519_SHA512
-    ]
+    """Requests built by the reference package (p256, k1 and ed25519
+    rows) convert by duck typing; the port verifies them as the
+    reference does; exact."""
+    jreqs = tpu_selfcheck.build_requests(12, seed=3)
+    assert {r.key.scheme_id for r in jreqs} == set(BV.SCHEME_KERNELS)
     reqs = convert.requests_from_reference(jreqs)
     assert all(isinstance(r, BV.VerificationRequest) for r in reqs)
     assert [r.key.data for r in reqs] == [r.key.data for r in jreqs]
@@ -71,22 +89,19 @@ def test_requests_from_reference(corpus):
 
 
 def test_unsupported_schemes_raise(corpus):
-    """ed25519 (next slice), RSA and SPHINCS are not routed anywhere:
-    the whole call raises UnsupportedScheme."""
+    """RSA, SPHINCS and composite keys are not routed anywhere: the
+    whole call raises UnsupportedScheme, on the batch path and the CPU
+    reference alike."""
     reqs, _ = corpus
-    ed = J_S.generate_keypair(J_S.EDDSA_ED25519_SHA512, seed=1)
-    ed_req = convert.requests_from_reference(
-        [J_BV.VerificationRequest(ed.public, ed.private.sign(b"m"), b"m")]
-    )[0]
     v = BV.CudaBatchVerifier(batch_sizes=(8,), device="cpu")
-    for sid in (schemes.EDDSA_ED25519_SHA512, schemes.RSA_SHA256, schemes.SPHINCS256_SHA256):
-        req = ed_req if sid == schemes.EDDSA_ED25519_SHA512 else BV.VerificationRequest(
-            schemes.PublicKey(sid, b"\x00" * 32), b"sig", b"m"
-        )
+    for sid in (schemes.RSA_SHA256, schemes.SPHINCS256_SHA256, schemes.COMPOSITE_KEY):
+        req = BV.VerificationRequest(schemes.PublicKey(sid, b"\x00" * 32), b"sig", b"m")
         with pytest.raises(schemes.UnsupportedScheme):
             v.verify_batch(reqs[:3] + [req])
         with pytest.raises(schemes.UnsupportedScheme):
             BV.CpuBatchVerifier().verify_batch([req])
+        with pytest.raises(schemes.UnsupportedScheme):
+            schemes.generate_keypair(sid, seed=1)
 
 
 def test_fault_injector_then_pass_through(corpus):

@@ -27,6 +27,7 @@ from corda_tpu.crypto import refmath  # noqa: E402
 from corda_tpu.crypto.curves import SECP256K1 as J_K1  # noqa: E402
 from corda_tpu.crypto.curves import SECP256R1 as J_R1  # noqa: E402
 from corda_tpu_torch.crypto import build, cuda_ec  # noqa: E402
+from corda_tpu_torch.crypto.curves import ED25519 as T_ED  # noqa: E402
 from corda_tpu_torch.crypto.curves import SECP256K1 as T_K1  # noqa: E402
 from corda_tpu_torch.crypto.curves import SECP256R1 as T_R1  # noqa: E402
 
@@ -96,15 +97,42 @@ def test_kernel_request_without_cuda_raises(monkeypatch):
     for kern in (cuda_ec.wei_ladder_cuda, cuda_ec.wei_ladder_windowed_cuda):
         with pytest.raises(ValueError, match="CUDA tensor"):
             kern(T_R1, *t_args)
+    for kern in (cuda_ec.ed_ladder_cuda, cuda_ec.ed_ladder_windowed_cuda):
+        with pytest.raises(ValueError, match="s is on cpu; the CUDA ladder needs a CUDA tensor"):
+            kern(T_ED, *t_args)
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             cuda_ec.wei_ladder(T_R1, *(t.to("cuda") for t in t_args))
+        with pytest.raises((RuntimeError, AssertionError)):
+            cuda_ec.ed_ladder(T_ED, *(t.to("cuda") for t in t_args))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setattr(build.os.path, "isfile", lambda path: False)
     with pytest.raises(build.KernelBuildError, match="nvcc not found"):
         build.nvcc_path()
-    assert (cuda_ec.wei_ladder_launches, cuda_ec.wei_ladder_windowed_launches) == (0, 0)
+    assert (cuda_ec.wei_ladder_launches, cuda_ec.wei_ladder_windowed_launches,
+            cuda_ec.ed_ladder_launches, cuda_ec.ed_ladder_windowed_launches) == (0, 0, 0, 0)
+
+
+def test_library_path_keys_on_shared_headers(tmp_path, monkeypatch):
+    """A library is keyed on its source, every csrc/*.cuh beside it and
+    the flags: editing a shared header (or adding one) moves the path of
+    every source that could include it; an unrelated file does not."""
+    for name in ("a.cu", "b.cu", "field.cuh"):
+        (tmp_path / name).write_text(f"// {name}\n")
+    paths = {n: build.library_path(tmp_path / n) for n in ("a.cu", "b.cu")}
+    assert paths["a.cu"].name.startswith("liba-") and paths["a.cu"] != paths["b.cu"]
+    (tmp_path / "notes.txt").write_text("x")
+    assert build.library_path(tmp_path / "a.cu") == paths["a.cu"]
+    (tmp_path / "field.cuh").write_text("// edited\n")
+    assert all(build.library_path(tmp_path / n) != paths[n] for n in paths)
+    edited = build.library_path(tmp_path / "a.cu")
+    (tmp_path / "more.cuh").write_text("// new header\n")
+    assert build.library_path(tmp_path / "a.cu") != edited
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    assert build.library_path(tmp_path / "a.cu") != edited
+    assert [s.name for s in build.sources()] == ["ed_ladder.cu", "wei_ladder.cu"]
+    assert (build.CSRC_DIR / "field256.cuh").exists()
 
 
 def test_windowed_default_per_curve():
@@ -145,3 +173,30 @@ def test_kernel_params_layout(name):
         e = g + 24 * k
         x, y, z = (word_int(e + 8 * c) for c in range(3))
         assert (x, y, z) == (P[0] * R % p, P[1] * R % p, R % p)
+
+
+def test_ed_kernel_params_layout():
+    """The constants the Edwards kernel receives: p, 2^256 mod p, 2^248,
+    2^264 mod p, 2d in the 2^256 Montgomery domain, -p^-1 mod 2^32, and
+    the B table (entry 0 = the identity (0, 1, 1, 0), entry j = j*B as
+    (x, y, 1, xy)) — 553 words, checked against refmath; exact."""
+    w = cuda_ec.ed_kernel_params(T_ED)
+    assert w.dtype == np.uint32 and w.size == 5 * 8 + 1 + 16 * 32 == 553
+
+    def word_int(off):
+        return sum(int(v) << (32 * i) for i, v in enumerate(w[off : off + 8]))
+
+    p, R = T_ED.p, 1 << 256
+    assert [word_int(8 * k) for k in range(5)] == [
+        p, R % p, 1 << 248, (1 << 264) % p, 2 * T_ED.d * R % p
+    ]
+    assert (int(w[40]) * p) % (1 << 32) == (1 << 32) - 1
+    b = 41
+    assert [word_int(b + 8 * c) for c in range(4)] == [0, R % p, R % p, 0]
+    P = (0, 1)
+    for j in range(1, 16):
+        P = refmath.ed_add(T_ED, P, (T_ED.gx, T_ED.gy))
+        e = b + 32 * j
+        assert [word_int(e + 8 * c) for c in range(4)] == [
+            P[0] * R % p, P[1] * R % p, R % p, P[0] * P[1] * R % p
+        ]

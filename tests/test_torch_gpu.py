@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 from corda_tpu_torch.crypto import cuda_ec, refmath  # noqa: E402
 from corda_tpu_torch.crypto import limbs as L  # noqa: E402
 from corda_tpu_torch.crypto import modmath as M  # noqa: E402
-from corda_tpu_torch.crypto.curves import SECP256K1, SECP256R1  # noqa: E402
+from corda_tpu_torch.crypto.curves import ED25519, SECP256K1, SECP256R1  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -63,3 +63,36 @@ def test_kernel_matches_plain(cuda, curve, kind):
     assert g == _affine(curve, want)
     assert g[1] is None
     assert all(0 <= int(c.min()) and int(c.max()) < 4096 for c in got)   # canonical digits
+
+
+@pytest.mark.parametrize("kind", ["plain", "windowed"])
+def test_ed_kernel_matches_plain(cuda, kind):
+    """Each Edwards kernel equals its plain version at B=130 (a ragged
+    second block): s = 0, k = 0, A = identity, s = L, s + L, A of order
+    2, scalars using all 264 digit bits; canonical digits, X*Y == Z*T;
+    exact after normalisation."""
+    c = ED25519
+    rng = random.Random(2)
+    B = 130
+    base = (c.gx, c.gy)
+    pts = [refmath.ed_mul(c, rng.randrange(1, c.L), base) for _ in range(4)]
+    ss = [0, 5, 9, c.L, c.L + 3, 11] + [rng.getrandbits(264 if i % 5 == 0 else 256) for i in range(B - 6)]
+    ks = [7, 0, 4, 8, 6, 13] + [rng.randrange(c.L) for _ in range(B - 6)]
+    As = [pts[0], pts[1], (0, 1), pts[2], pts[3], (0, c.p - 1)] + [pts[i % 4] for i in range(B - 6)]
+    dev = [torch.from_numpy(L.ints_to_batch(v)).to(cuda) for v in (ss, ks)]
+    ax = M.to_mont(c.fp, torch.from_numpy(L.ints_to_batch([a[0] for a in As])).to(cuda))
+    ay = M.to_mont(c.fp, torch.from_numpy(L.ints_to_batch([a[1] for a in As])).to(cuda))
+    if kind == "plain":
+        got = cuda_ec.ed_ladder_cuda(c, *dev, ax, ay)
+        want = cuda_ec.ed_ladder_plain(c, *dev, ax, ay)
+    else:
+        got = cuda_ec.ed_ladder_windowed_cuda(c, *dev, ax, ay)
+        want = cuda_ec.ed_ladder_windowed_plain(c, *dev, ax, ay)
+    torch.cuda.synchronize()
+    X, Y, Z, T = (L.batch_to_ints(t.cpu().numpy()) for t in got)
+    assert all(0 <= int(t.min()) and int(t.max()) < 4096 for t in got)   # canonical digits
+    assert all((x * y - z * t) % c.p == 0 for x, y, z, t in zip(X, Y, Z, T))
+    g = _affine(c, got[:3])
+    assert g == _affine(c, want[:3])
+    assert g[2] == refmath.ed_mul(c, 9, base)            # A = identity
+    assert g[3] == refmath.ed_mul(c, 8, pts[2])          # s = L: s*B = 0

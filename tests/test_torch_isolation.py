@@ -1,8 +1,10 @@
 """corda_tpu_torch imports neither jax nor the corda_tpu package.
 
-Two checks: an AST scan of every module of the port, and a subprocess
-that imports every module with `jax` and `corda_tpu` blocked on
-sys.meta_path.
+Two checks: an AST scan of every module of the port and of
+chip_smoke.py, and a subprocess that imports every module (and
+chip_smoke.py) with `jax` and `corda_tpu` blocked on sys.meta_path.
+The CUDA sources hold no Python, but they are in the package too: the
+scan checks that every csrc file is one the port's build knows.
 """
 
 import ast
@@ -20,15 +22,21 @@ BANNED = {"jax", "jaxlib", "corda_tpu"}
 
 
 def _modules():
-    return sorted(PKG.rglob("*.py"))
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def test_ast_scan_finds_no_banned_import():
     """No `import jax`, `from jax...`, `import corda_tpu` or `from
-    corda_tpu...` anywhere in the port (corda_tpu_torch is allowed)."""
+    corda_tpu...` anywhere in the port or chip_smoke.py (corda_tpu_torch
+    is allowed); the ed25519 module is among those scanned, and csrc
+    holds only the two kernel sources and their shared header."""
     offenders = []
     files = _modules()
-    assert len(files) >= 14
+    assert len(files) >= 16
+    assert PKG / "crypto" / "eddsa.py" in files
+    assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
+        "ed_ladder.cu", "field256.cuh", "wei_ladder.cu"
+    ]
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -55,6 +63,7 @@ class Block:
 sys.meta_path.insert(0, Block())
 import corda_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(corda_tpu_torch.__path__, "corda_tpu_torch.")]
+names.append("chip_smoke")
 for n in names:
     importlib.import_module(n)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu")]
@@ -71,4 +80,4 @@ def test_imports_with_jax_and_reference_blocked():
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 12
+    assert int(out.stdout.strip().splitlines()[-1]) >= 14

@@ -7,9 +7,12 @@ Phases (any failure raises and exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from corda_tpu_torch/csrc with nvcc (one
      process per source, all started together);
-  3. hold each ladder kernel against its plain torch version on the card
-     — the Weierstrass ladders on p256 and secp256k1 at B=256 (edge rows
-     u1=0, u2=0, Q=G and u2=n-u1 with Q=G), the Edwards ladders on
+  3. print each kernel's registers, stack, static shared memory and
+     resident warps per SM (CUDA runtime); hold each ladder kernel
+     against its plain torch version on the card — the Weierstrass
+     ladders on p256 and secp256k1 at B=256 and at the ragged B=130 and
+     B=1 (partial groups and warps; edge rows u1=0, u2=0, Q=G and
+     u2=n-u1 with Q=G), the Edwards ladders on
      ed25519 at B=256 and a ragged B=130 (edge rows s=0, k=0,
      A=identity, s=L, s+L, all-264-bit scalars, A of order 2 and 4):
      equal normalised points, X*Y == Z*T for the Edwards outputs, and
@@ -47,6 +50,7 @@ CHUNK = 4096
 FLUSH = 16384
 PARITY_B = 256
 RAGGED_B = 130
+WEI_PARITY_SIZES = (PARITY_B, RAGGED_B, 1)
 DISTINCT = 256
 IMAD_PER_SM_PER_CLK = 64     # CUDA C Programming Guide, throughput table, cc 9.0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -145,6 +149,7 @@ def _ladder_inputs(curve, batch: int, seed: int, device, wide: bool = True):
         qs.append(None)
     distinct = [refmath.wei_mul(curve, rng.randrange(1, curve.n), G) for _ in range(16)]
     qs = [q if q is not None else distinct[i % 16] for i, q in enumerate(qs)]
+    u1s, u2s, qs = u1s[:batch], u2s[:batch], qs[:batch]
 
     def dev(xs):
         return torch.from_numpy(L.ints_to_batch(xs)).to(device)
@@ -269,20 +274,22 @@ def phase_parity(device, report: dict) -> None:
     for name, (kern, plain) in kernels.items():
         err = 0
         for curve in (SECP256R1, SECP256K1):
-            args, (u1s, u2s, qs) = _ladder_inputs(curve, PARITY_B, 7, device)
-            out = kern(curve, *args)
-            err = max(err, _max_err(curve, out, plain(curve, *args), f"{name} {curve.name}"))
-            got = _affine(curve, *out)
-            G = (curve.gx, curve.gy)
-            for i in range(8):   # and the plain version against refmath
-                ref = refmath.wei_add(
-                    curve, refmath.wei_mul(curve, u1s[i], G), refmath.wei_mul(curve, u2s[i], qs[i])
-                )
-                if ref != got[i]:
-                    raise RuntimeError(f"{name} {curve.name} row {i}: {got[i]} != refmath {ref}")
-            if got[3] is not None:
-                raise RuntimeError(f"{name} {curve.name}: u2 = n - u1, Q = G must give infinity")
-            print(f"parity {name} {curve.name} B={PARITY_B}: {PARITY_B} rows equal")
+            for batch in WEI_PARITY_SIZES:
+                args, (u1s, u2s, qs) = _ladder_inputs(curve, batch, 7, device)
+                out = kern(curve, *args)
+                label = f"{name} {curve.name} B={batch}"
+                err = max(err, _max_err(curve, out, plain(curve, *args), label))
+                got = _affine(curve, *out)
+                G = (curve.gx, curve.gy)
+                for i in range(min(8, batch)):   # and the plain version against refmath
+                    ref = refmath.wei_add(
+                        curve, refmath.wei_mul(curve, u1s[i], G), refmath.wei_mul(curve, u2s[i], qs[i])
+                    )
+                    if ref != got[i]:
+                        raise RuntimeError(f"{label} row {i}: {got[i]} != refmath {ref}")
+                if batch > 3 and got[3] is not None:
+                    raise RuntimeError(f"{label}: u2 = n - u1, Q = G must give infinity")
+                print(f"parity {label}: {batch} rows equal")
         report[name] = {"max_abs_err": float(err)}
 
     c = ED25519
@@ -304,6 +311,21 @@ def phase_parity(device, report: dict) -> None:
                     raise RuntimeError(f"{name} row {i}: {got[i]} != refmath {ref}")
             print(f"parity {name} ed25519 B={batch}: {batch} rows equal")
         report[name] = {"max_abs_err": float(err)}
+
+
+def print_resources() -> None:
+    """Registers, stack bytes, static shared bytes and resident warps per
+    SM of every kernel instantiation, from the CUDA runtime."""
+    from corda_tpu_torch.crypto import cuda_ec
+    from corda_tpu_torch.crypto.curves import ED25519, SECP256K1, SECP256R1
+
+    libs = [("wei_ladder", c, cuda_ec.kernel_params(c)) for c in (SECP256R1, SECP256K1)]
+    libs.append(("ed_ladder", ED25519, cuda_ec.ed_kernel_params(ED25519)))
+    for lib, curve, params in libs:
+        for windowed in (True, False):
+            name = lib + ("_windowed" if windowed else "")
+            print(f"resources {name} {curve.name}: "
+                  f"{cuda_ec.kernel_resources(lib, windowed, params)}")
 
 
 def _time_kernel(report: dict, name: str, curve, kern, plain, args, ops: int,
@@ -534,6 +556,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {stem}: {line.strip()}")
 
+    print_resources()
     report: dict = {}
     phase_parity(device, report)
     phase_timing(device, report)

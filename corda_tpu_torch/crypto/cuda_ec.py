@@ -17,12 +17,25 @@ digit bits (zero top bits add the identity, which the complete
 formulas absorb). The kernels return canonical digits, the plain
 versions lazily reduced ones: compare normalised points.
 
+What bounds them on the H100: the work is 256-bit Montgomery multiplies
+(IMAD-rate instructions; 616-704 bytes per signature never bind), but
+at one signature per thread a 4,096-row chunk is 128 warps, one per
+scheduler on a quarter of the card, and each warp's dependent carry
+chain sets the time. The Weierstrass kernels therefore spread each
+signature over a group of 4 lanes (words 2g and 2g + 1 of every
+coordinate in lane g; `csrc/field256_group.cuh`): the chunk fills all
+132 SMs with 512 warps, each lane's chain is a quarter as long, and the
+RCB15 add and doubling dedicated to the curve's a (kernel_params raises
+for any other a) drop the multiplies by a. The Edwards kernels are
+still one signature per thread (their redesign is next).
+
 `wei_ladder`, `wei_ladder_windowed`, `ed_ladder` and
 `ed_ladder_windowed` dispatch on the tensors' device: the plain version
 for CPU tensors only; on CUDA tensors they launch the kernel or raise.
 Each launch adds one to the module's counter (`wei_ladder_launches`,
 `wei_ladder_windowed_launches`, `ed_ladder_launches`,
-`ed_ladder_windowed_launches`).
+`ed_ladder_windowed_launches`). `kernel_resources` reports a kernel's
+registers, stack, static shared memory and resident warps per SM.
 """
 
 from __future__ import annotations
@@ -117,10 +130,17 @@ def _words(x: int) -> list[int]:
 
 @lru_cache(maxsize=None)
 def kernel_params(curve: WeierstrassCurve) -> np.ndarray:
-    """wei_ladder.cu's CurveParams struct as uint32 words (host constants
-    in the kernel's R = 2^256 Montgomery domain)."""
+    """wei_ladder.cu's CurveParams struct as uint32 words: p, 2^256 mod p,
+    2^248, 2^264 mod p, the formulas' b multiple (b for a = -3, 3b for
+    a = 0) in the R = 2^256 domain, the a = 0 flag that picks the
+    kernel's formulas, -p^-1 mod 2^32, and the G table. The kernels have
+    dedicated formulas for a = 0 and a = -3 only: any other a raises."""
     p = curve.p
     R = 1 << 256
+    a = curve.a % p
+    if a not in (0, p - 3):
+        raise ValueError(f"{curve.name}: the ladder kernels need a = 0 or a = -3, not {curve.a}")
+    bm = (3 * curve.b if a == 0 else curve.b) % p
     one = _fold_constant(curve)
     g = [[0] * 8 + _words(one) + [0] * 8]            # entry 0: infinity
     g += [
@@ -129,8 +149,8 @@ def kernel_params(curve: WeierstrassCurve) -> np.ndarray:
     ]
     words = (
         _field_words(curve)
-        + _words((curve.a % p) * R % p)
-        + _words((3 * curve.b % p) * R % p)
+        + _words(bm * R % p)
+        + [int(a == 0)]
         + [_pinv32(p)]
         + [w for entry in g for w in entry]
     )
@@ -177,10 +197,11 @@ def _pinv32(p: int) -> int:
     return (-pow(p, -1, 1 << 32)) % (1 << 32)
 
 
-# per library: (launch entry, params-size entry, number of outputs)
+# per library: (launch entry, params-size entry, resources entry, number
+# of outputs)
 _ENTRIES = {
-    "wei_ladder": ("corda_wei_ladder", "corda_wei_params_words", 3),
-    "ed_ladder": ("corda_ed_ladder", "corda_ed_params_words", 4),
+    "wei_ladder": ("corda_wei_ladder", "corda_wei_params_words", "corda_wei_kernel_info", 3),
+    "ed_ladder": ("corda_ed_ladder", "corda_ed_params_words", "corda_ed_kernel_info", 4),
 }
 _SIGNED: set[str] = set()
 
@@ -188,12 +209,14 @@ _SIGNED: set[str] = set()
 def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     if name not in _SIGNED:
-        launch, words, n_out = _ENTRIES[name]
+        launch, words, info, n_out = _ENTRIES[name]
         p = ctypes.c_void_p
         getattr(lib, launch).argtypes = [ctypes.c_int] + [p] * (5 + n_out) + [ctypes.c_int, p]
         getattr(lib, launch).restype = ctypes.c_int
         getattr(lib, words).argtypes = []
         getattr(lib, words).restype = ctypes.c_int
+        getattr(lib, info).argtypes = [ctypes.c_int, p, p]
+        getattr(lib, info).restype = ctypes.c_int
         lib.corda_cuda_error_string.argtypes = [ctypes.c_int]
         lib.corda_cuda_error_string.restype = ctypes.c_char_p
         _SIGNED.add(name)
@@ -222,7 +245,7 @@ def _launch(name: str, windowed: bool, params: np.ndarray, names, ins):
     tensors); returns the output tensors."""
     _check_operands(names, ins)
     lib = _lib(name)
-    launch, words, n_out = _ENTRIES[name]
+    launch, words, _, n_out = _ENTRIES[name]
     if getattr(lib, words)() != params.size:
         raise build.KernelBuildError(f"{name}: parameter layout differs between kernel and wrapper")
     outs = [torch.empty_like(ins[0]) for _ in range(n_out)]
@@ -238,6 +261,19 @@ def _launch(name: str, windowed: bool, params: np.ndarray, names, ins):
         msg = lib.corda_cuda_error_string(rc).decode()
         raise DeviceFaultError(f"{name} launch failed: {msg} (cudaError {rc})")
     return tuple(outs)
+
+
+def kernel_resources(name: str, windowed: bool, params: np.ndarray) -> dict:
+    """Registers, stack bytes, static shared bytes and resident warps per
+    SM of the kernel that csrc/<name>.cu launches for (windowed, params),
+    from the CUDA runtime on the current card."""
+    lib = _lib(name)
+    out = (ctypes.c_int * 4)()
+    rc = getattr(lib, _ENTRIES[name][2])(int(windowed), params.ctypes.data, out)
+    if rc != 0:
+        msg = lib.corda_cuda_error_string(rc).decode()
+        raise DeviceFaultError(f"{name} kernel attributes: {msg} (cudaError {rc})")
+    return dict(zip(("registers", "stack_bytes", "shared_bytes", "warps_per_sm"), out))
 
 
 _WEI_NAMES = ("u1", "u2", "qx_m", "qy_m")

@@ -224,6 +224,22 @@ extern "C" const char* corda_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
+// registers, stack bytes, static shared bytes and resident warps per SM
+// of the kernel that corda_ed_ladder(windowed, params, ...) launches
+extern "C" int corda_ed_kernel_info(int windowed, const uint32_t* params, int* out) {
+    (void)params;
+    const void* fn = windowed ? (const void*)ed_ladder_windowed_kernel : (const void*)ed_ladder_kernel;
+    cudaFuncAttributes a;
+    int blocks = 0;
+    cudaError_t e = cudaFuncGetAttributes(&a, fn);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, BLOCK, 0);
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = blocks * BLOCK / 32;
+    return (int)e;
+}
+
 extern "C" int corda_ed_ladder(int windowed, const uint32_t* params, const int32_t* s,
                                const int32_t* k, const int32_t* ax, const int32_t* ay,
                                int32_t* X, int32_t* Y, int32_t* Z, int32_t* T, int batch,

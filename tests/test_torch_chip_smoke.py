@@ -73,3 +73,19 @@ def test_dispatch_order():
     reqs = [req(s) for s in (4, 2, 3, 4, 2, 3, 4)]
     assert cs._dispatch_order(reqs) == [0, 3, 6, 1, 4, 2, 5]
     assert cs._dispatch_order([req(2)] * 5) == list(range(5))
+
+
+@pytest.mark.parametrize("batch", cs.WEI_PARITY_SIZES)
+def test_ladder_inputs_at_parity_sizes(batch):
+    """The Weierstrass parity inputs at every size the card checks
+    (B = 256, the ragged 130 and 1): [22, B] tensors, the edge rows
+    first (u1 = 0 in row 0; u2 = n - u1 with Q = G in row 3, where B
+    reaches it)."""
+    import torch
+
+    for curve in (SECP256R1, SECP256K1):
+        args, (u1s, u2s, qs) = cs._ladder_inputs(curve, batch, 7, torch.device("cpu"))
+        assert [tuple(a.shape) for a in args] == [(22, batch)] * 4
+        assert len(u1s) == len(u2s) == len(qs) == batch and u1s[0] == 0
+        if batch > 3:
+            assert u1s[3] + u2s[3] == curve.n and qs[3] == (curve.gx, curve.gy)

@@ -10,6 +10,7 @@ versions on the card by chip_smoke.py and tests/test_torch_gpu.py.
 Integer arithmetic: exact equality.
 """
 
+import dataclasses
 import random
 from functools import partial
 
@@ -133,6 +134,7 @@ def test_library_path_keys_on_shared_headers(tmp_path, monkeypatch):
     assert build.library_path(tmp_path / "a.cu") != edited
     assert [s.name for s in build.sources()] == ["ed_ladder.cu", "wei_ladder.cu"]
     assert (build.CSRC_DIR / "field256.cuh").exists()
+    assert (build.CSRC_DIR / "field256_group.cuh").exists()
 
 
 def test_windowed_default_per_curve():
@@ -150,22 +152,28 @@ def test_windowed_default_per_curve():
 @pytest.mark.parametrize("name", list(CURVES))
 def test_kernel_params_layout(name):
     """The constants the kernel receives: p, 2^256 mod p, 2^248,
-    2^264 mod p, a and 3b in the 2^256 Montgomery domain, -p^-1 mod
-    2^32, and the G table (entry 0 = infinity, entry k = k*G affine,
-    Z = 1) — checked against refmath; exact."""
+    2^264 mod p, the formulas' b multiple (b for p256's a = -3, 3b for
+    k1's a = 0) in the 2^256 Montgomery domain, the a = 0 flag, -p^-1
+    mod 2^32, and the G table (entry 0 = infinity, entry k = k*G affine,
+    Z = 1) — checked against refmath; exact. A curve with another a has
+    no kernel formulas and raises."""
     _, tc = CURVES[name]
     w = cuda_ec.kernel_params(tc)
-    assert w.dtype == np.uint32 and w.size == 6 * 8 + 1 + 16 * 24
+    assert w.dtype == np.uint32 and w.size == 5 * 8 + 2 + 16 * 24 == 426
 
     def word_int(off):
         return sum(int(v) << (32 * i) for i, v in enumerate(w[off : off + 8]))
 
     p, R = tc.p, 1 << 256
-    assert [word_int(8 * k) for k in range(6)] == [
-        p, R % p, 1 << 248, (1 << 264) % p, tc.a * R % p, 3 * tc.b * R % p
+    a_zero = name == "k1"
+    assert tc.a % p == (0 if a_zero else p - 3)
+    bm = 3 * tc.b if a_zero else tc.b
+    assert [word_int(8 * k) for k in range(5)] == [
+        p, R % p, 1 << 248, (1 << 264) % p, bm * R % p
     ]
-    assert (int(w[48]) * p) % (1 << 32) == (1 << 32) - 1
-    g = 49
+    assert int(w[40]) == int(a_zero)
+    assert (int(w[41]) * p) % (1 << 32) == (1 << 32) - 1
+    g = 42
     assert [word_int(g + 8 * c) for c in range(3)] == [0, R % p, 0]
     P = None
     for k in range(1, 16):
@@ -173,6 +181,9 @@ def test_kernel_params_layout(name):
         e = g + 24 * k
         x, y, z = (word_int(e + 8 * c) for c in range(3))
         assert (x, y, z) == (P[0] * R % p, P[1] * R % p, R % p)
+    other = dataclasses.replace(tc, name="a = 1", a=1)
+    with pytest.raises(ValueError, match="a = 0 or a = -3"):
+        cuda_ec.kernel_params(other)
 
 
 def test_ed_kernel_params_layout():

@@ -40,15 +40,15 @@ def _affine(curve, P):
 
 @pytest.mark.parametrize("curve", [SECP256R1, SECP256K1], ids=["p256", "k1"])
 @pytest.mark.parametrize("kind", ["plain", "windowed"])
-def test_kernel_matches_plain(cuda, curve, kind):
-    """Each kernel equals its plain version at B=130 (a ragged
-    second block), edge rows included; exact."""
+@pytest.mark.parametrize("B", [130, 1])
+def test_kernel_matches_plain(cuda, curve, kind, B):
+    """Each kernel equals its plain version at B=130 and B=1 (partial
+    groups, warps and blocks), edge rows included; exact."""
     rng = random.Random(1)
     G = (curve.gx, curve.gy)
-    B = 130
-    u1s = [0, 5] + [rng.randrange(curve.n) for _ in range(B - 2)]
-    u2s = [7, curve.n - 5] + [rng.getrandbits(264) for _ in range(B - 2)]
-    qs = [G, G] + [refmath.wei_mul(curve, rng.randrange(1, curve.n), G) for _ in range(2)] * ((B - 2) // 2)
+    u1s = ([0, 5] + [rng.randrange(curve.n) for _ in range(128)])[:B]
+    u2s = ([7, curve.n - 5] + [rng.getrandbits(264) for _ in range(128)])[:B]
+    qs = ([G, G] + [refmath.wei_mul(curve, rng.randrange(1, curve.n), G) for _ in range(2)] * 64)[:B]
     dev = [torch.from_numpy(L.ints_to_batch(v)).to(cuda) for v in (u1s, u2s)]
     qx = M.to_mont(curve.fp, torch.from_numpy(L.ints_to_batch([q[0] for q in qs])).to(cuda))
     qy = M.to_mont(curve.fp, torch.from_numpy(L.ints_to_batch([q[1] for q in qs])).to(cuda))
@@ -61,7 +61,8 @@ def test_kernel_matches_plain(cuda, curve, kind):
     torch.cuda.synchronize()
     g = _affine(curve, got)
     assert g == _affine(curve, want)
-    assert g[1] is None
+    assert g[0] == refmath.wei_mul(curve, 7, G)
+    assert B == 1 or g[1] is None
     assert all(0 <= int(c.min()) and int(c.max()) < 4096 for c in got)   # canonical digits
 
 

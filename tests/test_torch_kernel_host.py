@@ -2,15 +2,28 @@
 
 There is no nvcc and no card on the CPU test machines, so this test
 compiles `corda_tpu_torch/csrc/wei_ladder.cu` and `ed_ladder.cu` (with
-the shared `field256.cuh`) with the host C++ compiler behind a small
-shim (`__device__`, `__global__`, `__shared__`, `threadIdx`, ...
-defined away; the CUDA-runtime launcher section cut off) and runs each
-kernel body once per "thread", in order, on a small batch. The results must equal refmath after normalisation and be
-canonical 12-bit digits: exact, as integer arithmetic is. It checks the
-field arithmetic, the domain conversions, the table conventions and
-the schedules — not the GPU's compiler or memory model, which only
-chip_smoke.py and tests/test_torch_gpu.py reach. Skips where no C++
-compiler is installed.
+their headers) with the host C++ compiler behind a small shim
+(`__device__`, `__global__`, `__shared__`, `threadIdx`, ... defined
+away; the CUDA-runtime launcher section cut off) and runs each kernel
+body on a small batch. The results must equal refmath after
+normalisation and be canonical 12-bit digits: exact, as integer
+arithmetic is.
+
+The Weierstrass kernels spread a signature over a group of TPI lanes
+(`field256_group.cuh`). The shim runs each group's lanes as coroutines
+(ucontext), one group at a time, in turn: a lane that reaches a
+`__shfl*_sync`, `__ballot_sync` or `__syncwarp` deposits its value and
+passes to the next lane, so it reads only once every lane of the group
+has deposited, as on the card. A ballot's bits of the warp's other
+groups are noise, so a lane that fails to mask them out gets wrong
+carries. Groups never exchange data, so one group at a time suffices.
+The Edwards kernels (one signature per thread) run as groups of one.
+
+It checks the field arithmetic, the carry resolution between lanes, the
+domain conversions, the table conventions, the schedules and the ragged
+edge — not the GPU's compiler or memory model, which only chip_smoke.py
+and tests/test_torch_gpu.py reach. Skips where no C++ compiler is
+installed.
 """
 
 import random
@@ -33,6 +46,7 @@ SHIM = r"""
 #include <string.h>
 #include <stdio.h>
 #include <stdlib.h>
+#include <ucontext.h>
 #define __device__
 #define __forceinline__ inline
 #define __global__
@@ -42,35 +56,178 @@ SHIM = r"""
 struct Dim3 { int x; };
 static Dim3 threadIdx, blockIdx;
 static inline void __syncthreads() {}
+
+// One group of lanes, each a coroutine, run in turn. A lane at an
+// exchange deposits its value in slot set gen % 2 and passes on; when it
+// runs again, every lane has deposited (a lane runs ahead by at most one
+// exchange, hence two slot sets).
+#define EMU_MAX 32
+#define EMU_STACK (1 << 20)
+static ucontext_t emu_main, emu_ctx[EMU_MAX];
+static char* emu_stacks[EMU_MAX];
+static int emu_lanes, emu_first, emu_cur, emu_done;
+static bool emu_fin[EMU_MAX];
+static long emu_gen[EMU_MAX];
+static uint32_t emu_slot[2][EMU_MAX];
+static void (*emu_body)();
+
+static void emu_pass(int me) {   // run the next unfinished lane
+  int next = me;
+  do next = (next + 1) % emu_lanes; while (emu_fin[next]);
+  emu_cur = next;
+  threadIdx.x = emu_first + next;
+  swapcontext(&emu_ctx[me], &emu_ctx[next]);
+}
+
+static void emu_entry() {
+  emu_body();
+  const int me = emu_cur;
+  emu_fin[me] = true;
+  if (++emu_done == emu_lanes) setcontext(&emu_main);
+  emu_pass(me);
+}
+
+static void emu_run_group(int block, int first, int lanes, void (*body)()) {
+  emu_lanes = lanes; emu_first = first; emu_done = 0; emu_body = body;
+  blockIdx.x = block;
+  for (int i = 0; i < lanes; ++i) {
+    if (!emu_stacks[i]) emu_stacks[i] = (char*)malloc(EMU_STACK);
+    emu_fin[i] = false; emu_gen[i] = 0;
+    getcontext(&emu_ctx[i]);
+    emu_ctx[i].uc_stack.ss_sp = emu_stacks[i];
+    emu_ctx[i].uc_stack.ss_size = EMU_STACK;
+    emu_ctx[i].uc_link = 0;
+    makecontext(&emu_ctx[i], emu_entry, 0);
+  }
+  emu_cur = 0; threadIdx.x = first;
+  swapcontext(&emu_main, &emu_ctx[0]);
+  for (int i = 1; i < lanes; ++i)
+    if (emu_gen[i] != emu_gen[0]) { fprintf(stderr, "lanes disagree on exchanges\n"); exit(5); }
+}
+
+static const uint32_t* emu_exchange(uint32_t v, long* gen) {
+  const int me = emu_cur;
+  if (emu_done) { fprintf(stderr, "lane %d exchanges after another lane ended\n", me); exit(5); }
+  *gen = emu_gen[me]++;
+  emu_slot[*gen & 1][me] = v;
+  emu_pass(me);
+  return emu_slot[*gen & 1];
+}
+
+static void emu_check_width(int width) {
+  if (width != emu_lanes) { fprintf(stderr, "shuffle width %d, group %d\n", width, emu_lanes); exit(5); }
+}
+
+static uint32_t __shfl_sync(uint32_t, uint32_t v, int src, int width) {
+  emu_check_width(width);
+  long gen;
+  return emu_exchange(v, &gen)[src % width];
+}
+
+static uint32_t __shfl_down_sync(uint32_t, uint32_t v, int delta, int width) {
+  emu_check_width(width);
+  long gen;
+  const int me = emu_cur;
+  const uint32_t* s = emu_exchange(v, &gen);
+  return me + delta < width ? s[me + delta] : s[me];
+}
+
+static uint32_t __shfl_up_sync(uint32_t, uint32_t v, int delta, int width) {
+  emu_check_width(width);
+  long gen;
+  const int me = emu_cur;
+  const uint32_t* s = emu_exchange(v, &gen);
+  return me >= delta ? s[me - delta] : s[me];
+}
+
+// the warp's other lanes answer noise, the same for every lane of the group
+static uint32_t __ballot_sync(uint32_t, int pred) {
+  long gen;
+  const uint32_t* s = emu_exchange(pred != 0, &gen);
+  uint32_t m = (uint32_t)(((uint64_t)gen + 1) * 0x9E3779B97F4A7C15ull >> 32);
+  for (int i = 0; i < emu_lanes; ++i) {
+    const int bit = (emu_first + i) % 32;
+    m = (m & ~(1u << bit)) | ((s[i] ? 1u : 0u) << bit);
+  }
+  return m;
+}
+
+static void __syncwarp(uint32_t = 0xffffffffu) {
+  long gen;
+  emu_exchange(0, &gen);
+}
 """
 
 # per source: (params struct, its size in words, number of outputs,
-# plain kernel, windowed kernel)
+# plain kernel, windowed kernel); the Weierstrass kernels' instantiation
+# follows the curve's a, as corda_wei_ladder picks it
 SOURCES = {
-    "wei_ladder": ("CurveParams", 433, 3, "wei_ladder_kernel", "wei_ladder_windowed_kernel"),
+    "wei_ladder": ("CurveParams", 426, 3,
+                   "(P.a_zero ? wei_ladder_kernel<true> : wei_ladder_kernel<false>)",
+                   "(P.a_zero ? wei_ladder_windowed_kernel<true> : wei_ladder_windowed_kernel<false>)"),
     "ed_ladder": ("EdParams", 553, 4, "ed_ladder_kernel", "ed_ladder_windowed_kernel"),
 }
 
 MAIN = r"""
-int main(int argc, char** argv) {
-  int mode = atoi(argv[1]);   // 0 plain, 1 windowed
-  FILE* f = fopen(argv[2], "rb");
-  int batch;
-  PARAMS P;
-  if (fread(&batch, 4, 1, f) != 1 || fread(&P, sizeof(P), 1, f) != 1) return 3;
-  int32_t* in = (int32_t*)malloc(4 * 22 * batch * 4);
-  if (fread(in, 4, 4 * 22 * batch, f) != (size_t)(4 * 22 * batch)) return 3;
-  fclose(f);
-  int32_t* out = (int32_t*)malloc(4 * 22 * batch * 4);
-  int32_t* o[4] = {out, out + 22 * batch, out + 44 * batch, out + 66 * batch};
-  for (int col = 0; col < batch; ++col) {
-    blockIdx.x = col / 128; threadIdx.x = col % 128;
-    int32_t *a = in, *b = in + 22 * batch, *x = in + 44 * batch, *y = in + 66 * batch;
-    if (mode == 0) PLAIN(P, a, b, x, y, OUTS, batch);
-    else WINDOWED(P, a, b, x, y, OUTS, batch);
+#ifdef TPI
+#define EMU_LANES TPI
+#else
+#define EMU_LANES 1
+#endif
+static PARAMS P;
+static int mode, batch;
+static int32_t *in, *o[4];
+
+static void ladder_body() {
+  int32_t *a = in, *b = in + 22 * batch, *x = in + 44 * batch, *y = in + 66 * batch;
+  if (mode == 0) PLAIN(P, a, b, x, y, OUTS, batch);
+  else WINDOWED(P, a, b, x, y, OUTS, batch);
+}
+
+#ifdef TPI
+// mode 2: per group, one field operation on 8-word operands a, b, both
+// ways: (a op b, b op a)
+static uint32_t *fa, *fb, *fr;
+static void field_body() {
+  const GroupField F = group_field(P);
+  const int col = (blockIdx.x * BLOCK + threadIdx.x) / TPI;
+  const int c = col < batch ? col : batch - 1;
+  uint32_t a[WPL], b[WPL], r[WPL], s[WPL], w[NW];
+  lane_words(a, fa + 8 * c, F.g);
+  lane_words(b, fb + 8 * c, F.g);
+  switch (in[c]) {
+    case 0: gfe_mul(r, a, b, F); gfe_mul(s, b, a, F); break;
+    case 1: gfe_add(r, a, b, F); gfe_add(s, b, a, F); break;
+    default: gfe_sub(r, a, b, F); gfe_sub(s, b, a, F); break;
   }
+  group_gather(w, r, F);
+  if (F.g == 0 && col < batch) memcpy(fr + 16 * col, w, sizeof(w));
+  group_gather(w, s, F);
+  if (F.g == 0 && col < batch) memcpy(fr + 16 * col + 8, w, sizeof(w));
+}
+#endif
+
+int main(int argc, char** argv) {
+  mode = atoi(argv[1]);   // 0 plain, 1 windowed, 2 field operations
+  FILE* f = fopen(argv[2], "rb");
+  if (fread(&batch, 4, 1, f) != 1 || fread(&P, sizeof(P), 1, f) != 1) return 3;
+  const int n_in = mode == 2 ? 17 * batch : 4 * 22 * batch;
+  const int n_out = mode == 2 ? 16 * batch : NOUT * 22 * batch;
+  in = (int32_t*)malloc(4 * n_in);
+  if (fread(in, 4, n_in, f) != (size_t)n_in) return 3;
+  fclose(f);
+  int32_t* out = (int32_t*)calloc(n_out, 4);
+  for (int i = 0; i < 4; ++i) o[i] = out + 22 * batch * i;
+  void (*body)() = ladder_body;
+#ifdef TPI
+  fa = (uint32_t*)in + batch; fb = fa + 8 * batch; fr = (uint32_t*)out;
+  if (mode == 2) body = field_body;
+#endif
+  const int blocks = (batch * EMU_LANES + BLOCK - 1) / BLOCK;
+  for (int blk = 0; blk < blocks; ++blk)
+    for (int t = 0; t < BLOCK; t += EMU_LANES) emu_run_group(blk, t, EMU_LANES, body);
   f = fopen(argv[3], "wb");
-  fwrite(out, 4, NOUT * 22 * batch, f);
+  fwrite(out, 4, n_out, f);
   fclose(f);
   return (int)(sizeof(PARAMS) / 4) == WORDS ? 0 : 4;
 }
@@ -96,8 +253,8 @@ def _build(cxx, name, d):
 
 @pytest.fixture(scope="module")
 def emulator(tmp_path_factory):
-    """{source name: (host executable, work dir)}; the header
-    (field256.cuh) is included from csrc/ as nvcc includes it."""
+    """{source name: (host executable, work dir)}; the headers are
+    included from csrc/ as nvcc includes them."""
     cxx = shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -105,18 +262,25 @@ def emulator(tmp_path_factory):
     return {name: (_build(cxx, name, d), d) for name in SOURCES}
 
 
-def _run(emulator, name, mode, params, args):
+def _exec(emulator, name, mode, params, arrays, n_out_words):
     exe, d = emulator[name]
-    n_out = SOURCES[name][2]
-    batch = args[0].shape[1]
     with open(d / "in.bin", "wb") as f:
-        f.write(np.int32(batch).tobytes())
+        f.write(np.int32(arrays[0].shape[-1]).tobytes())
         f.write(params.tobytes())
-        for a in args:
-            f.write(np.ascontiguousarray(a, dtype=np.int32).tobytes())
+        for a in arrays:
+            f.write(np.ascontiguousarray(a).astype(np.uint32).view(np.int32).tobytes())
     subprocess.run([str(exe), str(mode), str(d / "in.bin"), str(d / "out.bin")],
                    check=True, timeout=300)
-    return np.fromfile(d / "out.bin", dtype=np.int32).reshape(n_out, 22, batch)
+    out = np.fromfile(d / "out.bin", dtype=np.int32)
+    assert out.size == n_out_words
+    return out
+
+
+def _run(emulator, name, mode, params, args):
+    n_out = SOURCES[name][2]
+    batch = args[0].shape[1]
+    out = _exec(emulator, name, mode, params, [a.astype(np.int32) for a in args], n_out * 22 * batch)
+    return out.reshape(n_out, 22, batch)
 
 
 def _lazy_mont(curve, vals, rng):
@@ -134,12 +298,60 @@ def _lazy_mont(curve, vals, rng):
     return a
 
 
+def _words(x: int) -> list[int]:
+    return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+
+
+def _edge_operands(p: int, rng) -> list[int]:
+    """Field elements whose sums, differences and products carry or
+    borrow across every lane: 0, 1, p - 1, p - 2, runs of 0xFFFFFFFF
+    words from the bottom (2^32k - 1) and from the top, 2^256 mod p,
+    halves of p, and a few random values."""
+    vals = {0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2, (1 << 256) % p, p - (1 << 256) % p}
+    vals |= {(1 << (32 * k)) - 1 for k in range(1, 8)}
+    vals |= {p - (1 << (32 * k)) for k in range(1, 8)}
+    vals |= {((1 << 256) - (1 << (32 * k))) % p for k in range(1, 8)}
+    vals |= {rng.randrange(p) for _ in range(4)}
+    return sorted(v for v in vals if 0 <= v < p)
+
+
+@pytest.mark.parametrize("curve", [SECP256R1, SECP256K1], ids=["p256", "k1"])
+def test_group_field_ops_on_host_match_ints(emulator, curve):
+    """field256_group.cuh's gfe_mul, gfe_add and gfe_sub (a op b and
+    b op a), each lane of a group holding its words, on operands whose
+    carries and borrows ripple across every lane (p - 1, words of
+    0xFFFFFFFF, a + b == p, a == b, 0): equal to Python ints for every
+    pair; exact."""
+    p = curve.p
+    rng = random.Random(5)
+    vals = _edge_operands(p, rng)
+    pairs = [(a, b) for a in vals for b in vals]
+    cases = ([(0, a, b) for a, b in pairs] + [(1, a, b) for a, b in pairs]
+             + [(1, a, (p - a) % p) for a in vals]                 # a + b == p
+             + [(2, a, b) for a, b in pairs] + [(2, a, a) for a in vals])
+    rinv = pow(1 << 256, -1, p)
+
+    def ref(op, a, b):
+        return (a * b * rinv if op == 0 else a + b if op == 1 else a - b) % p
+
+    want = [v for op, a, b in cases for v in (ref(op, a, b), ref(op, b, a))]
+    ops = np.array([op for op, _, _ in cases], dtype=np.uint32)
+    a_w = np.array([_words(a) for _, a, _ in cases], dtype=np.uint32)
+    b_w = np.array([_words(b) for _, _, b in cases], dtype=np.uint32)
+    out = _exec(emulator, "wei_ladder", 2, cuda_ec.kernel_params(curve), [ops, a_w, b_w], 16 * len(cases))
+    got = [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in out.view(np.uint32).reshape(-1, 8)]
+    bad = [(c, g, w) for c, g, w in zip([c for c in cases for _ in (0, 1)], got, want) if g != w]
+    assert not bad, bad[:4]
+    assert len(cases) > 1000
+
+
 @pytest.mark.parametrize("curve", [SECP256R1, SECP256K1], ids=["p256", "k1"])
 def test_kernel_source_on_host_matches_refmath(emulator, curve):
     """Both ladder kernels on 7 rows: random scalars, all-264-bit
     scalars, u1=0, u2=0, Q=G and u2 = n - u1 with Q=G (infinity), Q from
     the torch to_mont (lazily reduced digits); canonical output equal to
-    refmath; exact."""
+    refmath; exact. 7 rows leave the block's last group past the ragged
+    edge."""
     rng = random.Random(17)
     G = (curve.gx, curve.gy)
     u1s = [rng.randrange(curve.n), rng.getrandbits(264), 0, 5, 3, rng.randrange(curve.n), 1]

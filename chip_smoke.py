@@ -10,10 +10,9 @@ Phases (any failure raises and exits non-zero):
   3. print each kernel's registers, stack, static shared memory and
      resident warps per SM (CUDA runtime); hold each ladder kernel
      against its plain torch version on the card — the Weierstrass
-     ladders on p256 and secp256k1 at B=256 and at the ragged B=130 and
-     B=1 (partial groups and warps; edge rows u1=0, u2=0, Q=G and
-     u2=n-u1 with Q=G), the Edwards ladders on
-     ed25519 at B=256 and a ragged B=130 (edge rows s=0, k=0,
+     ladders on p256 and secp256k1, the Edwards ladders on ed25519,
+     each at B=256 and at the ragged B=130 and B=1 (partial groups and
+     warps; edge rows u1=0, u2=0, Q=G and u2=n-u1 with Q=G; s=0, k=0,
      A=identity, s=L, s+L, all-264-bit scalars, A of order 2 and 4):
      equal normalised points, X*Y == Z*T for the Edwards outputs, and
      the first 8 rows equal to refmath; time each kernel and its plain
@@ -50,7 +49,7 @@ CHUNK = 4096
 FLUSH = 16384
 PARITY_B = 256
 RAGGED_B = 130
-WEI_PARITY_SIZES = (PARITY_B, RAGGED_B, 1)
+PARITY_SIZES = (PARITY_B, RAGGED_B, 1)
 DISTINCT = 256
 IMAD_PER_SM_PER_CLK = 64     # CUDA C Programming Guide, throughput table, cc 9.0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -187,6 +186,7 @@ def _ed_inputs(batch: int, seed: int, device, wide: bool = True):
         ss.append(rng.getrandbits(264) if top else rng.randrange(c.L))
         ks.append(rng.getrandbits(264) if top else rng.randrange(c.L))
         As.append(distinct[i % 16])
+    ss, ks, As = ss[:batch], ks[:batch], As[:batch]
 
     def dev(xs):
         return torch.from_numpy(L.ints_to_batch(xs)).to(device)
@@ -198,14 +198,27 @@ def _ed_inputs(batch: int, seed: int, device, wide: bool = True):
 
 MUL_OPS = 2 * (64 + 64) + 8   # 256-bit Montgomery multiply: 8x8 + 8x8 products (2 IMAD each) + 8 low halves
 SQR_OPS = 2 * (36 + 64) + 8   # a square: 36 distinct products
+# mod 2^255 - 19 (special form): 8x8 products and the high half's 8 words
+# times 38 (2 IMAD each); a square: 36 distinct products
+ED_MUL_OPS = 2 * (64 + 8)
+ED_SQR_OPS = 2 * (36 + 8)
 
 
-def _cost(mults: int, squares: int = 0) -> int:
-    return mults * MUL_OPS + squares * SQR_OPS
+def _cost(mults: int, squares: int = 0, mul: int = MUL_OPS, sqr: int = SQR_OPS) -> int:
+    return mults * mul + squares * sqr
 
 
-# add-2008-hwcd-3: 8M + 1 by 2d; madd-2008-hwcd-3 (Z2 = 1): 7M + 1; dbl-2008-hwcd (a = -1): 4M + 4S
-ED_COST = {"add": _cost(9), "madd": _cost(8), "dbl": _cost(4, 4)}
+def _ed_cost(mults: int, squares: int = 0) -> int:
+    return _cost(mults, squares, ED_MUL_OPS, ED_SQR_OPS)
+
+
+# Edwards (a = -1), each without its T3 product, "t", which _ladder_ops
+# counts only where the result must carry T: add-2008-hwcd-3 of a cached
+# operand (Y - X, Y + X, 2Z, 2dT) 7M, of a cached affine one (Z2 = 1) 6M,
+# dbl-2008-hwcd 3M + 4S; special-form multiplies ("mul": the conversions
+# in and out too)
+ED_COST = {"add": _ed_cost(7), "madd": _ed_cost(6), "dbl": _ed_cost(3, 4), "t": _ed_cost(1),
+           "mul": ED_MUL_OPS}
 
 
 def _wei_cost(curve) -> dict:
@@ -215,7 +228,8 @@ def _wei_cost(curve) -> dict:
     a = curve.a % curve.p
     if a not in (0, curve.p - 3):
         raise ValueError(f"{curve.name}: no dedicated formulas for a = {curve.a}")
-    return {"add": _cost(14), "madd": _cost(13), "dbl": _cost(7, 2) if a == 0 else _cost(10, 3)}
+    return {"add": _cost(14), "madd": _cost(13), "dbl": _cost(7, 2) if a == 0 else _cost(10, 3), "t": 0,
+            "mul": MUL_OPS}
 
 
 def _step_adds(cost: dict, windowed: bool, x: int, y: int, i: int) -> list:
@@ -236,21 +250,26 @@ def _ladder_ops(cost: dict, conv_mults: int, windowed: bool, xs, ys) -> int:
     bits; doublings at the dedicated doubling formula's cost; no add of
     the identity, and the top step's add a copy; the table the row needs
     (P + Q, or Q multiples 2..15 as 7 doublings and 7 mixed adds; the P
-    table is constant). `conv_mults` multiplies convert the point in and
-    the result out; the entry folds of the two input coordinates add
-    2 x 4 x 8 products."""
+    table is constant). Edwards results carry T (cost["t"]) only where
+    an add follows (the doubling before a step's adds, the first of a
+    step's two adds), in table entries, and in the result unless it is
+    the top step's copy. `conv_mults` multiplies (cost["mul"] each)
+    convert the point in and the result out; the entry folds of the two
+    input coordinates add 2 x 4 x 8 products."""
     width = 4 if windowed else 1
+    t = cost["t"]
     ops = 0
     for x, y in zip(xs, ys):
         steps = -(-max(x.bit_length(), y.bit_length()) // width)
         if steps:
             adds = [_step_adds(cost, windowed, x, y, i) for i in range(steps)]
             ops += sum(map(sum, adds)) - max(adds[-1]) + width * (steps - 1) * cost["dbl"]
+            ops += t * (sum(map(len, adds[:-1])) + (steps > 1 or len(adds[-1]) == 2))
             if windowed and y:
-                ops += 7 * (cost["dbl"] + cost["madd"])
+                ops += 7 * (cost["dbl"] + cost["madd"] + 2 * t)
             elif not windowed and x & y:
-                ops += cost["madd"]
-        ops += conv_mults * MUL_OPS + 2 * 4 * 8 * 2
+                ops += cost["madd"] + t
+        ops += conv_mults * cost["mul"] + 2 * 4 * 8 * 2
     return ops
 
 
@@ -259,7 +278,7 @@ def _wei_ops(curve, windowed: bool, u1s, u2s) -> int:
 
 
 def _ed_ops(windowed: bool, ss, ks) -> int:
-    # 2 multiplies by 2^248 in, T = x*y, 4 multiplies by 2^264 out
+    # 2 multiplies into the kernel's domain, T = x*y, 4 back to the 2^264 domain
     return _ladder_ops(ED_COST, 7, windowed, ss, ks)
 
 
@@ -274,7 +293,7 @@ def phase_parity(device, report: dict) -> None:
     for name, (kern, plain) in kernels.items():
         err = 0
         for curve in (SECP256R1, SECP256K1):
-            for batch in WEI_PARITY_SIZES:
+            for batch in PARITY_SIZES:
                 args, (u1s, u2s, qs) = _ladder_inputs(curve, batch, 7, device)
                 out = kern(curve, *args)
                 label = f"{name} {curve.name} B={batch}"
@@ -299,13 +318,13 @@ def phase_parity(device, report: dict) -> None:
     }
     for name, (kern, plain) in ed_kernels.items():
         err = 0
-        for batch in (PARITY_B, RAGGED_B):
+        for batch in PARITY_SIZES:
             args, (ss, ks, As) = _ed_inputs(batch, 7, device)
             out = kern(c, *args)
             err = max(err, _max_err(c, out, plain(c, *args), f"{name} B={batch}"))
             got = _ed_affine(c, *out)
             B = (c.gx, c.gy)
-            for i in range(8):   # and against refmath
+            for i in range(min(8, batch)):   # and against refmath
                 ref = refmath.ed_add(c, refmath.ed_mul(c, ss[i], B), refmath.ed_mul(c, ks[i], As[i]))
                 if ref != got[i]:
                     raise RuntimeError(f"{name} row {i}: {got[i]} != refmath {ref}")

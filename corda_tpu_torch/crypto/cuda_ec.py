@@ -17,17 +17,21 @@ digit bits (zero top bits add the identity, which the complete
 formulas absorb). The kernels return canonical digits, the plain
 versions lazily reduced ones: compare normalised points.
 
-What bounds them on the H100: the work is 256-bit Montgomery multiplies
+What bounds them on the H100: the work is 256-bit modular multiplies
 (IMAD-rate instructions; 616-704 bytes per signature never bind), but
 at one signature per thread a 4,096-row chunk is 128 warps, one per
 scheduler on a quarter of the card, and each warp's dependent carry
-chain sets the time. The Weierstrass kernels therefore spread each
-signature over a group of 4 lanes (words 2g and 2g + 1 of every
-coordinate in lane g; `csrc/field256_group.cuh`): the chunk fills all
-132 SMs with 512 warps, each lane's chain is a quarter as long, and the
-RCB15 add and doubling dedicated to the curve's a (kernel_params raises
-for any other a) drop the multiplies by a. The Edwards kernels are
-still one signature per thread (their redesign is next).
+chain sets the time. All four kernels therefore spread each signature
+over a group of 4 lanes (words 2g and 2g + 1 of every coordinate in
+lane g; `csrc/field256_group.cuh`): the chunk fills all 132 SMs with
+512 warps, and each lane's chain is a quarter as long. Each kernel has
+a dedicated doubling: the RCB15 add and doubling for the curve's a
+(kernel_params raises for any other a), and for ed25519 dbl-2008-hwcd
+with adds of cached table entries (ed_kernel_params holds the B table
+as (y - x, y + x, 2dxy)). The Weierstrass kernels multiply in the
+2^256 Montgomery domain (CIOS over the group); the Edwards kernels in
+the plain domain with a special-form product for 2^255 - 19, which has
+no serial round.
 
 `wei_ladder`, `wei_ladder_windowed`, `ed_ladder` and
 `ed_ladder_windowed` dispatch on the tensors' device: the plain version
@@ -148,7 +152,7 @@ def kernel_params(curve: WeierstrassCurve) -> np.ndarray:
         for x, y in _g_table_mont(curve, 16, r_bits=256)
     ]
     words = (
-        _field_words(curve)
+        _words(p) + _words(one) + _words(1 << 248) + _words((1 << R_BITS) % p)
         + _words(bm * R % p)
         + [int(a == 0)]
         + [_pinv32(p)]
@@ -159,20 +163,24 @@ def kernel_params(curve: WeierstrassCurve) -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def ed_kernel_params(curve: EdwardsCurve) -> np.ndarray:
-    """ed_ladder.cu's EdParams struct as uint32 words: p, 2^256 mod p,
-    2^248, 2^264 mod p, 2d in the R = 2^256 domain, -p^-1 mod 2^32, and
-    the B table (entry 0 = the identity (0, 1, 1, 0), entry j = j*B as
-    (x, y, 1, xy)) in the R = 2^256 domain."""
+    """ed_ladder.cu's EdParams struct as uint32 words: p, 2^256 mod p
+    (the entry fold), 2^-8 and 2^520 mod p (the one-thread Montgomery
+    multiplies at entry and exit take the 2^264 domain to the kernel's
+    plain one and back), 2d, -p^-1 mod 2^32, and the B table cached for
+    the kernel's mixed add (entry j = j*B as (y - x, y + x, 2d*x*y);
+    entry 0 = the identity, (1, 1, 0)). The kernel's field is plain
+    integers mod p (its multiply is special-form), so no constant here
+    is in a Montgomery domain."""
     p = curve.p
-    one = _fold_constant(curve)
-    b = [[0] * 8 + _words(one) + _words(one) + [0] * 8]   # entry 0: identity
+    d2 = 2 * curve.d % p
+    b = [_words(1) + _words(1) + [0] * 8]   # entry 0: identity
     b += [
-        _words(x) + _words(y) + _words(one) + _words(t)
-        for x, y, t in _b_table_mont(curve, 16, r_bits=256)
+        _words((y - x) % p) + _words((y + x) % p) + _words(d2 * t % p)
+        for x, y, t in _b_table_mont(curve, 16, r_bits=0)
     ]
     words = (
-        _field_words(curve)
-        + _words(2 * curve.d % p * (1 << 256) % p)
+        _words(p) + _words(_fold_constant(curve)) + _words(pow(2, -8, p)) + _words(pow(2, 520, p))
+        + _words(d2)
         + [_pinv32(p)]
         + [w for entry in b for w in entry]
     )
@@ -185,12 +193,6 @@ def _fold_constant(curve) -> int:
         # load_coord's four folds need 2^256 mod p < 2^225
         raise ValueError(f"{curve.name}: 2^256 mod p too large for the kernel")
     return one
-
-
-def _field_words(curve) -> list[int]:
-    """The leading p, one, c_in, c_out words both structs share."""
-    p = curve.p
-    return _words(p) + _words(_fold_constant(curve)) + _words(1 << 248) + _words((1 << R_BITS) % p)
 
 
 def _pinv32(p: int) -> int:

@@ -1,19 +1,23 @@
-// 256-bit prime-field arithmetic shared by the ladder kernels
-// (wei_ladder.cu, ed_ladder.cu), one field element per thread.
+// 256-bit prime-field arithmetic for one thread: the domain conversions
+// at entry and exit of the ladder kernels (wei_ladder.cu, ed_ladder.cu),
+// which run them on lane 0 of each group (field256_group.cuh holds the
+// arithmetic spread over the group).
 //
-// A field element is 8 x 32-bit words in the R = 2^256 Montgomery
-// domain, always fully reduced to [0, p). The functions are templates
-// over the kernel's parameter struct, which must provide
+// A field element is 8 x 32-bit words, always fully reduced to [0, p);
+// fe_mul is the R = 2^256 Montgomery product. The functions are
+// templates over the kernel's parameter struct, which must provide
 //   p[NW]      the modulus (odd, 2^255 <= p < 2^256)
-//   one[NW]    2^256 mod p: Montgomery 1, also the fold constant
-//   c_in[NW]   2^248: 2^264-domain -> 2^256-domain multiplier
-//   c_out[NW]  2^264 mod p: 2^256-domain -> 2^264-domain multiplier
+//   one[NW]    2^256 mod p: the fold constant
+//   c_in[NW]   the multiplier from the interface's 2^264 domain to the
+//              kernel's: 2^248 for the 2^256 Montgomery domain
+//              (wei_ladder.cu), 2^-8 mod p for plain values (ed_ladder.cu)
+//   c_out[NW]  back: 2^264 mod p, or 2^520 mod p
 //   pinv       -p^-1 mod 2^32
 //
 // fe_mul returns a value < p whenever a * b < p * 2^256, which holds
-// when one operand is < p and the other < 2^256. Every value a kernel
-// multiplies is an output of fe_mul/fe_add/fe_sub or a host constant,
-// all < p, so this holds for p close to 2^256 (the secp curves) and for
+// when one operand is < p and the other < 2^256: at entry the folded
+// value (< 2^256) times c_in (< p), at exit a kernel's result (< p)
+// times c_out (< p), for p close to 2^256 (the secp curves) and for
 // p = 2^255 - 19 alike.
 
 #pragma once
@@ -75,46 +79,11 @@ __device__ __forceinline__ void fe_mul(uint32_t r[NW], const uint32_t a[NW],
     cond_sub_p(r, t, t[NW], P);
 }
 
-template <class Params>
-__device__ __forceinline__ void fe_add(uint32_t r[NW], const uint32_t a[NW],
-                                       const uint32_t b[NW], const Params& P) {
-    uint32_t s[NW];
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-        c += (uint64_t)a[j] + b[j];
-        s[j] = (uint32_t)c;
-        c >>= 32;
-    }
-    cond_sub_p(r, s, (uint32_t)c, P);
-}
-
-template <class Params>
-__device__ __forceinline__ void fe_sub(uint32_t r[NW], const uint32_t a[NW],
-                                       const uint32_t b[NW], const Params& P) {
-    uint32_t d[NW];
-    uint64_t br = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-        uint64_t x = (uint64_t)a[j] - b[j] - br;
-        d[j] = (uint32_t)x;
-        br = (x >> 32) & 1;
-    }
-    const uint32_t mask = 0u - (uint32_t)br;   // add p back on borrow
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-        c += (uint64_t)d[j] + (P.p[j] & mask);
-        r[j] = (uint32_t)c;
-        c >>= 32;
-    }
-}
-
 // ---------------------------------------------------------------------------
 // domain conversion at entry and exit
 
 // [22, B] digits (R = 2^264 domain, bounded non-negative) -> 8 words in
-// the R = 2^256 domain, fully reduced
+// the kernel's domain (c_in), fully reduced
 template <class Params>
 __device__ __forceinline__ void load_coord(uint32_t r[NW], const int32_t* src,
                                            int batch, int col, const Params& P) {
@@ -155,15 +124,15 @@ __device__ __forceinline__ void load_coord(uint32_t r[NW], const int32_t* src,
     }
     uint32_t red[NW];
     cond_sub_p(red, v, 0, P);
-    fe_mul(r, red, P.c_in, P);   // x * 2^264 * 2^248 / 2^256 = x * 2^256
+    fe_mul(r, red, P.c_in, P);   // e.g. x * 2^264 * 2^248 / 2^256 = x * 2^256
 }
 
-// 8 words (R = 2^256 domain) -> canonical [22, B] digits (R = 2^264 domain)
+// 8 words (the kernel's domain) -> canonical [22, B] digits (R = 2^264 domain)
 template <class Params>
 __device__ __forceinline__ void store_coord(int32_t* dst, const uint32_t a[NW],
                                             int batch, int col, const Params& P) {
     uint32_t r[NW];
-    fe_mul(r, a, P.c_out, P);    // x * 2^256 * 2^264 / 2^256 = x * 2^264
+    fe_mul(r, a, P.c_out, P);    // e.g. x * 2^256 * 2^264 / 2^256 = x * 2^264
 #pragma unroll
     for (int i = 0; i < NLIMB; ++i) {
         const int bit = 12 * i;
@@ -173,25 +142,4 @@ __device__ __forceinline__ void store_coord(int32_t* dst, const uint32_t a[NW],
         if (s > 20 && w + 1 < NW) d |= r[w + 1] << (32 - s);
         dst[i * batch + col] = (int32_t)(d & 0xFFF);
     }
-}
-
-// copy a 16-entry constant point table (passed by value) to shared
-// memory at `stride` words per entry (stride = words + 1 spreads the
-// banks): each thread then indexes it by its own digit, which the
-// constant cache would serialise
-template <int WORDS, int STRIDE>
-__device__ __forceinline__ void load_table16(uint32_t* sh, const uint32_t (*tab)[WORDS]) {
-    if (threadIdx.x == 0) {
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-#pragma unroll
-            for (int k = 0; k < WORDS; ++k) sh[e * STRIDE + k] = tab[e][k];
-    }
-    __syncthreads();
-}
-
-template <int WORDS>
-__device__ __forceinline__ void copy_words(uint32_t dst[WORDS], const uint32_t* src) {
-#pragma unroll
-    for (int k = 0; k < WORDS; ++k) dst[k] = src[k];
 }

@@ -1,12 +1,19 @@
 // 256-bit prime-field arithmetic spread over a group of TPI lanes of a
-// warp (wei_ladder.cu): one field element per group, lane g holding words
-// g*WPL .. g*WPL + WPL - 1 of it.
+// warp (wei_ladder.cu, ed_ladder.cu): one field element per group, lane
+// g holding words g*WPL .. g*WPL + WPL - 1 of it.
 //
 // The representation and contracts are field256.cuh's (8 x 32-bit words,
-// R = 2^256 Montgomery domain, fully reduced to [0, p); gfe_mul needs
-// a * b < p * 2^256), with the words spread over the group instead of
-// held by one thread. Nothing is kept in memory: every function works in
-// registers, and lanes exchange words by shuffle within the group.
+// fully reduced to [0, p); gfe_mul, the R = 2^256 Montgomery product,
+// needs a * b < p * 2^256), with the words spread over the group instead
+// of held by one thread. Every gfe_* result is < p and the kernels
+// multiply only such results and host constants < p, so a * b < p^2 <
+// p * 2^256: the contract holds for the secp moduli close to 2^256 and
+// for p = 2^255 - 19 (where a + b < 2p < 2^256 never carries out of the
+// top word either). gfe_add and gfe_sub serve any domain; the Edwards
+// kernels (ed_ladder.cu) multiply with gfe_mul_25519, the special-form
+// product mod 2^255 - 19 of plain (not Montgomery) values. Nothing is
+// kept in memory: every function works in registers, and lanes exchange
+// words by shuffle within the group.
 //
 // Carries between lanes. Each operation first adds (or subtracts) within
 // every lane, then resolves the carries between lanes once: a lane reports
@@ -23,10 +30,12 @@
 // Cost per lane: gfe_mul is 8 rounds of 3 shuffles (b[i] broadcast, m
 // broadcast, the accumulator's shift down one lane) and 2 * WPL 32x32->64
 // multiply-adds, then 1 shuffle and 4 ballots (the carries, the
-// conditional subtract of p); gfe_add and gfe_sub 4 ballots each. TPI = 4
-// serves two words per lane with the same shuffles and ran 5-16% faster
-// than TPI = 8 on the H100 (PERF.md). ptxas already overlaps independent
-// calls: interleaving them by hand measured slower.
+// conditional subtract of p); gfe_mul_25519 16 independent shuffles (the
+// operands), 8 * WPL products, 2 shuffles and 4 ballots; gfe_add and
+// gfe_sub 4 ballots each. TPI = 4 serves two words per lane with the same
+// shuffles and ran 5-16% faster than TPI = 8 on the H100 (PERF.md);
+// gfe_mul_25519 needs WPL >= 2. ptxas already overlaps independent calls:
+// interleaving them by hand measured slower.
 //
 // Every lane of the warp must reach every call (the shuffles and ballots
 // use the full mask): no call may sit behind a lane-dependent branch.
@@ -35,7 +44,7 @@
 
 #include "field256.cuh"
 
-#define TPI 4                        // lanes per field element: 4 or 8
+#define TPI 4                        // lanes per field element: 4 (8: not gfe_mul_25519)
 #define WPL (NW / TPI)               // words per lane
 #define FULL_WARP 0xffffffffu
 
@@ -215,6 +224,98 @@ __device__ __forceinline__ void gfe_mul(uint32_t r[WPL], const uint32_t a[WPL],
     const uint32_t cin = group_carries(gen, !gen && ones == FULL_WARP, F);
     add_bit(t, (cin >> F.g) & 1);
     gfe_cond_sub_p(r, t, (cin >> TPI) & 1, F);
+}
+
+// Product a*b mod p for p = 2^255 - 19 in the plain domain (no 2^-256;
+// a, b < p, result < p), with no serial round. Every lane gathers all of
+// a and b by shuffle, a rotated to start at its own words
+// (a'_k = a_((g*WPL + k) mod 8)), and forms its own columns c = g*WPL + j
+// of the product with the high half folded in (2^256 = 38 mod p):
+//   f_c = sum_k m_k a'_k b_((j - k) mod 8),  m_k = 38 where the term lies
+// in the high half (g*WPL + k < 8 and k > j), else 1,
+// 8 products per column, the same work in every lane. The factor of a
+// product group k in [h*WPL, h*WPL + WPL) with h >= 1 is the lane's m_h
+// = 38 if g + h < TPI, so a lane sums each group first and scales it
+// once. Each lane's sum_j f_c 2^(32j) (< 2^(32 WPL + 42)) keeps its WPL
+// words and hands the rest to the lane above; the top lane splits at
+// 2^255 and hands lane 0 19 times the rest. One carry resolution leaves
+// the value below 2^255 + 2^235 < 2p, one conditional subtract below p.
+__device__ __forceinline__ void gfe_mul_25519(uint32_t r[WPL], const uint32_t a[WPL],
+                                              const uint32_t b[WPL], const GroupField& F) {
+    static_assert(WPL >= 2, "a lane's carry to the next must fit its words");
+    uint32_t A[NW], B[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+        A[k] = __shfl_sync(FULL_WARP, a[k % WPL], (F.g + k / WPL) % TPI, TPI);
+        B[k] = __shfl_sync(FULL_WARP, b[k % WPL], k / WPL, TPI);
+    }
+    uint32_t L[WPL + 2];   // the lane's sum; below 2^(32 WPL + 42)
+#pragma unroll
+    for (int w = 0; w < WPL + 2; ++w) L[w] = 0;
+#pragma unroll
+    for (int j = 0; j < WPL; ++j) {
+        uint64_t w0 = 0, w1 = 0, w2 = 0;   // f_c by 32-bit words of its terms
+#pragma unroll
+        for (int h = 0; h < TPI; ++h) {
+            uint64_t s = 0;    // the group's sum, with its carry word s2
+            uint32_t s2 = 0;
+#pragma unroll
+            for (int k = h * WPL; k < h * WPL + WPL; ++k) {
+                const uint64_t pr = (uint64_t)A[k] * B[(j - k + NW) % NW];
+                if (h == 0) {    // factor known here: 38 for k > j
+                    const uint32_t m = k > j ? 38u : 1u;
+                    w0 += (uint64_t)(uint32_t)pr * m;
+                    w1 += (pr >> 32) * m;
+                } else {
+                    s += pr;
+                    s2 += s < pr;
+                }
+            }
+            if (h > 0) {
+                const uint32_t m = F.g + h < TPI ? 38u : 1u;
+                w0 += (uint64_t)(uint32_t)s * m;
+                w1 += (s >> 32) * m;
+                w2 += (uint64_t)s2 * m;
+            }
+        }
+        w1 += w0 >> 32;
+        w2 += w1 >> 32;
+        const uint32_t f[4] = {(uint32_t)w0, (uint32_t)w1, (uint32_t)w2, (uint32_t)(w2 >> 32)};
+        uint64_t z = 0;
+#pragma unroll
+        for (int w = j; w < WPL + 2; ++w) {
+            z += (uint64_t)L[w] + (w - j < 4 ? f[w - j] : 0u);
+            L[w] = (uint32_t)z;
+            z >>= 32;
+        }
+    }
+    uint64_t hi = (uint64_t)L[WPL] | ((uint64_t)L[WPL + 1] << 32);
+    if (F.g == TPI - 1) {    // split at 2^255
+        hi = (hi << 1) | (L[WPL - 1] >> 31);
+        L[WPL - 1] &= 0x7fffffffu;
+    }
+    const int below = (F.g + TPI - 1) % TPI;
+    uint64_t in = __shfl_sync(FULL_WARP, (uint32_t)hi, below, TPI) |
+                  ((uint64_t)__shfl_sync(FULL_WARP, (uint32_t)(hi >> 32), below, TPI) << 32);
+    if (F.g == 0) in *= 19;   // the top lane's rest, at 2^255
+    uint32_t t[WPL];
+    uint64_t z = (uint64_t)L[0] + (uint32_t)in;
+    t[0] = (uint32_t)z;
+    z = (z >> 32) + L[1] + (in >> 32);
+    t[1] = (uint32_t)z;
+    z >>= 32;
+    uint32_t ones = t[0] & t[1];
+#pragma unroll
+    for (int k = 2; k < WPL; ++k) {
+        z += L[k];
+        t[k] = (uint32_t)z;
+        z >>= 32;
+        ones &= t[k];
+    }
+    const bool gen = z != 0;
+    const uint32_t cin = group_carries(gen, !gen && ones == FULL_WARP, F);
+    add_bit(t, (cin >> F.g) & 1);
+    gfe_cond_sub_p(r, t, 0, F);
 }
 
 // ---------------------------------------------------------------------------

@@ -43,7 +43,7 @@
 #include <cuda_runtime.h>
 #include <string.h>
 
-#include "field256_group.cuh"
+#include "group_points.cuh"
 
 #define PT (3 * NW)          // words per projective point
 #define LPT (3 * WPL)        // a point's words in one lane
@@ -236,29 +236,7 @@ __device__ __forceinline__ void wei_dbl(uint32_t out[LPT], const uint32_t p1[LPT
 }
 
 // ---------------------------------------------------------------------------
-// points: tables, entry and exit
-
-// A per-lane point table in shared memory: word i of entry e of the lane
-// at warp lane l sits at (e * LPT + i) * 32 + l, so every warp access
-// covers 32 consecutive words (no bank conflict) whatever entry each
-// group reads. A lane reads only the words it wrote: no barrier.
-__device__ __forceinline__ void tab_put(uint32_t* tab, int e, const uint32_t pt[LPT]) {
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int i = 0; i < LPT; ++i) tab[(e * LPT + i) * 32 + lane] = pt[i];
-}
-
-__device__ __forceinline__ void tab_get(uint32_t pt[LPT], const uint32_t* tab, int e) {
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int i = 0; i < LPT; ++i) pt[i] = tab[(e * LPT + i) * 32 + lane];
-}
-
-// this lane's words of a constant point
-__device__ __forceinline__ void const_point(uint32_t pt[LPT], const uint32_t w[PT], int g) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) lane_words(pt + c * WPL, w + c * NW, g);
-}
+// points: entry and exit (tables: group_points.cuh)
 
 __device__ __forceinline__ void load_q(uint32_t q[LPT], const int32_t* qx, const int32_t* qy,
                                        int batch, int col, const CurveParams& P,
@@ -274,14 +252,6 @@ __device__ __forceinline__ void store_pt(int32_t* X, int32_t* Y, int32_t* Z,
     group_store_coord(X, acc, batch, col, live, P, F);
     group_store_coord(Y, acc + WPL, batch, col, live, P, F);
     group_store_coord(Z, acc + 2 * WPL, batch, col, live, P, F);
-}
-
-// the group's column; past the ragged edge a group computes on the last
-// column (every lane must reach every shuffle) and stores nothing
-__device__ __forceinline__ int group_col(int batch, bool* live) {
-    const int col = (blockIdx.x * BLOCK + threadIdx.x) / TPI;
-    *live = col < batch;
-    return *live ? col : batch - 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -310,27 +280,27 @@ wei_ladder_windowed_kernel(const CurveParams P, const int32_t* __restrict__ u1,
     uint32_t* qt = qsh[threadIdx.x / 32];
     const Curve C = curve_consts(P);
     bool live;
-    const int col = group_col(batch, &live);
+    const int col = group_col<BLOCK>(batch, &live);
 
     uint32_t acc[LPT], op[LPT];
 #pragma unroll
     for (int e = 0; e < 16; ++e) {   // unrolled: constant indices into P
-        const_point(op, P.g[e], C.F.g);
-        tab_put(gt, e, op);
+        const_point<3>(op, P.g[e], C.F.g);
+        tab_put<LPT>(gt, e, op);
     }
-    const_point(op, P.g[0], C.F.g);
-    tab_put(qt, 0, op);                             // infinity
+    const_point<3>(op, P.g[0], C.F.g);
+    tab_put<LPT>(qt, 0, op);                        // infinity
     load_q(acc, qx, qy, batch, col, P, C.F);
-    tab_put(qt, 1, acc);
+    tab_put<LPT>(qt, 1, acc);
 #pragma unroll 1
     for (int step = 0; step < W_STEPS; ++step) {
         if (step < W_BUILD) {
-            tab_get(op, qt, 1);
+            tab_get<LPT>(op, qt, 1);
         } else {
             const int win = (step - W_BUILD) / 6;          // 0 = top window
             const int kind = (step - W_BUILD) % 6;         // 0-3 double, 4 G, 5 Q
             if (kind < 4) {
-                if (step == W_BUILD) const_point(acc, P.g[0], C.F.g);
+                if (step == W_BUILD) const_point<3>(acc, P.g[0], C.F.g);
                 wei_dbl<A0>(acc, acc, C);
                 continue;
             }
@@ -338,10 +308,10 @@ wei_ladder_windowed_kernel(const CurveParams P, const int32_t* __restrict__ u1,
             const int shift = 8 - 4 * (win % 3);
             const int32_t* u = kind == 4 ? u1 : u2;
             const int d = ((uint32_t)u[limb * batch + col] >> shift) & 15;
-            tab_get(op, kind == 4 ? gt : qt, d);
+            tab_get<LPT>(op, kind == 4 ? gt : qt, d);
         }
         wei_add<A0>(acc, acc, op, C);
-        if (step < W_BUILD) tab_put(qt, step + 2, acc);
+        if (step < W_BUILD) tab_put<LPT>(qt, step + 2, acc);
     }
     store_pt(X, Y, Z, acc, batch, col, live, P, C.F);
 }
@@ -361,31 +331,31 @@ wei_ladder_kernel(const CurveParams P, const int32_t* __restrict__ u1,
     uint32_t* tab = tsh[threadIdx.x / 32];
     const Curve C = curve_consts(P);
     bool live;
-    const int col = group_col(batch, &live);
+    const int col = group_col<BLOCK>(batch, &live);
 
     uint32_t acc[LPT], op[LPT];
-    const_point(op, P.g[0], C.F.g);
-    tab_put(tab, 0, op);
-    const_point(acc, P.g[1], C.F.g);
-    tab_put(tab, 1, acc);
+    const_point<3>(op, P.g[0], C.F.g);
+    tab_put<LPT>(tab, 0, op);
+    const_point<3>(acc, P.g[1], C.F.g);
+    tab_put<LPT>(tab, 1, acc);
     load_q(op, qx, qy, batch, col, P, C.F);
-    tab_put(tab, 2, op);
+    tab_put<LPT>(tab, 2, op);
 #pragma unroll 1
     for (int step = 0; step < P_STEPS; ++step) {
         if (step > 0) {
             const int bit = NLIMB * 12 - 1 - (step - 1) / 2;
             if ((step - 1) % 2 == 0) {
-                if (step == 1) const_point(acc, P.g[0], C.F.g);
+                if (step == 1) const_point<3>(acc, P.g[0], C.F.g);
                 wei_dbl<A0>(acc, acc, C);
                 continue;
             }
             const int limb = bit / 12, sh = bit % 12;
             const int idx = (((uint32_t)u1[limb * batch + col] >> sh) & 1) |
                             ((((uint32_t)u2[limb * batch + col] >> sh) & 1) << 1);
-            tab_get(op, tab, idx);
+            tab_get<LPT>(op, tab, idx);
         }
         wei_add<A0>(acc, acc, op, C);
-        if (step == 0) tab_put(tab, 3, acc);
+        if (step == 0) tab_put<LPT>(tab, 3, acc);
     }
     store_pt(X, Y, Z, acc, batch, col, live, P, C.F);
 }

@@ -135,6 +135,7 @@ def test_library_path_keys_on_shared_headers(tmp_path, monkeypatch):
     assert [s.name for s in build.sources()] == ["ed_ladder.cu", "wei_ladder.cu"]
     assert (build.CSRC_DIR / "field256.cuh").exists()
     assert (build.CSRC_DIR / "field256_group.cuh").exists()
+    assert (build.CSRC_DIR / "group_points.cuh").exists()
 
 
 def test_windowed_default_per_curve():
@@ -187,27 +188,33 @@ def test_kernel_params_layout(name):
 
 
 def test_ed_kernel_params_layout():
-    """The constants the Edwards kernel receives: p, 2^256 mod p, 2^248,
-    2^264 mod p, 2d in the 2^256 Montgomery domain, -p^-1 mod 2^32, and
-    the B table (entry 0 = the identity (0, 1, 1, 0), entry j = j*B as
-    (x, y, 1, xy)) — 553 words, checked against refmath; exact."""
+    """The constants the Edwards kernel receives: p, 2^256 mod p (the
+    entry fold), 2^-8 and 2^520 mod p (the 2^264 domain to the kernel's
+    plain one and back, through Montgomery multiplies), 2d, -p^-1 mod
+    2^32, and the B table cached for the mixed add (entry 0 = the
+    identity as (1, 1, 0), entry j = j*B as (y - x, y + x, 2d*x*y)),
+    all plain values mod p — 425 words, checked against refmath; exact."""
     w = cuda_ec.ed_kernel_params(T_ED)
-    assert w.dtype == np.uint32 and w.size == 5 * 8 + 1 + 16 * 32 == 553
+    assert w.dtype == np.uint32 and w.size == 5 * 8 + 1 + 16 * 24 == 425
 
     def word_int(off):
         return sum(int(v) << (32 * i) for i, v in enumerate(w[off : off + 8]))
 
     p, R = T_ED.p, 1 << 256
+    c_in, c_out = word_int(16), word_int(24)
+    assert c_in * (1 << 264) * pow(R, -1, p) % p == 1            # 2^264 domain -> plain
+    assert c_out * pow(R, -1, p) % p == (1 << 264) % p           # plain -> 2^264 domain
     assert [word_int(8 * k) for k in range(5)] == [
-        p, R % p, 1 << 248, (1 << 264) % p, 2 * T_ED.d * R % p
+        p, R % p, pow(2, -8, p), pow(2, 520, p), 2 * T_ED.d % p
     ]
     assert (int(w[40]) * p) % (1 << 32) == (1 << 32) - 1
     b = 41
-    assert [word_int(b + 8 * c) for c in range(4)] == [0, R % p, R % p, 0]
+    assert [word_int(b + 8 * c) for c in range(3)] == [1, 1, 0]
     P = (0, 1)
     for j in range(1, 16):
         P = refmath.ed_add(T_ED, P, (T_ED.gx, T_ED.gy))
-        e = b + 32 * j
-        assert [word_int(e + 8 * c) for c in range(4)] == [
-            P[0] * R % p, P[1] * R % p, R % p, P[0] * P[1] * R % p
+        x, y = P
+        e = b + 24 * j
+        assert [word_int(e + 8 * c) for c in range(3)] == [
+            (y - x) % p, (y + x) % p, 2 * T_ED.d * x * y % p
         ]

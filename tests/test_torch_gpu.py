@@ -67,19 +67,19 @@ def test_kernel_matches_plain(cuda, curve, kind, B):
 
 
 @pytest.mark.parametrize("kind", ["plain", "windowed"])
-def test_ed_kernel_matches_plain(cuda, kind):
-    """Each Edwards kernel equals its plain version at B=130 (a ragged
-    second block): s = 0, k = 0, A = identity, s = L, s + L, A of order
-    2, scalars using all 264 digit bits; canonical digits, X*Y == Z*T;
-    exact after normalisation."""
+@pytest.mark.parametrize("B", [130, 1])
+def test_ed_kernel_matches_plain(cuda, kind, B):
+    """Each Edwards kernel equals its plain version at B=130 and B=1
+    (partial groups, warps and blocks): s = 0, k = 0, A = identity,
+    s = L, s + L, A of order 2, scalars using all 264 digit bits;
+    canonical digits, X*Y == Z*T; exact after normalisation."""
     c = ED25519
     rng = random.Random(2)
-    B = 130
     base = (c.gx, c.gy)
     pts = [refmath.ed_mul(c, rng.randrange(1, c.L), base) for _ in range(4)]
-    ss = [0, 5, 9, c.L, c.L + 3, 11] + [rng.getrandbits(264 if i % 5 == 0 else 256) for i in range(B - 6)]
-    ks = [7, 0, 4, 8, 6, 13] + [rng.randrange(c.L) for _ in range(B - 6)]
-    As = [pts[0], pts[1], (0, 1), pts[2], pts[3], (0, c.p - 1)] + [pts[i % 4] for i in range(B - 6)]
+    ss = ([0, 5, 9, c.L, c.L + 3, 11] + [rng.getrandbits(264 if i % 5 == 0 else 256) for i in range(124)])[:B]
+    ks = ([7, 0, 4, 8, 6, 13] + [rng.randrange(c.L) for _ in range(124)])[:B]
+    As = ([pts[0], pts[1], (0, 1), pts[2], pts[3], (0, c.p - 1)] + [pts[i % 4] for i in range(124)])[:B]
     dev = [torch.from_numpy(L.ints_to_batch(v)).to(cuda) for v in (ss, ks)]
     ax = M.to_mont(c.fp, torch.from_numpy(L.ints_to_batch([a[0] for a in As])).to(cuda))
     ay = M.to_mont(c.fp, torch.from_numpy(L.ints_to_batch([a[1] for a in As])).to(cuda))
@@ -95,5 +95,7 @@ def test_ed_kernel_matches_plain(cuda, kind):
     assert all((x * y - z * t) % c.p == 0 for x, y, z, t in zip(X, Y, Z, T))
     g = _affine(c, got[:3])
     assert g == _affine(c, want[:3])
-    assert g[2] == refmath.ed_mul(c, 9, base)            # A = identity
-    assert g[3] == refmath.ed_mul(c, 8, pts[2])          # s = L: s*B = 0
+    assert g[0] == refmath.ed_mul(c, 7, pts[0])          # s = 0
+    if B > 3:
+        assert g[2] == refmath.ed_mul(c, 9, base)        # A = identity
+        assert g[3] == refmath.ed_mul(c, 8, pts[2])      # s = L: s*B = 0

@@ -30,13 +30,14 @@ def test_ast_scan_finds_no_banned_import():
     corda_tpu...` anywhere in the port or chip_smoke.py (corda_tpu_torch
     is allowed); the ed25519 module is among those scanned, and csrc
     holds only the two kernel sources and their headers (the one-thread
-    field256.cuh, the group-cooperative field256_group.cuh)."""
+    field256.cuh, the group-cooperative field256_group.cuh, the point
+    tables of group_points.cuh)."""
     offenders = []
     files = _modules()
     assert len(files) >= 16
     assert PKG / "crypto" / "eddsa.py" in files
     assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
-        "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "wei_ladder.cu"
+        "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh", "wei_ladder.cu"
     ]
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -9,15 +9,17 @@ body on a small batch. The results must equal refmath after
 normalisation and be canonical 12-bit digits: exact, as integer
 arithmetic is.
 
-The Weierstrass kernels spread a signature over a group of TPI lanes
+Every kernel spreads a signature over a group of TPI lanes
 (`field256_group.cuh`). The shim runs each group's lanes as coroutines
 (ucontext), one group at a time, in turn: a lane that reaches a
 `__shfl*_sync`, `__ballot_sync` or `__syncwarp` deposits its value and
 passes to the next lane, so it reads only once every lane of the group
 has deposited, as on the card. A ballot's bits of the warp's other
 groups are noise, so a lane that fails to mask them out gets wrong
-carries. Groups never exchange data, so one group at a time suffices.
-The Edwards kernels (one signature per thread) run as groups of one.
+carries. Groups exchange no field words, so one group at a time
+suffices; the Edwards windowed kernel's constant B table, which thread
+0 writes for the whole block, is written before the first group's
+first exchange.
 
 It checks the field arithmetic, the carry resolution between lanes, the
 domain conversions, the table conventions, the schedules and the ragged
@@ -159,13 +161,17 @@ static void __syncwarp(uint32_t = 0xffffffffu) {
 """
 
 # per source: (params struct, its size in words, number of outputs,
-# plain kernel, windowed kernel); the Weierstrass kernels' instantiation
-# follows the curve's a, as corda_wei_ladder picks it
+# plain kernel, windowed kernel, field multiply); the Weierstrass
+# kernels' instantiation follows the curve's a, as corda_wei_ladder
+# picks it; their multiply is Montgomery (a*b*2^-256), the Edwards
+# kernels' special-form one plain (a*b)
 SOURCES = {
     "wei_ladder": ("CurveParams", 426, 3,
                    "(P.a_zero ? wei_ladder_kernel<true> : wei_ladder_kernel<false>)",
-                   "(P.a_zero ? wei_ladder_windowed_kernel<true> : wei_ladder_windowed_kernel<false>)"),
-    "ed_ladder": ("EdParams", 553, 4, "ed_ladder_kernel", "ed_ladder_windowed_kernel"),
+                   "(P.a_zero ? wei_ladder_windowed_kernel<true> : wei_ladder_windowed_kernel<false>)",
+                   "gfe_mul"),
+    "ed_ladder": ("EdParams", 425, 4, "ed_ladder_kernel", "ed_ladder_windowed_kernel",
+                  "gfe_mul_25519"),
 }
 
 MAIN = r"""
@@ -196,7 +202,7 @@ static void field_body() {
   lane_words(a, fa + 8 * c, F.g);
   lane_words(b, fb + 8 * c, F.g);
   switch (in[c]) {
-    case 0: gfe_mul(r, a, b, F); gfe_mul(s, b, a, F); break;
+    case 0: FIELD_MUL(r, a, b, F); FIELD_MUL(s, b, a, F); break;
     case 1: gfe_add(r, a, b, F); gfe_add(s, b, a, F); break;
     default: gfe_sub(r, a, b, F); gfe_sub(s, b, a, F); break;
   }
@@ -235,13 +241,14 @@ int main(int argc, char** argv) {
 
 
 def _build(cxx, name, d):
-    params, words, n_out, plain, windowed = SOURCES[name]
+    params, words, n_out, plain, windowed, mul = SOURCES[name]
     src = (CSRC_DIR / f"{name}.cu").read_text()
     src = src.split("// C interface")[0]
     src = src.replace("#include <cuda_runtime.h>", "")
     main = (MAIN.replace("PARAMS", params).replace("WORDS", str(words))
             .replace("NOUT", str(n_out)).replace("PLAIN", plain).replace("WINDOWED", windowed)
-            .replace("OUTS", ", ".join(f"o[{i}]" for i in range(n_out))))
+            .replace("OUTS", ", ".join(f"o[{i}]" for i in range(n_out)))
+            .replace("FIELD_MUL", mul))
     (d / f"{name}.cpp").write_text(SHIM + src + main)
     exe = d / name
     subprocess.run(
@@ -306,22 +313,34 @@ def _edge_operands(p: int, rng) -> list[int]:
     """Field elements whose sums, differences and products carry or
     borrow across every lane: 0, 1, p - 1, p - 2, runs of 0xFFFFFFFF
     words from the bottom (2^32k - 1) and from the top, 2^256 mod p,
-    halves of p, and a few random values."""
+    halves of p, and a few random values. For p = 2^255 - 19 also 19,
+    38 and values around 2^254 and 2^255 - 2^32k, whose sums with each
+    other and with p - 1 cross 2^255."""
     vals = {0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2, (1 << 256) % p, p - (1 << 256) % p}
     vals |= {(1 << (32 * k)) - 1 for k in range(1, 8)}
     vals |= {p - (1 << (32 * k)) for k in range(1, 8)}
     vals |= {((1 << 256) - (1 << (32 * k))) % p for k in range(1, 8)}
+    if p == ED25519.p:
+        vals |= {19, 38, 39, (1 << 254) - 1, 1 << 254, (1 << 254) + 19}
+        vals |= {(1 << 255) - (1 << (32 * k)) for k in range(1, 7)}
     vals |= {rng.randrange(p) for _ in range(4)}
     return sorted(v for v in vals if 0 <= v < p)
 
 
-@pytest.mark.parametrize("curve", [SECP256R1, SECP256K1], ids=["p256", "k1"])
-def test_group_field_ops_on_host_match_ints(emulator, curve):
-    """field256_group.cuh's gfe_mul, gfe_add and gfe_sub (a op b and
+@pytest.mark.parametrize(
+    "curve, source",
+    [(SECP256R1, "wei_ladder"), (SECP256K1, "wei_ladder"), (ED25519, "ed_ladder")],
+    ids=["p256", "k1", "ed25519"],
+)
+def test_group_field_ops_on_host_match_ints(emulator, curve, source):
+    """field256_group.cuh's multiply, gfe_add and gfe_sub (a op b and
     b op a), each lane of a group holding its words, on operands whose
     carries and borrows ripple across every lane (p - 1, words of
-    0xFFFFFFFF, a + b == p, a == b, 0): equal to Python ints for every
-    pair; exact."""
+    0xFFFFFFFF, a + b == p, a == b, 0; for ed25519 also 19, 38 and sums
+    crossing 2^255), built in the kernel source that uses the curve,
+    with its multiply (Montgomery gfe_mul for the secp curves,
+    special-form gfe_mul_25519 for ed25519): equal to Python ints for
+    every pair; exact."""
     p = curve.p
     rng = random.Random(5)
     vals = _edge_operands(p, rng)
@@ -329,7 +348,7 @@ def test_group_field_ops_on_host_match_ints(emulator, curve):
     cases = ([(0, a, b) for a, b in pairs] + [(1, a, b) for a, b in pairs]
              + [(1, a, (p - a) % p) for a in vals]                 # a + b == p
              + [(2, a, b) for a, b in pairs] + [(2, a, a) for a in vals])
-    rinv = pow(1 << 256, -1, p)
+    rinv = 1 if SOURCES[source][5] == "gfe_mul_25519" else pow(1 << 256, -1, p)
 
     def ref(op, a, b):
         return (a * b * rinv if op == 0 else a + b if op == 1 else a - b) % p
@@ -338,7 +357,8 @@ def test_group_field_ops_on_host_match_ints(emulator, curve):
     ops = np.array([op for op, _, _ in cases], dtype=np.uint32)
     a_w = np.array([_words(a) for _, a, _ in cases], dtype=np.uint32)
     b_w = np.array([_words(b) for _, _, b in cases], dtype=np.uint32)
-    out = _exec(emulator, "wei_ladder", 2, cuda_ec.kernel_params(curve), [ops, a_w, b_w], 16 * len(cases))
+    params = cuda_ec.ed_kernel_params(curve) if source == "ed_ladder" else cuda_ec.kernel_params(curve)
+    out = _exec(emulator, source, 2, params, [ops, a_w, b_w], 16 * len(cases))
     got = [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in out.view(np.uint32).reshape(-1, 8)]
     bad = [(c, g, w) for c, g, w in zip([c for c in cases for _ in (0, 1)], got, want) if g != w]
     assert not bad, bad[:4]
@@ -383,7 +403,8 @@ def test_ed_kernel_source_on_host_matches_refmath(emulator):
     k < L, s = 0, k = 0, A = identity, s = L, s + L, scalars using all
     264 digit bits, A of order 2 and of order 4, A given as the torch
     to_mont leaves it (lazy digits, rows 0-2 up to 2^264); canonical
-    output, X*Y == Z*T, and x = X/Z, y = Y/Z equal to refmath; exact."""
+    output, X*Y == Z*T, and x = X/Z, y = Y/Z equal to refmath; exact.
+    10 rows leave the block's last 6 groups past the ragged edge."""
     c = ED25519
     rng = random.Random(23)
     B = (c.gx, c.gy)

@@ -30,7 +30,26 @@ Phases (any failure raises and exits non-zero):
      reference of its distinct request. The launch counters are set to 0
      just before each path and read just after; each path must have
      launched its kernels;
-  6. print the kernel table as one JSON line, then the result line
+  6. the batching notary (corda_tpu_torch.node.notary) over
+     CudaBatchVerifier(batch_sizes=(4096,)): a 16,384-spend flush of
+     single-input Cash spends (testing/notary_fixture.py: 3 in 4
+     signers ed25519, 1 in 4 p256; 1 in 64 a flipped signature byte, 1
+     in 64 a double spend of the spend before it, 1 in 256 naming
+     another notary), through the service flow's entry (`process`) and
+     one `flush()`, for shards = 1 and 4 (ShardedUniquenessProvider), a
+     warm-up pass then a timed one, each with a fresh uniqueness
+     provider, degraded_fallback=False, and a fresh decode of the
+     spends' wire bytes (outside the timed window, so each pass pays the
+     transaction ids and Merkle roots itself). Every pass must answer each
+     spend as its label (the first spend of each double-spend pair
+     wins; the accepted count exact), the card's verdicts must equal
+     CpuBatchVerifier on 256 sampled rows (and reject exactly the
+     flipped ones), 8 notary signatures must verify against their
+     Merkle proofs, ed_ladder and wei_ladder_windowed must have
+     launched, and the notary must not have degraded. Prints
+     notarisations/s, the decode and flush walls, phase_seconds, host staging and
+     device seconds of the notary's dispatches and the launches;
+  7. print the kernel table as one JSON line, then the result line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
@@ -47,6 +66,10 @@ import time
 
 CHUNK = 4096
 FLUSH = 16384
+NOTARY_SPENDS = 16384
+NOTARY_SAMPLE = 256
+NOTARY_PASSES = ("warm-up", "timed")
+NOTARY_FIXTURE: dict = {}    # build_fixture's defaults: 1 in 64 bad, 1 in 256 wrong notary
 PARITY_B = 256
 RAGGED_B = 130
 PARITY_SIZES = (PARITY_B, RAGGED_B, 1)
@@ -550,6 +573,127 @@ def phase_main(device, report: dict) -> None:
             report[name].setdefault("launches", launches[name])
 
 
+def _check_notary(fx, svc, answers, calls, label: str) -> dict:
+    """Hold one notary pass to its fixture; returns the pass's dispatch
+    figures (host staging s, device s, rows)."""
+    import random as _random
+
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+    from corda_tpu_torch.testing.notary_fixture import answer_kind
+
+    kinds = [answer_kind(a) for a in answers]
+    bad = [i for i, (k, want) in enumerate(zip(kinds, fx.labels)) if k != want]
+    if bad:
+        i = bad[0]
+        raise RuntimeError(f"{label}: {len(bad)} answers differ from their labels; spend {i}: "
+                           f"{answers[i]!r}, label {fx.labels[i]}")
+    for i, want in enumerate(fx.labels):
+        if want == "conflict":   # the first spend of the pair won
+            if list(answers[i].conflict.values()) != [fx.spends[i - 1].id]:
+                raise RuntimeError(f"{label}: spend {i} lost to {answers[i].conflict}")
+    n_ok = fx.labels.count("ok")
+    if len(svc.uniqueness.committed) != n_ok:
+        raise RuntimeError(f"{label}: {len(svc.uniqueness.committed)} inputs committed, "
+                           f"{n_ok} accepted")
+    reqs = [r for rs, _ in calls for r in rs]
+    verdicts = [v for _, pv in calls for v in pv.result()]
+    if len(reqs) != len(verdicts) or verdicts.count(False) != fx.labels.count("invalid-signature"):
+        raise RuntimeError(f"{label}: the card rejected {verdicts.count(False)} of "
+                           f"{len(verdicts)} rows")
+    sample = sorted(_random.Random(len(reqs)).sample(range(len(reqs)), min(NOTARY_SAMPLE, len(reqs))))
+    if CpuBatchVerifier().verify_batch([reqs[i] for i in sample]) != [verdicts[i] for i in sample]:
+        raise RuntimeError(f"{label}: the card's verdicts differ from CpuBatchVerifier")
+    signed = [i for i, k in enumerate(kinds) if k == "ok"]
+    for i in signed[:: max(1, len(signed) // 8)][:8]:
+        if not answers[i].is_valid(fx.spends[i].id):   # schemes.verify_one over its proof
+            raise RuntimeError(f"{label}: the notary signature of spend {i} does not verify")
+    if svc.degraded or svc.metrics.counter("Notary.DegradedFlushes").count:
+        raise RuntimeError(f"{label}: the notary degraded: {svc.degraded_evidence}")
+    return {"stage_s": sum(pv.stage_seconds for _, pv in calls),
+            "device_s": sum(pv.device_seconds() for _, pv in calls), "rows": len(reqs)}
+
+
+def phase_notary(device, card: str) -> dict:
+    """The batching notary's flush over the card (phase 6); returns
+    {shards: notarisations/s of the last pass}."""
+    import os
+
+    os.environ["CORDA_TPU_NOTARY_PROFILE"] = "1"   # the notary's phase_seconds
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.crypto import cuda_ec
+    from corda_tpu_torch.crypto.batch_verifier import CudaBatchVerifier
+    from corda_tpu_torch.node.notary import (
+        BatchingNotaryService,
+        InMemoryUniquenessProvider,
+        ShardedUniquenessProvider,
+        finish_process,
+        run_process,
+    )
+    from corda_tpu_torch.testing.notary_fixture import build_fixture, notary_hub
+
+    spends = NOTARY_SPENDS
+    fx = build_fixture(spends, **NOTARY_FIXTURE)
+    counts = {k: fx.labels.count(k) for k in sorted(set(fx.labels))}
+    print(f"notary fixture: {spends} spends {counts}, {len(fx.issues)} issue transactions, "
+          f"built in {fx.build_seconds:.1f} s, signing by "
+          + ("OpenSSL" if fx.openssl else f"pure Python over {os.cpu_count()} processes"))
+
+    class Recording(CudaBatchVerifier):
+        """The notary's verifier, keeping each dispatch's requests and
+        handle for the checks."""
+
+        def verify_batch_async(self, requests):
+            pv = super().verify_batch_async(requests)
+            self.calls.append((list(requests), pv))
+            return pv
+
+    # the spends as a notary receives them: each pass decodes its own
+    # copy, so no transaction id or Merkle root is cached from the last
+    wire = [ser.encode(stx) for stx in fx.spends]
+    verifier = Recording(batch_sizes=(CHUNK,), device=device)
+    verifier.calls = []
+    hub = notary_hub(fx, verifier)
+    rates = {}
+    for shards in (1, 4):
+        def fresh():
+            return ShardedUniquenessProvider(shards) if shards > 1 else InMemoryUniquenessProvider()
+
+        svc = BatchingNotaryService(hub, fresh(), max_batch=spends, shards=shards,
+                                    shard_workers=False, shard_queue_depth=spends,
+                                    degraded_fallback=False)
+        for pass_name in NOTARY_PASSES:
+            label = f"notary shards={shards} {pass_name}"
+            svc.uniqueness = fresh()
+            verifier.calls = []
+            svc.phase_seconds.clear()
+            for counter in COUNTERS.values():
+                setattr(cuda_ec, counter, 0)
+            td = time.perf_counter()
+            received = [ser.decode(b) for b in wire]
+            t0 = time.perf_counter()
+            started = run_process([svc.process(stx, fx.requester) for stx in received])
+            t1 = time.perf_counter()
+            svc.flush()
+            t2 = time.perf_counter()
+            answers = finish_process(started)
+            wall = time.perf_counter() - t0
+            launches = {name: getattr(cuda_ec, counter) for name, counter in COUNTERS.items()}
+            disp = _check_notary(fx, svc, answers, verifier.calls, label)
+            for kernel in ("ed_ladder", "wei_ladder_windowed"):
+                if launches[kernel] == 0:
+                    raise RuntimeError(f"{kernel} was not launched on the {label} pass")
+            phases = {k: round(v, 6) for k, v in svc.phase_seconds.items()}
+            print(f"{label}: {spends} spends in {wall:.3f} s = {spends / wall:.1f} notarisations/s "
+                  f"(intake {t1 - t0:.3f} s, flush {t2 - t1:.3f} s; decode before it "
+                  f"{t0 - td:.3f} s); {card}")
+            print(f"{label} phase_seconds: {json.dumps(phases)}; {card}")
+            print(f"{label} dispatch: {len(verifier.calls)} calls, {disp['rows']} rows, "
+                  f"host staging {disp['stage_s']:.3f} s, device (chunk events, summed) "
+                  f"{disp['device_s']:.3f} s; launches {launches}; {card}")
+            rates[shards] = spends / wall
+    return rates
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the kernel table JSON here")
@@ -562,7 +706,8 @@ def main(argv=None) -> int:
         return 2
     from corda_tpu_torch.crypto import build
 
-    print(_smi("name,power.limit"))
+    card = _smi("name,power.limit")
+    print(card)
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -581,6 +726,7 @@ def main(argv=None) -> int:
     phase_timing(device, report)
     phase_prologue(device)
     phase_main(device, report)
+    phase_notary(device, card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,10 +1,12 @@
 """State carried across from the JAX package.
 
 The verification path has no weights; what crosses between corda_tpu
-and the port is data: [22, B] int32 limb arrays and verification
-requests. Requests convert by duck typing (`.key.scheme_id`,
-`.key.data`, `.signature`, `.message`), so this module imports nothing
-of corda_tpu.
+and the port is data: [22, B] int32 limb arrays, verification requests,
+and ledger objects as their canonical (CTS) bytes. Requests convert by
+duck typing (`.key.scheme_id`, `.key.data`, `.signature`, `.message`);
+ledger objects cross as the reference's serialized bytes, which the
+port's codec decodes into its own classes (equal class names give equal
+wire tags). This module imports nothing of corda_tpu.
 """
 
 from __future__ import annotations
@@ -12,8 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core import serialization as ser
+from .core.transactions import SignedTransaction
 from .crypto.batch_verifier import VerificationRequest
 from .crypto.limbs import NLIMB
+from .finance import cash as _cash  # noqa: F401  (registers the Cash wire classes)
 from .crypto.schemes import PublicKey
 
 
@@ -41,3 +46,15 @@ def requests_from_reference(reqs) -> list[VerificationRequest]:
         )
         for r in reqs
     ]
+
+
+def signed_transaction_from_reference(data: bytes) -> SignedTransaction:
+    """The reference's serialized SignedTransaction bytes (its
+    `corda_tpu.core.serialization.encode`) -> the port's
+    SignedTransaction (same id, same signatures)."""
+    stx = ser.decode(bytes(data))
+    if not isinstance(stx, SignedTransaction):
+        raise ser.SerializationError(
+            f"expected a SignedTransaction, got {type(stx).__name__}"
+        )
+    return stx

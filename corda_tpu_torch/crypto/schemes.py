@@ -153,6 +153,24 @@ class PublicKey:
     scheme_id: int
     data: bytes
 
+    def __hash__(self) -> int:
+        # keys live in hot sets and dicts (required signers, identity
+        # and key management): memoised, as the reference does
+        h = self.__dict__.get("_hash")
+        if h is None:
+            h = hash((self.scheme_id, self.data))
+            object.__setattr__(self, "_hash", h)
+        return h
+
+    def fingerprint(self) -> bytes:
+        """SHA-256 of scheme id || key bytes (memoised): the identity
+        service's key index."""
+        fp = self.__dict__.get("_fp")
+        if fp is None:
+            fp = hashlib.sha256(bytes([self.scheme_id]) + self.data).digest()
+            object.__setattr__(self, "_fp", fp)
+        return fp
+
     def __repr__(self) -> str:
         name = CODE_NAMES.get(self.scheme_id, str(self.scheme_id))
         return f"PublicKey({name}, {self.data.hex()[:16]}…)"

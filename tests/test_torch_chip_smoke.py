@@ -125,3 +125,42 @@ def test_ed_inputs_at_parity_sizes(batch):
     assert len(ss) == len(ks) == len(As) == batch and ss[0] == 0
     if batch > 3:
         assert As[2] == (0, 1) and ss[3] == c.L
+
+
+def test_notary_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.phase_notary end to end at a small size on the CPU:
+    the kernels' plain versions stand in for the kernels and count a
+    launch each, so the phase's checks (answers against labels, the
+    card's verdicts against CpuBatchVerifier, notary signatures, the
+    launches of ed_ladder and wei_ladder_windowed, no degraded flush)
+    all run."""
+    import torch
+
+    from corda_tpu_torch.crypto import cuda_ec
+
+    for name, counter in cs.COUNTERS.items():
+        # the phase leaves its counts behind: restore them afterwards,
+        # for the tests that read the counters later in this process
+        monkeypatch.setattr(cuda_ec, counter, getattr(cuda_ec, counter))
+        plain = getattr(cuda_ec, name + "_plain")
+
+        def counted(*args, _plain=plain, _counter=counter):
+            setattr(cuda_ec, _counter, getattr(cuda_ec, _counter) + 1)
+            return _plain(*args)
+
+        monkeypatch.setattr(cuda_ec, name + "_plain", counted)
+    monkeypatch.setenv("CORDA_TPU_NOTARY_PROFILE", "1")
+    saved_threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # faster on 16-row tensors; spares the other workers
+    monkeypatch.setattr(cs, "NOTARY_SPENDS", 16)
+    monkeypatch.setattr(cs, "CHUNK", 16)
+    monkeypatch.setattr(cs, "NOTARY_PASSES", ("timed",))
+    monkeypatch.setattr(cs, "NOTARY_FIXTURE", dict(
+        outputs_per_issue=8, bad_every=8, wrong_notary_every=16, owners_per_scheme=4, workers=1))
+    try:
+        rates = cs.phase_notary(torch.device("cpu"), "cpu rehearsal")
+    finally:
+        torch.set_num_threads(saved_threads)
+    assert set(rates) == {1, 4}
+    out = capsys.readouterr().out
+    assert "notary shards=4 timed phase_seconds" in out and "'ed_ladder': 0" not in out

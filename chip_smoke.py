@@ -6,7 +6,11 @@
 Phases (any failure raises and exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from corda_tpu_torch/csrc with nvcc (one
-     process per source, all started together);
+     process per source, all started together) and, beside them, the
+     native host library (corda_tpu_torch/native/cts_hash.cpp: the CTS
+     codec, SHA-256, Merkle trees, the staging sweeps and the asset
+     sweep) with g++; print the compiler, the seconds the build took and
+     whether the CPU takes the SHA-NI path;
   3. print each kernel's registers, stack, static shared memory and
      resident warps per SM (CUDA runtime); hold each ladder kernel
      against its plain torch version on the card — the Weierstrass
@@ -48,8 +52,23 @@ Phases (any failure raises and exits non-zero):
      Merkle proofs, ed_ladder and wei_ladder_windowed must have
      launched, and the notary must not have degraded. Prints
      notarisations/s, the decode and flush walls, phase_seconds, host staging and
-     device seconds of the notary's dispatches and the launches;
-  7. print the kernel table as one JSON line, then the result line
+     device seconds of the notary's dispatches and the launches. Before
+     the passes, outside their windows, every spend's wire bytes are
+     encoded again by the native and the Python codec, and decoded by
+     each: equal bytes, equal transaction ids (native tree against the
+     Python tree over Python encodings) and equal Merkle roots over the
+     ids, or the script raises; the per-spend times of both are printed;
+  7. every scheme and attachment code: a flush of the first 64 phase-6
+     spends plus spends with an added RSA-2048 signature (one flipped),
+     an added SPHINCS-256 signature (one flipped) and outputs under a
+     contract that travels only as an attachment (one spend satisfies it,
+     one breaks it) — RSA and SPHINCS rows verified on the host in the
+     same dispatch, the contract run in the sandbox. Every answer must
+     equal its label (the reference's answer, held by
+     tests/test_torch_chip_smoke.py on the CPU), the verdicts equal
+     CpuBatchVerifier, ed_ladder and wei_ladder_windowed launch, and no
+     flush degrades; prints host_rows and host_seconds;
+  8. print the kernel table as one JSON line, then the result line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
@@ -59,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from concurrent.futures import ThreadPoolExecutor
 import random
 import subprocess
 import sys
@@ -70,6 +90,8 @@ NOTARY_SPENDS = 16384
 NOTARY_SAMPLE = 256
 NOTARY_PASSES = ("warm-up", "timed")
 NOTARY_FIXTURE: dict = {}    # build_fixture's defaults: 1 in 64 bad, 1 in 256 wrong notary
+SCHEME_BASE = 64             # phase 7: phase-6 spends beside the every-scheme ones
+SCHEME_BATCHES = (128, 4096)
 PARITY_B = 256
 RAGGED_B = 130
 PARITY_SIZES = (PARITY_B, RAGGED_B, 1)
@@ -573,6 +595,81 @@ def phase_main(device, report: dict) -> None:
             report[name].setdefault("launches", launches[name])
 
 
+def _recording_verifier(batch_sizes, device):
+    """A CudaBatchVerifier that keeps each dispatch's requests and handle
+    (in `.calls`) for the checks."""
+    from corda_tpu_torch.crypto.batch_verifier import CudaBatchVerifier
+
+    class Recording(CudaBatchVerifier):
+        def verify_batch_async(self, requests):
+            pv = super().verify_batch_async(requests)
+            self.calls.append((list(requests), pv))
+            return pv
+
+    verifier = Recording(batch_sizes=batch_sizes, device=device)
+    verifier.calls = []
+    return verifier
+
+
+def _zero_counters() -> None:
+    from corda_tpu_torch.crypto import cuda_ec
+
+    for counter in COUNTERS.values():
+        setattr(cuda_ec, counter, 0)
+
+
+def _read_counters() -> dict:
+    from corda_tpu_torch.crypto import cuda_ec
+
+    return {name: getattr(cuda_ec, counter) for name, counter in COUNTERS.items()}
+
+
+def _check_codecs(wire: list, card: str) -> None:
+    """Phase 6's codec check, outside the timed passes: the native and
+    the Python codec on every spend's wire bytes. Raises on any
+    difference in bytes, transaction ids or Merkle roots; prints each
+    path's seconds per spend."""
+    import hashlib
+
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.crypto import merkle
+    from corda_tpu_torch.crypto.hashes import SecureHash
+
+    def py_id(wtx):
+        return merkle.merkle_root_py([
+            SecureHash(hashlib.sha256(ser.encode_py([g, i, c])).digest())
+            for g, i, c in wtx.component_leaves()])
+
+    n = len(wire)
+    t0 = time.perf_counter()
+    nat = [ser.decode(b) for b in wire]
+    t1 = time.perf_counter()
+    nat_ids = [stx.id for stx in nat]
+    t2 = time.perf_counter()
+    nat_wire = [ser.encode(stx) for stx in nat]
+    t3 = time.perf_counter()
+    py = [ser.decode_py(b) for b in wire]
+    t4 = time.perf_counter()
+    py_ids = [py_id(stx.wtx) for stx in py]
+    t5 = time.perf_counter()
+    py_wire = [ser.encode_py(stx) for stx in py]
+    t6 = time.perf_counter()
+    for i in range(n):
+        if not (nat_wire[i] == py_wire[i] == wire[i]):
+            raise RuntimeError(f"codec check: spend {i} re-encodes differently (native/Python)")
+        if nat_ids[i] != py_ids[i]:
+            raise RuntimeError(f"codec check: spend {i} id {nat_ids[i]} (native) != {py_ids[i]} (Python)")
+    root, proofs = merkle.single_leaf_proofs(nat_ids)
+    root_py, proofs_py = merkle.single_leaf_proofs_py(py_ids)
+    if root != root_py or root != merkle.merkle_root_py(py_ids) or proofs != proofs_py:
+        raise RuntimeError("codec check: the Merkle root or proofs over the ids differ (native/Python)")
+    us = 1e6 / n
+    print(f"codec check: {n} spends byte-equal, ids equal, root over the ids "
+          f"{root.bytes_.hex()[:16]} equal; us per spend native / Python: decode "
+          f"{(t1 - t0) * us:.1f} / {(t4 - t3) * us:.1f}, id walk {(t2 - t1) * us:.1f} / "
+          f"{(t5 - t4) * us:.1f}, encode {(t3 - t2) * us:.1f} / {(t6 - t5) * us:.1f}; {card}")
+
+
 def _check_notary(fx, svc, answers, calls, label: str) -> dict:
     """Hold one notary pass to its fixture; returns the pass's dispatch
     figures (host staging s, device s, rows)."""
@@ -613,15 +710,13 @@ def _check_notary(fx, svc, answers, calls, label: str) -> dict:
             "device_s": sum(pv.device_seconds() for _, pv in calls), "rows": len(reqs)}
 
 
-def phase_notary(device, card: str) -> dict:
+def phase_notary(device, card: str) -> tuple:
     """The batching notary's flush over the card (phase 6); returns
-    {shards: notarisations/s of the last pass}."""
+    ({shards: notarisations/s of the last pass}, the fixture)."""
     import os
 
     os.environ["CORDA_TPU_NOTARY_PROFILE"] = "1"   # the notary's phase_seconds
     from corda_tpu_torch.core import serialization as ser
-    from corda_tpu_torch.crypto import cuda_ec
-    from corda_tpu_torch.crypto.batch_verifier import CudaBatchVerifier
     from corda_tpu_torch.node.notary import (
         BatchingNotaryService,
         InMemoryUniquenessProvider,
@@ -638,20 +733,11 @@ def phase_notary(device, card: str) -> dict:
           f"built in {fx.build_seconds:.1f} s, signing by "
           + ("OpenSSL" if fx.openssl else f"pure Python over {os.cpu_count()} processes"))
 
-    class Recording(CudaBatchVerifier):
-        """The notary's verifier, keeping each dispatch's requests and
-        handle for the checks."""
-
-        def verify_batch_async(self, requests):
-            pv = super().verify_batch_async(requests)
-            self.calls.append((list(requests), pv))
-            return pv
-
     # the spends as a notary receives them: each pass decodes its own
     # copy, so no transaction id or Merkle root is cached from the last
     wire = [ser.encode(stx) for stx in fx.spends]
-    verifier = Recording(batch_sizes=(CHUNK,), device=device)
-    verifier.calls = []
+    _check_codecs(wire, card)
+    verifier = _recording_verifier((CHUNK,), device)
     hub = notary_hub(fx, verifier)
     rates = {}
     for shards in (1, 4):
@@ -666,8 +752,7 @@ def phase_notary(device, card: str) -> dict:
             svc.uniqueness = fresh()
             verifier.calls = []
             svc.phase_seconds.clear()
-            for counter in COUNTERS.values():
-                setattr(cuda_ec, counter, 0)
+            _zero_counters()
             td = time.perf_counter()
             received = [ser.decode(b) for b in wire]
             t0 = time.perf_counter()
@@ -677,7 +762,7 @@ def phase_notary(device, card: str) -> dict:
             t2 = time.perf_counter()
             answers = finish_process(started)
             wall = time.perf_counter() - t0
-            launches = {name: getattr(cuda_ec, counter) for name, counter in COUNTERS.items()}
+            launches = _read_counters()
             disp = _check_notary(fx, svc, answers, verifier.calls, label)
             for kernel in ("ed_ladder", "wei_ladder_windowed"):
                 if launches[kernel] == 0:
@@ -691,7 +776,76 @@ def phase_notary(device, card: str) -> dict:
                   f"host staging {disp['stage_s']:.3f} s, device (chunk events, summed) "
                   f"{disp['device_s']:.3f} s; launches {launches}; {card}")
             rates[shards] = spends / wall
-    return rates
+    return rates, fx
+
+
+def phase_schemes(device, card: str, fx) -> dict:
+    """Phase 7: one notary flush over every scheme and over attachment
+    code (module docstring); returns the launches of its run."""
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.crypto.batch_verifier import HOST_SCHEMES, CpuBatchVerifier
+    from corda_tpu_torch.node.notary import (
+        BatchingNotaryService,
+        InMemoryUniquenessProvider,
+        finish_process,
+        run_process,
+    )
+    from corda_tpu_torch.testing.notary_fixture import (
+        answer_kind,
+        build_scheme_fixture,
+        notary_hub,
+    )
+
+    t0 = time.perf_counter()
+    rsa = schemes.generate_keypair(schemes.RSA_SHA256)
+    sphincs = schemes.generate_keypair(schemes.SPHINCS256_SHA256, seed=SCHEME_BASE)
+    sf = build_scheme_fixture(fx, rsa, sphincs, base=SCHEME_BASE)
+    counts = {k: sf.kinds.count(k) for k in sorted(set(sf.kinds))}
+    print(f"every-scheme fixture: {len(sf.spends)} spends {counts}, labels "
+          f"{ {k: sf.labels.count(k) for k in sorted(set(sf.labels))} }, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    verifier = _recording_verifier(SCHEME_BATCHES, device)
+    hub = notary_hub(fx, verifier)
+    for data in sf.attachments:
+        hub.attachments.import_attachment(data)
+    svc = BatchingNotaryService(hub, InMemoryUniquenessProvider(), max_batch=len(sf.spends),
+                                degraded_fallback=False)
+    _zero_counters()
+    t0 = time.perf_counter()
+    started = run_process([svc.process(stx, fx.requester) for stx in sf.spends])
+    svc.flush()
+    answers = finish_process(started)
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    label = "every-scheme flush"
+    kinds = [answer_kind(a) for a in answers]
+    bad = [i for i, (k, want) in enumerate(zip(kinds, sf.labels)) if k != want]
+    if bad:
+        i = bad[0]
+        raise RuntimeError(f"{label}: {len(bad)} answers differ from their labels; spend {i} "
+                           f"({sf.kinds[i]}): {answers[i]!r}, label {sf.labels[i]}")
+    for kernel in ("ed_ladder", "wei_ladder_windowed"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} was not launched on the {label}")
+    if len(verifier.calls) != 1 or svc.batches_dispatched != 1:
+        raise RuntimeError(f"{label}: {len(verifier.calls)} dispatches, expected one")
+    reqs, pv = verifier.calls[0]
+    verdicts = pv.result()
+    if CpuBatchVerifier().verify_batch(reqs) != verdicts:
+        raise RuntimeError(f"{label}: the verdicts differ from CpuBatchVerifier")
+    host = [i for i, r in enumerate(reqs) if r.key.scheme_id in HOST_SCHEMES]
+    if pv.host_rows != host or len(host) != 6:
+        raise RuntimeError(f"{label}: host rows {pv.host_rows}, expected {host} (6)")
+    for i, k in enumerate(kinds):
+        if k == "ok" and not answers[i].is_valid(sf.spends[i].id):
+            raise RuntimeError(f"{label}: the notary signature of spend {i} does not verify")
+    if svc.degraded or svc.metrics.counter("Notary.DegradedFlushes").count:
+        raise RuntimeError(f"{label}: the notary degraded: {svc.degraded_evidence}")
+    print(f"{label}: {len(sf.spends)} spends in {wall:.3f} s, every answer its label; "
+          f"{len(reqs)} rows in one dispatch, host_rows {len(pv.host_rows)}, host_seconds "
+          f"{pv.host_seconds:.6f}, host staging {pv.stage_seconds:.3f} s, device (chunk events, "
+          f"summed) {pv.device_seconds():.3f} s; launches {launches}; {card}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -704,6 +858,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    from corda_tpu_torch import native
     from corda_tpu_torch.crypto import build
 
     card = _smi("name,power.limit")
@@ -713,8 +868,14 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    libs = build.build_all()
-    print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(native.build_info)   # g++ beside the nvcc processes
+        libs = build.build_all()
+        print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
+        info = native_build.result()
+    print(f"native: {info.path.name} with {info.compiler}, "
+          + (f"built in {info.seconds:.1f} s" if info.built else "reused")
+          + f"; SHA-NI {'used' if native.get().sha_ni else 'not used'}")
     for stem in libs:
         for line in build.ptxas_report(stem).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -726,7 +887,8 @@ def main(argv=None) -> int:
     phase_timing(device, report)
     phase_prologue(device)
     phase_main(device, report)
-    phase_notary(device, card)
+    _, fx = phase_notary(device, card)
+    phase_schemes(device, card, fx)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,8 +1,9 @@
 """Replacement-transaction rules: notary change + contract upgrade.
 
-Port of corda_tpu/core/replacement.py; an upgrade's conversion shipped
-only as an attachment (the reference's core/sandbox.py) is not ported:
-such an upgrade is not authorised here. Reference:
+Port of corda_tpu/core/replacement.py; an upgrade whose conversion is
+not registered in this process may ship it as a sandboxed attachment
+(core/sandbox.py upgrade_from_attachments), as in the reference.
+Reference:
 `NotaryChangeWireTransaction`/`NotaryChangeLedgerTransaction`
 (core/.../transactions/NotaryChangeTransactions.kt) and the
 contract-upgrade ledger rules behind `ContractUpgradeFlow` — special transaction
@@ -123,6 +124,13 @@ def _verify_contract_upgrade(ltx, cmd) -> None:
 
     old_c, new_c = cmd.value.old_contract, cmd.value.new_contract
     convert = registered_upgrade(old_c, new_c)
+    if convert is None:
+        # code delivery: the upgrade tx may ship its own sandboxed
+        # conversion as an attachment (ContractUpgradeFlow's
+        # AttachmentsClassLoader analogue — see core/sandbox.py)
+        from .sandbox import upgrade_from_attachments
+
+        convert = upgrade_from_attachments(old_c, new_c, ltx.attachments)
     if convert is None:
         raise TransactionVerificationError(
             f"upgrade {old_c} -> {new_c} is not authorised on this node"

@@ -1,7 +1,6 @@
 """Canonical deterministic serialization (consensus-critical).
 
-Port of corda_tpu/core/serialization.py, the pure-Python codec (the
-reference's native C codec of the same format is Queue 1 #7). One
+Port of corda_tpu/core/serialization.py. One
 deterministic, self-describing binary format ("CTS") for every context:
 the tx-id preimage and the signed payload must be bit-stable across
 hosts, and across the two packages: a registered object's wire tag is
@@ -24,6 +23,11 @@ order; integers are minimal-length varints; no floats.
 
 Objects register with @serializable (dataclasses) or register_custom();
 decoding is whitelist-only: unknown tags raise.
+
+`encode` and `decode` run the port's native codec (native/cts_hash.cpp),
+as the reference's main path does; a failed build of it raises
+NativeBuildError. `encode_py` and `decode_py` are the pure-Python codec,
+the differential reference the tests hold the native one against.
 """
 
 from __future__ import annotations
@@ -105,7 +109,51 @@ def _read_varint(buf: bytes, i: int) -> tuple[int, int]:
             raise SerializationError("varint too long")
 
 
+# -- native codec ------------------------------------------------------------
+# The C form of this exact format, wired to this module's registry once
+# per process. The library's configuration is its own (the reference's
+# library, loaded alongside in the tests, keeps the reference's).
+
+_NATIVE_CODEC: Any = None
+
+
+def _native_codec():
+    global _NATIVE_CODEC
+    if _NATIVE_CODEC is None:
+        from .. import native
+
+        mod = native.get()
+        mod.cts_configure(
+            SerializationError,
+            _CLASS_ENC_CACHE,   # shared cache: .pop() invalidates
+            _class_enc_info,    # miss resolver (fills the cache)
+            _REGISTRY_BY_TAG,
+            _CUSTOM_DEC,
+            _construct_pretuplified,
+            _unknown_tag_handler,
+            _varint_abs,
+        )
+        _NATIVE_CODEC = mod
+    return _NATIVE_CODEC
+
+
+def _unknown_tag_handler():
+    """The codec's hook for unknown object tags: the port has no class
+    carpenter, so decoding stays whitelist-only and this is always None."""
+    return None
+
+
+def _varint_abs(n: int) -> bytes:
+    """|n| as a varint — the native encoder's big-int path."""
+    return _varint(-n if n < 0 else n)
+
+
 def encode(obj: Any) -> bytes:
+    return _native_codec().cts_encode(obj)
+
+
+def encode_py(obj: Any) -> bytes:
+    """The pure-Python encoder (the differential reference)."""
     out = bytearray()
     _enc(obj, out)
     return bytes(out)
@@ -214,6 +262,11 @@ def _class_enc_info(cls):
 
 
 def decode(buf: bytes) -> Any:
+    return _native_codec().cts_decode(bytes(buf))
+
+
+def decode_py(buf: bytes) -> Any:
+    """The pure-Python decoder (the differential reference)."""
     val, i = _dec(buf, 0)
     if i != len(buf):
         raise SerializationError("trailing bytes")
@@ -299,7 +352,14 @@ def _tuplify(v):
 
 
 def _decode_dataclass(cls, kwargs):
+    # one reconstruction for both codecs: the native decoder tuplifies
+    # in C and calls _construct_pretuplified itself
+    return _construct_pretuplified(cls, {k: _tuplify(v) for k, v in kwargs.items()})
+
+
+def _construct_pretuplified(cls, kwargs):
+    """Reconstruct a registered dataclass from already-tuplified fields."""
     try:
-        return cls(**{k: _tuplify(v) for k, v in kwargs.items()})
+        return cls(**kwargs)
     except TypeError as e:
         raise SerializationError(f"cannot reconstruct {cls.__name__}: {e}")

@@ -2,9 +2,9 @@
 
 Port of corda_tpu/core/transactions.py. Signature checks default to the
 port's `default_verifier()`, a CudaBatchVerifier on the card: callers
-on the CPU pass a verifier (or set_default_verifier). Contracts that no
-process registered raise ContractViolation: the reference's sandboxed
-attachment code (core/sandbox.py) is not ported.
+on the CPU pass a verifier (or set_default_verifier). A contract that no
+process registered is loaded from the transaction's own attachments and
+run in the sandbox (core/sandbox.py), as the reference does.
 
 Reference structure (SURVEY.md §2.1, core/.../transactions/):
   WireTransaction      — unsigned; id = Merkle root over component
@@ -46,6 +46,7 @@ from ..crypto.tx_signature import (
 from .contracts import (
     Command,
     CommandWithParties,
+    ContractViolation,
     StateAndRef,
     StateRef,
     TimeWindow,
@@ -412,9 +413,7 @@ class LedgerTransaction:
         those as separate LedgerTransaction classes
         (NotaryChangeTransactions.kt). The lazy import keeps the rules
         in core (every verifying process gets them, including
-        out-of-process workers) without an import cycle. A contract no
-        process registered raises ContractViolation (attachment-carried
-        code is not ported)."""
+        out-of-process workers) without an import cycle."""
         from . import replacement as _repl
 
         special = _repl.replacement_verifier(self)
@@ -422,7 +421,17 @@ class LedgerTransaction:
             special()
             return
         for name in self.contract_names():
-            contract_by_name(name).verify(self)
+            try:
+                contract = contract_by_name(name)
+            except ContractViolation:
+                # not installed locally: load sandboxed code from the
+                # transaction's own attachments (AttachmentsClassLoader
+                # .kt:23 analogue — the tx references the attachment
+                # hash, so the code identity is signed over)
+                from .sandbox import contract_from_attachments
+
+                contract = contract_from_attachments(name, self.attachments)
+            contract.verify(self)
 
     def contract_names(self) -> list[str]:
         """Every contract this transaction touches, in the (sorted)

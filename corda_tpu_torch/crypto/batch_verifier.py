@@ -16,10 +16,14 @@ Implementations:
     CUDA event, so PendingVerification.chunks() streams: it waits for
     compute only.
 
-Schemes without a kernel in the port (RSA, SPHINCS, composite) raise
-UnsupportedScheme; nothing is routed to the CPU. A
-CUDA error or a refused launch raises DeviceFaultError, the class the
-batching notary's degraded mode catches.
+Rows of a scheme that has no kernel in either package (RSA_SHA256 and
+SPHINCS256_SHA256: HOST_SCHEMES) are verified on the host by the CPU
+reference, after every device chunk of the call has been dispatched, so
+that work overlaps the card's — the reference's semantics
+(corda_tpu/crypto/batch_verifier.py:430). A row of a scheme with a
+kernel never goes to the host, and any other id (COMPOSITE, unknown)
+raises UnsupportedScheme. A CUDA error or a refused launch raises
+DeviceFaultError, the class the batching notary's degraded mode catches.
 """
 
 from __future__ import annotations
@@ -55,6 +59,9 @@ SCHEME_KERNELS = frozenset(
         schemes.EDDSA_ED25519_SHA512,
     }
 )
+
+# schemes no device path verifies, in either package: host rows
+HOST_SCHEMES = frozenset({schemes.RSA_SHA256, schemes.SPHINCS256_SHA256})
 
 
 class BatchSignatureVerifier:
@@ -131,6 +138,7 @@ class CudaBatchVerifier(BatchSignatureVerifier):
         device="cuda",
         windowed: Optional[bool] = None,
     ):
+        self._cpu = CpuBatchVerifier()
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -199,25 +207,39 @@ class CudaBatchVerifier(BatchSignatureVerifier):
         self, requests: Sequence[VerificationRequest]
     ) -> "PendingVerification":
         """Stage + dispatch every request without waiting for results;
-        collect with `.result()` or stream with `.chunks()`."""
+        collect with `.result()` or stream with `.chunks()`. Host rows
+        (HOST_SCHEMES) are verified after the device chunks are
+        dispatched, while the card works, and are known on return."""
         buckets: dict[int, tuple[list, list]] = {}
+        host_idx: list[int] = []
         for i, req in enumerate(requests):
             sid = req.key.scheme_id
-            if sid not in SCHEME_KERNELS:
+            if sid in SCHEME_KERNELS:
+                items, idxs = buckets.setdefault(sid, ([], []))
+                items.append((req.key.data, req.signature, req.message))
+                idxs.append(i)
+            elif sid in HOST_SCHEMES:
+                host_idx.append(i)
+            else:
                 name = schemes.CODE_NAMES.get(sid, str(sid))
                 raise schemes.UnsupportedScheme(
-                    f"{name} has no kernel in corda_tpu_torch yet"
+                    f"{name} has no batch verification path"
                 )
-            items, idxs = buckets.setdefault(sid, ([], []))
-            items.append((req.key.data, req.signature, req.message))
-            idxs.append(i)
         pending, stage_s = [], 0.0
         for sid, (items, idxs) in buckets.items():
             chunks, s = self._dispatch(sid, items, idxs)
             pending.extend(chunks)
             stage_s += s
+        out: list = [None] * len(requests)
+        host_s = 0.0
+        if host_idx:
+            t0 = time.perf_counter()
+            for i, ok in zip(host_idx, self._cpu.verify_batch([requests[i] for i in host_idx])):
+                out[i] = ok
+            host_s = time.perf_counter() - t0
         return PendingVerification(
-            [None] * len(requests), pending, streamed=True, stage_seconds=stage_s
+            out, pending, streamed=True, stage_seconds=stage_s,
+            host_rows=host_idx, host_seconds=host_s,
         )
 
     def verify_batch(self, requests: Sequence[VerificationRequest]) -> list[bool]:
@@ -227,7 +249,10 @@ class CudaBatchVerifier(BatchSignatureVerifier):
 class PendingVerification:
     """Handle for an in-flight CudaBatchVerifier dispatch."""
 
-    def __init__(self, out, chunks, streamed: bool = False, stage_seconds: float = 0.0):
+    def __init__(
+        self, out, chunks, streamed: bool = False, stage_seconds: float = 0.0,
+        host_rows: Sequence[int] = (), host_seconds: float = 0.0,
+    ):
         self._out = out
         self._chunks = chunks
         self._done = False
@@ -235,15 +260,22 @@ class PendingVerification:
         # dispatch: per-chunk consumption then waits for compute only
         self.streamed = streamed
         self.stage_seconds = stage_seconds
+        # the rows verified on the host (HOST_SCHEMES), already in `out`,
+        # and the host seconds they took
+        self.host_rows = list(host_rows)
+        self.host_seconds = host_seconds
 
     def skeleton(self) -> list:
-        """A copy of the result rows known without waiting on the device
-        (none in this slice: every supported row is a device row)."""
+        """A copy of the result rows known without waiting on the
+        device: the host rows filled, device rows None."""
         return list(self._out)
 
     def chunks(self):
-        """Yield (request_indices, [bool]) per device chunk in dispatch
-        order, as each chunk's compute completes."""
+        """Yield (request_indices, [bool]) per chunk: the host rows
+        first (already known), then each device chunk in dispatch order,
+        as its compute completes."""
+        if self.host_rows:
+            yield list(self.host_rows), [self._out[i] for i in self.host_rows]
         for ch in self._chunks:
             if ch.done is not None:
                 with _device_faults("verify result"):

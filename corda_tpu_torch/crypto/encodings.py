@@ -175,7 +175,49 @@ def stage_ecdsa_packed(
     batch: int,
 ):
     """Compact staging for ecdsa_verify_packed: ONE [batch, 160] uint8
-    array + [batch] valid mask.
+    array + [batch] valid mask, in one native sweep (SHA-256, strict DER,
+    SEC1 and the pack; native/cts_hash.cpp stage_ecdsa_many).
+
+    The record is z | r | s | qx | qy, 32-byte big-endian each; padding
+    and malformed rows carry the benign record (z=0, r=s=1, Q=G) and
+    valid=False. Rows with a compressed key come back from the sweep
+    and are decompressed here (host sqrt), as the reference does.
+    stage_ecdsa_packed_py is the same staging in Python.
+    """
+    from .. import native
+
+    n_items = len(items)
+    if n_items > batch:
+        raise ValueError(f"{n_items} items do not fit a batch of {batch}")
+    g_rec = curve.gx.to_bytes(32, "big") + curve.gy.to_bytes(32, "big")
+    packed_b, valid_l, todo = native.get().stage_ecdsa_many(items, batch, g_rec)
+    valid = np.array(valid_l, dtype=bool)
+    if todo:
+        buf = bytearray(packed_b)
+        for i in todo:
+            pub, sig, msg = items[i]
+            rs_pair = parse_der_ecdsa(sig)
+            pt_b = _sec1_bytes(curve, pub)
+            if rs_pair is None or pt_b is None or rs_pair[0] >> 256 or rs_pair[1] >> 256:
+                continue   # stays benign and invalid
+            r, s = rs_pair
+            buf[i * ECDSA_RECORD_BYTES : (i + 1) * ECDSA_RECORD_BYTES] = (
+                hashlib.sha256(msg).digest() + r.to_bytes(32, "big")
+                + s.to_bytes(32, "big") + pt_b
+            )
+            valid[i] = True
+        packed_b = bytes(buf)
+    packed = np.frombuffer(packed_b, dtype=np.uint8).reshape(batch, ECDSA_RECORD_BYTES)
+    return packed, valid
+
+
+def stage_ecdsa_packed_py(
+    curve: WeierstrassCurve,
+    items: list[tuple[bytes, bytes, bytes]],  # (pubkey_sec1, der_sig, message)
+    batch: int,
+):
+    """The Python reference of stage_ecdsa_packed (the differential
+    tests'): one [batch, 160] uint8 array + [batch] valid mask.
 
     The wire format to the device is raw 32-byte big-endian field
     elements (z, r, s, qx, qy), 160 B per signature. Limb expansion,
@@ -184,8 +226,7 @@ def stage_ecdsa_packed(
     parsing (variable-length, consensus-critical — the same code path as
     the CPU reference), SHA-256, and SEC1 decompression for compressed
     points. Padding rows carry benign values (z=0, r=s=1, Q=G) and
-    valid=False. This is the reference's Python loop; its native C
-    codec is not ported yet.
+    valid=False.
     """
     n_items = len(items)
     if n_items > batch:
@@ -250,14 +291,43 @@ def stage_ed25519_packed(
 ):
     """Compact staging for ed25519_verify_packed: ONE [batch, 128] uint8
     array + [batch] int32 A-sign bits + [batch] int32 R-sign bits +
-    [batch] valid mask.
+    [batch] valid mask, in one native sweep (SHA-512, k mod L and the
+    pack; native/cts_hash.cpp stage_ed25519_many).
+
+    The record is s | k | A.y | R.y, 32-byte big-endian each, s raw (not
+    reduced mod L); the decoding of A runs on the device. Padding and
+    malformed rows carry the benign record (s = k = 0, A.y = R.y = 1)
+    and valid=False. stage_ed25519_packed_py is the same staging in
+    Python.
+    """
+    from .. import native
+
+    n_items = len(items)
+    if n_items > batch:
+        raise ValueError(f"{n_items} items do not fit a batch of {batch}")
+    packed_b, a_l, r_l, v_l = native.get().stage_ed25519_many(items, batch)
+    packed = np.frombuffer(packed_b, dtype=np.uint8).reshape(batch, ED25519_RECORD_BYTES)
+    return (
+        packed,
+        np.array(a_l, dtype=np.int32),
+        np.array(r_l, dtype=np.int32),
+        np.array(v_l, dtype=bool),
+    )
+
+
+def stage_ed25519_packed_py(
+    items: list[tuple[bytes, bytes, bytes]],  # (pubkey32, sig64, message)
+    batch: int,
+):
+    """The Python reference of stage_ed25519_packed (the differential
+    tests'): one [batch, 128] uint8 array + [batch] int32 A-sign bits +
+    [batch] int32 R-sign bits + [batch] valid mask.
 
     The host keeps SHA-512 (k = H(R||A||M) mod L) and the length checks;
     the decoding of A runs on the device (eddsa.ed_decompress_neg_batch).
     s is staged raw (not reduced mod L), as the reference verifies it.
     Padding and malformed rows carry benign values (s = k = 0, A.y =
-    R.y = 1) and valid=False. This is the reference's Python loop; its
-    native C codec is not ported yet.
+    R.y = 1) and valid=False.
     """
     n_items = len(items)
     if n_items > batch:

@@ -1,9 +1,9 @@
-"""SecureHash value type.
+"""SecureHash value type + batched hashing.
 
 Port of corda_tpu/crypto/hashes.py (reference: core/.../crypto/
-SecureHash.kt:14, a SHA-256 value type). Hashing runs on the host with
-hashlib; the native batched SHA-256 of the reference waits for the
-staging codec (Queue 1 #7).
+SecureHash.kt:14, a SHA-256 value type). Hashing runs on the host:
+hashlib for one value, the native library (native/cts_hash.cpp) for a
+batch (`sha256_many`; `sha256_many_py` is its hashlib reference).
 """
 
 from __future__ import annotations
@@ -70,3 +70,16 @@ ser.register_custom(
 def secure_hash_of(obj) -> SecureHash:
     """SHA-256 of the canonical encoding of any serializable value."""
     return SecureHash.sha256(ser.encode(obj))
+
+
+def sha256_many(payloads: list) -> list:
+    """Batched SHA-256: `[bytes] -> [32-byte digest]` in one native call."""
+    from .. import native
+
+    return list(native.get().sha256_many(payloads))
+
+
+def sha256_many_py(payloads: list) -> list:
+    """The hashlib reference of sha256_many."""
+    _h = hashlib.sha256
+    return [_h(p).digest() for p in payloads]

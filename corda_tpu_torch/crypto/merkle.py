@@ -1,8 +1,11 @@
 """Merkle trees and partial (inclusion-proof) Merkle trees.
 
-Port of corda_tpu/crypto/merkle.py, its Python paths (the reference's
-native calls — merkle_root, merkle_paths, pmt_verify_many — compute the
-same values in C and wait for Queue 1 #7). Reference semantics:
+Port of corda_tpu/crypto/merkle.py. `merkle_root`,
+`merkle_roots_from_digests`, `verify_proofs` and `single_leaf_proofs`
+run in the native library (native/cts_hash.cpp: merkle_root,
+merkle_root_many, pmt_verify_many, merkle_paths), as the reference's
+main path does; each has its Python walk beside it under the same name
+with `_py`, the differential reference. Reference semantics:
 core/.../crypto/MerkleTree.kt:14-60 (SHA-256 binary tree, leaf list
 zero-padded to the next power of two) and PartialMerkleTree.kt:45
 (tear-off inclusion proofs).
@@ -42,15 +45,47 @@ def merkle_levels(leaves: list[SecureHash]) -> list[list[SecureHash]]:
     return levels
 
 
+def _native():
+    from .. import native
+
+    return native.get()
+
+
 def merkle_root(leaves: list[SecureHash]) -> SecureHash:
-    """Root of the zero-padded binary SHA-256 tree."""
+    """Root of the zero-padded binary SHA-256 tree (one native call)."""
+    return SecureHash(_native().merkle_root([h.bytes_ for h in leaves]))
+
+
+def merkle_root_py(leaves: list[SecureHash]) -> SecureHash:
+    """The Python reference of merkle_root."""
     return merkle_levels(leaves)[-1][0]
+
+
+def merkle_roots_from_digests(leaf_lists: list) -> list:
+    """Many tree roots from raw 32-byte digests: `[[bytes]] -> [bytes]`,
+    in one native call."""
+    return list(_native().merkle_root_many(leaf_lists))
+
+
+def merkle_roots_from_digests_py(leaf_lists: list) -> list:
+    """The Python reference of merkle_roots_from_digests."""
+    return [merkle_root_py([SecureHash(b) for b in leaves]).bytes_ for leaves in leaf_lists]
 
 
 def verify_proofs(
     items: list[tuple["PartialMerkleTree", SecureHash, list[SecureHash]]],
 ) -> list[bool]:
-    """Bulk partial-proof verification: [(pmt, root, leaves)] -> [bool]."""
+    """Bulk partial-proof verification: [(pmt, root, leaves)] -> [bool],
+    in one native call (PartialMerkleTree.kt:130 verify semantics)."""
+    return list(_native().pmt_verify_many(
+        [pmt.as_native_item(root, leaves) for pmt, root, leaves in items]
+    ))
+
+
+def verify_proofs_py(
+    items: list[tuple["PartialMerkleTree", SecureHash, list[SecureHash]]],
+) -> list[bool]:
+    """The Python reference of verify_proofs."""
     return [pmt.verify(root, leaves) for pmt, root, leaves in items]
 
 
@@ -94,6 +129,17 @@ class SingleLeafProof:
         except (ValueError, IndexError):
             return False
 
+    def as_native_item(self, root: SecureHash, leaves: list[SecureHash]) -> tuple:
+        """The (tree_size, indices, proof, leaves, root) record the native
+        bulk verifier consumes."""
+        return (
+            self.tree_size,
+            (self.index,),
+            [self.path[j : j + 32] for j in range(0, len(self.path), 32)],
+            [h.bytes_ for h in leaves],
+            root.bytes_,
+        )
+
     def as_partial_merkle_tree(self) -> "PartialMerkleTree":
         """The expanded equivalent (tooling/debug)."""
         return PartialMerkleTree(
@@ -109,9 +155,23 @@ class SingleLeafProof:
 def single_leaf_proofs(
     leaves: list[SecureHash],
 ) -> tuple[SecureHash, list["SingleLeafProof"]]:
-    """(root, one single-leaf inclusion proof per input leaf). The tree
-    levels are built ONCE — O(n) hashing — then each leaf's proof is its
-    sibling path, O(log n) lookups with no further hashing."""
+    """(root, one single-leaf inclusion proof per input leaf): the tree's
+    levels and every sibling path in one native call."""
+    if not leaves:
+        raise ValueError("cannot build a Merkle tree with no leaves")
+    root_b, paths = _native().merkle_paths([h.bytes_ for h in leaves])
+    size = 1 << (len(leaves) - 1).bit_length()
+    return SecureHash(root_b), [
+        SingleLeafProof(size, i0, bytes(p)) for i0, p in enumerate(paths)
+    ]
+
+
+def single_leaf_proofs_py(
+    leaves: list[SecureHash],
+) -> tuple[SecureHash, list["SingleLeafProof"]]:
+    """The Python reference of single_leaf_proofs: the tree levels are
+    built once — O(n) hashing — then each leaf's proof is its sibling
+    path, O(log n) lookups with no further hashing."""
     levels = merkle_levels(leaves)
     size = len(levels[0])
     root = levels[-1][0]
@@ -203,3 +263,14 @@ class PartialMerkleTree:
         if proof:
             raise ValueError("unused proof hashes")
         return known[0]
+
+    def as_native_item(self, root: SecureHash, leaves: list[SecureHash]) -> tuple:
+        """The (tree_size, indices, proof, leaves, root) record the native
+        bulk verifier consumes."""
+        return (
+            self.tree_size,
+            self.included_indices,
+            [h.bytes_ for h in self.hashes],
+            [h.bytes_ for h in leaves],
+            root.bytes_,
+        )

@@ -1,25 +1,27 @@
-"""Signature scheme ids, keys, and host-side signing for the EC schemes.
+"""Signature scheme ids, keys, and host-side signing and verification.
 
-Port of corda_tpu/crypto/schemes.py for the three EC schemes. The
-scheme ids are the reference's (Crypto.kt:78-184):
+Port of corda_tpu/crypto/schemes.py. The scheme ids are the
+reference's (Crypto.kt:78-184):
 
   id  code name                 in the port
-  1   RSA_SHA256                not ported
+  1   RSA_SHA256                host only (OpenSSL), as in the reference
   2   ECDSA_SECP256K1_SHA256    signing, CPU reference, CUDA batch kernel
   3   ECDSA_SECP256R1_SHA256    signing, CPU reference, CUDA batch kernel
   4   EDDSA_ED25519_SHA512      the default scheme (Crypto.kt:171);
                                 signing, CPU reference, CUDA batch kernel
-  5   SPHINCS256_SHA256         not ported
-  6   COMPOSITE                 not ported
+  5   SPHINCS256_SHA256         host only (sphincs.py), as in the reference
+  6   COMPOSITE                 composite.py; verify_one raises
 
-Every entry point raises UnsupportedScheme for a scheme it does not
-handle; nothing is routed elsewhere. The `cryptography` (OpenSSL)
+Neither package has a device kernel for RSA or SPHINCS: their rows are
+verified on the host (CudaBatchVerifier hands them to the CPU reference
+after dispatching its device chunks). The `cryptography` (OpenSSL)
 package backs keygen and signing when present; without it, ECDSA signs
 with an RFC 6979 deterministic nonce over refmath and ed25519 per
 RFC 8032 over refmath (byte-identical to OpenSSL's: ed25519 signing is
-deterministic). Verification never needs it: refmath is the
-bit-exactness anchor. Keys derived from a seed are the reference's for
-the same seed.
+deterministic), and RSA raises UnsupportedScheme. Verification of the
+EC schemes never needs it: refmath is the bit-exactness anchor. Keys
+derived from a seed are the reference's for the same seed;
+deterministic RSA keygen is unsupported, as in the reference.
 """
 
 from __future__ import annotations
@@ -31,19 +33,22 @@ from dataclasses import dataclass
 from typing import Optional
 
 try:
-    from cryptography.hazmat.primitives import hashes
+    from cryptography.hazmat.primitives import hashes, serialization
     from cryptography.hazmat.primitives.asymmetric import ec as cec
     from cryptography.hazmat.primitives.asymmetric import ed25519 as ced
+    from cryptography.hazmat.primitives.asymmetric import padding as cpad
+    from cryptography.hazmat.primitives.asymmetric import rsa as crsa
     from cryptography.hazmat.primitives.asymmetric.utils import (
         decode_dss_signature,
     )
 
     _HAVE_OPENSSL = True
-except ImportError:   # gated dep: pure-python signing below
-    hashes = cec = ced = decode_dss_signature = None
+except ImportError:   # gated dep: pure-python signing below, RSA raises
+    hashes = serialization = cec = ced = cpad = crsa = None
+    decode_dss_signature = None
     _HAVE_OPENSSL = False
 
-from . import encodings, refmath
+from . import encodings, refmath, sphincs
 from .curves import ED25519, SECP256K1, SECP256R1
 
 RSA_SHA256 = 1
@@ -75,8 +80,13 @@ def _curve(scheme_id: int):
     curve = WCURVE.get(scheme_id)
     if curve is None:
         name = CODE_NAMES.get(scheme_id, str(scheme_id))
-        raise UnsupportedScheme(f"scheme {name} is not ported to corda_tpu_torch")
+        raise UnsupportedScheme(f"scheme {name} is not an ECDSA scheme")
     return curve
+
+
+def _require_openssl() -> None:
+    if not _HAVE_OPENSSL:
+        raise UnsupportedScheme("RSA_SHA256 requires the 'cryptography' package")
 
 
 def _ed25519_expand(sk: bytes) -> tuple[int, bytes]:
@@ -147,8 +157,9 @@ def _ecdsa_sign_py(curve, d: int, message: bytes) -> bytes:
 
 @dataclass(frozen=True)
 class PublicKey:
-    """Scheme-tagged public key; `data` is the SEC1 point encoding
-    (ECDSA) or the 32-byte RFC 8032 encoding (ed25519)."""
+    """Scheme-tagged public key; `data` is the scheme-native encoding:
+    the SEC1 point (ECDSA), the 32-byte RFC 8032 encoding (ed25519), a
+    DER SubjectPublicKeyInfo (RSA) or the 32-byte SPHINCS root."""
 
     scheme_id: int
     data: bytes
@@ -179,7 +190,8 @@ class PublicKey:
 @dataclass(frozen=True)
 class PrivateKey:
     scheme_id: int
-    data: bytes            # ECDSA: 32-byte big-endian scalar; ed25519: 32-byte seed
+    data: bytes            # ECDSA: 32-byte big-endian scalar; ed25519: 32-byte seed;
+                           # RSA: PKCS#8 DER; SPHINCS: 64-byte secret
     public: PublicKey
 
     def sign(self, message: bytes) -> bytes:
@@ -202,6 +214,23 @@ def generate_keypair(scheme_id: int = DEFAULT_SCHEME, seed: Optional[int] = None
         else:
             sk = _secrets.token_bytes(32)
         return keypair_from_private(scheme_id, sk)
+    if scheme_id == RSA_SHA256:
+        if seed is not None:
+            raise UnsupportedScheme("deterministic RSA keygen not supported")
+        _require_openssl()
+        sk = crsa.generate_private_key(public_exponent=65537, key_size=2048)
+        return keypair_from_private(scheme_id, sk.private_bytes(
+            serialization.Encoding.DER,
+            serialization.PrivateFormat.PKCS8,
+            serialization.NoEncryption(),
+        ))
+    if scheme_id == SPHINCS256_SHA256:
+        seed_bytes = (
+            seed.to_bytes(32, "big", signed=False) if seed is not None
+            else _secrets.token_bytes(32)
+        )
+        sk, _ = sphincs.keygen(seed_bytes)
+        return keypair_from_private(scheme_id, sk)
     curve = _curve(scheme_id)
     if seed is not None:
         d = (seed % (curve.n - 1)) + 1
@@ -217,6 +246,14 @@ def keypair_from_private(scheme_id: int, data: bytes) -> KeyPair:
     """Rebuild a KeyPair from its scheme-native private encoding."""
     if scheme_id == EDDSA_ED25519_SHA512:
         pub = PublicKey(scheme_id, _ed25519_public(data))
+    elif scheme_id == RSA_SHA256:
+        _require_openssl()
+        sk = serialization.load_der_private_key(data, password=None)
+        pub = PublicKey(scheme_id, sk.public_key().public_bytes(
+            serialization.Encoding.DER, serialization.PublicFormat.SubjectPublicKeyInfo
+        ))
+    elif scheme_id == SPHINCS256_SHA256:
+        pub = PublicKey(scheme_id, sphincs.public_from_private(data))
     else:
         curve = _curve(scheme_id)
         pt = refmath.wei_mul(curve, int.from_bytes(data, "big"), (curve.gx, curve.gy))
@@ -226,7 +263,13 @@ def keypair_from_private(scheme_id: int, data: bytes) -> KeyPair:
 
 def sign(priv: PrivateKey, message: bytes) -> bytes:
     """Host-side signing; signature formats as the verify path parses
-    them (DER for ECDSA, R || s for ed25519)."""
+    them (DER for ECDSA, R || s for ed25519, PKCS#1 v1.5 for RSA)."""
+    if priv.scheme_id == RSA_SHA256:
+        _require_openssl()
+        sk = serialization.load_der_private_key(priv.data, password=None)
+        return sk.sign(message, cpad.PKCS1v15(), hashes.SHA256())
+    if priv.scheme_id == SPHINCS256_SHA256:
+        return sphincs.sign(priv.data, message)
     if priv.scheme_id == EDDSA_ED25519_SHA512:
         if not _HAVE_OPENSSL:
             return _ed25519_sign_py(priv.data, priv.public.data, message)
@@ -243,9 +286,21 @@ def sign(priv: PrivateKey, message: bytes) -> bytes:
 
 def verify_one(pub: PublicKey, signature: bytes, message: bytes) -> bool:
     """Host (CPU reference) verification of a single signature: pure
-    python refmath, the semantics the batch kernels implement."""
+    python refmath for the EC schemes (the semantics the batch kernels
+    implement), OpenSSL for RSA, sphincs.py for SPHINCS. COMPOSITE (and
+    any unknown id) raises UnsupportedScheme, as in the reference."""
     if pub.scheme_id == EDDSA_ED25519_SHA512:
         return refmath.ed25519_verify(pub.data, message, signature)
+    if pub.scheme_id == RSA_SHA256:
+        _require_openssl()
+        try:
+            pk = serialization.load_der_public_key(pub.data)
+            pk.verify(signature, message, cpad.PKCS1v15(), hashes.SHA256())
+            return True
+        except Exception:   # noqa: BLE001 - a bad key or signature is a reject
+            return False
+    if pub.scheme_id == SPHINCS256_SHA256:
+        return sphincs.verify(pub.data, signature, message)
     curve = _curve(pub.scheme_id)
     rs = encodings.parse_der_ecdsa(signature)
     pt = encodings.parse_sec1_point(curve, pub.data)

@@ -1,2 +1,3 @@
 """Financial contracts of the port (port of corda_tpu/finance): the
-OnLedgerAsset base and Cash. The flows are not ported yet."""
+OnLedgerAsset base, Cash, CommercialPaper and Obligation. The flows are
+not ported yet."""

@@ -1,8 +1,10 @@
 """OnLedgerAsset: the generic fungible-asset contract base.
 
 Port of corda_tpu/finance/asset.py; the object-less sweep
-(`verify_fields`) runs its Python body (the reference's C version,
-native asset_verify_fields, waits for Queue 1 #7). Reference:
+(`verify_fields`) runs in the native library (native/cts_hash.cpp
+asset_verify_fields), as the reference's main path does, and
+`verify_fields_py` is its Python body, the differential reference.
+Reference:
 finance/.../contracts/asset/OnLedgerAsset.kt — the shared issue/move/exit
 machinery behind Cash, CommodityContract and Obligation
 — together with the clause stack those contracts instantiate
@@ -173,7 +175,8 @@ class AssetGroupClause(Clause):
 
 
 def _default_token_of(s):
-    """The standard fungible token key."""
+    """The standard fungible token key. Named (not a lambda default) so
+    the native sweep can recognise it and read .amount.token itself."""
     return s.amount.token
 
 
@@ -252,7 +255,25 @@ class OnLedgerAsset:
         must stay aligned with the clause implementations above — the
         first violation reported has to match; equivalence is
         fuzz-checked in tests/test_batch_verify.py (and the port's
-        against the clause stack in tests/test_torch_transactions.py)."""
+        against the clause stack in tests/test_torch_transactions.py).
+
+        Runs in C (native/cts_hash.cpp asset_verify_fields);
+        verify_fields_py is the same sweep in Python, held equal to it,
+        messages included, by tests/test_torch_native.py."""
+        from .. import native
+
+        native.get().asset_verify_fields(
+            commands, input_datas, output_datas,
+            self.state_class, self.issue_cmd, self.move_cmd, self.exit_cmd,
+            # None = the default token key: C reads .amount.token itself
+            None if self.token_of is _default_token_of else self.token_of,
+            signed_by,
+            ContractViolation,
+        )
+
+    def verify_fields_py(self, commands, input_datas, output_datas) -> None:
+        """The pure-Python sweep (the differential reference; exact
+        clause-stack semantics)."""
         asset_types = (self.issue_cmd, self.move_cmd, self.exit_cmd)
         cmds = [c for c in commands if type(c.value) in asset_types]
         require_that("an asset command is present", len(cmds) >= 1)

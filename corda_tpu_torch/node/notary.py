@@ -13,11 +13,13 @@ planes and the intent journal; the constructor has no argument for
 them. Without the flow state machine, a caller drives a `process`
 generator with `run_process`.
 
-Rows of a scheme without a kernel in the port (RSA, SPHINCS,
-composite) are answered `unsupported-scheme` at intake, before the
-dispatch. The degraded mode's CPU fallback serves a CPU-device
-verifier only: with a verifier on the card the notary never moves a
-flush to the host.
+RSA and SPHINCS rows, which no device path verifies in either package,
+ride the same dispatch: the verifier checks them on the host while the
+card runs their batchmates (batch_verifier.HOST_SCHEMES). A row of a
+scheme no path verifies (COMPOSITE as a signing key, an unknown id) is
+answered `unsupported-scheme` at intake, before the dispatch. The
+degraded mode's CPU fallback serves a CPU-device verifier only: with a
+verifier on the card the notary never moves a flush to the host.
 
 Reference: node/.../services/transactions/ (SURVEY §2.7) —
 SimpleNotaryService / ValidatingNotaryService over a
@@ -56,7 +58,7 @@ from ..core.transactions import (
     SignedTransaction,
     TransactionVerificationError,
 )
-from ..crypto.batch_verifier import SCHEME_KERNELS, CpuBatchVerifier
+from ..crypto.batch_verifier import HOST_SCHEMES, SCHEME_KERNELS, CpuBatchVerifier
 from ..crypto.hashes import SecureHash
 from ..crypto.schemes import CODE_NAMES
 from ..flows.api import FlowFuture, _WaitFuture, wait_future
@@ -1367,9 +1369,9 @@ class BatchingNotaryService(NotaryService):
                     NotaryError("invalid-transaction", str(e))
                 )
                 continue
-            missing = {r.key.scheme_id for r in rs} - SCHEME_KERNELS
+            missing = {r.key.scheme_id for r in rs} - SCHEME_KERNELS - HOST_SCHEMES
             if missing:
-                # no kernel verifies these rows: answer the transaction
+                # no path verifies these rows: answer the transaction
                 # here, before the dispatch, instead of failing its flush
                 names = ", ".join(
                     sorted(CODE_NAMES.get(m, str(m)) for m in missing)
@@ -1377,8 +1379,7 @@ class BatchingNotaryService(NotaryService):
                 p.future.set_result(
                     NotaryError(
                         "unsupported-scheme",
-                        f"signature scheme {names} has no kernel in "
-                        f"corda_tpu_torch",
+                        f"signature scheme {names} has no verification path",
                     )
                 )
                 continue

@@ -23,6 +23,13 @@ OpenSSL's random ECDSA nonces.
 `notary_hub(fixture, verifier)` is the notary's ServiceHub: its key,
 the parties, and every issue transaction recorded. `answer_kind` maps a
 notary answer to the label it must equal.
+
+`build_scheme_fixture(fixture, rsa, sphincs)` adds, to the first
+`base` spends of a fixture, spends that need every path of the
+notary's verification: an added RSA or SPHINCS signature (verified on
+the host, as in the reference), one of each flipped, and spends whose
+output contract travels only as an attachment (MAGIC_SOURCE, run in
+the sandbox), one that satisfies it and one that breaks it.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ class NotaryFixture:
     labels: list            # the answer each spend must get (module docstring)
     build_seconds: float
     openssl: bool
+    owners: list            # [KeyPair] signing each spend
 
 
 def _label(i: int, bad_every: int, wrong_notary_every: int) -> str:
@@ -176,8 +184,99 @@ def build_fixture(
         spends.append(SignedTransaction(wtx, (TransactionSignature(sig, owner.public, meta),)))
     return NotaryFixture(
         notary_key, notary, other_notary, bank, requester, issues, spends,
-        labels, time.perf_counter() - t0, schemes._HAVE_OPENSSL,
+        labels, time.perf_counter() - t0, schemes._HAVE_OPENSSL, signers,
     )
+
+
+# A contract that exists only as attachment source: no process registers
+# it, so the notary loads it from the spend's attachment into the sandbox.
+# It names the platform API by the reference's module names, so the same
+# attachment bytes (and transaction ids) serve both packages.
+MAGIC_CONTRACT = "demo.magic"
+MAGIC_SOURCE = """
+from corda_tpu.finance.cash import CashState
+
+class MagicContract:
+    \"\"\"Cash under a cap: no output of this contract holds more than 50.\"\"\"
+
+    def verify(self, ltx):
+        for ts in ltx.outputs:
+            if ts.contract == "demo.magic" and ts.data.amount.quantity > 50:
+                raise ContractViolation("magic output exceeds its cap of 50")
+"""
+
+
+@dataclass
+class SchemeFixture:
+    spends: list            # [SignedTransaction], in flush order
+    labels: list
+    attachments: list       # [bytes] the notary must hold
+    kinds: list             # what each spend exercises ("base", "rsa", ...)
+
+
+def _signature(key: schemes.KeyPair, tx_id) -> TransactionSignature:
+    meta = SignatureMetadata(PLATFORM_VERSION, key.public.scheme_id)
+    return TransactionSignature(
+        schemes.sign(key.private, signable_bytes(tx_id, meta)), key.public, meta
+    )
+
+
+def _flipped(sig: TransactionSignature) -> TransactionSignature:
+    b = sig.signature
+    return TransactionSignature(b[:-1] + bytes([b[-1] ^ 1]), sig.by, sig.metadata)
+
+
+def build_scheme_fixture(
+    fixture: NotaryFixture,
+    rsa: schemes.KeyPair,
+    sphincs: schemes.KeyPair,
+    base: int = 64,
+) -> SchemeFixture:
+    """The first `base` spends of `fixture` with their labels, then, from
+    its later "ok" spends: two with an added RSA signature and one with
+    it flipped, the same for SPHINCS, and two spends that pay their Cash
+    to outputs under MAGIC_CONTRACT (50 + 50: ok; 60 + 40: the contract
+    breaks, "invalid-transaction"), the contract travelling as the
+    spend's attachment."""
+    from ..core.sandbox import make_contract_attachment
+
+    spends = list(fixture.spends[:base])
+    labels = list(fixture.labels[:base])
+    kinds = ["base"] * base
+    # an "ok" spend owns its input: no spend of the first `base` reuses it
+    spare = [i for i in range(base, len(fixture.spends)) if fixture.labels[i] == "ok"]
+    if len(spare) < 8:
+        raise ValueError("the fixture has too few spare ok spends")
+    picks = iter(spare)
+    for kind, key in (("rsa", rsa), ("sphincs", sphincs)):
+        for label in ("ok", "ok", "invalid-signature"):
+            stx = fixture.spends[next(picks)]
+            sig = _signature(key, stx.id)
+            if label != "ok":
+                sig = _flipped(sig)
+            spends.append(stx.with_additional_signature(sig))
+            labels.append(label)
+            kinds.append(kind)
+    att = make_contract_attachment(MAGIC_CONTRACT, "MagicContract", MAGIC_SOURCE)
+    issued = {issue.id: issue for issue in fixture.issues}
+    for label, split in (("ok", (50, 50)), ("invalid-transaction", (60, 40))):
+        i = next(picks)
+        ref = fixture.spends[i].wtx.inputs[0]
+        sar = StateAndRef(issued[ref.txhash].wtx.outputs[ref.index], ref)
+        token = sar.state.data.amount.token
+        owner = fixture.owners[i]
+        sb = TransactionBuilder()
+        sb.add_input_state(sar)
+        for q in split:
+            sb.add_output_state(CashState(Amount(q, token), fixture.bank.owning_key),
+                                MAGIC_CONTRACT)
+        sb.add_command(CashMove(), owner.public)
+        sb.add_attachment(att.id)
+        wtx = sb.to_wire_transaction()
+        spends.append(SignedTransaction(wtx, (_signature(owner, wtx.id),)))
+        labels.append(label)
+        kinds.append("attachment")
+    return SchemeFixture(spends, labels, [att.data], kinds)
 
 
 def notary_hub(fixture: NotaryFixture, verifier):

@@ -88,20 +88,56 @@ def test_requests_from_reference(corpus):
     assert got == J_BV.CpuBatchVerifier().verify_batch(jreqs)
 
 
-def test_unsupported_schemes_raise(corpus):
-    """RSA, SPHINCS and composite keys are not routed anywhere: the
-    whole call raises UnsupportedScheme, on the batch path and the CPU
-    reference alike."""
-    reqs, _ = corpus
+@pytest.mark.parametrize("sid", [schemes.RSA_SHA256, schemes.SPHINCS256_SHA256,
+                                 schemes.COMPOSITE_KEY], ids=["rsa", "sphincs", "composite"])
+def test_unsupported_schemes_raise(corpus, sid):
+    """RSA and SPHINCS rows have no kernel in either package: the card
+    path verifies them on the host in the same call, after dispatching
+    its device chunks, with the reference's verdicts (a valid, a flipped
+    and a malformed signature) — equal to the reference's verify_one and
+    CpuBatchVerifier, and known before the device chunks (skeleton,
+    first chunk). COMPOSITE has no path in either package and still
+    raises UnsupportedScheme, in the batch call, the CPU reference and
+    keygen."""
+    reqs, want = corpus
     v = BV.CudaBatchVerifier(batch_sizes=(8,), device="cpu")
-    for sid in (schemes.RSA_SHA256, schemes.SPHINCS256_SHA256, schemes.COMPOSITE_KEY):
-        req = BV.VerificationRequest(schemes.PublicKey(sid, b"\x00" * 32), b"sig", b"m")
+    dummy = BV.VerificationRequest(schemes.PublicKey(sid, b"\x00" * 32), b"sig", b"m")
+    if sid == schemes.COMPOSITE_KEY:
         with pytest.raises(schemes.UnsupportedScheme):
-            v.verify_batch(reqs[:3] + [req])
+            v.verify_batch(reqs[:3] + [dummy])
         with pytest.raises(schemes.UnsupportedScheme):
-            BV.CpuBatchVerifier().verify_batch([req])
+            BV.CpuBatchVerifier().verify_batch([dummy])
         with pytest.raises(schemes.UnsupportedScheme):
             schemes.generate_keypair(sid, seed=1)
+        with pytest.raises(J_S.UnsupportedScheme):
+            J_S.verify_one(J_S.PublicKey(sid, b"\x00" * 32), b"sig", b"m")
+        return
+    if sid == schemes.RSA_SHA256:
+        with pytest.raises(schemes.UnsupportedScheme):
+            schemes.generate_keypair(sid, seed=1)   # deterministic RSA: as the reference
+        kp = schemes.generate_keypair(sid)
+    else:
+        kp = schemes.generate_keypair(sid, seed=1)
+        assert kp.public.data == J_S.generate_keypair(sid, seed=1).public.data
+    sig = kp.private.sign(b"payload")
+    host = [
+        BV.VerificationRequest(kp.public, sig, b"payload"),
+        BV.VerificationRequest(kp.public, sig[:-1] + bytes([sig[-1] ^ 1]), b"payload"),
+        BV.VerificationRequest(kp.public, sig, b"other payload"),
+        dummy,
+    ]
+    mixed = reqs[:3] + host[:2] + reqs[3:6] + host[2:]
+    expect = J_BV.CpuBatchVerifier().verify_batch(mixed)
+    assert expect[3:5] == [True, False] and expect[8:] == [False, False]
+    assert [J_S.verify_one(J_S.PublicKey(sid, r.key.data), r.signature, r.message)
+            for r in host] == [True, False, False, False]
+    assert BV.CpuBatchVerifier().verify_batch(mixed) == expect
+    pv = v.verify_batch_async(mixed)
+    assert pv.host_rows == [3, 4, 8, 9] and pv.host_seconds > 0
+    assert pv.skeleton() == [None] * 3 + [True, False] + [None] * 3 + [False, False]
+    first = next(pv.chunks())
+    assert first == ([3, 4, 8, 9], [True, False, False, False])
+    assert pv.result() == expect == want[:3] + [True, False] + want[3:6] + [False, False]
 
 
 def test_fault_injector_then_pass_through(corpus):

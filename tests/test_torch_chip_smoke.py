@@ -1,6 +1,9 @@
 """chip_smoke.py's host-side arithmetic, on the CPU: the bound model
 (`_ladder_ops`, the IMAD count a ladder needs for given scalars) and the
-dispatch order a streamed flush is checked against."""
+dispatch order a streamed flush is checked against; and rehearsals of
+its notary phases (6: the flush with its codec check; 7: every scheme
+and attachment code, against the reference notary's answers) at a small
+size, with counted plain versions standing in for the kernels."""
 
 from __future__ import annotations
 
@@ -127,20 +130,13 @@ def test_ed_inputs_at_parity_sizes(batch):
         assert As[2] == (0, 1) and ss[3] == c.L
 
 
-def test_notary_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
-    """chip_smoke.phase_notary end to end at a small size on the CPU:
-    the kernels' plain versions stand in for the kernels and count a
-    launch each, so the phase's checks (answers against labels, the
-    card's verdicts against CpuBatchVerifier, notary signatures, the
-    launches of ed_ladder and wei_ladder_windowed, no degraded flush)
-    all run."""
-    import torch
-
+def _counted_plain_versions(monkeypatch):
+    """The kernels' plain versions stand in for the kernels and count a
+    launch each; the counts are restored afterwards, for the tests that
+    read the counters later in this process."""
     from corda_tpu_torch.crypto import cuda_ec
 
     for name, counter in cs.COUNTERS.items():
-        # the phase leaves its counts behind: restore them afterwards,
-        # for the tests that read the counters later in this process
         monkeypatch.setattr(cuda_ec, counter, getattr(cuda_ec, counter))
         plain = getattr(cuda_ec, name + "_plain")
 
@@ -149,18 +145,91 @@ def test_notary_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
             return _plain(*args)
 
         monkeypatch.setattr(cuda_ec, name + "_plain", counted)
-    monkeypatch.setenv("CORDA_TPU_NOTARY_PROFILE", "1")
-    saved_threads = torch.get_num_threads()
+
+
+@pytest.fixture
+def one_thread():
+    import torch
+
+    saved = torch.get_num_threads()
     torch.set_num_threads(1)   # faster on 16-row tensors; spares the other workers
+    yield
+    torch.set_num_threads(saved)
+
+
+SMALL_FIXTURE = dict(outputs_per_issue=8, bad_every=8, wrong_notary_every=16,
+                     owners_per_scheme=4, workers=1)
+
+
+def test_notary_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread):
+    """chip_smoke.phase_notary end to end at a small size on the CPU:
+    the kernels' plain versions stand in for the kernels and count a
+    launch each, so the phase's checks (the native-against-Python codec
+    check, answers against labels, the card's verdicts against
+    CpuBatchVerifier, notary signatures, the launches of ed_ladder and
+    wei_ladder_windowed, no degraded flush) all run."""
+    import torch
+
+    _counted_plain_versions(monkeypatch)
+    monkeypatch.setenv("CORDA_TPU_NOTARY_PROFILE", "1")
     monkeypatch.setattr(cs, "NOTARY_SPENDS", 16)
     monkeypatch.setattr(cs, "CHUNK", 16)
     monkeypatch.setattr(cs, "NOTARY_PASSES", ("timed",))
-    monkeypatch.setattr(cs, "NOTARY_FIXTURE", dict(
-        outputs_per_issue=8, bad_every=8, wrong_notary_every=16, owners_per_scheme=4, workers=1))
-    try:
-        rates = cs.phase_notary(torch.device("cpu"), "cpu rehearsal")
-    finally:
-        torch.set_num_threads(saved_threads)
-    assert set(rates) == {1, 4}
+    monkeypatch.setattr(cs, "NOTARY_FIXTURE", SMALL_FIXTURE)
+    rates, fx = cs.phase_notary(torch.device("cpu"), "cpu rehearsal")
+    assert set(rates) == {1, 4} and len(fx.spends) == 16
     out = capsys.readouterr().out
     assert "notary shards=4 timed phase_seconds" in out and "'ed_ladder': 0" not in out
+    assert "codec check: 16 spends byte-equal, ids equal" in out
+
+
+def test_codec_check_raises_on_a_difference(monkeypatch):
+    """Phase 6's codec check raises when the native and Python codecs
+    disagree on a spend's bytes."""
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.testing.notary_fixture import build_fixture
+
+    fx = build_fixture(4, **SMALL_FIXTURE)
+    wire = [ser.encode(s) for s in fx.spends]
+    real = ser.encode_py
+    monkeypatch.setattr(ser, "encode_py", lambda v: real(v) + (b"!" if isinstance(
+        v, type(fx.spends[0])) else b""))
+    with pytest.raises(RuntimeError, match="re-encodes differently"):
+        cs._check_codecs(wire, "cpu")
+
+
+def test_every_scheme_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread):
+    """chip_smoke.phase_schemes at a small size on the CPU (16 base
+    spends): RSA and SPHINCS rows verified on the host in the flush's one
+    dispatch, the attachment contract run in the sandbox, every answer
+    its label — and the reference's batching notary, given the same
+    bytes, answers every spend with the same label."""
+    import torch
+
+    import test_torch_notary as tn
+    from corda_tpu_torch.testing import notary_fixture
+    from corda_tpu_torch.testing.notary_fixture import answer_kind, build_fixture
+
+    _counted_plain_versions(monkeypatch)
+    monkeypatch.setattr(cs, "SCHEME_BASE", 16)
+    monkeypatch.setattr(cs, "SCHEME_BATCHES", (16, 64))
+    made = []
+    real = notary_fixture.build_scheme_fixture
+    monkeypatch.setattr(notary_fixture, "build_scheme_fixture",
+                        lambda *a, **k: made.append(real(*a, **k)) or made[-1])
+    fx = build_fixture(48, **SMALL_FIXTURE)
+    launches = cs.phase_schemes(torch.device("cpu"), "cpu rehearsal", fx)
+    assert launches["ed_ladder"] and launches["wei_ladder_windowed"]
+    out = capsys.readouterr().out
+    assert "every answer its label" in out and "host_rows 6" in out
+    sf, = made
+    assert sf.kinds.count("rsa") == sf.kinds.count("sphincs") == 3
+    assert set(sf.labels) == {"ok", "invalid-signature", "conflict", "wrong-notary",
+                              "invalid-transaction"}
+    hub, _, requester = tn._reference_hub(fx, tn.StreamedCpu())
+    for data in sf.attachments:
+        hub.attachments.import_attachment(data)
+    r_svc = tn.rnot.BatchingNotaryService(hub, tn.rnot.InMemoryUniquenessProvider())
+    r_answers = tn._drive(r_svc, [tn.rser.decode(tn.pser.encode(s)) for s in sf.spends],
+                          requester)
+    assert [answer_kind(a) for a in r_answers] == sf.labels

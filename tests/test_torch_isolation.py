@@ -2,9 +2,12 @@
 
 Two checks: an AST scan of every module of the port and of
 chip_smoke.py, and a subprocess that imports every module (and
-chip_smoke.py) with `jax` and `corda_tpu` blocked on sys.meta_path.
-The CUDA sources hold no Python, but they are in the package too: the
-scan checks that every csrc file is one the port's build knows.
+chip_smoke.py) with `jax` and `corda_tpu` blocked on sys.meta_path, then
+builds the native library, round-trips a transaction through it and runs
+one sandboxed attachment contract, whose source imports the platform API
+by the reference's module names. The CUDA and C++ sources hold no
+Python, but they are in the package too: the scan checks that every
+csrc and native file is one the port's builds know.
 """
 
 import ast
@@ -33,16 +36,26 @@ def test_ast_scan_finds_no_banned_import():
     finance/cash.py) are among those scanned, and csrc holds only the
     two kernel sources and their headers (the one-thread field256.cuh,
     the group-cooperative field256_group.cuh, the point tables of
-    group_points.cuh). The Cash contract's wire name,
-    "corda_tpu.finance.Cash", is a string, not an import."""
+    group_points.cuh), native holds its build, loader and the one C++
+    source, and the modules of the codec and sandbox slice (the native
+    loader, sphincs, the sandbox, the determinism audit, commercial
+    paper, obligation) are scanned. The Cash contract's wire name,
+    "corda_tpu.finance.Cash", and the sandbox's platform module names
+    are strings, not imports."""
     offenders = []
     files = _modules()
-    assert len(files) >= 40
+    assert len(files) >= 48
     for must in ("crypto/eddsa.py", "node/notary.py", "node/services.py",
-                 "core/transactions.py", "finance/cash.py"):
+                 "core/transactions.py", "finance/cash.py", "native/__init__.py",
+                 "native/build.py", "crypto/sphincs.py", "core/sandbox.py",
+                 "experimental/determinism.py", "finance/commercial_paper.py",
+                 "finance/obligation.py"):
         assert PKG / must in files
     assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
         "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh", "wei_ladder.cu"
+    ]
+    assert sorted(p.name for p in (PKG / "native").iterdir() if p.name != "__pycache__") == [
+        "__init__.py", "build.py", "cts_hash.cpp"
     ]
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -73,6 +86,24 @@ names = [m.name for m in pkgutil.walk_packages(corda_tpu_torch.__path__, "corda_
 names.append("chip_smoke")
 for n in names:
     importlib.import_module(n)
+from corda_tpu_torch.core import serialization as ser
+from corda_tpu_torch.core.contracts import StateRef
+from corda_tpu_torch.crypto.hashes import SecureHash
+ref = StateRef(SecureHash.sha256(b"x"), 1)
+assert ser.decode(ser.encode(ref)) == ref and ser.encode(ref) == ser.encode_py(ref)
+from types import SimpleNamespace as NS
+from corda_tpu_torch.core.contracts import ContractViolation
+from corda_tpu_torch.core.sandbox import contract_from_attachments, make_contract_attachment
+from corda_tpu_torch.testing.notary_fixture import MAGIC_CONTRACT, MAGIC_SOURCE
+att = make_contract_attachment(MAGIC_CONTRACT, "MagicContract", MAGIC_SOURCE)
+contract = contract_from_attachments(MAGIC_CONTRACT, [att])
+big = NS(contract=MAGIC_CONTRACT, data=NS(amount=NS(quantity=60)))
+contract.verify(NS(outputs=[NS(contract=MAGIC_CONTRACT, data=NS(amount=NS(quantity=50)))]))
+try:
+    contract.verify(NS(outputs=[big]))
+    raise SystemExit("the sandboxed contract let 60 through")
+except ContractViolation as e:
+    assert "cap of 50" in str(e)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu")]
 assert not bad, bad
 print(len(names))
@@ -81,10 +112,13 @@ print(len(names))
 
 def test_imports_with_jax_and_reference_blocked():
     """Every module of the port imports in a fresh interpreter where
-    importing jax or corda_tpu raises."""
+    importing jax or corda_tpu raises; there the native codec builds and
+    round-trips, and a sandboxed attachment contract loads (its
+    `from corda_tpu.finance.cash import ...` served by the port) and
+    passes and rejects as it should."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 40
+    assert int(out.stdout.strip().splitlines()[-1]) >= 48

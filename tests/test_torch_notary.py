@@ -315,28 +315,79 @@ def test_submit_and_tick():
     assert [answer_kind(f.result()) for f in futs] == ["ok"] * len(SMALL)
 
 
-@pytest.mark.parametrize("streamed", [True, False], ids=["streamed", "join"])
-def test_row_of_a_scheme_without_kernel_is_answered_at_intake(streamed):
-    """A transaction with a signature row of a scheme the port has no
-    kernel for (RSA) is answered `unsupported-scheme` before the
-    dispatch; its batchmates go to the device path in one dispatch,
-    and the notary does not degrade."""
+@lru_cache(maxsize=None)
+def _rsa_key():
     from corda_tpu_torch.crypto import schemes
-    from corda_tpu_torch.crypto.tx_signature import SignatureMetadata, TransactionSignature
+
+    return schemes.generate_keypair(schemes.RSA_SHA256)
+
+
+def _with_extra_signature(spends, i, sig):
+    out = list(spends)
+    out[i] = out[i].with_additional_signature(sig)
+    return out
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["dummy-rsa", "real-rsa"])
+@pytest.mark.parametrize("streamed", [True, False], ids=["streamed", "join"])
+def test_rsa_row_is_verified_on_the_host_with_its_batchmates_in_one_dispatch(streamed, signed):
+    """A spend carrying an added RSA signature: no kernel verifies RSA in
+    either package, so the card's verifier checks the row on the host in
+    the same dispatch as its batchmates' device rows. A dummy RSA row is
+    answered `invalid-signature` and a real RSA signature over the id
+    `ok` — the reference notary's answers on the same bytes, with
+    byte-equal notary signatures and committed maps; one dispatch, no
+    degraded flush."""
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.crypto.tx_signature import SignatureMetadata, TransactionSignature, sign_tx_id
 
     fx = fixture()
-    rsa = TransactionSignature(b"\x01", schemes.PublicKey(schemes.RSA_SHA256, b"rsa"),
-                               SignatureMetadata(1, schemes.RSA_SHA256))
     spends = [fx.spends[i] for i in SMALL]
-    spends[1] = spends[1].with_additional_signature(rsa)
+    if signed:
+        sig = sign_tx_id(_rsa_key().private, spends[1].id)
+    else:
+        sig = TransactionSignature(b"\x01", schemes.PublicKey(schemes.RSA_SHA256, b"rsa"),
+                                   SignatureMetadata(1, schemes.RSA_SHA256))
+    spends = _with_extra_signature(spends, 1, sig)
+    labels = ["ok", "ok" if signed else "invalid-signature", "ok", "ok"]
     svc = pnot.BatchingNotaryService(notary_hub(fx, port_device(streamed)))
     started = pnot.run_process([svc.process(s, fx.requester) for s in spends])
     svc.flush()
     answers = pnot.finish_process(started)
-    assert [answer_kind(a) for a in answers] == ["ok", "unsupported-scheme", "ok", "ok"]
-    assert "RSA_SHA256" in answers[1].message
+    hub, _, requester = _reference_hub(fx, StreamedCpu() if streamed else rbv.CpuBatchVerifier())
+    r_svc = rnot.BatchingNotaryService(hub, rnot.InMemoryUniquenessProvider())
+    r_answers = _drive(r_svc, [rser.decode(pser.encode(s)) for s in spends], requester)
+    assert_same_answers(r_svc, r_answers, svc, answers, labels)
     assert svc.batches_dispatched == 1 and not svc.degraded and not svc.quarantined
-    assert spends[1].wtx.inputs[0] not in svc.uniqueness.committed
+    assert svc.metrics.counter("Notary.DegradedFlushes").count == 0
+    assert (spends[1].wtx.inputs[0] in svc.uniqueness.committed) == signed
+
+
+def test_row_of_a_scheme_no_path_verifies_is_answered_at_intake():
+    """A signature row under a COMPOSITE key, which no path verifies in
+    either package: the port answers that transaction `unsupported-scheme`
+    at intake and signs its batchmates in one dispatch. The reference's
+    verifier raises for the whole batch instead, and its degraded mode
+    (on by default) quarantines the transaction as poison (ROADMAP
+    Queue 3, D4)."""
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.crypto.tx_signature import SignatureMetadata, TransactionSignature
+
+    fx = fixture()
+    comp = TransactionSignature(b"\x01", schemes.PublicKey(schemes.COMPOSITE_KEY, b"c"),
+                                SignatureMetadata(1, schemes.COMPOSITE_KEY))
+    spends = _with_extra_signature([fx.spends[i] for i in SMALL], 1, comp)
+    svc = pnot.BatchingNotaryService(notary_hub(fx, port_device(True)))
+    started = pnot.run_process([svc.process(s, fx.requester) for s in spends])
+    svc.flush()
+    answers = pnot.finish_process(started)
+    assert [answer_kind(a) for a in answers] == ["ok", "unsupported-scheme", "ok", "ok"]
+    assert "COMPOSITE" in answers[1].message
+    assert svc.batches_dispatched == 1 and not svc.degraded and not svc.quarantined
+    hub, _, requester = _reference_hub(fx, StreamedCpu())
+    r_svc = rnot.BatchingNotaryService(hub, rnot.InMemoryUniquenessProvider())
+    r_answers = _drive(r_svc, [rser.decode(pser.encode(s)) for s in spends], requester)
+    assert [answer_kind(a) for a in r_answers] == ["ok", "poison-quarantined", "ok", "ok"]
 
 
 class PoisonCpu(pbv.BatchSignatureVerifier):

@@ -179,3 +179,63 @@ def test_signature_checks_default_to_the_card():
         issue.check_signatures_are_valid()
     finally:
         pbv.set_default_verifier(saved)
+
+
+def _attachment_spend(ns, svc, sandbox, split, attach: bool):
+    """A Cash spend whose outputs run under an attachment-only contract
+    (notary_fixture.MAGIC_SOURCE: no output above 50), with the
+    attachment recorded on the hub and listed on the transaction, or
+    neither: (hub, spend)."""
+    from corda_tpu_torch.testing.notary_fixture import MAGIC_CONTRACT, MAGIC_SOURCE
+
+    hub, issue, _ = _ledger(ns, svc, False)
+    owner = ns.generate_keypair(ns.EDDSA_ED25519_SHA512, seed=22)
+    att = sandbox.make_contract_attachment(MAGIC_CONTRACT, "MagicContract", MAGIC_SOURCE)
+    b = ns.TransactionBuilder()
+    b.add_input_state(ns.StateAndRef(issue.wtx.outputs[0], ns.StateRef(issue.id, 0)))
+    token = issue.wtx.outputs[0].data.amount.token
+    for q in split:
+        b.add_output_state(ns.CashState(ns.Amount(q, token), owner.public), MAGIC_CONTRACT)
+    b.add_command(ns.CashMove(), owner.public)
+    if attach:
+        hub.attachments.import_attachment(att.data)
+        b.add_attachment(att.id)
+    return hub, b.sign_initial_transaction(owner.private)
+
+
+@pytest.mark.parametrize("split, attach", [((50, 50), True), ((60, 40), True), ((50, 50), False)],
+                         ids=["satisfied", "broken", "no-attachment"])
+def test_attachment_contract_verifies_or_fails_with_the_reference_message(split, attach):
+    """A contract no process registered, carried only by the
+    transaction's attachment: the port loads it into its sandbox and the
+    transaction verifies, or fails with the reference's exception class
+    and message (the contract's own violation; an unknown contract when
+    no attachment carries it). The grouped sweep defers such a
+    transaction until its signatures are known, on both sides; the same
+    attachment bytes give the same transaction id."""
+    import corda_tpu.core.sandbox as rsandbox
+    import corda_tpu_torch.core.sandbox as psandbox
+
+    outcomes, ids = [], []
+    for ns, svc, sandbox in ((REF, rsvc, rsandbox), (PORT, psvc, psandbox)):
+        hub, stx = _attachment_spend(ns, svc, sandbox, split, attach)
+        ids.append(stx.id.bytes_)
+        errs, deferred = hub.resolve_verify_batch([stx])
+        assert errs == [None] and list(deferred) == [0]
+        got = []
+        for ltx in (deferred[0], hub.resolve_transaction(stx.wtx)):
+            try:
+                ltx.verify()
+                got.append(None)
+            except Exception as e:   # noqa: BLE001 - the outcome under test
+                got.append((type(e).__name__, str(e)))
+        assert got[0] == got[1]
+        outcomes.append(got[0])
+    assert ids[0] == ids[1]
+    assert outcomes[0] == outcomes[1]
+    if split == (50, 50) and attach:
+        assert outcomes[1] is None
+    elif attach:
+        assert outcomes[1] == ("ContractViolation", "magic output exceeds its cap of 50")
+    else:
+        assert outcomes[1][0] == "ContractViolation" and "no attachment carries it" in outcomes[1][1]

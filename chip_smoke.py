@@ -68,7 +68,27 @@ Phases (any failure raises and exits non-zero):
      tests/test_torch_chip_smoke.py on the CPU), the verdicts equal
      CpuBatchVerifier, ed_ladder and wei_ladder_windowed launch, and no
      flush degrades; prints host_rows and host_seconds;
-  8. print the kernel table as one JSON line, then the result line
+  8. the flows, the in-memory fabric and MockNetwork over
+     CudaBatchVerifier(batch_sizes=(128, 4096)) on the card: (a) drive
+     1 with a validating notary — Bank issues to Alice (ed25519), Alice
+     pays Bob (p256), Bob pays Carol (secp256k1) and Carol pays Bank,
+     each recipient resolving the backchain through the card; a payment
+     interrupted while it awaits the notary restores from its checkpoint
+     in a fresh state machine and completes; a spend with a flipped
+     signature byte is refused by FinalityFlow (InvalidSignature) and by
+     the notary ("invalid-transaction"); a double spend raises
+     NotaryException "conflict"; every balance exact; (b) a batching
+     notary for shards 1 and 4: 32 payments from 8 payers (issuance
+     recorded straight into the vaults) started before one pump round
+     and notarised in one flush (one dispatch per shard holding
+     requests), every payment completed and every balance exact, no
+     degraded flush, answers spread over the shards; (c) (a) again over
+     CpuBatchVerifier: the same transaction ids, notary signatures,
+     refusals and balances. ed_ladder, wei_ladder_windowed and wei_ladder
+     must launch within (a) and (b). Prints flows/s, card verify calls per
+     payment and rows per call, their summed chunk-event seconds, the
+     notary flush's rows and walls, and the phase's wall;
+  9. print the kernel table as one JSON line, then the result line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
@@ -847,6 +867,256 @@ def phase_schemes(device, card: str, fx) -> dict:
           f"summed) {pv.device_seconds():.3f} s; launches {launches}; {card}")
     return launches
 
+FLOW_SEED = 11
+FLOW_BATCHES = (128, 4096)
+FLOW_PAYERS = 8              # phase 8b: payer nodes (1 in 4 p256, 1 in 4 secp256k1)
+FLOW_COINS = 4               # phase 8b: issued coins per payer, one payment each
+FLOW_SHARDS = (1, 4)         # phase 8b: the batching notary's shards
+
+
+def _cash_of(node) -> int:
+    """The node's own unspent Cash (states its legal key owns)."""
+    from corda_tpu_torch.finance import CashState
+
+    return sum(s.state.data.amount.quantity for s in node.vault.unconsumed_states(CashState)
+               if s.state.data.owner == node.party.owning_key)
+
+
+def flow_drive(verifier, seed: int = FLOW_SEED) -> dict:
+    """Phase 8a, drive 1 through the flows over `verifier`: a validating
+    notary, Bank and Alice (ed25519), Bob (p256), Carol (secp256k1).
+    Bank issues to Alice; Alice pays Bob; Bob pays Carol and Carol pays
+    Bank (each recipient resolves the backchain); a payment of Alice's
+    is interrupted while it awaits the notary and restored from its
+    checkpoint by a fresh state machine; a spend with a flipped signature
+    byte is refused by FinalityFlow and by the notary; a double spend
+    loses with a "conflict". Raises unless every outcome and balance is
+    the expected one; returns the ledger (ids, notary signatures,
+    balances, refusals) and the verify calls of each payment."""
+    import dataclasses
+    import random as _random
+
+    from corda_tpu_torch.core.transactions import TransactionBuilder
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.crypto.tx_signature import InvalidSignature
+    from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow, CashState
+    from corda_tpu_torch.finance.cash import CASH_CONTRACT, CashMove
+    from corda_tpu_torch.flows.core_flows import FinalityFlow, NotaryFlow
+    from corda_tpu_torch.flows.statemachine import StateMachineManager
+    from corda_tpu_torch.node.notary import NotaryException
+    from corda_tpu_torch.testing import MockNetwork
+
+    calls = getattr(verifier, "calls", [])    # a recording verifier's dispatches
+    net = MockNetwork(seed=seed, batch_verifier=verifier)
+    notary = net.create_notary("Notary", validating=True)
+    bank = net.create_node("Bank")
+    alice = net.create_node("Alice")
+    bob = net.create_node("Bob", scheme_id=schemes.ECDSA_SECP256R1_SHA256)
+    carol = net.create_node("Carol", scheme_id=schemes.ECDSA_SECP256K1_SHA256)
+    ledger = {"ids": [], "notary_sigs": [], "refused": [], "calls": {}}
+
+    def record(label, stx, n_calls):
+        ledger["ids"].append(str(stx.id))
+        ledger["notary_sigs"].append(
+            [s.signature.hex() for s in stx.sigs if s.by == notary.party.owning_key])
+        ledger["calls"][label] = len(calls) - n_calls
+
+    def run(label, node, logic):
+        n_calls = len(calls)
+        stx = node.run_flow(logic)
+        record(label, stx, n_calls)
+        return stx
+
+    def refused(label, node, logic, exc_type, kind=None):
+        try:
+            node.run_flow(logic)
+        except exc_type as e:
+            got = getattr(getattr(e, "error", None), "kind", None)
+            if got != kind:
+                raise RuntimeError(f"flow drive: {label} refused as {got!r}, not {kind!r}: {e}")
+            ledger["refused"].append([label, type(e).__name__, got])
+            return
+        raise RuntimeError(f"flow drive: {label} was not refused")
+
+    run("issue Bank -> Alice", bank, CashIssueFlow(1000, "USD", alice.party, notary.party))
+    run("pay Alice -> Bob", alice, CashPaymentFlow(400, "USD", bob.party))
+    run("pay Bob -> Carol", bob, CashPaymentFlow(150, "USD", carol.party))
+    run("pay Carol -> Bank", carol, CashPaymentFlow(50, "USD", bank.party))
+
+    # a payment interrupted while it awaits the notary's answer
+    n_calls = len(calls)
+    fsm = alice.start_flow(CashPaymentFlow(100, "USD", carol.party))
+    waiting = fsm.waiting
+    if fsm.done or waiting is None or waiting[0] != "recv" or \
+            alice.smm.sessions_by_id[waiting[1]][1].party != notary.party:
+        raise RuntimeError(f"flow drive: the payment is not awaiting the notary ({waiting})")
+    net.fabric.pump(1)               # the notary takes the request
+    alice.smm.stop()
+    alice.smm = StateMachineManager(alice.services, alice.messaging,
+                                    rng=_random.Random(seed + 1))
+    if alice.smm.restore_checkpoints() != 1:
+        raise RuntimeError("flow drive: the interrupted payment did not restore")
+    restored, = alice.smm.flows.values()
+    net.run()
+    record("pay Alice -> Carol (restored)", restored.result_or_throw(), n_calls)
+
+    coin, = alice.vault.unconsumed_states(CashState)
+
+    def spend_to(party):
+        b = TransactionBuilder(notary.party)
+        b.add_input_state(coin)
+        b.add_output_state(coin.state.data.with_owner(party.owning_key), CASH_CONTRACT)
+        b.add_command(CashMove(), alice.party.owning_key)
+        return alice.services.sign_initial_transaction(b)
+
+    good = spend_to(bob.party)
+    sig = good.sigs[0]
+    flipped = dataclasses.replace(good, sigs=(dataclasses.replace(
+        sig, signature=bytes([sig.signature[0] ^ 1]) + sig.signature[1:]),))
+    refused("flipped signature at finality", alice, FinalityFlow(flipped), InvalidSignature)
+    refused("flipped signature at the notary", alice, NotaryFlow(flipped), NotaryException,
+            "invalid-transaction")
+    run("spend Alice -> Bob", alice, FinalityFlow(good))
+    refused("double spend Alice -> Carol", alice, FinalityFlow(spend_to(carol.party)),
+            NotaryException, "conflict")
+
+    ledger["balances"] = {n.name: _cash_of(n) for n in (bank, alice, bob, carol)}
+    want = {"Bank": 50, "Alice": 0, "Bob": 750, "Carol": 200}
+    if ledger["balances"] != want:
+        raise RuntimeError(f"flow drive: balances {ledger['balances']}, expected {want}")
+    if sum(_cash_of(n) for n in net.nodes) != 1000:
+        raise RuntimeError("flow drive: cash was created or destroyed")
+    return ledger
+
+
+def flow_flush(verifier, shards: int, seed: int = FLOW_SEED) -> dict:
+    """Phase 8b: FLOW_PAYERS x FLOW_COINS CashPaymentFlows to one node,
+    all started before one pump round, notarised by a batching notary
+    with `shards` shards in one flush (one tick: one dispatch per shard
+    that holds requests). The payers' issuance is recorded straight into
+    the vaults (and the notary's and the recipient's stores) before the
+    window. Raises unless every payment completes, the balances are
+    exact, the notary did not degrade and, for shards > 1, the answers
+    spread over more than one shard; returns the window's figures."""
+    from corda_tpu_torch.core.contracts import Amount, Issued
+    from corda_tpu_torch.core.identity import PartyAndReference
+    from corda_tpu_torch.core.transactions import TransactionBuilder
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.finance import CashPaymentFlow
+    from corda_tpu_torch.finance.cash import CASH_CONTRACT, CashIssue, CashState
+    from corda_tpu_torch.testing import MockNetwork
+
+    kinds = (schemes.EDDSA_ED25519_SHA512, schemes.ECDSA_SECP256R1_SHA256,
+             schemes.EDDSA_ED25519_SHA512, schemes.ECDSA_SECP256K1_SHA256)
+    net = MockNetwork(seed=seed, batch_verifier=verifier)
+    notary = net.create_notary("Notary", batching=True, shards=shards)
+    bank = net.create_node("Bank")
+    sink = net.create_node("Sink")
+    payers = [net.create_node(f"Payer{i}", scheme_id=kinds[i % 4]) for i in range(FLOW_PAYERS)]
+    token = Issued(PartyAndReference(bank.party, b"\x01"), "USD")
+    for p in payers:
+        b = TransactionBuilder(notary.party)
+        for j in range(FLOW_COINS):
+            b.add_output_state(CashState(Amount(100 + j, token), p.party.owning_key), CASH_CONTRACT)
+        b.add_command(CashIssue(), bank.party.owning_key)
+        issue = bank.services.sign_initial_transaction(b)
+        for node in (p, notary, sink):
+            node.services.record_transactions([issue])
+
+    svc = notary.services.notary_service
+    flushes = []
+    tick = notary.ticks[0]
+
+    def timed_tick():
+        n_calls, t = len(verifier.calls), time.perf_counter()
+        answered = tick()
+        if answered:
+            mine = verifier.calls[n_calls:]
+            flushes.append({"answered": answered, "wall_s": time.perf_counter() - t,
+                            "rows": sum(len(r) for r, _ in mine), "dispatches": len(mine),
+                            "device_s": sum(pv.device_seconds() for _, pv in mine)})
+        return answered
+
+    notary.ticks[0] = timed_tick
+    n_pay = FLOW_PAYERS * FLOW_COINS
+    verifier.calls = []
+    t0 = time.perf_counter()
+    fsms = [p.start_flow(CashPaymentFlow(10, "USD", sink.party))
+            for p in payers for _ in range(FLOW_COINS)]
+    net.run()
+    wall = time.perf_counter() - t0
+    label = f"flow flush shards={shards}"
+    for f in fsms:
+        f.result_or_throw()
+    if len(flushes) != 1 or flushes[0]["answered"] != n_pay:
+        raise RuntimeError(f"{label}: {n_pay} payments answered in flushes {flushes}, not one")
+    if svc.batches_dispatched != flushes[0]["dispatches"]:
+        raise RuntimeError(f"{label}: {svc.batches_dispatched} notary dispatches counted")
+    if _cash_of(sink) != 10 * n_pay or any(
+            _cash_of(p) != sum(range(100, 100 + FLOW_COINS)) - 10 * FLOW_COINS for p in payers):
+        raise RuntimeError(f"{label}: balances are not exact")
+    if svc.degraded or svc.metrics.counter("Notary.DegradedFlushes").count:
+        raise RuntimeError(f"{label}: the notary degraded: {svc.degraded_evidence}")
+    answered = [svc.metrics.counter(f"Notary.Shard{k}.Answered").count for k in range(shards)]
+    if shards > 1 and (sum(map(bool, answered)) < 2 or sum(answered) != n_pay):
+        raise RuntimeError(f"{label}: answers per shard {answered}, not spread")
+    flush = flushes[0]
+    return {"payments": n_pay, "wall_s": wall, "flush": flush, "shard_answered": answered,
+            "flow_calls": len(verifier.calls) - flush["dispatches"],
+            "flow_rows": sum(len(r) for r, _ in verifier.calls) - flush["rows"],
+            "flow_device_s": sum(pv.device_seconds() for _, pv in verifier.calls)
+            - flush["device_s"]}
+
+
+def phase_flows(device, card: str) -> dict:
+    """Phase 8: drive 1 through the flows, the in-memory fabric and
+    MockNetwork over CudaBatchVerifier on the card (8a), the batching
+    notary under concurrent payments for shards 1 and 4 (8b), and 8a
+    again over CpuBatchVerifier, whose ledger must equal the card's
+    (8c). Returns the launches of 8a and 8b."""
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+
+    verifier = _recording_verifier(FLOW_BATCHES, device)
+    t_phase = time.perf_counter()
+    _zero_counters()
+    t0 = time.perf_counter()
+    ledger = flow_drive(verifier)
+    wall_a = time.perf_counter() - t0
+    rows = [len(r) for r, _ in verifier.calls]
+    device_s = sum(pv.device_seconds() for _, pv in verifier.calls)
+    pays = {k: v for k, v in ledger["calls"].items() if k.startswith("pay")}
+    print(f"flow drive (8a): {len(ledger['ids'])} flows completed and "
+          f"{len(ledger['refused'])} refused in {wall_a:.3f} s = "
+          f"{len(ledger['ids']) / wall_a:.3f} completed flows/s; {len(rows)} card verify calls, rows per "
+          f"call {min(rows)}-{max(rows)} (mean {sum(rows) / len(rows):.2f}), chunk events "
+          f"summed {device_s:.3f} s; card verify calls "
+          f"per payment {json.dumps(pays)}; per flow {json.dumps(ledger['calls'])}; refused "
+          f"{ledger['refused']}; balances {ledger['balances']}; {card}")
+    for shards in FLOW_SHARDS:
+        verifier.calls = []
+        fl = flow_flush(verifier, shards)
+        f = fl["flush"]
+        print(f"flow flush (8b) shards={shards}: {fl['payments']} payments in {fl['wall_s']:.3f} s "
+              f"= {fl['payments'] / fl['wall_s']:.3f} flows/s; notary flush {f['answered']} "
+              f"answers, {f['dispatches']} dispatch(es), {f['rows']} rows, wall "
+              f"{f['wall_s']:.3f} s (chunk events {f['device_s']:.3f} s); flow verify calls "
+              f"{fl['flow_calls']} = {fl['flow_calls'] / fl['payments']:.2f} per payment, "
+              f"{fl['flow_rows']} rows, chunk events summed {fl['flow_device_s']:.3f} s; "
+              f"answered per shard {fl['shard_answered']}; {card}")
+    launches = _read_counters()
+    for kernel in ("ed_ladder", "wei_ladder_windowed", "wei_ladder"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} was not launched in the flow phase")
+    t0 = time.perf_counter()
+    cpu = flow_drive(CpuBatchVerifier())
+    for key in ("ids", "notary_sigs", "refused", "balances"):
+        if cpu[key] != ledger[key]:
+            raise RuntimeError(f"flow drive: the card's {key} differ from CpuBatchVerifier's")
+    print(f"flow drive (8c) over CpuBatchVerifier in {time.perf_counter() - t0:.3f} s: the same "
+          f"{len(cpu['ids'])} transaction ids, notary signatures, refusals and balances")
+    print(f"flow phase: launches {launches}; wall {time.perf_counter() - t_phase:.3f} s; {card}")
+    return launches
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -889,6 +1159,7 @@ def main(argv=None) -> int:
     phase_main(device, report)
     _, fx = phase_notary(device, card)
     phase_schemes(device, card, fx)
+    phase_flows(device, card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

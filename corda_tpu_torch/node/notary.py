@@ -10,8 +10,10 @@ card, CudaBatchVerifier — whose streamed handle
 The reference's optional planes are not ported: QoS (node/qos.py), the
 ingest ring, the health plane, the txstory ledger, the perf and device
 planes and the intent journal; the constructor has no argument for
-them. Without the flow state machine, a caller drives a `process`
-generator with `run_process`.
+them, and the `deadline` every `process` takes is ignored, as the
+reference ignores it without a QoS plane. The flow state machine
+(flows/statemachine.py) drives `process` from NotaryServiceFlow; a
+caller without flows drives it with `run_process`.
 
 RSA and SPHINCS rows, which no device path verifies in either package,
 ride the same dispatch: the verifier checks them on the host while the
@@ -78,6 +80,15 @@ class NotaryError:
     kind: str
     message: str
     conflict: Any = None    # {state_ref: consuming_tx_id} for conflicts
+
+
+class NotaryException(Exception):
+    """A notarisation failed: raised in the requesting flow
+    (core_flows.NotaryFlow) with the notary's NotaryError."""
+
+    def __init__(self, error: NotaryError):
+        self.error = error
+        super().__init__(f"notarisation failed: {error.kind}: {error.message}")
 
 
 class UniquenessConflict(Exception):
@@ -679,11 +690,17 @@ class SimpleNotaryService(NotaryService):
         self,
         ftx: FilteredTransaction,
         requester: Party,
+        deadline: Optional[int] = None,
         trace=None,
     ):
-        # `trace`: an optional trace context threaded to the uniqueness
-        # provider, where a distributed (Raft) commit stamps per-member
-        # consensus-phase spans into it.
+        # `deadline` (the reference's QoS plane) is accepted on every
+        # notary flavour so the service flow passes it uniformly;
+        # without a QoS plane every flavour ignores it, as the
+        # reference does when its `qos` is None. `trace`: an optional
+        # trace context threaded to the uniqueness provider, where a
+        # distributed (Raft) commit stamps per-member consensus-phase
+        # spans into it.
+        del deadline
         try:
             ftx.verify()
         except TransactionVerificationError as e:
@@ -964,9 +981,12 @@ class BatchingNotaryService(NotaryService):
         self,
         stx: SignedTransaction,
         requester: Party,
+        deadline: Optional[int] = None,
         trace=None,
     ):
-        """The service flow's entry (a generator: see `run_process`)."""
+        """The service flow's entry (a generator: see `run_process`).
+        `deadline` is ignored: no QoS plane (see SimpleNotaryService)."""
+        del deadline
         if stx.wtx.notary != self.identity:
             return NotaryError(
                 "wrong-notary",
@@ -1934,8 +1954,10 @@ class ValidatingNotaryService(NotaryService):
         self,
         stx: SignedTransaction,
         requester: Party,
+        deadline: Optional[int] = None,
         trace=None,
     ):
+        del deadline   # see SimpleNotaryService.process
         if stx.wtx.notary != self.identity:
             return NotaryError(
                 "wrong-notary", f"tx names notary {stx.wtx.notary}, I am "

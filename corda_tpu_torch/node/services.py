@@ -3,8 +3,9 @@
 Port of corda_tpu/node/services.py: the clock, the storages, key
 management, identity, the network-map cache, the vault (without its
 query DSL, node/vault_query.py, which is not ported), the in-memory
-transaction verifier service and the hub with its batched resolve +
-verify (`resolve_verify_batch`, the notary flush's host hot path). The
+transaction verifier service and the hub, with its CorDapp services
+(node/cordapp.py) and its batched resolve + verify
+(`resolve_verify_batch`, the notary flush's host hot path). The
 hub's batch verifier defaults to the port's `default_verifier()`, a
 CudaBatchVerifier on the card. Persistence (the reference's sqlite
 hubs) is not ported: passing `db` raises NotImplementedError.
@@ -801,12 +802,24 @@ class ServiceHub:
         self.vault = (vault_factory or VaultService)(self)
         self.transaction_verifier = InMemoryTransactionVerifierService()
         self._batch_verifier = batch_verifier
+        # @corda_service instances, filled by cordapp.install_cordapp_services
+        self.cordapp_services: dict = {}
 
     @property
     def batch_verifier(self) -> BatchSignatureVerifier:
         """The signature-verification SPI for this node (the port's
         default_verifier(), on the card, unless one was passed)."""
         return self._batch_verifier or default_verifier()
+
+    def cordapp_service(self, cls):
+        """This node's instance of a @corda_service class (reference:
+        ServiceHub.cordaService(Class), AbstractNode.kt:226-279)."""
+        svc = self.cordapp_services.get(cls)
+        if svc is None:
+            raise KeyError(
+                f"no @corda_service {cls.__name__} installed on this node"
+            )
+        return svc
 
     # -- recording ----------------------------------------------------------
 

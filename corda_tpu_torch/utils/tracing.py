@@ -9,6 +9,8 @@ tracer keeps the last `keep` completed traces in `completed`. The
 reference's flight recorder, Chrome export and cross-node assembly wait
 for Queue 1 #10.
 
+`wire_trace` is the header a traced flow's session frames carry.
+
 `annotate(name)` is `torch.profiler.record_function(name)`: the notary's
 verify dispatch shows as a named region in a torch.profiler capture, so
 host spans line up with the card's kernels.
@@ -133,6 +135,22 @@ class Span:
 
     def __bool__(self) -> bool:
         return True
+
+
+def wire_trace(parent) -> Optional[tuple]:
+    """The fabric-header form of a trace context: `(trace_id, span_id,
+    sent_at_us)`, `sent_at_us` the sender's time.perf_counter in
+    microseconds at send time (the reference's receivers pair it with
+    their arrival clock). Accepts a live Span, a SpanContext or a prior
+    wire header (re-stamped for the new hop); None in, None out. The
+    state machine stamps it on every frame of a traced flow."""
+    if parent is None:
+        return None
+    ctx = parent.context if isinstance(parent, (Span, _NoopSpan)) \
+        else SpanContext.from_header(parent)
+    if ctx is None:
+        return None
+    return (ctx.trace_id, ctx.span_id, int(time.perf_counter() * 1e6))
 
 
 class Tracer:

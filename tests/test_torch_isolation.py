@@ -3,9 +3,11 @@
 Two checks: an AST scan of every module of the port and of
 chip_smoke.py, and a subprocess that imports every module (and
 chip_smoke.py) with `jax` and `corda_tpu` blocked on sys.meta_path, then
-builds the native library, round-trips a transaction through it and runs
+builds the native library, round-trips a transaction through it, runs
 one sandboxed attachment contract, whose source imports the platform API
-by the reference's module names. The CUDA and C++ sources hold no
+by the reference's module names, and runs a two-node payment through
+MockNetwork whose flow is restored from its checkpoint by the
+`corda_tpu.`-path class tag. The CUDA and C++ sources hold no
 Python, but they are in the package too: the scan checks that every
 csrc and native file is one the port's builds know.
 """
@@ -39,17 +41,21 @@ def test_ast_scan_finds_no_banned_import():
     group_points.cuh), native holds its build, loader and the one C++
     source, and the modules of the codec and sandbox slice (the native
     loader, sphincs, the sandbox, the determinism audit, commercial
-    paper, obligation) are scanned. The Cash contract's wire name,
-    "corda_tpu.finance.Cash", and the sandbox's platform module names
-    are strings, not imports."""
+    paper, obligation) and of the flow slice (the state machine, the core
+    flows, the fabric, the scheduler, the CorDapp services, MockNetwork,
+    the test flows, the trade flows) are scanned. The Cash contract's
+    wire name, "corda_tpu.finance.Cash", the sandbox's platform module
+    names and the flows' class tags are strings, not imports."""
     offenders = []
     files = _modules()
-    assert len(files) >= 48
+    assert len(files) >= 56
     for must in ("crypto/eddsa.py", "node/notary.py", "node/services.py",
                  "core/transactions.py", "finance/cash.py", "native/__init__.py",
                  "native/build.py", "crypto/sphincs.py", "core/sandbox.py",
                  "experimental/determinism.py", "finance/commercial_paper.py",
-                 "finance/obligation.py"):
+                 "finance/obligation.py", "flows/statemachine.py", "flows/core_flows.py",
+                 "node/messaging.py", "node/scheduler.py", "node/cordapp.py",
+                 "testing/mock_network.py", "testing/flows.py", "finance/trade_flows.py"):
         assert PKG / must in files
     assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
         "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh", "wei_ladder.cu"
@@ -104,6 +110,25 @@ try:
     raise SystemExit("the sandboxed contract let 60 through")
 except ContractViolation as e:
     assert "cap of 50" in str(e)
+import random
+from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow, CashState
+from corda_tpu_torch.flows.statemachine import StateMachineManager
+from corda_tpu_torch.testing import MockNetwork
+net = MockNetwork(seed=3, batch_verifier=CpuBatchVerifier())
+notary = net.create_notary(validating=True)
+alice, bob = net.create_node("Alice"), net.create_node("Bob")
+alice.run_flow(CashIssueFlow(100, "USD", alice.party, notary.party))
+alice.start_flow(CashPaymentFlow(30, "USD", bob.party))
+(_, record), = alice.services.checkpoint_storage.all()
+assert ser.decode(record)[1] == "corda_tpu.finance.cash.CashPaymentFlow"
+alice.smm.stop()
+alice.smm = StateMachineManager(alice.services, alice.messaging, rng=random.Random(1))
+assert alice.smm.restore_checkpoints() == 1
+restored, = alice.smm.flows.values()
+net.run()
+assert restored.result_or_throw().id in bob.services.validated_transactions
+assert sum(s.state.data.amount.quantity for s in bob.vault.unconsumed_states(CashState)) == 30
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu")]
 assert not bad, bad
 print(len(names))
@@ -113,12 +138,15 @@ print(len(names))
 def test_imports_with_jax_and_reference_blocked():
     """Every module of the port imports in a fresh interpreter where
     importing jax or corda_tpu raises; there the native codec builds and
-    round-trips, and a sandboxed attachment contract loads (its
+    round-trips, a sandboxed attachment contract loads (its
     `from corda_tpu.finance.cash import ...` served by the port) and
-    passes and rejects as it should."""
+    passes and rejects as it should, and a payment between two nodes,
+    checkpointed while it awaits the validating notary, is restored by a
+    fresh state machine from its `corda_tpu.finance.cash` class tag and
+    completes."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 48
+    assert int(out.stdout.strip().splitlines()[-1]) >= 56

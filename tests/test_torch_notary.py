@@ -270,18 +270,24 @@ def test_no_fallback_answers_verification_unavailable():
 
 
 def test_optional_planes_raise():
-    """The QoS plane, the intent journal, per-shard verifiers and
-    request deadlines are not ported: the notary takes no argument for
-    them, so passing one is refused rather than ignored."""
+    """The QoS plane, the intent journal and per-shard verifiers are
+    not ported: the notary takes no argument for them, so passing one
+    is refused rather than ignored. A request's `deadline` is accepted,
+    as the flows pass it, and ignored, as the reference ignores it
+    without a QoS plane: the answer is the one without it."""
     fx = fixture()
     hub = notary_hub(fx, pbv.CpuBatchVerifier())
     for kw in ({"qos": object()}, {"intent_journal": object()},
                {"shard_verifiers": [pbv.CpuBatchVerifier()]}):
         with pytest.raises(TypeError):
             pnot.BatchingNotaryService(hub, **kw)
-    svc = pnot.BatchingNotaryService(hub)
-    with pytest.raises(TypeError):
-        svc.process(fixture().spends[0], fx.requester, deadline=1)
+    answers = []
+    for deadline in ({}, {"deadline": 1}):
+        svc = pnot.BatchingNotaryService(hub)
+        started = pnot.run_process([svc.process(fx.spends[0], fx.requester, **deadline)])
+        svc.flush()
+        answers.append(pnot.finish_process(started))
+    assert answer_kind(answers[0][0]) == "ok" and answers[0] == answers[1]
 
 
 class OnCard(pbv.BatchSignatureVerifier):

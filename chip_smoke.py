@@ -88,7 +88,37 @@ Phases (any failure raises and exits non-zero):
      must launch within (a) and (b). Prints flows/s, card verify calls per
      payment and rows per call, their summed chunk-event seconds, the
      notary flush's rows and walls, and the phase's wall;
-  9. print the kernel table as one JSON line, then the result line
+  9. the out-of-process verifier pool and the pipelined wire ingest
+     (node/verifier.py, node/ingest.py) on the phase-6 fixture, over
+     one CudaBatchVerifier(batch_sizes=(4096,)) that two VerifierWorkers
+     share (batch_window 8,192): (a) all 16,384 spends sent with
+     `verify(ltx, stx)` from a node endpoint of an
+     InMemoryMessagingNetwork, each ltx resolved on the fixture's hub;
+     each worker answers its 8,192 in one drain and one verify_batch
+     dispatch (Verifier.BatchSize); every answer must be its label (an
+     InvalidSignature failure exactly for the flipped signatures,
+     success for the rest: the worker checks no uniqueness or notary),
+     256 sampled answers must equal a CpuBatchVerifier worker's, and
+     ed_ladder and wei_ladder_windowed must launch in the drains;
+     prints verified transactions/s from the first verify to the last
+     answer, each drain's decode / dispatch / contract / answer seconds
+     and the frame bytes per request; (b) the same through
+     request_ingest_pipeline(shards=4): answers equal to (a)'s, with
+     the pipeline's stage seconds and frame-cache hits, then the
+     ingest's Merkle-id stage timed on fresh decodes of every spend
+     with its caches, without them and against the native id walk,
+     ids held equal, with the garbage collection inside each run (and
+     inside each pass of 9a, 9b and 9d); (c) 256
+     requests, one worker lost with its half received and unanswered:
+     on a TestClock its lease expires, its nonces re-dispatch and every
+     future is answered exactly once, by the survivor on the card
+     (Verifier.Redispatched > 0); (d) the batching notary fed from its
+     ingest ring: an IngestPipeline feeds the wire bytes of every spend
+     naming this notary from its thread into attach_ingest (the ring
+     path checks no notary; the spends naming another go through
+     `process`), one flush, every answer its phase-6 label under
+     phase 6's checks;
+ 10. print the kernel table as one JSON line, then the result line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
@@ -97,6 +127,7 @@ Imports nothing of JAX or of the corda_tpu package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 from concurrent.futures import ThreadPoolExecutor
 import random
@@ -1118,6 +1149,369 @@ def phase_flows(device, card: str) -> dict:
     return launches
 
 
+POOL_WORKERS = 2
+POOL_WINDOW = 8192           # VerifierWorker's default ingest_window
+POOL_INGEST_SHARDS = 4       # phase 9b's decode shards
+POOL_SAMPLE = 256            # phase 9a: answers held against a CpuBatchVerifier worker
+POOL_LOSS = 256              # phase 9c: requests when a worker is lost
+POOL_CHUNK = 512             # phase 9d: spends per ingest batch
+
+
+class _GcClock:
+    """Seconds the interpreter spends in garbage collection while the
+    clock is entered, and its collections per generation (gc.callbacks)."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.collections = [0, 0, 0]
+        self._t0 = 0.0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._t0
+            self.collections[info["generation"]] += 1
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+    def __str__(self):
+        return f"gc {self.seconds:.3f} s in {self.collections} collections (gen 0/1/2)"
+
+
+def _verdict(fut) -> str:
+    """A pool future's answer: "ok", or its failure as `Type: message`."""
+    if not fut.done:
+        return "unanswered"
+    try:
+        fut.result()
+    except Exception as e:   # noqa: BLE001 - the failure is the answer
+        return f"{type(e).__name__}: {e}"
+    return "ok"
+
+
+def _check_pool_answers(answers, labels, label: str) -> None:
+    """The worker's answers against the fixture's labels: an
+    InvalidSignature failure exactly for the flipped signatures, success
+    for the rest (no uniqueness or notary check runs in a worker)."""
+    want_bad = "VerificationFailedError: InvalidSignature: "
+    for i, (a, kind) in enumerate(zip(answers, labels)):
+        if (a.startswith(want_bad) if kind == "invalid-signature" else a == "ok"):
+            continue
+        raise RuntimeError(f"{label}: request {i} ({kind}) answered {a!r}")
+
+
+def _pool(verifier, window: int, ingest_shards: int = 0, clock=None, faults=None, policy=None):
+    """A node endpoint with an OutOfProcessTransactionVerifierService and
+    POOL_WORKERS VerifierWorkers sharing `verifier`, attached. Returns
+    (network, service, workers, sizes): `sizes` gets the length of every
+    request frame a worker's handler receives (a ring-fed worker's
+    frames go to its ring instead)."""
+    from corda_tpu_torch.node import messaging as msglib
+    from corda_tpu_torch.node.verifier import (
+        OutOfProcessTransactionVerifierService,
+        VerifierWorker,
+        request_ingest_pipeline,
+    )
+
+    net = msglib.InMemoryMessagingNetwork(clock=clock, faults=faults)
+    sizes = []
+    svc = OutOfProcessTransactionVerifierService(net.endpoint("Node"), clock=clock, policy=policy)
+    workers = []
+    for k in range(POOL_WORKERS):
+        ep = net.endpoint(f"worker-{k}")
+        ep.add_handler(msglib.TOPIC_VERIFIER_REQ, lambda msg: sizes.append(len(msg.payload)))
+        workers.append(VerifierWorker(
+            ep, "Node", batch_verifier=verifier, batch_window=window, clock=clock,
+            heartbeat_micros=50_000 if clock else 0,
+            ingest=request_ingest_pipeline(shards=ingest_shards) if ingest_shards else None))
+    net.run()
+    if svc.worker_count != POOL_WORKERS:
+        raise RuntimeError(f"pool: {svc.worker_count} workers attached")
+    return net, svc, workers, sizes
+
+
+def pool_pass(verifier, ltxs, stxs, ingest_shards: int = 0) -> dict:
+    """Phase 9a (9b with ingest shards): every (ltx, stx) through the
+    pool, one drain per worker; returns the answers and the figures."""
+    net, svc, workers, sizes = _pool(verifier, POOL_WINDOW, ingest_shards)
+    _zero_counters()
+    t0 = time.perf_counter()
+    futs = [svc.verify(ltx, stx) for ltx, stx in zip(ltxs, stxs)]
+    t1 = time.perf_counter()
+    net.run()
+    t2 = time.perf_counter()
+    drained = [w.drain() for w in workers]
+    t3 = time.perf_counter()
+    net.run()
+    t4 = time.perf_counter()
+    launches = _read_counters()
+    answers = [_verdict(f) for f in futs]
+    n = len(futs)
+    batches = [w.metrics.histogram("Verifier.BatchSize") for w in workers]
+    round_robin = [len(range(k, n, POOL_WORKERS)) for k in range(POOL_WORKERS)]
+    if drained != round_robin or any(h.count != 1 for h in batches):
+        raise RuntimeError(f"pool: drains took {drained} requests in "
+                           f"{[h.count for h in batches]} dispatches, not one each")
+    return {"answers": answers, "wall_s": t4 - t0, "send_s": t1 - t0, "deliver_s": t2 - t1,
+            "drain_s": t3 - t2, "answer_s": t4 - t3, "launches": launches,
+            "drains": [dict(w.drain_seconds[-1]) for w in workers],
+            "rows": [int(h.max) for h in batches],
+            "request_bytes": sum(sizes) / len(sizes) if sizes else None,
+            "pipelines": [w._ingest for w in workers]}
+
+
+def pool_loss(verifier, ltxs, stxs) -> dict:
+    """Phase 9c: a worker lost with its half of the requests received and
+    unanswered; on a TestClock its lease expires and its nonces
+    re-dispatch to the survivor. Raises unless every future is answered
+    exactly once, all by the survivor; returns the answers and figures."""
+    from corda_tpu_torch.node.messaging import FabricFaults
+    from corda_tpu_torch.node.services import TestClock
+    from corda_tpu_torch.node.verifier import RedispatchPolicy
+
+    clock = TestClock()
+    faults = FabricFaults(clock)
+    policy = RedispatchPolicy(lease_micros=100_000, request_timeout_micros=100_000_000,
+                              backoff_base_micros=50_000, backoff_cap_micros=200_000)
+    net, svc, (lost, survivor), _ = _pool(verifier, POOL_WINDOW, clock=clock, faults=faults,
+                                          policy=policy)
+    t0 = time.perf_counter()
+    futs = [svc.verify(ltx, stx) for ltx, stx in zip(ltxs, stxs)]
+    net.run()                    # both workers hold their halves
+    faults.kill("worker-0")      # lost mid-batch: received, never answered
+    net.endpoint("worker-0").running = False
+    survivor.drain()
+    net.run()
+    clock.advance(150_000)
+    survivor.drain()             # its heartbeat renews its lease
+    net.run()
+    svc.tick()                   # worker-0's lease expired: detached
+    clock.advance(80_000)        # past the jittered backoff
+    svc.tick()                   # re-dispatch to the survivor
+    net.run()
+    survivor.drain()
+    net.run()
+    wall = time.perf_counter() - t0
+    answers = [_verdict(f) for f in futs]
+    m = svc.metrics
+    answered = (m.meter("TransactionVerifierService.Verification.Success").count
+                + m.meter("TransactionVerifierService.Verification.Failure").count)
+    by_worker = [w.metrics.meter("Verifier.Verified").count
+                 + w.metrics.meter("Verifier.Failed").count for w in (lost, survivor)]
+    redispatched = m.meter("Verifier.Redispatched").count
+    label = "pool worker loss (9c)"
+    if "unanswered" in answers or answered != len(futs) or svc.in_flight:
+        raise RuntimeError(f"{label}: {answers.count('unanswered')} unanswered, {answered} "
+                           f"answers accepted for {len(futs)} requests")
+    if by_worker != [0, len(futs)] or redispatched == 0 or svc.worker_count != 1:
+        raise RuntimeError(f"{label}: answered per worker {by_worker}, redispatched "
+                           f"{redispatched}, {svc.worker_count} workers left")
+    return {"answers": answers, "wall_s": wall, "redispatched": redispatched,
+            "lost": m.meter("Verifier.WorkersLost").count,
+            "survivor_drains": len(survivor.drain_seconds)}
+
+
+def ring_flush(fx, hub, shards: int = 1) -> tuple:
+    """Phase 9d: the wire bytes of every spend naming this notary fed by
+    an IngestPipeline, from its own thread, into a batching notary's
+    ring, then one flush. The ring path checks no notary, so the spends
+    naming another notary go through `process`, as a flow's request
+    does. Returns (svc, answers, wall seconds, pipeline)."""
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.flows.api import FlowFuture
+    from corda_tpu_torch.node.ingest import IngestPipeline
+    from corda_tpu_torch.node.notary import (
+        BatchingNotaryService,
+        InMemoryUniquenessProvider,
+        ShardedUniquenessProvider,
+        _PendingNotarisation,
+        finish_process,
+        run_process,
+    )
+
+    n = len(fx.spends)
+    uniq = ShardedUniquenessProvider(shards) if shards > 1 else InMemoryUniquenessProvider()
+    svc = BatchingNotaryService(hub, uniq, max_batch=n, shards=shards, shard_queue_depth=n,
+                                degraded_fallback=False)
+    mine = [i for i, stx in enumerate(fx.spends) if stx.wtx.notary == svc.identity]
+    others = sorted(set(range(n)) - set(mine))
+    wire = [ser.encode(fx.spends[i]) for i in mine]
+    batches = [wire[k : k + POOL_CHUNK] for k in range(0, len(wire), POOL_CHUNK)]
+    pipe = IngestPipeline(ring_depth=len(batches))    # one flush takes every batch
+    svc.attach_ingest(pipe.ring)
+    futs, errors = [], []
+
+    def wrap(entries):
+        batch = []
+        for e in entries:
+            if e.error is not None:
+                errors.append(e.error)
+                continue
+            fut = FlowFuture()
+            futs.append(fut)
+            batch.append(_PendingNotarisation(e.stx, fx.requester, fut))
+        return batch
+
+    t0 = time.perf_counter()
+    feeder = pipe.feed(batches, wrap=wrap)
+    started = run_process([svc.process(fx.spends[i], fx.requester) for i in others])
+    feeder.join()
+    dispatched = svc.batches_dispatched
+    svc.flush()
+    answers = [None] * n
+    for i, a in zip(others, finish_process(started)):
+        answers[i] = a
+    for i, fut in zip(mine, futs):
+        answers[i] = fut.result()
+    wall = time.perf_counter() - t0
+    pipe.close()
+    if errors or len(futs) != len(mine) or svc.batches_dispatched - dispatched != shards:
+        raise RuntimeError(f"ring flush: {svc.batches_dispatched - dispatched} dispatches for "
+                           f"{len(futs)} of {len(mine)} fed spends, ingest errors {errors[:2]}")
+    return svc, answers, wall, pipe
+
+
+def id_stage(fx, card: str) -> None:
+    """The ingest's batched Merkle-id stage (`install_tx_ids`) on fresh
+    decodes of every spend: with the leaf and root caches an
+    IngestPipeline starts with, without caches, and the native
+    per-transaction id walk (`wtx.id`). Two rounds in that order;
+    every run's ids must equal the spends'. Prints microseconds per
+    transaction, the garbage collection inside each run and the share
+    of distinct component leaves."""
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.node import ingest
+
+    wtxs = [ser.decode(ser.encode(stx)).wtx for stx in fx.spends]
+    want = [stx.id for stx in fx.spends]
+    leaves = [p for w in wtxs for p in w.leaf_preimages()]
+    runs = {
+        "cached": lambda: ingest.install_tx_ids(
+            wtxs, ingest.DigestCache(ingest.LEAF_CACHE_SIZE),
+            ingest.DigestCache(ingest.ROOT_CACHE_SIZE)),
+        "uncached": lambda: ingest.install_tx_ids(wtxs, None, None),
+        "walk": lambda: [w.id for w in wtxs],
+    }
+    us = {k: [] for k in runs}
+    gcs = {k: [] for k in runs}
+    for _ in range(2):
+        for name, run in runs.items():
+            for w in wtxs:
+                object.__setattr__(w, "_id_cache", None)
+            with _GcClock() as clock:
+                t0 = time.perf_counter()
+                run()
+                us[name].append(round((time.perf_counter() - t0) * 1e6 / len(wtxs), 3))
+            gcs[name].append(f"{clock.seconds:.3f} s/{clock.collections[2]}")
+            if [w.__dict__["_id_cache"] for w in wtxs] != want:
+                raise RuntimeError(f"id stage: {name} gives other ids than the spends'")
+    print(f"id stage: {len(wtxs)} transactions, {len(leaves) / len(wtxs):.2f} leaves each, "
+          f"{len(set(leaves)) / len(leaves):.4f} of them distinct; us per transaction (two "
+          f"rounds) install_tx_ids with caches {us['cached']}, without {us['uncached']}, native "
+          f"id walk {us['walk']}; gc seconds/gen-2 collections in each run: with caches "
+          f"{gcs['cached']}, without {gcs['uncached']}, walk {gcs['walk']}; {card}")
+
+
+def phase_pool(device, card: str, fx) -> dict:
+    """Phase 9 (module docstring); returns the launches of 9a-9d."""
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+    from corda_tpu_torch.testing.notary_fixture import notary_hub
+
+    verifier = _recording_verifier((CHUNK,), device)
+    hub = notary_hub(fx, verifier)
+    t0 = time.perf_counter()
+    ltxs = [stx.to_ledger_transaction(hub) for stx in fx.spends]
+    print(f"pool: {len(ltxs)} ledger transactions resolved in {time.perf_counter() - t0:.3f} s")
+    launches = {}
+    results = {}
+    for tag, shards in (("9a", 0), ("9b", POOL_INGEST_SHARDS)):
+        label = f"pool ({tag}" + (f", ingest shards={shards})" if shards else ")")
+        verifier.calls = []
+        with _GcClock() as gc_clock:
+            r = pool_pass(verifier, ltxs, fx.spends, shards)
+        _check_pool_answers(r["answers"], fx.labels, label)
+        for kernel in ("ed_ladder", "wei_ladder_windowed"):
+            if r["launches"][kernel] == 0:
+                raise RuntimeError(f"{kernel} was not launched in the {label} drains")
+        if [len(rs) for rs, _ in verifier.calls] != r["rows"]:
+            raise RuntimeError(f"{label}: dispatches of {[len(rs) for rs, _ in verifier.calls]} "
+                               f"rows, BatchSize {r['rows']}")
+        n = len(ltxs)
+        frames = (f"{r['request_bytes']:.1f} frame bytes per request"
+                  if r["request_bytes"] is not None else "request frames to the workers' rings")
+        print(f"{label}: {n} requests in {r['wall_s']:.3f} s = {n / r['wall_s']:.1f} verified "
+              f"transactions/s (send {r['send_s']:.3f}, deliver {r['deliver_s']:.3f}, drains "
+              f"{r['drain_s']:.3f}, answers {r['answer_s']:.3f} s; {gc_clock}); {frames}; rows "
+              f"per dispatch {r['rows']}; launches {r['launches']}; {card}")
+        for k, d in enumerate(r["drains"]):
+            print(f"{label} worker-{k} drain: {d['requests']} requests, {d['rows']} rows, decode "
+                  f"{d['decode']:.3f} s, dispatch {d['dispatch']:.3f} s, contract "
+                  f"{d['contract']:.3f} s, answer {d['answer']:.3f} s; {card}")
+        if shards:
+            pipes = r["pipelines"]
+            stages = {k: round(sum(p.stage_seconds[k] for p in pipes), 6)
+                      for k in pipes[0].stage_seconds}
+            print(f"{label} pipeline stage seconds (both workers): {json.dumps(stages)}; "
+                  f"frame-cache hits {sum(p.frame_hits for p in pipes)}")
+            for p in pipes:
+                p.close()
+            if r["answers"] != results["9a"]["answers"]:
+                raise RuntimeError(f"{label}: answers differ from 9a's")
+        results[tag] = r
+        launches[tag] = r["launches"]
+
+    id_stage(fx, card)
+
+    import random as _random
+
+    sample = sorted(_random.Random(POOL_SAMPLE).sample(range(len(ltxs)),
+                                                       min(POOL_SAMPLE, len(ltxs))))
+    cpu = pool_pass(CpuBatchVerifier(), [ltxs[i] for i in sample],
+                    [fx.spends[i] for i in sample])
+    if cpu["answers"] != [results["9a"]["answers"][i] for i in sample]:
+        raise RuntimeError("pool (9a): the card's answers differ from a CpuBatchVerifier worker's")
+    print(f"pool (9a): {len(sample)} sampled answers equal a CpuBatchVerifier worker's")
+
+    k = min(POOL_LOSS, len(ltxs))
+    _zero_counters()
+    loss = pool_loss(verifier, ltxs[:k], fx.spends[:k])
+    launches["9c"] = _read_counters()
+    _check_pool_answers(loss["answers"], fx.labels[:k], "pool worker loss (9c)")
+    if launches["9c"]["ed_ladder"] == 0:
+        raise RuntimeError("ed_ladder was not launched by the surviving worker (9c)")
+    print(f"pool worker loss (9c): {k} requests answered exactly once by the survivor in "
+          f"{loss['wall_s']:.3f} s; workers lost {loss['lost']}, redispatched "
+          f"{loss['redispatched']}, survivor drains {loss['survivor_drains']}; launches "
+          f"{launches['9c']}; {card}")
+
+    verifier.calls = []
+    _zero_counters()
+    with _GcClock() as gc_clock:
+        svc, answers, wall, pipe = ring_flush(fx, hub)
+    launches["9d"] = _read_counters()
+    disp = _check_notary(fx, svc, answers, verifier.calls, "ring-fed notary (9d)")
+    for kernel in ("ed_ladder", "wei_ladder_windowed"):
+        if launches["9d"][kernel] == 0:
+            raise RuntimeError(f"{kernel} was not launched on the ring-fed notary flush (9d)")
+    n = len(fx.spends)
+    stages = {k: round(v, 6) for k, v in pipe.stage_seconds.items()}
+    print(f"ring-fed notary (9d): {n} spends fed and flushed in {wall:.3f} s = "
+          f"{n / wall:.1f} notarisations/s, every answer its label ({gc_clock}); pipeline "
+          f"stage seconds "
+          f"{json.dumps(stages)}, frame-cache hits {pipe.frame_hits}; flush phase_seconds "
+          f"{json.dumps({k: round(v, 6) for k, v in (svc.phase_seconds or {}).items()})}; "
+          f"{disp['rows']} rows in {len(verifier.calls)} dispatch(es), device (chunk events) "
+          f"{disp['device_s']:.3f} s; launches {launches['9d']}; {card}")
+    print(f"pool phase launches: {json.dumps(launches)}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the kernel table JSON here")
@@ -1160,6 +1554,7 @@ def main(argv=None) -> int:
     _, fx = phase_notary(device, card)
     phase_schemes(device, card, fx)
     phase_flows(device, card)
+    phase_pool(device, card, fx)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -3,9 +3,10 @@
 Port of corda_tpu/node/messaging.py: `Message`, `MessagingService`,
 `FabricFaults` and the in-memory fabric (`InMemoryMessagingNetwork`,
 `InMemoryMessaging`) with its manual pump and (sender, unique_id)
-dedupe. The reference's ingest-ring seam (`add_ring`, `retry_parked`,
-the ring gauges), its wire-telemetry hook and the TCP fabric
-(node/fabric.py) are not ported.
+dedupe, and the ingest-ring seam (`add_ring`, `parked_count`,
+`retry_parked`, `register_ring_gauges`) that the verifier worker's and
+the notary's pipelined ingest drain. The reference's wire-telemetry
+hook and the TCP fabric (node/fabric.py) are not ported.
 
 Reference: the `MessagingService` API (node/.../services/messaging/
 Messaging.kt — send, addMessageHandler(topic), createMessage) backed in
@@ -32,6 +33,8 @@ from typing import Callable, Optional
 from ..utils import locks
 
 TOPIC_SESSION = "platform.session"
+TOPIC_VERIFIER_REQ = "verifier.requests"
+TOPIC_VERIFIER_RES = "verifier.responses"
 
 # dedupe-table bound (the reference's TCP fabric shares it): the newest
 # DEDUPE_KEEP dispatched (sender, uid) keys are retained; older ones
@@ -88,9 +91,35 @@ class MessagingService:
     def add_handler(self, topic: str, handler: Handler) -> None:
         raise NotImplementedError
 
+    def add_ring(self, topic: str, ring, metrics=None) -> None:
+        """OPTIONAL bulk-ingest seam (node/ingest.py): deliver `topic`
+        messages into a bounded ring (`ring.offer(msg) -> bool`)
+        instead of per-message handler dispatch, so a consumer can
+        decode whole delivery rounds through the sharded ingest
+        pipeline. A full ring parks the frame for redelivery
+        (`retry_parked`) — backpressure without blocking the pump.
+        Fabrics that don't implement it raise, and callers fall back
+        to the per-message handler path.
+
+        `metrics`: an optional MetricRegistry; implementations register
+        ring-depth / high-water / parked-frame gauges for the topic
+        (see register_ring_gauges)."""
+        raise NotImplementedError(f"{type(self).__name__} has no ring seam")
+
     @property
     def my_address(self) -> str:
         raise NotImplementedError
+
+
+def register_ring_gauges(metrics, topic: str, ring, parked_count=None) -> None:
+    """Gauges over one topic's ingest ring: current depth, lifetime
+    high-water mark, and (when the fabric exposes a counter) frames
+    parked waiting for retry_parked. ONE naming scheme for every
+    fabric, so dashboards don't fork per transport."""
+    metrics.gauge(f"Ingest.{topic}.RingDepth", lambda: len(ring))
+    metrics.gauge(f"Ingest.{topic}.RingHighWater", lambda: ring.high_water)
+    if parked_count is not None:
+        metrics.gauge(f"Ingest.{topic}.Parked", parked_count)
 
 
 class FabricFaults:
@@ -451,6 +480,8 @@ class InMemoryMessaging(MessagingService):
         self._network = network
         self._name = name
         self._handlers: dict[str, list[Handler]] = {}
+        # topic -> bounded ingest ring (node/ingest.py IngestRing)
+        self._rings: dict[str, object] = {}
         self._next_id = 0
         # insertion-ordered so the DEDUPE_KEEP bound evicts oldest-
         # first (the in-memory analogue of the TCP fabric's arrival-
@@ -495,6 +526,50 @@ class InMemoryMessaging(MessagingService):
         if handler in handlers:
             handlers.remove(handler)
 
+    def add_ring(self, topic: str, ring, metrics=None) -> None:
+        """Route `topic` into a bounded ingest ring (wire-ingest fast
+        path — see MessagingService.add_ring). Messages already parked
+        for the topic flow into the ring immediately. With a
+        MetricRegistry, the ring's depth/high-water and this endpoint's
+        parked-frame count become gauges."""
+        self._rings[topic] = ring
+        if metrics is not None:
+            register_ring_gauges(
+                metrics, topic, ring,
+                parked_count=lambda t=topic: self.parked_count(t),
+            )
+        self.retry_parked(topic)
+
+    def parked_count(self, topic: str) -> int:
+        """Frames parked for `topic` because its ring was full (they
+        re-enter via retry_parked)."""
+        return sum(1 for m in self._undelivered if m.topic == topic)
+
+    def retry_parked(self, topic: str) -> int:
+        """Re-offer frames parked while the topic's ring was full
+        (the consumer calls this after draining). Returns how many
+        moved into the ring."""
+        ring = self._rings.get(topic)
+        if ring is None:
+            return 0
+        moved = 0
+        parked = [m for m in self._undelivered if m.topic == topic]
+        for m in parked:
+            key = (m.sender, m.unique_id)
+            if key in self._seen:
+                # an at-least-once redelivery of this frame already
+                # reached the ring while this copy sat parked — drop
+                # the duplicate, exactly-once holds on the ring path
+                # just like the handler path
+                self._undelivered.remove(m)
+                continue
+            if not ring.offer(m):
+                break   # still full: keep FIFO order, stop early
+            self._undelivered.remove(m)
+            self._remember(key)
+            moved += 1
+        return moved
+
     def _remember(self, key: tuple[str, int]) -> None:
         """Mark a frame delivered (dedupe), evicting the oldest key past
         the DEDUPE_KEEP bound."""
@@ -506,6 +581,15 @@ class InMemoryMessaging(MessagingService):
         key = (msg.sender, msg.unique_id)
         if key in self._seen:
             return   # at-least-once upstream, exactly-once to handlers
+        ring = self._rings.get(msg.topic)
+        if ring is not None:
+            # ring seam: enqueue the raw frame for the bulk decoder; a
+            # full ring parks it (backpressure) for retry_parked
+            if ring.offer(msg):
+                self._remember(key)
+            else:
+                self._undelivered.append(msg)
+            return
         handlers = self._handlers.get(msg.topic)
         if not handlers:
             self._undelivered.append(msg)

@@ -7,11 +7,13 @@ join and streaming flush paths, its per-phase timers and its degraded
 mode. Its verify dispatch goes to the hub's batch verifier — on the
 card, CudaBatchVerifier — whose streamed handle
 (`PendingVerification.chunks()`) the flush's streaming tail consumes.
-The reference's optional planes are not ported: QoS (node/qos.py), the
-ingest ring, the health plane, the txstory ledger, the perf and device
-planes and the intent journal; the constructor has no argument for
-them, and the `deadline` every `process` takes is ignored, as the
-reference ignores it without a QoS plane. The flow state machine
+The pipelined wire ingest's seam is ported (`attach_ingest`: the flush
+drains a ring of pre-decoded, id'd and staged requests, node/ingest.py).
+The reference's other optional planes are not: QoS (node/qos.py keeps
+only deadline shedding), the health plane, the txstory ledger, the perf
+and device planes and the intent journal; the constructor has no
+argument for them, and the `deadline` every `process` takes is ignored,
+as the reference ignores it without a QoS plane. The flow state machine
 (flows/statemachine.py) drives `process` from NotaryServiceFlow; a
 caller without flows drives it with `run_process`.
 
@@ -66,6 +68,7 @@ from ..crypto.schemes import CODE_NAMES
 from ..flows.api import FlowFuture, _WaitFuture, wait_future
 from ..utils import locks, tracing
 from ..utils.metrics import MetricRegistry
+from .messaging import register_ring_gauges
 from .services import ServiceHub
 
 # -- errors (wire-serializable: sent back to the requesting flow) ------------
@@ -890,6 +893,7 @@ class BatchingNotaryService(NotaryService):
         self.max_wait_micros = max_wait_micros
         self._pending: list[_PendingNotarisation] = []
         self._oldest_arrival: Optional[int] = None
+        self._ingest_ring = None       # attach_ingest
         self.metrics = metrics if metrics is not None else MetricRegistry()
         self._batches_counter = self.metrics.counter(
             "Notary.BatchesDispatched"
@@ -1064,6 +1068,38 @@ class BatchingNotaryService(NotaryService):
             self._flush_one_shard(shard)
         return shard
 
+    def attach_ingest(self, ring) -> None:
+        """Wire the pipelined wire-ingest seam (node/ingest.py): the
+        ring carries batches of _PendingNotarisation whose stx was
+        decoded, Merkle-id'd and signature-staged by the ingest
+        pipeline — the flush drains them directly, and its stage phase
+        reuses the memoised staging instead of re-staging. The ring is
+        BOUNDED: when this notary falls behind, the producer's `put`
+        blocks, which is the backpressure that keeps the decode pool
+        from running unboundedly ahead of the card's dispatch."""
+        self._ingest_ring = ring
+        # depth + high-water gauges on this notary's registry, so the
+        # ring filling up shows BEFORE it stalls the producer
+        register_ring_gauges(self.metrics, "notary", ring)
+
+    def _drain_ingest(self) -> None:
+        """Move every batch waiting on the ingest ring into the queue:
+        per shard on the sharded plane (a full shard flushes, as at
+        intake), else onto the pending queue, which the caller (tick
+        or flush) flushes next."""
+        ring = self._ingest_ring
+        if ring is None:
+            return
+        if self._shards is not None:
+            for batch in ring.drain():
+                for p in batch:
+                    self._enqueue_sharded(p)
+            return
+        for batch in ring.drain():
+            self._pending.extend(batch)
+        if self._pending and self._oldest_arrival is None:
+            self._oldest_arrival = self.services.clock.now_micros()
+
     def backlog(self) -> int:
         """Live pending depth across the commit plane."""
         if self._shards is not None:
@@ -1077,6 +1113,7 @@ class BatchingNotaryService(NotaryService):
         quiescent)."""
         if self._shards is not None:
             return self._tick_sharded()
+        self._drain_ingest()
         n = len(self._pending)
         if not n:
             return 0
@@ -1095,7 +1132,9 @@ class BatchingNotaryService(NotaryService):
         shard whose batch is due — inline as a dispatch-all-then-consume
         wave (device compute for shard k overlaps host work for shard
         j), or by waking each due shard's worker thread. Completions
-        from worker flushes resolve HERE, on the pump thread."""
+        from worker flushes resolve HERE, on the pump thread. Ingest
+        arrivals route to their shards first."""
+        self._drain_ingest()
         now = self.services.clock.now_micros()
         due: list[_NotaryShard] = []
         for shard in self._shards:
@@ -1191,6 +1230,7 @@ class BatchingNotaryService(NotaryService):
         wave, or — with worker threads — by waking every shard and
         blocking until they go idle, then resolving the completions on
         the calling thread (which acts as the pump)."""
+        self._drain_ingest()   # pre-ingested arrivals join this flush
         if self._shards is not None:
             if self._workers:
                 for shard in self._shards:

@@ -256,3 +256,52 @@ def test_flow_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread):
     assert "flow flush (8b) shards=1: 2 payments" in out and "1 dispatch(es), 2 rows" in out
     assert "flow flush (8b) shards=4: 2 payments" in out
     assert "flow drive (8c) over CpuBatchVerifier" in out
+
+
+def test_pool_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread):
+    """chip_smoke.phase_pool on the CPU at 32 spends: the pool with two
+    workers over the device path (9a), the same through the ingest
+    pipeline (9b) with the Merkle-id stage timed, a worker lost mid-batch
+    (9c) and the ring-fed notary flush (9d); the kernels' plain versions stand in for the kernels and
+    count a launch each, so every check of the phase runs — answers
+    against labels and against a CpuBatchVerifier worker, one dispatch
+    per drain, the launches, phase 6's notary checks."""
+    import torch
+
+    from corda_tpu_torch.testing.notary_fixture import build_fixture
+
+    _counted_plain_versions(monkeypatch)
+    monkeypatch.setenv("CORDA_TPU_NOTARY_PROFILE", "1")
+    monkeypatch.setattr(cs, "CHUNK", 16)
+    monkeypatch.setattr(cs, "POOL_WINDOW", 32)
+    monkeypatch.setattr(cs, "POOL_SAMPLE", 8)
+    monkeypatch.setattr(cs, "POOL_LOSS", 8)
+    monkeypatch.setattr(cs, "POOL_CHUNK", 8)
+    fx = build_fixture(32, **SMALL_FIXTURE)
+    launches = cs.phase_pool(torch.device("cpu"), "cpu rehearsal", fx)
+    for tag in ("9a", "9b", "9d"):
+        assert launches[tag]["ed_ladder"] and launches[tag]["wei_ladder_windowed"], tag
+    assert launches["9c"]["ed_ladder"]
+    out = capsys.readouterr().out
+    assert "pool (9a): 32 requests in" in out and "rows per dispatch [16, 16]" in out
+    assert "frame bytes per request; rows per dispatch [16, 16]" in out
+    assert "pool (9b, ingest shards=4): 32 requests in" in out
+    assert "request frames to the workers' rings" in out
+    assert "id stage: 32 transactions" in out and "gc seconds/gen-2 collections" in out
+    assert out.count(" collections (gen 0/1/2)") == 3     # 9a, 9b and 9d
+    assert "8 sampled answers equal a CpuBatchVerifier worker's" in out
+    assert "pool worker loss (9c): 8 requests answered exactly once by the survivor" in out
+    assert "workers lost 1, redispatched 4" in out
+    assert "ring-fed notary (9d): 32 spends fed and flushed" in out
+
+
+def test_pool_checks_raise_on_a_wrong_answer():
+    """Phase 9's answer check refuses a flipped signature answered ok, a
+    good spend refused, and an unanswered request."""
+    labels = ["ok", "invalid-signature", "conflict", "wrong-notary"]
+    bad = "VerificationFailedError: InvalidSignature: invalid signature(s) on X"
+    cs._check_pool_answers(["ok", bad, "ok", "ok"], labels, "t")
+    for answers in (["ok", "ok", "ok", "ok"], ["ok", bad, bad, "ok"],
+                    ["ok", bad, "ok", "unanswered"]):
+        with pytest.raises(RuntimeError, match="answered"):
+            cs._check_pool_answers(answers, labels, "t")

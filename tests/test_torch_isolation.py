@@ -43,19 +43,22 @@ def test_ast_scan_finds_no_banned_import():
     loader, sphincs, the sandbox, the determinism audit, commercial
     paper, obligation) and of the flow slice (the state machine, the core
     flows, the fabric, the scheduler, the CorDapp services, MockNetwork,
-    the test flows, the trade flows) are scanned. The Cash contract's
+    the test flows, the trade flows) and of the pool slice (the verifier
+    pool and worker, the wire ingest, deadline shedding) are scanned.
+    The Cash contract's
     wire name, "corda_tpu.finance.Cash", the sandbox's platform module
     names and the flows' class tags are strings, not imports."""
     offenders = []
     files = _modules()
-    assert len(files) >= 56
+    assert len(files) >= 59
     for must in ("crypto/eddsa.py", "node/notary.py", "node/services.py",
                  "core/transactions.py", "finance/cash.py", "native/__init__.py",
                  "native/build.py", "crypto/sphincs.py", "core/sandbox.py",
                  "experimental/determinism.py", "finance/commercial_paper.py",
                  "finance/obligation.py", "flows/statemachine.py", "flows/core_flows.py",
                  "node/messaging.py", "node/scheduler.py", "node/cordapp.py",
-                 "testing/mock_network.py", "testing/flows.py", "finance/trade_flows.py"):
+                 "testing/mock_network.py", "testing/flows.py", "finance/trade_flows.py",
+                 "node/verifier.py", "node/ingest.py", "node/qos.py"):
         assert PKG / must in files
     assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
         "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh", "wei_ladder.cu"
@@ -129,6 +132,18 @@ restored, = alice.smm.flows.values()
 net.run()
 assert restored.result_or_throw().id in bob.services.validated_transactions
 assert sum(s.state.data.amount.quantity for s in bob.vault.unconsumed_states(CashState)) == 30
+from corda_tpu_torch.node.verifier import (
+    OutOfProcessTransactionVerifierService, VerifierWorker, request_ingest_pipeline)
+pay = restored.result_or_throw()
+pool = OutOfProcessTransactionVerifierService(alice.messaging)
+worker = VerifierWorker(net.fabric.endpoint("worker-1"), "Alice",
+                        batch_verifier=CpuBatchVerifier(), ingest=request_ingest_pipeline(shards=2))
+net.run()
+fut = pool.verify(alice.services.resolve_transaction(pay.wtx), pay)
+net.run()
+assert worker.drain() == 1
+net.run()
+fut.result()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu")]
 assert not bad, bad
 print(len(names))
@@ -143,10 +158,11 @@ def test_imports_with_jax_and_reference_blocked():
     passes and rejects as it should, and a payment between two nodes,
     checkpointed while it awaits the validating notary, is restored by a
     fresh state machine from its `corda_tpu.finance.cash` class tag and
-    completes."""
+    completes, and a verifier worker with the ingest pipeline verifies
+    that payment for the pool."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 56
+    assert int(out.stdout.strip().splitlines()[-1]) >= 59

@@ -118,7 +118,47 @@ Phases (any failure raises and exits non-zero):
      path checks no notary; the spends naming another go through
      `process`), one flush, every answer its phase-6 label under
      phase 6's checks;
- 10. print the kernel table as one JSON line, then the result line
+ 10. persistence and the notary clusters (node/persistence.py,
+     node/raft.py, node/bft.py, MockNetwork's db_dir, restart_node and
+     cluster factories) over CudaBatchVerifier, the launch counters set
+     to 0 before 10a and read after 10e: (a) phase 6's 16,384-spend
+     flush through BatchingNotaryService over an on-disk uniqueness
+     store (PersistentUniquenessProvider for 1 shard,
+     ShardedPersistentUniquenessProvider for 4), one pass each on a
+     fresh database and a fresh decode, held to phase 6's checks; the
+     database closed and reopened under a new provider and notary, its
+     15,808 committed inputs read back, and 256 new spends of accepted
+     spends' inputs answered "conflict", each naming the committed
+     spend; prints notarisations/s, the flush wall, phase_seconds and
+     the seconds in sqlite; (b) a validating Raft cluster of 3 persistent
+     members on MockNetwork(db_dir=) over CudaBatchVerifier(batch_sizes=
+     (128, 4096)): an issue, four payments (two resolving a backchain)
+     from ed25519, p256 and secp256k1 nodes, a double spend refused
+     "conflict" with every member's map holding the first spend, the
+     leader stopped and a payment under the new leader, the live maps
+     equal, the ledger (ids, cluster signatures, refusals, leaders,
+     balances) equal to the same drive over CpuBatchVerifier; prints
+     flows/s, card verify calls per flow and rows per call; (c) 16,384
+     distinct single-input commits through the new leader's
+     RaftUniquenessProvider, one per pump round (16 snapshots at the
+     interval of 1,024), then the stopped member rebuilt with
+     rebuild_cluster_member: restored by InstallSnapshot chunks and a
+     log replay, its map equal to the leader's; prints the seconds of
+     the commits and of the transfer and the snapshot bytes; (d) a BFT
+     cluster of 4 (f = 1) on the same network: an issue, payments whose
+     answers carry a composite-key (threshold 2) signature, a double
+     spend refused "conflict", a replica that is not the primary
+     stopped (a payment commits), rebuilt (it catches up by state
+     transfer), then the primary stopped (the view change; a payment
+     commits), the live maps equal; (e) a persistent validating notary,
+     an ed25519 bank and a p256 payer: the payer restarted with
+     restart_node mid-payment (its vault page equal before and after and
+     to an in-memory network's run of the same drive; the checkpointed
+     payment finishes), then the notary restarted (a double spend of a
+     state it committed before is refused "conflict"). ed_ladder,
+     wei_ladder_windowed and wei_ladder must launch;
+ 11. print the kernel table as one JSON line (with each kernel's
+     launches in phase 10 as "clusters_launches"), then the result line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
@@ -740,8 +780,8 @@ def _check_notary(fx, svc, answers, calls, label: str) -> dict:
             if list(answers[i].conflict.values()) != [fx.spends[i - 1].id]:
                 raise RuntimeError(f"{label}: spend {i} lost to {answers[i].conflict}")
     n_ok = fx.labels.count("ok")
-    if len(svc.uniqueness.committed) != n_ok:
-        raise RuntimeError(f"{label}: {len(svc.uniqueness.committed)} inputs committed, "
+    if _committed_count(svc.uniqueness) != n_ok:
+        raise RuntimeError(f"{label}: {_committed_count(svc.uniqueness)} inputs committed, "
                            f"{n_ok} accepted")
     reqs = [r for rs, _ in calls for r in rs]
     verdicts = [v for _, pv in calls for v in pv.result()]
@@ -1512,6 +1552,567 @@ def phase_pool(device, card: str, fx) -> dict:
     return launches
 
 
+# -- phase 10: persistence, the vault query DSL, the Raft and BFT clusters ---
+
+CLUSTER_SEED = 13
+CLUSTER_BATCHES = (128, 4096)
+RAFT_MEMBERS = 3             # the notary demo's Raft cluster
+BFT_REPLICAS = 4             # the notary demo's BFT cluster: f = 1
+RAFT_ENTRIES = 16384         # phase 10c: 16 snapshots at the reference's interval of 1,024
+DURABLE_REOPEN = 256         # phase 10a: double spends sent to the reopened database
+
+
+def _committed_count(uniqueness) -> int:
+    count = getattr(uniqueness, "committed_count", None)
+    return count if count is not None else len(uniqueness.committed)
+
+
+def _same_ledger(card: dict, cpu: dict, label: str) -> None:
+    for key in ("ids", "notary_sigs", "refused", "balances", "leaders"):
+        if card[key] != cpu[key]:
+            raise RuntimeError(f"{label}: the card's {key} differ from CpuBatchVerifier's")
+
+
+def _timed_database(path: str):
+    """A NodeDatabase that sums the seconds spent in sqlite (every
+    outermost transaction, its COMMIT included, and every bare query: the
+    uniqueness providers' calls) into `.seconds`."""
+    from corda_tpu_torch.node.persistence import NodeDatabase
+
+    class TimedDatabase(NodeDatabase):
+        seconds = 0.0
+
+        def _timed(self, fn, *args):
+            if self._tx_depth:
+                return fn(*args)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        def query(self, sql, params=()):
+            return self._timed(super().query, sql, params)
+
+        def transaction(self):
+            db, tx = self, super().transaction()
+
+            class Timed:
+                def __enter__(self):
+                    self.t0 = time.perf_counter() if not db._tx_depth else None
+                    return tx.__enter__()
+
+                def __exit__(self, *exc):
+                    try:
+                        return tx.__exit__(*exc)
+                    finally:
+                        if self.t0 is not None:
+                            db.seconds += time.perf_counter() - self.t0
+
+            return Timed()
+
+    return TimedDatabase(path)
+
+
+def _durable_provider(db, shards: int):
+    from corda_tpu_torch.node.persistence import (
+        PersistentUniquenessProvider,
+        ShardedPersistentUniquenessProvider,
+    )
+
+    return ShardedPersistentUniquenessProvider(db, shards) if shards > 1 \
+        else PersistentUniquenessProvider(db)
+
+
+def _durable_notary(hub, uniqueness, shards: int, depth: int):
+    from corda_tpu_torch.node.notary import BatchingNotaryService
+
+    return BatchingNotaryService(hub, uniqueness, max_batch=depth, shards=shards,
+                                 shard_workers=False, shard_queue_depth=depth,
+                                 degraded_fallback=False)
+
+
+def _double_spends(fx, picks) -> list:
+    """For each picked accepted spend, a new transaction spending its
+    input to another output, signed by the fixture's key for it."""
+    from corda_tpu_torch.core.contracts import StateAndRef
+    from corda_tpu_torch.core.transactions import SignedTransaction, TransactionBuilder
+    from corda_tpu_torch.finance.cash import CASH_CONTRACT, CashMove
+    from corda_tpu_torch.testing.notary_fixture import _signature
+
+    issued = {issue.id: issue for issue in fx.issues}
+    out = []
+    for i in picks:
+        ref = fx.spends[i].wtx.inputs[0]
+        sar = StateAndRef(issued[ref.txhash].wtx.outputs[ref.index], ref)
+        sb = TransactionBuilder()
+        sb.add_input_state(sar)
+        sb.add_output_state(sar.state.data.with_owner(fx.requester.owning_key), CASH_CONTRACT)
+        sb.add_command(CashMove(), fx.owners[i].public)
+        wtx = sb.to_wire_transaction()
+        out.append(SignedTransaction(wtx, (_signature(fx.owners[i], wtx.id),)))
+    return out
+
+
+def durable_flush(fx, hub, wire, verifier, shards: int, path: str, card: str) -> dict:
+    """Phase 10a for one shard count: the phase-6 flush over an on-disk
+    uniqueness store (a fresh database, a fresh decode), held to phase
+    6's checks; then the database closed, reopened under a new provider
+    and notary, and DURABLE_REOPEN new spends of accepted spends' inputs
+    sent to it: each must be answered "conflict", naming the committed
+    spend."""
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.node.notary import finish_process, run_process
+    from corda_tpu_torch.testing.notary_fixture import answer_kind
+
+    label = f"durable notary (10a) shards={shards}"
+    db = _timed_database(path)
+    svc = _durable_notary(hub, _durable_provider(db, shards), shards, len(wire))
+    verifier.calls = []
+    received = [ser.decode(b) for b in wire]
+    t0 = time.perf_counter()
+    started = run_process([svc.process(stx, fx.requester) for stx in received])
+    t1 = time.perf_counter()
+    svc.flush()
+    t2 = time.perf_counter()
+    answers = finish_process(started)
+    wall = time.perf_counter() - t0
+    disp = _check_notary(fx, svc, answers, verifier.calls, label)
+    n = len(wire)
+    phases = {k: round(v, 6) for k, v in (svc.phase_seconds or {}).items()}
+    print(f"{label}: {n} spends in {wall:.3f} s = {n / wall:.1f} notarisations/s (intake "
+          f"{t1 - t0:.3f} s, flush {t2 - t1:.3f} s; in sqlite {db.seconds:.3f} s, "
+          f"{db.seconds / wall:.1%} of the window); {card}")
+    print(f"{label} phase_seconds: {json.dumps(phases)}; dispatch {len(verifier.calls)} calls, "
+          f"{disp['rows']} rows, device (chunk events) {disp['device_s']:.3f} s; {card}")
+    db.close()
+
+    accepted = [i for i, want in enumerate(fx.labels) if want == "ok"]
+    picks = sorted(random.Random(shards).sample(accepted, min(DURABLE_REOPEN, len(accepted))))
+    again = _double_spends(fx, picks)
+    t3 = time.perf_counter()
+    db = _timed_database(path)
+    uniqueness = _durable_provider(db, shards)
+    if _committed_count(uniqueness) != len(accepted):
+        raise RuntimeError(f"{label}: {_committed_count(uniqueness)} inputs committed on the "
+                           f"reopened database, {len(accepted)} accepted")
+    svc = _durable_notary(hub, uniqueness, shards, len(again))
+    started = run_process([svc.process(stx, fx.requester) for stx in again])
+    svc.flush()
+    answers = finish_process(started)
+    reopen = time.perf_counter() - t3
+    for i, a in zip(picks, answers):
+        if answer_kind(a) != "conflict" or list(a.conflict.values()) != [fx.spends[i].id]:
+            raise RuntimeError(f"{label}: the reopened notary answered spend {i}'s double "
+                               f"spend with {a!r}")
+    if _committed_count(uniqueness) != len(accepted):
+        raise RuntimeError(f"{label}: a refused double spend was committed")
+    db.close()
+    print(f"{label} reopened: {len(accepted)} committed inputs read back; {len(again)} double "
+          f"spends answered conflict, each naming its committed spend, in {reopen:.3f} s; "
+          f"{card}")
+    return {"rate": n / wall, "wall_s": wall, "sqlite_s": db.seconds}
+
+
+def _settle(net, done, rounds: int = 400, advance: int = 20_000) -> None:
+    """run() and advance the clock until done() (the reference's settle:
+    consensus needs time)."""
+    for _ in range(rounds):
+        net.run()
+        if done():
+            return
+        net.clock.advance(advance)
+    raise RuntimeError("the cluster did not settle")
+
+
+def _flow_runner(net, calls, ledger: dict, notary_key):
+    """run(label, node, logic) and refused(label, node, logic, kind) over a
+    cluster: each flow settled, its transaction id, the cluster's
+    signatures and the card calls it made recorded in `ledger`."""
+    from corda_tpu_torch.node.notary import NotaryException
+
+    def run(label, node, logic, rounds=400):
+        n_calls = len(calls)
+        fsm = node.start_flow(logic)
+        _settle(net, lambda: fsm.done, rounds)
+        stx = fsm.result_or_throw()
+        ledger["ids"].append(str(stx.id))
+        ledger["notary_sigs"].append(sorted(s.signature.hex() for s in stx.sigs
+                                            if s.by in notary_key))
+        ledger["calls"][label] = len(calls) - n_calls
+        return stx
+
+    def refused(label, node, logic, kind):
+        fsm = node.start_flow(logic)
+        _settle(net, lambda: fsm.done)
+        try:
+            fsm.result_or_throw()
+        except NotaryException as e:
+            if e.error.kind != kind:
+                raise RuntimeError(f"{label} refused as {e.error.kind!r}, not {kind!r}") from e
+            ledger["refused"].append([label, e.error.kind])
+            return e.error
+        raise RuntimeError(f"{label} was not refused")
+
+    return run, refused
+
+
+def _spend(node, coin, notary, owner):
+    from corda_tpu_torch.core.transactions import TransactionBuilder
+    from corda_tpu_torch.finance.cash import CASH_CONTRACT, CashMove
+
+    b = TransactionBuilder(notary)
+    b.add_input_state(coin)
+    b.add_output_state(coin.state.data.with_owner(owner.owning_key), CASH_CONTRACT)
+    b.add_command(CashMove(), node.party.owning_key)
+    return node.services.sign_initial_transaction(b)
+
+
+def _stop(net, node) -> None:
+    """Stop a cluster member the way the reference's tests do: its
+    protocol, its state machine and its endpoint."""
+    (getattr(node, "raft", None) or node.bft).stop()
+    node.smm.stop()
+    net.fabric.endpoint(node.name).running = False
+
+
+def _maps_equal(maps, label: str) -> None:
+    if any(m != maps[0] for m in maps[1:]):
+        raise RuntimeError(f"{label}: the live members' committed maps differ "
+                           f"({[len(m) for m in maps]} refs)")
+
+
+def raft_drive(verifier, db_dir: str, seed: int = CLUSTER_SEED) -> dict:
+    """Phase 10b: a validating Raft notary cluster of RAFT_MEMBERS
+    persistent members, elected; Bank (ed25519) issues to Alice (p256);
+    Alice pays Bob (secp256k1), Bob pays Carol (ed25519; a backchain),
+    Alice pays Carol, Carol pays Bank (a backchain); a double spend is
+    refused "conflict" with every member's map holding the first spend;
+    the leader is stopped, the survivors elect, and Carol pays Bob under
+    the new leader. Raises unless every outcome, balance and live map
+    agrees; returns the ledger and the network."""
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow, CashState
+    from corda_tpu_torch.flows.core_flows import FinalityFlow
+    from corda_tpu_torch.node.raft import LEADER
+    from corda_tpu_torch.testing import MockNetwork
+
+    calls = getattr(verifier, "calls", [])
+    net = MockNetwork(seed=seed, db_dir=db_dir, batch_verifier=verifier)
+    service, members = net.create_raft_notary_cluster(RAFT_MEMBERS, validating=True)
+    bank = net.create_node("Bank")
+    alice = net.create_node("Alice", scheme_id=schemes.ECDSA_SECP256R1_SHA256)
+    bob = net.create_node("Bob", scheme_id=schemes.ECDSA_SECP256K1_SHA256)
+    carol = net.create_node("Carol")
+    first_leader = net.elect(members)
+    ledger = {"ids": [], "notary_sigs": [], "refused": [], "calls": {}}
+    run, refused = _flow_runner(net, calls, ledger, {service.owning_key})
+    t0 = time.perf_counter()
+    run("issue Bank -> Alice", bank, CashIssueFlow(1000, "USD", alice.party, service))
+    run("pay Alice -> Bob", alice, CashPaymentFlow(400, "USD", bob.party))
+    run("pay Bob -> Carol", bob, CashPaymentFlow(150, "USD", carol.party))
+    run("pay Alice -> Carol", alice, CashPaymentFlow(100, "USD", carol.party))
+    run("pay Carol -> Bank", carol, CashPaymentFlow(50, "USD", bank.party))
+    coin, = alice.vault.unconsumed_states(CashState)
+    good = run("spend Alice -> Carol", alice, FinalityFlow(_spend(alice, coin, service, carol.party)))
+    err = refused("double spend Alice -> Bob", alice,
+                  FinalityFlow(_spend(alice, coin, service, bob.party)), "conflict")
+    if [str(v) for v in err.conflict.values()] != [str(good.id)]:
+        raise RuntimeError(f"raft drive: the double spend lost to {err.conflict}")
+    _settle(net, lambda: len({m.raft.last_applied for m in members}) == 1)
+    maps = [m.services.notary_service.uniqueness.committed for m in members]
+    _maps_equal(maps, "raft drive")
+    if maps[0].get(coin.ref) != good.id:
+        raise RuntimeError("raft drive: the cluster's map does not hold the first spend")
+    leader = next(m for m in members if m.raft.role == LEADER)
+    _stop(net, leader)
+    survivors = [m for m in members if m is not leader]
+    new_leader = net.elect(survivors)
+    run("pay Carol -> Bob (new leader)", carol, CashPaymentFlow(100, "USD", bob.party))
+    wall = time.perf_counter() - t0
+    _settle(net, lambda: len({m.raft.last_applied for m in survivors}) == 1)
+    _maps_equal([m.services.notary_service.uniqueness.committed for m in survivors],
+                "raft drive after the leader stopped")
+    ledger["balances"] = {n.name: _cash_of(n) for n in (bank, alice, bob, carol)}
+    want = {"Bank": 50, "Alice": 0, "Bob": 350, "Carol": 600}
+    if ledger["balances"] != want:
+        raise RuntimeError(f"raft drive: balances {ledger['balances']}, expected {want}")
+    ledger["leaders"] = [first_leader.name, leader.name, new_leader.name]
+    return {"ledger": ledger, "net": net, "members": members, "stopped": leader,
+            "leader": new_leader, "nodes": (bank, alice, bob, carol), "wall_s": wall,
+            "service": service}
+
+
+def raft_transfer(drive: dict, entries: int, card: str, seed: int = CLUSTER_SEED) -> dict:
+    """Phase 10c: `entries` distinct single-input commits through the
+    elected leader's RaftUniquenessProvider.commit_async, one per pump
+    round, while the member stopped in 10b is down (the leader snapshots
+    and compacts every 1,024); then that member is rebuilt over its own
+    database with rebuild_cluster_member: the leader's InstallSnapshot
+    chunks and a log replay must restore it, its map equal to the
+    leader's with every committed ref."""
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.core.contracts import StateRef
+    from corda_tpu_torch.crypto.hashes import SecureHash
+    from corda_tpu_torch.node.raft import AppendEntries, InstallSnapshot
+
+    net, leader, dead = drive["net"], drive["leader"], drive["stopped"]
+    requester = drive["nodes"][0].party
+    provider = leader.services.notary_service.uniqueness
+    rng = random.Random(seed)
+    refs, futs = [], []
+    t0 = time.perf_counter()
+    for _ in range(entries):
+        ref = StateRef(SecureHash(rng.randbytes(32)), rng.randrange(64))
+        refs.append(ref)
+        futs.append(provider.commit_async([ref], SecureHash(rng.randbytes(32)), requester))
+        net.run()
+    commit_s = time.perf_counter() - t0
+    if not all(f.done and f.result() is None for f in futs):
+        raise RuntimeError("raft transfer (10c): a commit did not complete")
+    snapshots = leader.raft.snap_index // leader.raft.config.snapshot_interval
+    frames = {"install": 0, "install_bytes": 0, "append_entries": 0}
+    enqueue = net.fabric._enqueue
+
+    def watching(msg, target):
+        if target == dead.name and msg.topic.startswith("raft"):
+            m = ser.decode(msg.payload)
+            if isinstance(m, InstallSnapshot):
+                frames["install"] += 1
+                frames["install_bytes"] += len(m.data)
+            elif isinstance(m, AppendEntries) and m.entries:
+                frames["append_entries"] += len(m.entries)
+        enqueue(msg, target)
+
+    net.fabric._enqueue = watching
+    t1 = time.perf_counter()
+    net.fabric.endpoint(dead.name).running = True
+    dead.rebuild_cluster_member()
+    target = leader.raft.last_log_index
+    _settle(net, lambda: dead.raft.last_applied >= target)
+    transfer_s = time.perf_counter() - t1
+    net.fabric._enqueue = enqueue
+    got = dead.services.notary_service.uniqueness.committed
+    want = provider.committed
+    if got != want or any(want.get(r) is None for r in refs):
+        raise RuntimeError(f"raft transfer (10c): the rebuilt member holds {len(got)} refs, "
+                           f"the leader {len(want)}")
+    if not frames["install"] or not frames["append_entries"]:
+        raise RuntimeError(f"raft transfer (10c): not restored by InstallSnapshot and a log "
+                           f"replay: {frames}")
+    print(f"raft transfer (10c): {entries} commits through the leader in {commit_s:.3f} s = "
+          f"{entries / commit_s:.1f} commits/s, {snapshots} snapshots (snap_index "
+          f"{leader.raft.snap_index}); {dead.name} rebuilt and restored in {transfer_s:.3f} s "
+          f"by {frames['install']} InstallSnapshot chunks ({frames['install_bytes']} snapshot "
+          f"bytes) and a replay of {frames['append_entries']} entries; maps equal at "
+          f"{len(got)} refs; {card}")
+    return {"commit_s": commit_s, "transfer_s": transfer_s, **frames}
+
+
+def bft_drive(net, calls, card: str) -> dict:
+    """Phase 10d on 10b's network: a BFT notary cluster of BFT_REPLICAS
+    (composite service key, threshold f + 1); Bank issues to Dave (p256),
+    Dave pays Erin (ed25519) twice, each answer's replica signatures
+    checked against the composite key; a double spend is refused
+    "conflict"; a replica that is not the primary is stopped and Erin
+    pays Dave; the replica is rebuilt and must catch up by state transfer
+    while Erin pays Dave again; then the primary is stopped and, after
+    the view change, Dave pays Erin. Raises unless every outcome, balance
+    and live map agrees."""
+    from corda_tpu_torch.crypto import composite as comp
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow, CashState
+    from corda_tpu_torch.flows.core_flows import FinalityFlow
+    from corda_tpu_torch.utils.metrics import MetricRegistry
+
+    party, members = net.create_bft_notary_cluster(BFT_REPLICAS,
+                                                   metrics_factory=lambda _: MetricRegistry())
+    bank = next(n for n in net.nodes if n.name == "Bank")
+    dave = net.create_node("Dave", scheme_id=schemes.ECDSA_SECP256R1_SHA256)
+    erin = net.create_node("Erin")
+    leaves = set(party.owning_key.leaf_keys())
+    ledger = {"ids": [], "notary_sigs": [], "refused": [], "calls": {}}
+    run, refused = _flow_runner(net, calls, ledger, leaves)
+
+    def paid(label, node, logic, rounds=600):
+        stx = run(label, node, logic, rounds)
+        sigs = {s.by for s in stx.sigs if s.by in leaves}
+        if len(sigs) < 2 or not comp.is_fulfilled_by(party.owning_key, sigs):
+            raise RuntimeError(f"bft drive: {label} carries {len(sigs)} replica signatures")
+        return stx
+
+    t0 = time.perf_counter()
+    run("issue Bank -> Dave", bank, CashIssueFlow(500, "USD", dave.party, party))
+    paid("pay Dave -> Erin", dave, CashPaymentFlow(200, "USD", erin.party))
+    paid("pay Dave -> Erin (2)", dave, CashPaymentFlow(100, "USD", erin.party))
+    coin, = dave.vault.unconsumed_states(CashState)
+    good = paid("spend Dave -> Erin", dave, FinalityFlow(_spend(dave, coin, party, erin.party)))
+    err = refused("double spend Dave -> Bank", dave,
+                  FinalityFlow(_spend(dave, coin, party, bank.party)), "conflict")
+    if [str(v) for v in err.conflict.values()] != [str(good.id)]:
+        raise RuntimeError(f"bft drive: the double spend lost to {err.conflict}")
+    primary = next(m for m in members if m.bft.is_primary)
+    down = next(m for m in reversed(members) if m is not primary)
+    _stop(net, down)
+    paid("pay Erin -> Dave (replica down)", erin, CashPaymentFlow(100, "USD", dave.party))
+    net.fabric.endpoint(down.name).running = True
+    down.rebuild_cluster_member()
+    paid("pay Erin -> Dave (replica rebuilt)", erin, CashPaymentFlow(50, "USD", dave.party))
+    _settle(net, lambda: down.bft.exec_seq == primary.bft.exec_seq, advance=100_000)
+    caught_up = down.bft.metrics.timer("Bft.Phase.CatchUp").count
+    if not caught_up:
+        raise RuntimeError("bft drive: the rebuilt replica did not catch up by state transfer")
+    _maps_equal([m.services.notary_service.committed for m in members], "bft drive (rebuilt)")
+    _stop(net, primary)
+    live = [m for m in members if m is not primary]
+    paid("pay Dave -> Erin (view change)", dave, CashPaymentFlow(25, "USD", erin.party),
+         rounds=1200)
+    wall = time.perf_counter() - t0
+    if not all(m.bft.view > 0 for m in live):
+        raise RuntimeError("bft drive: no view change after the primary stopped")
+    _maps_equal([m.services.notary_service.committed for m in live], "bft drive (view change)")
+    balances = {n.name: _cash_of(n) for n in (dave, erin)}
+    if balances != {"Dave": 125, "Erin": 375}:
+        raise RuntimeError(f"bft drive: balances {balances}")
+    print(f"bft drive (10d): {len(ledger['ids'])} flows completed and {len(ledger['refused'])} "
+          f"refused in {wall:.3f} s = {len(ledger['ids']) / wall:.3f} flows/s; every answer "
+          f"{len(leaves)}-replica composite, threshold 2, fulfilled; {down.name} stopped, "
+          f"rebuilt and caught up by state transfer ({caught_up} catch-up(s)); {primary.name} "
+          f"stopped, views now {sorted({m.bft.view for m in live})}; card verify calls per flow "
+          f"{json.dumps(ledger['calls'])}; balances {balances}; {card}")
+    return {"wall_s": wall, "flows": len(ledger["ids"])}
+
+
+def crash_drive(verifier, db_dir: str | None, seed: int = CLUSTER_SEED) -> dict:
+    """Phase 10e: a validating notary, Bank (ed25519) and Alice (p256);
+    Bank issues to Alice, Alice pays Bank. With a database (`db_dir`),
+    Alice's vault page is read, a payment of Alice's is interrupted after
+    its first frame, Alice is restarted with restart_node (her page must
+    equal the one before) and the restored payment must finish; then the
+    notary is restarted and must refuse a double spend of a state it
+    committed before. Returns the page (and the refusal)."""
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow, CashState
+    from corda_tpu_torch.flows.core_flows import FinalityFlow
+    from corda_tpu_torch.node.notary import NotaryException
+    from corda_tpu_torch.node.vault_query import VaultQueryCriteria
+    from corda_tpu_torch.testing import MockNetwork
+
+    net = MockNetwork(seed=seed, db_dir=db_dir, batch_verifier=verifier)
+    notary = net.create_notary("Notary", validating=True)
+    bank = net.create_node("Bank")
+    alice = net.create_node("Alice", scheme_id=schemes.ECDSA_SECP256R1_SHA256)
+    bank.run_flow(CashIssueFlow(1000, "USD", alice.party, notary.party))
+    pay = alice.run_flow(CashPaymentFlow(300, "USD", bank.party))
+
+    def page(node):
+        p = node.vault.query_by(VaultQueryCriteria())
+        return [ser.encode(list(p.states)), p.total_states_available]
+
+    out = {"page": page(alice)}
+    if db_dir is None:
+        return out
+    fsm = alice.start_flow(CashPaymentFlow(100, "USD", bank.party))
+    net.fabric.pump(1)
+    if fsm.done or len(alice.services.checkpoint_storage.all()) != 1:
+        raise RuntimeError("crash drive (10e): the payment is not checkpointed mid-flow")
+    alice = net.restart_node(alice)
+    if page(alice) != out["page"]:
+        raise RuntimeError("crash drive (10e): Alice's vault page differs after the restart")
+    restored, = alice.smm.flows.values()
+    net.run()
+    restored.result_or_throw()
+    if (_cash_of(alice), _cash_of(bank)) != (600, 400):
+        raise RuntimeError(f"crash drive (10e): balances {_cash_of(alice)} / {_cash_of(bank)}")
+    notary = net.restart_node(notary)
+    spent = next(s for s in alice.vault.consumed_states(CashState)
+                 if s.ref in pay.wtx.inputs)
+    try:
+        alice.run_flow(FinalityFlow(_spend(alice, spent, notary.party, alice.party)))
+    except NotaryException as e:
+        if e.error.kind != "conflict" or list(e.error.conflict.values()) != [pay.id]:
+            raise RuntimeError(f"crash drive (10e): the restarted notary answered {e.error}")
+        out["refused"] = e.error.kind
+    else:
+        raise RuntimeError("crash drive (10e): the restarted notary signed a double spend")
+    for node in net.nodes:
+        node.services.db.close()
+    return out
+
+
+def phase_clusters(device, card: str, fx) -> dict:
+    """Phase 10 (module docstring); returns the launches of its run."""
+    import os
+    import tempfile
+
+    os.environ["CORDA_TPU_NOTARY_PROFILE"] = "1"
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+    from corda_tpu_torch.testing.notary_fixture import notary_hub
+
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "corda_tpu_torch")
+    os.makedirs(scratch, exist_ok=True)
+    t_phase = time.perf_counter()
+    _zero_counters()
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="clusters-") as tmp:
+        verifier = _recording_verifier((CHUNK,), device)
+        hub = notary_hub(fx, verifier)
+        wire = [ser.encode(stx) for stx in fx.spends]
+        durable = {}
+        for shards in (1, 4):
+            durable[shards] = durable_flush(fx, hub, wire, verifier, shards,
+                                            os.path.join(tmp, f"notary-s{shards}.db"), card)
+
+        flows = _recording_verifier(CLUSTER_BATCHES, device)
+        for sub in ("raft", "raft-cpu", "crash"):
+            os.makedirs(os.path.join(tmp, sub))
+        drive = raft_drive(flows, os.path.join(tmp, "raft"))
+        ledger = drive["ledger"]
+        rows = [len(r) for r, _ in flows.calls]
+        print(f"raft drive (10b): {len(ledger['ids'])} flows completed and "
+              f"{len(ledger['refused'])} refused in {drive['wall_s']:.3f} s = "
+              f"{len(ledger['ids']) / drive['wall_s']:.3f} flows/s; {len(rows)} card verify "
+              f"calls = {len(rows) / len(ledger['ids']):.2f} per flow, rows per call "
+              f"{min(rows)}-{max(rows)} (mean {sum(rows) / len(rows):.2f}); per flow "
+              f"{json.dumps(ledger['calls'])}; leaders {ledger['leaders']}; refused "
+              f"{ledger['refused']}; balances {ledger['balances']}; {card}")
+        transfer = raft_transfer(drive, RAFT_ENTRIES, card)
+        bft = bft_drive(drive["net"], flows.calls, card)
+        for node in drive["net"].nodes:
+            node.services.db.close()
+
+        t0 = time.perf_counter()
+        crash = crash_drive(flows, os.path.join(tmp, "crash"))
+        crash_s = time.perf_counter() - t0
+        launches = _read_counters()
+
+        t0 = time.perf_counter()
+        cpu = raft_drive(CpuBatchVerifier(), os.path.join(tmp, "raft-cpu"))
+        for node in cpu["net"].nodes:
+            node.services.db.close()
+        _same_ledger(ledger, cpu["ledger"], "raft drive (10b)")
+        print(f"raft drive (10b) over CpuBatchVerifier in {time.perf_counter() - t0:.3f} s: the "
+              f"same {len(ledger['ids'])} transaction ids, cluster signatures, refusals, "
+              f"leaders and balances")
+        memory = crash_drive(flows, None)
+        if memory["page"] != crash["page"]:
+            raise RuntimeError("crash drive (10e): the sqlite vault page differs from the "
+                               "in-memory network's")
+    print(f"crash drive (10e): Alice's vault page equal before and after restart_node and to an "
+          f"in-memory network's; the checkpointed payment finished after the restart; the "
+          f"restarted notary refused a double spend ({crash['refused']}); {crash_s:.3f} s; "
+          f"{card}")
+    for kernel in ("ed_ladder", "wei_ladder_windowed", "wei_ladder"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} was not launched in the cluster phase")
+    print(f"clusters (ph. 10) launches: {json.dumps(launches)}; durable notarisations/s "
+          f"{json.dumps({k: round(v['rate'], 1) for k, v in durable.items()})}; raft commits "
+          f"{transfer['commit_s']:.3f} s, transfer {transfer['transfer_s']:.3f} s; bft "
+          f"{bft['wall_s']:.3f} s; wall {time.perf_counter() - t_phase:.3f} s; {card}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the kernel table JSON here")
@@ -1555,9 +2156,12 @@ def main(argv=None) -> int:
     phase_schemes(device, card, fx)
     phase_flows(device, card)
     phase_pool(device, card, fx)
+    clusters = phase_clusters(device, card, fx)
+    for n, r in report.items():
+        r["clusters_launches"] = clusters[n]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "clusters_launches")
     table = {"kernels": [
         {k: ({"name": n, **r}[k]) for k in keys} for n, r in report.items()
     ]}

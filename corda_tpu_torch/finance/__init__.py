@@ -1,7 +1,8 @@
 """Financial contracts and flows of the port (port of corda_tpu/finance):
 the OnLedgerAsset base, Cash with its issue, payment and exit flows,
-CommercialPaper, Obligation and the trading flows. The reference's
-Commodity and its MappedSchemas are not ported."""
+CommercialPaper, Obligation, the trading flows and the Cash and
+CommercialPaper MappedSchemas (registered on import, as the reference
+registers them). The reference's Commodity is not ported."""
 
 from .asset import OnLedgerAsset
 from .cash import (
@@ -19,6 +20,7 @@ from .obligation import (
     Obligation,
     ObligationState,
 )
+from . import schemas as _schemas  # noqa: F401 - registers MappedSchemas
 from .trade_flows import (
     BuyerFlow,
     DealInstigatorFlow,

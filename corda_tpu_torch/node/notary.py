@@ -113,6 +113,24 @@ ser.register_custom(
 # -- uniqueness providers ----------------------------------------------------
 
 
+def snapshot_uniqueness_map(committed: dict) -> list:
+    """Canonical (sorted, ser-encodable) dump of a stateRef->tx map.
+
+    ONE implementation shared by the Raft snapshot and the BFT
+    checkpoint paths: the encoding is consensus-critical (BFT
+    checkpoint digests are computed over it), so two drifting copies
+    would break cross-replica state-transfer agreement."""
+    return sorted(
+        [ser.encode(ref), h.bytes_] for ref, h in committed.items()
+    )
+
+
+def restore_uniqueness_map(state) -> dict:
+    return {
+        ser.decode(bytes(r)): SecureHash(bytes(h)) for r, h in state
+    }
+
+
 class UniquenessProvider:
     """stateRef -> consuming-tx registry; the core consensus primitive."""
 

@@ -1,14 +1,15 @@
 """ServiceHub and the in-memory node services.
 
 Port of corda_tpu/node/services.py: the clock, the storages, key
-management, identity, the network-map cache, the vault (without its
-query DSL, node/vault_query.py, which is not ported), the in-memory
+management, identity, the network-map cache, the vault with its query
+DSL (`query_by` / `track_by` over node/vault_query.py), the in-memory
 transaction verifier service and the hub, with its CorDapp services
 (node/cordapp.py) and its batched resolve + verify
 (`resolve_verify_batch`, the notary flush's host hot path). The
 hub's batch verifier defaults to the port's `default_verifier()`, a
-CudaBatchVerifier on the card. Persistence (the reference's sqlite
-hubs) is not ported: passing `db` raises NotImplementedError.
+CudaBatchVerifier on the card. A hub given a `db` (node/persistence.py's
+PersistentServiceHub) records each batch of transactions in one
+database transaction.
 
 Reference: the `ServiceHub` facade (core/.../node/ServiceHub.kt:45-60 —
 vault, keyManagement, identity, attachments, validatedTransactions,
@@ -496,6 +497,42 @@ ser.register_custom(
 )
 
 
+class Observable:
+    """Minimal push stream (the Rx Observable role in DataFeed —
+    reference returns rx.Observable from trackBy/CordaRPCOps feeds)."""
+
+    def __init__(self):
+        self._subscribers: list[Callable[[Any], None]] = []
+
+    def subscribe(self, cb: Callable[[Any], None]) -> Callable[[], None]:
+        self._subscribers.append(cb)
+
+        def unsubscribe():
+            if cb in self._subscribers:
+                self._subscribers.remove(cb)
+
+        return unsubscribe
+
+    def emit(self, item: Any) -> None:
+        for cb in list(self._subscribers):
+            _safe_notify(cb, item)   # one bad subscriber can't starve the rest
+
+
+@dataclass
+class DataFeed:
+    """Snapshot + updates stream (core/.../messaging/DataFeed).
+    `dispose()` detaches the feed from its source (the reference leans
+    on Rx unsubscribe + GC reaping, RPCClientProxyHandler.kt:37-68)."""
+
+    snapshot: Any
+    updates: Observable
+    dispose: Optional[Callable[[], None]] = None
+
+    def close(self) -> None:
+        if self.dispose is not None:
+            self.dispose()
+
+
 class VaultService:
     """Tracks our unconsumed states; streams updates; soft-locks states
     for in-flight spends (reference: NodeVaultService.kt +
@@ -580,6 +617,81 @@ class VaultService:
             for ref, ts in self._consumed.items()
             if cls is None or isinstance(ts.data, cls)
         ]
+
+    # -- query DSL ----------------------------------------------------------
+
+    def _query_rows(self):
+        from .vault_query import CONSUMED, UNCONSUMED, row_of
+
+        rows = []
+        for ref, ts in self._unconsumed.items():
+            rows.append(
+                row_of(
+                    StateAndRef(ts, ref),
+                    UNCONSUMED,
+                    self._recorded_at.get(ref, 0),
+                )
+            )
+        for ref, ts in self._consumed.items():
+            rows.append(
+                row_of(
+                    StateAndRef(ts, ref),
+                    CONSUMED,
+                    self._recorded_at.get(ref, 0),
+                )
+            )
+        return rows
+
+    def query_by(self, criteria, paging=None, sorting=None):
+        """VaultService.queryBy (VaultService.kt:157): criteria AST →
+        Page. The in-memory vault evaluates criteria as predicates; the
+        persistent vault compiles the same AST to SQL."""
+        from .vault_query import PageSpecification, Sort, run_in_memory
+
+        return run_in_memory(
+            self._query_rows(),
+            criteria,
+            paging or PageSpecification(),
+            sorting or Sort(),
+        )
+
+    def track_by(self, criteria, paging=None, sorting=None) -> "DataFeed":
+        """VaultService.trackBy: consistent snapshot + stream of future
+        updates whose states match the criteria."""
+        snapshot = self.query_by(criteria, paging, sorting)
+        feed = Observable()
+
+        def on_update(update: VaultUpdate) -> None:
+            from .vault_query import UNCONSUMED, row_of
+
+            now = self._services.clock.now_micros()
+            # Consumed states are matched as if still live: the feed
+            # reports consumption of states that were IN the tracked
+            # set (reference trackBy semantics) — projecting them as
+            # CONSUMED would always fail status=UNCONSUMED criteria.
+            consumed = [
+                s
+                for s in update.consumed
+                if criteria.matches(row_of(s, UNCONSUMED, now))
+            ]
+            produced = [
+                s
+                for s in update.produced
+                if criteria.matches(row_of(s, UNCONSUMED, now))
+            ]
+            if consumed or produced:
+                feed.emit(VaultUpdate(consumed, produced))
+
+        self.updates.append(on_update)
+        return DataFeed(
+            snapshot,
+            feed,
+            dispose=lambda: (
+                self.updates.remove(on_update)
+                if on_update in self.updates
+                else None
+            ),
+        )
 
     # -- coin selection -----------------------------------------------------
 
@@ -790,10 +902,7 @@ class ServiceHub:
         self.clock = clock or Clock()
         if self.network_map_cache.clock_fn is None:
             self.network_map_cache.clock_fn = self.clock.now_micros
-        if db is not None:
-            raise NotImplementedError(
-                "persistent service hubs are not ported to corda_tpu_torch"
-            )
+        self.db = db   # NodeDatabase for persistent hubs, else None
         self.validated_transactions = (
             validated_transactions or TransactionStorage()
         )
@@ -825,17 +934,25 @@ class ServiceHub:
 
     def record_transactions(self, stxs: Iterable[SignedTransaction]) -> None:
         """Store validated transactions + notify the vault (reference:
-        ServiceHub.recordTransactions -> NodeVaultService.notifyAll)."""
-        for stx in stxs:
-            if self.validated_transactions.add_quiet(stx):
-                try:
-                    self.vault.notify(stx.wtx)
-                except BaseException:
-                    # unwind the store too, so a retry re-runs the
-                    # whole record instead of no-opping
-                    self.validated_transactions._forget(stx.id)
-                    raise
-                self.validated_transactions.fire_observers(stx)
+        ServiceHub.recordTransactions -> NodeVaultService.notifyAll).
+        On a persistent hub the whole record — tx rows, vault rows, and
+        any checkpoints written by observers resuming waiting flows —
+        lands in ONE database transaction, so a crash can never leave a
+        stored tx whose vault effects are missing."""
+        import contextlib
+
+        ctx = self.db.transaction() if self.db else contextlib.nullcontext()
+        with ctx:
+            for stx in stxs:
+                if self.validated_transactions.add_quiet(stx):
+                    try:
+                        self.vault.notify(stx.wtx)
+                    except BaseException:
+                        # disk failure: unwind memory too, so a retry
+                        # re-runs the whole record instead of no-opping
+                        self.validated_transactions._forget(stx.id)
+                        raise
+                    self.validated_transactions.fire_observers(stx)
 
     # -- resolution ---------------------------------------------------------
 

@@ -1,8 +1,9 @@
 """Tiny flows used by Ring-3 tests (ping/pong, a responder-less flow,
 the scheduled heartbeat).
 
-Port of corda_tpu/testing/flows.py, without the reference's vault-query
-fixture (DummyLinearState) and its NoOpFlow performance probe. Module-
+Port of corda_tpu/testing/flows.py, with the vault-query fixture
+(DummyLinearState, `make_linear_state_tx`) and without the reference's
+NoOpFlow performance probe. Module-
 level so checkpoint restore can re-import them
 (statemachine._reconstruct_logic); their tags are the reference's paths
 (`corda_tpu.testing.flows.PingFlow`).
@@ -13,7 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ..core import serialization as ser
-from ..core.contracts import ScheduledActivity, register_contract
+from ..core.contracts import ScheduledActivity, UniqueIdentifier, register_contract
 from ..core.identity import Party
 from ..core.transactions import TransactionBuilder
 from ..flows.api import FlowLogic, initiated_by, initiating_flow
@@ -74,6 +75,42 @@ class OneShotPongFlow(FlowLogic):
         n = yield from self.receive(self.other, int)
         yield from self.send(self.other, n * 2)
         return n
+
+
+@ser.serializable
+@dataclass(frozen=True)
+class DummyLinearState:
+    """Minimal LinearState for vault/scheduler tests (reference:
+    test-utils DummyLinearContract.State)."""
+
+    linear_id: UniqueIdentifier
+    info: str
+    owner: object   # PublicKey
+
+    @property
+    def participants(self):
+        return (self.owner,)
+
+
+class _DummyLinearContract:
+    def verify(self, ltx) -> None:
+        pass
+
+
+DUMMY_LINEAR_CONTRACT = "test.DummyLinear"
+
+
+def make_linear_state_tx(node, notary: Party, linear_id, info: str):
+    """Build, self-sign and record a tx issuing one DummyLinearState."""
+    register_contract(DUMMY_LINEAR_CONTRACT, _DummyLinearContract())
+    b = TransactionBuilder(notary=notary)
+    b.add_output_state(
+        DummyLinearState(linear_id, info, node.party.owning_key),
+        DUMMY_LINEAR_CONTRACT,
+    )
+    stx = node.services.sign_initial_transaction(b)
+    node.services.record_transactions([stx])
+    return stx
 
 
 @ser.serializable

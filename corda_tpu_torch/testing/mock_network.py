@@ -2,17 +2,21 @@
 
 Port of corda_tpu/testing/mock_network.py: `MockNode` and `MockNetwork`
 with `create_node`, `create_notary(validating=, batching=, shards=)`,
-`run` and the directory sync. Every node's keys, key management and
-state machine draw their seeds from one `random.Random(seed)` in the
-reference's order, so a seeded network makes the reference's frames.
+persistent nodes (`db_dir=`: one sqlite database per node, through
+node/persistence.py) and `restart_node`, the Raft and BFT notary
+clusters (`create_raft_notary_cluster`, `create_bft_notary_cluster`,
+`elect`, each member's `rebuild_cluster_member`), `run` and the
+directory sync. Every node's keys, key management and state machine
+draw their seeds from one `random.Random(seed)` in the reference's
+order, so a seeded network makes the reference's frames and database
+rows.
 
 The signature path runs on the card by default: `batch_verifier=None`
 builds a `CudaBatchVerifier()` on "cuda", which raises where there is
 no card (the reference defaults to its CpuBatchVerifier; ROADMAP Queue
-3 records the divergence). Tests pass `CpuBatchVerifier()` or
-`CudaBatchVerifier(device="cpu", ...)`. Not ported: persistence
-(`db_dir=` and `restart_node` raise NotImplementedError) and the Raft
-and BFT notary clusters.
+3 records the divergence). Restarted nodes and cluster members share
+the network's verifier. Tests pass `CpuBatchVerifier()` or
+`CudaBatchVerifier(device="cpu", ...)`.
 
 Reference: test-utils/.../testing/node/MockNode.kt:58 — N AbstractNode
 instances in one JVM over an InMemoryMessagingNetwork with deterministic
@@ -30,10 +34,12 @@ from typing import Optional
 
 from ..core.identity import Party
 from ..crypto import schemes
+from ..crypto.composite import CompositeKey
 from ..crypto.batch_verifier import BatchSignatureVerifier, CudaBatchVerifier
 from ..flows.api import FlowLogic
 from ..flows.statemachine import FlowStateMachine, StateMachineManager
 from ..node import messaging as msglib
+from ..node.bft import BftReplica, BFTNotaryService
 from ..node.cordapp import install_cordapp_services
 from ..node.notary import (
     BatchingNotaryService,
@@ -42,6 +48,8 @@ from ..node.notary import (
     SimpleNotaryService,
     ValidatingNotaryService,
 )
+from ..node.persistence import PersistentServiceHub, PersistentUniquenessProvider
+from ..node.raft import LEADER, RaftNode, RaftUniquenessProvider
 from ..node.scheduler import NodeSchedulerService
 from ..node.services import (
     IdentityService,
@@ -52,12 +60,6 @@ from ..node.services import (
     SERVICE_NOTARY_VALIDATING,
     ServiceHub,
     TestClock,
-)
-
-
-_NO_PERSISTENCE = (
-    "persistent MockNetwork nodes (db_dir=, restart_node) are not ported to "
-    "corda_tpu_torch: ROADMAP Queue 1 #6 (persistence)"
 )
 
 
@@ -90,14 +92,30 @@ class MockNode:
             raise ValueError(f"unknown notary type {notary!r}")
         self.info = NodeInfo(name, self.party, advertised)
         kms_rng = random.Random(network.rng.getrandbits(64))
-        self.services = ServiceHub(
-            my_info=self.info,
-            key_management=KeyManagementService(self.keypair, rng=kms_rng),
-            identity=IdentityService(self.party),
-            network_map_cache=NetworkMapCache(),
-            clock=network.clock,
-            batch_verifier=network.batch_verifier,
-        )
+        if network.db_dir is not None:
+            self.services = PersistentServiceHub.open(
+                f"{network.db_dir}/{name}.db",
+                self.info,
+                IdentityService(self.party),
+                self.keypair,
+                network_map_cache=NetworkMapCache(),
+                clock=network.clock,
+                batch_verifier=network.batch_verifier,
+                rng=kms_rng,
+            )
+            uniqueness = lambda: PersistentUniquenessProvider(  # noqa: E731
+                self.services.db
+            )
+        else:
+            self.services = ServiceHub(
+                my_info=self.info,
+                key_management=KeyManagementService(self.keypair, rng=kms_rng),
+                identity=IdentityService(self.party),
+                network_map_cache=NetworkMapCache(),
+                clock=network.clock,
+                batch_verifier=network.batch_verifier,
+            )
+            uniqueness = InMemoryUniquenessProvider
         install_cordapp_services(self.services)
         self.messaging = network.fabric.endpoint(name)
         self.smm = StateMachineManager(
@@ -107,11 +125,11 @@ class MockNode:
         )
         if notary == "simple":
             self.services.notary_service = SimpleNotaryService(
-                self.services, InMemoryUniquenessProvider()
+                self.services, uniqueness()
             )
         elif notary == "validating":
             self.services.notary_service = ValidatingNotaryService(
-                self.services, InMemoryUniquenessProvider()
+                self.services, uniqueness()
             )
         elif notary == "batching":
             if notary_shards > 1:
@@ -122,12 +140,12 @@ class MockNode:
                 )
             else:
                 self.services.notary_service = BatchingNotaryService(
-                    self.services, InMemoryUniquenessProvider()
+                    self.services, uniqueness()
                 )
         self.scheduler = NodeSchedulerService(
             self.services, self.smm.start_flow
         )
-        # extra per-pump tick hooks; each returns a
+        # extra per-pump tick hooks (raft timers etc.); each returns a
         # count of actions so run() can detect quiescence
         self.ticks: list = []
         if notary == "batching":
@@ -170,10 +188,10 @@ class MockNetwork:
         FabricFaults plane (messaging.py) — the chaos-injection seam.
         It shares this network's TestClock so slow-link delays advance
         in simulated time; run() then treats blocked/delayed frames as
-        quiescent instead of livelocking on them. `db_dir` (persistent
-        nodes) is not ported and raises NotImplementedError."""
-        if db_dir is not None:
-            raise NotImplementedError(_NO_PERSISTENCE)
+        quiescent instead of livelocking on them. `db_dir`: a directory
+        for one sqlite database per node (`<db_dir>/<name>.db`), which
+        `restart_node` reopens."""
+        self.db_dir = db_dir
         self.rng = random.Random(seed)
         self.clock = TestClock()
         if faults is not None and faults._clock is None:
@@ -213,10 +231,200 @@ class MockNetwork:
         )
         return self.create_node(name, notary=kind, notary_shards=shards)
 
+    def create_raft_notary_cluster(
+        self,
+        n: int = 3,
+        name: str = "RaftNotary",
+        validating: bool = False,
+        scheme_id: int = schemes.DEFAULT_SCHEME,
+        tracer_factory=None,
+        metrics_factory=None,
+    ):
+        """n MockNodes forming one Raft notary cluster behind a shared
+        service identity (reference: notary-demo Raft cluster,
+        RaftUniquenessProvider.kt). Returns (service_party, members).
+        Elect a leader before notarising: run() + advance_clock loops
+        (`elect`). `scheme_id` picks the member/service signature
+        scheme. `tracer_factory(member_name)` / `metrics_factory(
+        member_name)` optionally hand each member its OWN tracer /
+        metric registry — consensus-phase spans and Raft.Phase.* timers
+        land per member, the shape cross-node trace assembly tests
+        against (None keeps the bare protocol)."""
+        shared_kp = schemes.generate_keypair(
+            scheme_id, seed=self.rng.getrandbits(256)
+        )
+        service_party = Party(name, shared_kp.public)
+        member_names = [f"{name}-{i}" for i in range(n)]
+        members = []
+        for mname in member_names:
+            node = self.create_node(mname, scheme_id=scheme_id)
+            node.services.key_management.register_keypair(shared_kp)
+            node.info = NodeInfo(
+                mname,
+                node.party,
+                (SERVICE_NOTARY_VALIDATING,) if validating else (SERVICE_NOTARY,),
+                cluster_identity=service_party,
+            )
+            node.services.my_info = node.info
+
+            def factory(apply_fn, _node=node, _mname=mname, **raft_kw):
+                raft = RaftNode(
+                    _mname,
+                    member_names,
+                    _node.messaging,
+                    apply_fn,
+                    self.clock,
+                    db=getattr(_node.services, "db", None),
+                    rng=random.Random(self.rng.getrandbits(32)),
+                    tracer=(
+                        tracer_factory(_mname) if tracer_factory else None
+                    ),
+                    metrics=(
+                        metrics_factory(_mname) if metrics_factory else None
+                    ),
+                    **raft_kw,
+                )
+                _node.raft = raft
+                _node.ticks.append(raft.tick)
+                return raft
+
+            def rebuild(_node=node, _factory=factory):
+                """Kill/restart seam: discard the
+                member's raft state machine and provider, build fresh
+                ones over the SAME fabric endpoint (dedupe set and
+                journal survive, like a real node restarting over its
+                database), and let the cluster's own state transfer —
+                AppendEntries replay / InstallSnapshot — restore the
+                committed map. The previous raft instance must be
+                stop()ped first (handler removal)."""
+                provider = RaftUniquenessProvider(_factory)
+                cls = (
+                    ValidatingNotaryService if validating
+                    else SimpleNotaryService
+                )
+                _node.services.notary_service = cls(
+                    _node.services, provider, service_identity=service_party
+                )
+                return _node.services.notary_service
+
+            node.rebuild_cluster_member = rebuild
+            rebuild()
+            members.append(node)
+        self._sync_directories()
+        return service_party, members
+
+    def create_bft_notary_cluster(
+        self,
+        n: int = 4,
+        name: str = "BFTNotary",
+        scheme_id: int = schemes.DEFAULT_SCHEME,
+        tracer_factory=None,
+        metrics_factory=None,
+    ):
+        """3f+1 MockNodes forming a BFT notary cluster. The service
+        identity is a CompositeKey(threshold=f+1) over the member keys
+        (reference: BFTNonValidatingNotaryService.kt:29 + the cluster
+        composite identity in BFTSMaRt.kt). Returns (party, members).
+        `scheme_id` picks the member scheme."""
+        member_names = [f"{name}-{i}" for i in range(n)]
+        members = [
+            self.create_node(m, scheme_id=scheme_id) for m in member_names
+        ]
+        f = (n - 1) // 3
+        composite = CompositeKey.build(
+            [m.party.owning_key for m in members], threshold=f + 1
+        )
+        service_party = Party(name, composite)
+        member_keys = {m.name: m.party.owning_key for m in members}
+        for node in members:
+            node.info = NodeInfo(
+                node.name,
+                node.party,
+                (SERVICE_NOTARY,),
+                cluster_identity=service_party,
+            )
+            node.services.my_info = node.info
+
+            def rebuild(_node=node):
+                """Kill/restart seam: a FRESH replica
+                over the same endpoint — empty uniqueness map, exec_seq
+                1 — restored by the cluster's own catch-up/state-
+                transfer machinery (CatchUpRequest -> _restore). The
+                previous replica must be stop()ped first."""
+                replica = BftReplica(
+                    _node.name,
+                    member_names,
+                    _node.messaging,
+                    lambda cmd, ts: (None, None),   # rewired by the service
+                    self.clock,
+                    cluster=name,
+                    rng=random.Random(self.rng.getrandbits(32)),
+                    tracer=(
+                        tracer_factory(_node.name)
+                        if tracer_factory else None
+                    ),
+                    metrics=(
+                        metrics_factory(_node.name)
+                        if metrics_factory else None
+                    ),
+                )
+                _node.bft = replica
+                _node.ticks.append(replica.tick)
+                _node.services.notary_service = BFTNotaryService(
+                    _node.services,
+                    replica,
+                    service_party,
+                    member_keys=member_keys,
+                )
+                return _node.services.notary_service
+
+            node.rebuild_cluster_member = rebuild
+            rebuild()
+        self._sync_directories()
+        return service_party, members
+
+    def elect(self, members, max_rounds: int = 300):
+        """Advance time until the cluster settles on a leader."""
+        for _ in range(max_rounds):
+            self.clock.advance(20_000)
+            self.run()
+            leaders = [m for m in members if m.raft.role == LEADER]
+            if len(leaders) == 1 and all(
+                m.raft.leader == leaders[0].raft.name
+                for m in members
+                if m is not leaders[0]
+            ):
+                return leaders[0]
+        raise AssertionError("raft notary cluster failed to elect")
+
     def restart_node(self, node: MockNode) -> MockNode:
-        """Kill a node and boot a replacement from its database: needs
-        persistence, which is not ported."""
-        raise NotImplementedError(_NO_PERSISTENCE)
+        """Kill a node and boot a replacement from its database — the
+        reference's crash-recovery test move (StateMachineManager
+        restoreFibersFromCheckpoints, MockNode restart). Requires
+        db_dir. The new node re-registers, restores checkpoints, and
+        resumes flows on the next pump. The replacement reuses the same
+        fabric endpoint object, so the receiver-side dedupe set and id
+        counter survive — the in-memory stand-in for the durable
+        fabric's persisted dedupe table."""
+        if self.db_dir is None:
+            raise RuntimeError("restart_node requires MockNetwork(db_dir=...)")
+        node.scheduler.stop()
+        node.smm.stop()
+        node.services.db.close()
+        node.messaging.running = False
+        self.nodes.remove(node)
+        replacement = MockNode(
+            self,
+            node.name,
+            notary=node.notary_kind,
+            scheme_id=node.scheme_id,
+            keypair=node.keypair,
+        )
+        self.nodes.append(replacement)
+        self._sync_directories()
+        replacement.messaging.running = True
+        replacement.smm.restore_checkpoints()
+        return replacement
 
     def _sync_directories(self) -> None:
         """Every node learns every node (the reference's network-map

@@ -305,3 +305,115 @@ def test_pool_checks_raise_on_a_wrong_answer():
                     ["ok", bad, "ok", "unanswered"]):
         with pytest.raises(RuntimeError, match="answered"):
             cs._check_pool_answers(answers, labels, "t")
+
+
+class _RecordingCpu:
+    """A CpuBatchVerifier with the recording verifier's `.calls` and a
+    streamed handle: the rehearsal's stand-in for the card."""
+
+    def __init__(self, *_args, **_kw):
+        from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+
+        self._cpu = CpuBatchVerifier()
+        self.calls = []
+
+    def verify_batch(self, requests):
+        return self.verify_batch_async(requests).result()
+
+    def verify_batch_async(self, requests):
+        from corda_tpu_torch.crypto.batch_verifier import PendingVerification
+
+        out = self._cpu.verify_batch(requests)
+        pv = PendingVerification(out, [], host_rows=range(len(out)))
+        self.calls.append((list(requests), pv))
+        return pv
+
+
+def test_cluster_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.phase_clusters on the CPU over CPU verifiers, at 64
+    spends in 10a and 1,024 Raft entries in 10c: every check of 10a-10e
+    runs and passes, and the phase's last check — that ed_ladder,
+    wei_ladder_windowed and wei_ladder launched — refuses a run in which
+    no kernel did."""
+    import torch
+
+    from corda_tpu_torch.testing.notary_fixture import build_fixture
+
+    monkeypatch.setenv("CORDA_TPU_NOTARY_PROFILE", "1")
+    monkeypatch.setattr(cs, "_recording_verifier", _RecordingCpu)
+    monkeypatch.setattr(cs, "NOTARY_SAMPLE", 8)
+    monkeypatch.setattr(cs, "DURABLE_REOPEN", 16)
+    monkeypatch.setattr(cs, "RAFT_ENTRIES", 1024)
+    fx = build_fixture(64, **SMALL_FIXTURE)
+    with pytest.raises(RuntimeError, match="ed_ladder was not launched in the cluster phase"):
+        cs.phase_clusters(torch.device("cpu"), "cpu rehearsal", fx)
+    out = capsys.readouterr().out
+    for shards in (1, 4):
+        assert f"durable notary (10a) shards={shards}: 64 spends in" in out
+        assert (f"durable notary (10a) shards={shards} reopened: 48 committed inputs read back; "
+                "16 double spends answered conflict") in out
+    assert "raft drive (10b): 7 flows completed and 1 refused" in out
+    assert "raft drive (10b) over CpuBatchVerifier" in out
+    assert "raft transfer (10c): 1024 commits through the leader" in out
+    assert "1 snapshots (snap_index 1024)" in out and "maps equal at 1030 refs" in out
+    assert "bft drive (10d): 7 flows completed and 1 refused" in out
+    assert "caught up by state transfer (1 catch-up(s))" in out
+    assert "crash drive (10e)" in out and "refused a double spend (conflict)" in out
+
+
+def test_cluster_checks_raise_on_a_wrong_answer(monkeypatch, tmp_path):
+    """Each phase-10 check refuses a wrong answer: a double spend the
+    reopened notary signs (10a), a card ledger unlike the CPU run's
+    (10b), a rebuilt Raft member short of a ref (10c), live maps that
+    differ (10b, 10d), a replica that never catches up (10d), a vault
+    page unlike the in-memory network's and a restarted notary that
+    forgot its commits (10e)."""
+    import torch
+
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+    from corda_tpu_torch.node import bft, raft
+    from corda_tpu_torch.node.notary import InMemoryUniquenessProvider
+    from corda_tpu_torch.testing import mock_network
+    from corda_tpu_torch.testing.notary_fixture import build_fixture, notary_hub
+    from corda_tpu_torch.core import serialization as ser
+
+    monkeypatch.setattr(cs, "NOTARY_SAMPLE", 8)
+    monkeypatch.setattr(cs, "DURABLE_REOPEN", 4)
+    # 10a: the "double spends" are the committed spends themselves, which
+    # the notary accepts again (the same transaction)
+    fx = build_fixture(16, **SMALL_FIXTURE)
+    verifier = _RecordingCpu()
+    wire = [ser.encode(s) for s in fx.spends]
+    monkeypatch.setattr(cs, "_double_spends", lambda fx, picks: [fx.spends[i] for i in picks])
+    with pytest.raises(RuntimeError, match="the reopened notary answered"):
+        cs.durable_flush(fx, notary_hub(fx, verifier), wire, verifier, 1,
+                         str(tmp_path / "n.db"), "cpu")
+    # 10b: ledgers and maps
+    ledger = {"ids": ["a"], "notary_sigs": [], "refused": [], "balances": {}, "leaders": []}
+    cs._same_ledger(ledger, dict(ledger), "t")
+    with pytest.raises(RuntimeError, match="the card's ids differ"):
+        cs._same_ledger(ledger, {**ledger, "ids": ["b"]}, "t")
+    with pytest.raises(RuntimeError, match="committed maps differ"):
+        cs._maps_equal([{1: 2}, {1: 2}, {1: 3}], "t")
+    # 10c: the rebuilt member's restore drops a ref
+    (tmp_path / "raft").mkdir()
+    drive = cs.raft_drive(CpuBatchVerifier(), str(tmp_path / "raft"))
+    restore = raft.RaftUniquenessProvider._restore
+
+    def lossy(self, state):
+        restore(self, state)
+        self.committed.pop(next(iter(self.committed)))
+
+    monkeypatch.setattr(raft.RaftUniquenessProvider, "_restore", lossy)
+    with pytest.raises(RuntimeError, match="the rebuilt member holds"):
+        cs.raft_transfer(drive, 1024, "cpu")
+    # 10d: a rebuilt replica that never asks to catch up
+    monkeypatch.setattr(bft.BftReplica, "_maybe_request_catchup", lambda self, now: 0)
+    with pytest.raises(RuntimeError, match="did not settle|did not catch up"):
+        cs.bft_drive(drive["net"], [], "cpu")
+    # 10e: a notary whose commits do not survive its restart
+    monkeypatch.setattr(mock_network, "PersistentUniquenessProvider",
+                        lambda db: InMemoryUniquenessProvider())
+    (tmp_path / "crash").mkdir()
+    with pytest.raises(RuntimeError, match="signed a double spend"):
+        cs.crash_drive(CpuBatchVerifier(), str(tmp_path / "crash"))

@@ -78,7 +78,7 @@ Phases (any failure raises and exits non-zero):
      signature byte is refused by FinalityFlow (InvalidSignature) and by
      the notary ("invalid-transaction"); a double spend raises
      NotaryException "conflict"; every balance exact; (b) a batching
-     notary for shards 1 and 4: 32 payments from 8 payers (issuance
+     notary for shards 1 and 4: 16 payments from 8 payers (issuance
      recorded straight into the vaults) started before one pump round
      and notarised in one flush (one dispatch per shard holding
      requests), every payment completed and every balance exact, no
@@ -157,9 +157,59 @@ Phases (any failure raises and exits non-zero):
      payment finishes), then the notary restarted (a double spend of a
      state it committed before is refused "conflict"). ed_ladder,
      wei_ladder_windowed and wei_ladder must launch;
- 11. print the kernel table as one JSON line (with each kernel's
-     launches in phase 10 as "clusters_launches"), then the result line
-     {"ok": true, "device": {...}}.
+ 11. real sockets on 127.0.0.1 (node/fabric.py, node/config.py,
+     node/node.py, node/network_map.py, node/rpc.py, utils/health.py,
+     the node CLI and the verifier worker process), every node with
+     verifier_backend = "tpu" (in this process, default_verifier(): a
+     CudaBatchVerifier(batch_sizes=(128, 4096)) on the card; in a
+     subprocess, its own CudaBatchVerifier) and TLS with fingerprint
+     pinning (a fresh identity where `cryptography` imports, else the
+     committed testing/dev_tls.pem; the source is printed), the launch
+     counters set to 0 before 11a and read after 11b: (a) Hub (map host,
+     batching notary of 1 shard over PersistentUniquenessProvider, a
+     300 ms batch wait), Alice (ed25519), Bob (p256) and Carol
+     (secp256k1): discovery through the map, an issue, payments across
+     the schemes (Carol resolving a backchain), 4 payments each from
+     Alice and Bob started together (the notary flushes answering them
+     printed), a flipped signature refused at finality and by the
+     notary, a double spend refused "conflict", Bob stopped and booted
+     again from his base_dir (his vault page equal, a payment to him
+     settled); the same drive over verifier_backend = "cpu" nodes must
+     leave the same transaction ids, refusals, balances, consumed refs
+     and notary commits; prints flows/s, card calls per flow, rows per
+     call and each node's fabric frames, bytes and journal depths; (b)
+     a raft-validating cluster of 3 and a bft cluster of 4 (f = 1), each
+     with a map host and Alice: an issue, a spend, a double spend
+     refused "conflict"; for Raft the leader stopped, the survivors
+     elect and a payment settles. ed_ladder, wei_ladder_windowed and
+     wei_ladder must launch within (a) and (b); (c) two `python -m
+     corda_tpu_torch.node --config <toml> --print-port` processes (a
+     validating notary hosting the map, and a client): over RPCClient
+     from a console endpoint here, CashIssueFlow from the notary to the
+     second node, a CashPaymentFlow from it back to the notary, and both
+     vaults queried; the node processes must
+     hold a CUDA context each (the card's contexts in nvidia-smi
+     --query-compute-apps rise by one per process: in a container the
+     pids it prints are not the processes' own) and SIGTERM must
+     end each with exit code 0 within 15 s; (d) a node with
+     verifier_type = "out_of_process" (TLS off, as the reference's
+     worker dials by address) and two `python -m
+     corda_tpu_torch.node.verifier` processes (batch window 256): a
+     warm-up request each, after which each worker must hold a CUDA
+     context (counted as in (c)); worker 0 frozen (SIGSTOP) so that it
+     holds its share unanswered; the 16,384 phase-6 spends as
+     `verify(ltx, stx)` requests through the durable journals; once a
+     quarter is answered worker 0 gets SIGKILL; its unanswered nonces
+     re-dispatch to the survivor when its lease expires. Every answer
+     must be its label and every future answered once (the pool's
+     attempt and request deadlines are set past the burst); prints
+     verified transactions/s, the seconds to deliver the frames
+     through the journals against the seconds to answer them, gc
+     seconds and the survivor's drains;
+ 12. print the kernel table as one JSON line (with each kernel's
+     launches in phase 10 as "clusters_launches" and in 11a-11b as
+     "nodes_launches"), then the result line {"ok": true, "device":
+     {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
 """
@@ -941,7 +991,7 @@ def phase_schemes(device, card: str, fx) -> dict:
 FLOW_SEED = 11
 FLOW_BATCHES = (128, 4096)
 FLOW_PAYERS = 8              # phase 8b: payer nodes (1 in 4 p256, 1 in 4 secp256k1)
-FLOW_COINS = 4               # phase 8b: issued coins per payer, one payment each
+FLOW_COINS = 2               # phase 8b: issued coins per payer, one payment each
 FLOW_SHARDS = (1, 4)         # phase 8b: the batching notary's shards
 
 
@@ -2113,6 +2163,651 @@ def phase_clusters(device, card: str, fx) -> dict:
     return launches
 
 
+# -- phase 11: real sockets — node boot, the CLI and the pool over TCP --------
+
+NODE_SEED = 17               # every phase-11 node's dev key seed
+NODE_BATCH_WAIT = 300_000    # 11a: µs the hub's batching notary holds a flush open
+NODE_CONCURRENT = 4          # 11a: concurrent payments per payer (two payers)
+NODE_TIMEOUT = 180.0         # s any one node-drive step may take before the phase fails
+TCP_POOL_WINDOW = 256        # 11d: a worker's --batch-window (requests per handler drain)
+TCP_POOL_KILL_AT = 0.25      # 11d: share of answers after which worker 0 gets SIGKILL
+TCP_POOL_DEADLINE = 600_000_000   # 11d: the pool's attempt and request deadlines (µs)
+
+
+class _NodeRig:
+    """In-process port nodes (node/node.py) over real sockets on
+    127.0.0.1, each booted from a NodeConfig with TLS from its
+    certificates/tls.pem (testing/dev_tls.py), pumped by one thread."""
+
+    def __init__(self, root: str, backend: str):
+        import os
+
+        self.root, self.backend = root, backend
+        self.nodes: list = []
+        self.tls = 0
+        self.tls_source = None
+        os.makedirs(root, exist_ok=True)
+
+    def boot(self, name: str, hub=None, **kw):
+        import os
+
+        from corda_tpu_torch.node.config import NodeConfig, RpcUserConfig
+        from corda_tpu_torch.node.node import Node
+        from corda_tpu_torch.testing.dev_tls import DEV_TLS_COUNT, provision_tls
+
+        base = os.path.join(self.root, name)
+        if not os.path.exists(os.path.join(base, "certificates", "tls.pem")):
+            _, self.tls_source = provision_tls(base, name, self.tls % DEV_TLS_COUNT)
+            self.tls += 1
+        if hub is not None:
+            kw.update(network_map_peer=hub.config.name, network_map_host="127.0.0.1",
+                      network_map_port=hub.messaging.listen_port,
+                      network_map_fingerprint=hub.tls.fingerprint)
+        cfg = NodeConfig(name=name, base_dir=base, key_seed=NODE_SEED,
+                         verifier_backend=self.backend,
+                         rpc_users=(RpcUserConfig("admin", "pw", ("ALL",)),), **kw)
+        node = Node(cfg).start()
+        self.nodes.append(node)
+        return node
+
+    def restart(self, node):
+        from corda_tpu_torch.node.node import Node
+
+        self.stop(node)
+        fresh = Node(node.config).start()
+        self.nodes.append(fresh)
+        return fresh
+
+    def pump_until(self, pred, label: str, timeout: float = NODE_TIMEOUT) -> None:
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"{label}: not done within {timeout:.0f} s")
+            for n in self.nodes:
+                n.pump()
+
+    def discover(self, label: str) -> None:
+        n = len(self.nodes)
+        self.pump_until(lambda: all(len(x.services.network_map_cache.all_nodes()) == n
+                                    for x in self.nodes), f"{label}: discovery")
+
+    def run(self, node, logic, label: str):
+        fsm = node.smm.start_flow(logic)
+        self.pump_until(lambda: fsm.done, label)
+        return fsm.result_or_throw()
+
+    def refused(self, node, logic, label: str, exc_type, kinds=None) -> list:
+        fsm = node.smm.start_flow(logic)
+        self.pump_until(lambda: fsm.done, label)
+        try:
+            fsm.result_or_throw()
+        except exc_type as e:
+            kind = getattr(getattr(e, "error", None), "kind", None)
+            if kinds is not None and kind not in kinds:
+                raise RuntimeError(f"{label}: refused as {kind!r}, not one of {kinds}") from e
+            return [label, type(e).__name__, kind]
+        raise RuntimeError(f"{label}: was not refused")
+
+    def stop(self, node) -> None:
+        node.stop()
+        self.nodes.remove(node)
+
+    def close(self) -> None:
+        for n in list(self.nodes):
+            self.stop(n)
+
+
+def _wire_counts(node) -> dict:
+    """A node's fabric: frames and payload bytes in its inbound journal
+    (the retained dedupe rows), its outbound journal's depth."""
+    frames, size = node.db.query("SELECT COUNT(*), COALESCE(SUM(LENGTH(payload)), 0) "
+                                 "FROM fabric_in")[0]
+    return {"frames_in": frames, "bytes_in": size, **node.messaging.wire_depths()}
+
+
+def _node_ledger(nodes, hub) -> dict:
+    """Balances, every consumed state ref and the hub's notary commits."""
+    from corda_tpu_torch.finance import CashState
+
+    return {
+        "balances": {n.config.name: _cash_of(n) for n in nodes},
+        "consumed": sorted({str(s.ref) for n in nodes
+                            for s in n.vault.consumed_states(CashState)}),
+        "commits": [list(r) for r in hub.db.query(
+            "SELECT ref_tx, ref_index, consumer, requester FROM notary_commits"
+            " ORDER BY ref_tx, ref_index")],
+    }
+
+
+def _same_node_ledger(card: dict, cpu: dict) -> None:
+    for key in ("ids", "refused", "balances", "consumed", "commits"):
+        if card[key] != cpu[key]:
+            raise RuntimeError(f"trio (11a): the card nodes' {key} differ from the "
+                               f"CpuBatchVerifier nodes'")
+
+
+def node_trio_drive(root: str, backend: str, calls=None) -> dict:
+    """Phase 11a: Hub (map host, batching notary of one shard over the
+    persistent uniqueness provider), Alice (ed25519), Bob (p256) and Carol
+    (secp256k1) as port nodes over TCP and TLS. Discovery; an issue;
+    payments across the schemes (Carol resolves a backchain of two);
+    NODE_CONCURRENT payments each from Alice and Bob started together; a
+    flipped signature refused at finality and by the notary; a double
+    spend refused "conflict"; Bob stopped and rebooted from his base_dir,
+    his vault read back, a payment to him settled. Raises unless every
+    outcome and balance is the expected one; returns the ledger and the
+    figures."""
+    import dataclasses
+
+    from corda_tpu_torch.crypto.tx_signature import InvalidSignature
+    from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow, CashState
+    from corda_tpu_torch.flows.core_flows import FinalityFlow, NotaryFlow
+    from corda_tpu_torch.node.notary import NotaryException
+    from corda_tpu_torch.node.vault_query import ALL, VaultQueryCriteria
+
+    calls = calls if calls is not None else []
+    rig = _NodeRig(root, backend)
+    try:
+        t_boot = time.perf_counter()
+        hub = rig.boot("Hub", notary="batching", notary_batch_wait_micros=NODE_BATCH_WAIT)
+        alice = rig.boot("Alice", hub)
+        bob = rig.boot("Bob", hub, scheme="secp256r1")
+        carol = rig.boot("Carol", hub, scheme="secp256k1")
+        rig.discover("trio (11a)")
+        boot_s = time.perf_counter() - t_boot
+        notary = hub.party
+        ledger = {"ids": [], "refused": []}
+        calls_at = {}
+        t0 = time.perf_counter()
+        n0 = len(calls)
+
+        def run(label, node, logic):
+            stx = rig.run(node, logic, f"trio (11a) {label}")
+            ledger["ids"].append(str(stx.id))
+            return stx
+
+        run("issue", alice, CashIssueFlow(1000, "USD", alice.party, notary))
+        run("pay Alice -> Bob", alice, CashPaymentFlow(400, "USD", bob.party))
+        run("pay Bob -> Carol", bob, CashPaymentFlow(150, "USD", carol.party))
+        run("pay Carol -> Alice", carol, CashPaymentFlow(50, "USD", alice.party))
+        for payer in (alice, bob):
+            for k in range(NODE_CONCURRENT):   # distinct amounts: distinct transactions
+                run(f"issue to {payer.config.name}", alice,
+                    CashIssueFlow(30 + k, "USD", payer.party, notary))
+        batches = hub.services.notary_service.metrics.counter("Notary.BatchesDispatched")
+        flushes0 = batches.count
+        fsms = [payer.smm.start_flow(CashPaymentFlow(25, "USD", carol.party))
+                for payer in (alice, bob) for _ in range(NODE_CONCURRENT)]
+        rig.pump_until(lambda: all(f.done for f in fsms), "trio (11a) concurrent payments")
+        ledger["ids"] += [str(f.result_or_throw().id) for f in fsms]
+        concurrent_flushes = batches.count - flushes0
+
+        coin = min(alice.vault.unconsumed_states(CashState),
+                   key=lambda s: (s.state.data.amount.quantity, str(s.ref)))
+        q = coin.state.data.amount.quantity
+        good = _spend(alice, coin, notary, bob.party)
+        sig = good.sigs[0]
+        flipped = dataclasses.replace(good, sigs=(dataclasses.replace(
+            sig, signature=bytes([sig.signature[0] ^ 1]) + sig.signature[1:]),))
+        ledger["refused"].append(rig.refused(alice, FinalityFlow(flipped),
+                                             "flipped signature at finality", InvalidSignature))
+        ledger["refused"].append(rig.refused(
+            alice, NotaryFlow(flipped), "flipped signature at the notary", NotaryException,
+            ("invalid-transaction", "invalid-signature")))
+        run("spend Alice -> Bob", alice, FinalityFlow(good))
+        ledger["refused"].append(rig.refused(
+            alice, FinalityFlow(_spend(alice, coin, notary, carol.party)),
+            "double spend Alice -> Carol", NotaryException, ("conflict",)))
+        flows_s = time.perf_counter() - t0
+        flows = len(ledger["ids"]) + len(ledger["refused"])
+        n_calls = len(calls) - n0
+
+        def page(node):
+            p = node.vault.query_by(VaultQueryCriteria(status=ALL))
+            return [sorted(str(s.ref) for s in p.states), p.total_states_available]
+
+        before = page(bob)
+        bob = rig.restart(bob)
+        if page(bob) != before:
+            raise RuntimeError("trio (11a): Bob's vault page changed across the restart")
+        rig.discover("trio (11a) after Bob's restart")
+        run("pay Carol -> Bob (Bob restarted)", carol, CashPaymentFlow(10, "USD", bob.party))
+
+        nodes = (hub, alice, bob, carol)
+        out = _node_ledger(nodes, hub)
+        out.update(ledger)
+        n = NODE_CONCURRENT
+        issued = 30 * n + n * (n - 1) // 2 - 25 * n   # each payer's issues less its payments
+        want = {"Hub": 0, "Alice": 650 + issued - q, "Bob": 260 + issued + q,
+                "Carol": 90 + 50 * n}
+        if out["balances"] != want:
+            raise RuntimeError(f"trio (11a): balances {out['balances']}, expected {want}")
+        if not out["commits"]:
+            raise RuntimeError("trio (11a): the hub's notary committed nothing")
+        rows = [len(r) for r, _ in calls[n0:n0 + n_calls]]
+        return {"ledger": out, "boot_s": boot_s, "flows": flows, "flows_s": flows_s,
+                "calls": n_calls, "rows": rows, "concurrent_flushes": concurrent_flushes,
+                "wire": {n.config.name: _wire_counts(n) for n in nodes},
+                "tls": rig.tls_source}
+    finally:
+        rig.close()
+
+
+def node_cluster_drive(root: str, backend: str, kind: str) -> dict:
+    """Phase 11b: a `raft-validating` cluster of 3 or a `bft` cluster of 4
+    (f = 1) with a map host and Alice, as port nodes over TCP and TLS: an
+    issue, a spend, a double spend refused "conflict"; for Raft the
+    leader is stopped, the survivors elect and a payment settles."""
+    from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow, CashState
+    from corda_tpu_torch.flows.core_flows import FinalityFlow
+    from corda_tpu_torch.node.notary import NotaryException
+    from corda_tpu_torch.node.raft import LEADER
+
+    label = f"{kind} cluster (11b)"
+    raft = kind == "raft"
+    members = ("N0", "N1", "N2") if raft else ("B0", "B1", "B2", "B3")
+    rig = _NodeRig(root, backend)
+    try:
+        hub = rig.boot("Hub")
+        for m in members:
+            rig.boot(m, hub, notary="raft-validating" if raft else "bft", cluster_peers=members)
+        alice = rig.boot("Alice", hub)
+        rig.discover(label)
+        if raft:
+            rig.pump_until(lambda: sum(1 for n in rig.nodes
+                                       if n.raft and n.raft.role == LEADER) == 1,
+                           f"{label}: election")
+        t0 = time.perf_counter()
+        notary = alice.services.network_map_cache.notary_identities()[0]
+        ids = [str(rig.run(alice, CashIssueFlow(100, "USD", alice.party, notary),
+                           f"{label} issue").id)]
+        coin, = alice.vault.unconsumed_states(CashState)
+        ids.append(str(rig.run(alice, FinalityFlow(_spend(alice, coin, notary, hub.party)),
+                               f"{label} spend").id))
+        refused = [rig.refused(alice, FinalityFlow(_spend(alice, coin, notary, alice.party)),
+                               f"{label} double spend", NotaryException, ("conflict",))]
+        leaders = []
+        if raft:
+            leader, = [n for n in rig.nodes if n.raft and n.raft.role == LEADER]
+            leaders.append(leader.config.name)
+            rig.stop(leader)
+            rig.pump_until(lambda: sum(1 for n in rig.nodes
+                                       if n.raft and n.raft.role == LEADER) == 1,
+                           f"{label}: election among the survivors")
+            leaders += [n.config.name for n in rig.nodes if n.raft and n.raft.role == LEADER]
+            ids.append(str(rig.run(alice, CashIssueFlow(60, "USD", alice.party, notary),
+                                   f"{label} issue after the failover").id))
+            ids.append(str(rig.run(alice, CashPaymentFlow(30, "USD", hub.party),
+                                   f"{label} payment after the failover").id))
+        balances = {"Hub": _cash_of(hub), "Alice": _cash_of(alice)}
+        want = {"Hub": 130, "Alice": 30} if raft else {"Hub": 100, "Alice": 0}
+        if balances != want:
+            raise RuntimeError(f"{label}: balances {balances}, expected {want}")
+        return {"ids": ids, "refused": refused, "leaders": leaders, "balances": balances,
+                "wall_s": time.perf_counter() - t0, "tls": rig.tls_source}
+    finally:
+        rig.close()
+
+
+def _cuda_contexts() -> int:
+    """CUDA contexts on the card: one line per process in nvidia-smi's
+    compute apps. In a container the pids it prints are not the
+    processes' own, so contexts are counted, before and while the
+    processes run."""
+    return sum(1 for line in _smi_apps().splitlines() if line.strip())
+
+
+def _smi_apps() -> str:
+    return subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def _spawn(args: list, log: str):
+    """A port process (`python -m ...`) with the repo on its path, its
+    stdout and stderr to `log` (.out / .err)."""
+    import os
+
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    with open(log + ".out", "w") as out, open(log + ".err", "w") as err:
+        return subprocess.Popen([sys.executable, *args], stdout=out, stderr=err, env=env,
+                                cwd=here)
+
+
+def _read_port(proc, log: str, timeout: float = 120.0) -> int:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with open(log + ".out") as f:
+            for line in f:
+                if line.startswith("P2P_PORT="):
+                    return int(line.strip().split("=")[1])
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    with open(log + ".err") as f:
+        err = f.read()[-2000:]
+    raise RuntimeError(f"{log}: no P2P_PORT line (exit {proc.poll()}): {err}")
+
+
+def _stop_process(proc, label: str, sig, timeout: float = 15.0) -> float:
+    """Signal a process and require exit code 0 within `timeout`; returns
+    the seconds it took."""
+    t0 = time.perf_counter()
+    proc.send_signal(sig)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise RuntimeError(f"{label}: did not exit within {timeout:.0f} s of {sig!r}")
+    if rc != 0:
+        raise RuntimeError(f"{label}: exit code {rc} after {sig!r}")
+    return time.perf_counter() - t0
+
+
+def cli_drive(root: str, backend: str = "tpu", check_contexts: bool = True) -> dict:
+    """Phase 11c: two `python -m corda_tpu_torch.node --config <toml>
+    --print-port` processes with the default backend (the card): CliHub
+    (map host, validating notary) and CliBob. A console endpoint in this
+    process starts, over RPCClient, CashIssueFlow on CliHub (1,000 to
+    CliBob) and a CashPaymentFlow on CliBob (300 back to CliHub,
+    notarised and verified by CliHub) and queries both vaults; each node's pid must hold a CUDA
+    context; SIGTERM must end each with exit code 0 within 15 s."""
+    import os
+    import signal
+
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow
+    from corda_tpu_torch.node import rpc as rpclib
+    from corda_tpu_torch.node.config import NodeConfig, RpcUserConfig, write_config
+    from corda_tpu_torch.node.fabric import FabricEndpoint, PeerAddress
+    from corda_tpu_torch.node.persistence import NodeDatabase
+    from corda_tpu_torch.node.vault_query import VaultQueryCriteria
+    from corda_tpu_torch.testing.dev_tls import provision_tls
+
+    os.makedirs(root, exist_ok=True)
+    users = (RpcUserConfig("admin", "pw", ("ALL",)),)
+    procs, targets, source = {}, {}, None
+    ep = db = None
+    ctx0 = _cuda_contexts() if check_contexts else 0
+    contexts = None
+    try:
+        for k, name in enumerate(("CliHub", "CliBob")):
+            base = os.path.join(root, name)
+            fp, source = provision_tls(base, name, k)
+            kw = {"notary": "validating"} if name == "CliHub" else dict(
+                network_map_peer="CliHub", network_map_host="127.0.0.1",
+                network_map_port=targets["CliHub"].port,
+                network_map_fingerprint=targets["CliHub"].tls_fingerprint)
+            toml = os.path.join(root, f"{name}.toml")
+            write_config(NodeConfig(name=name, base_dir=base, key_seed=NODE_SEED,
+                                    verifier_backend=backend, rpc_users=users, **kw), toml)
+            log = os.path.join(root, name)
+            procs[name] = _spawn(["-m", "corda_tpu_torch.node", "--config", toml,
+                                  "--print-port", "--log-level", "WARNING"], log)
+            targets[name] = PeerAddress("127.0.0.1", _read_port(procs[name], log), fp)
+        db = NodeDatabase(os.path.join(root, "console.db"))
+        ep = FabricEndpoint("console", schemes.generate_keypair(seed=NODE_SEED), db,
+                            resolve=targets.get)
+        ep.start()
+        hub_rpc = rpclib.RPCClient(ep, "CliHub", "admin", "pw")
+        bob_rpc = rpclib.RPCClient(ep, "CliBob", "admin", "pw")
+
+        def call(fut, label):
+            deadline = time.monotonic() + NODE_TIMEOUT
+            while not fut.done:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"cli (11c): {label} not answered")
+                ep.pump(block=True, timeout=0.05)
+            return fut.get()
+
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + NODE_TIMEOUT
+        while len(call(hub_rpc.network_map_snapshot(), "map snapshot")) < 2:
+            if time.monotonic() > deadline:
+                raise RuntimeError("cli (11c): CliBob never registered with CliHub's map")
+            time.sleep(0.1)
+        hub_party = call(hub_rpc.node_identity(), "hub identity").legal_identity
+        bob_party = call(bob_rpc.node_identity(), "bob identity").legal_identity
+        ids = []
+        for rpc, logic in ((hub_rpc, CashIssueFlow(1000, "USD", bob_party, hub_party)),
+                           (bob_rpc, CashPaymentFlow(300, "USD", hub_party))):
+            handle = call(rpc.start_flow(logic), type(logic).__name__)
+            ids.append(str(call(handle.result, f"{type(logic).__name__} result").id))
+        pages = {}
+        for name, rpc in (("CliHub", hub_rpc), ("CliBob", bob_rpc)):
+            page = call(rpc.vault_query_by(VaultQueryCriteria()), f"{name} vault")
+            pages[name] = sum(s.state.data.amount.quantity for s in page.states)
+        if pages != {"CliHub": 300, "CliBob": 700}:
+            raise RuntimeError(f"cli (11c): vault balances over RPC {pages}")
+        wall = time.perf_counter() - t0
+        apps = _smi_apps() if check_contexts else ""
+        contexts = _cuda_contexts() if check_contexts else None
+        if check_contexts and contexts - ctx0 < len(procs):
+            raise RuntimeError(f"cli (11c): {contexts - ctx0} new CUDA contexts for "
+                               f"{len(procs)} node processes (nvidia-smi compute apps: "
+                               f"{apps.strip()!r})")
+        stops = {n: _stop_process(p, f"cli (11c) {n}", signal.SIGTERM)
+                 for n, p in procs.items()}
+        return {"ids": ids, "balances": pages, "wall_s": wall, "stop_s": stops,
+                "apps": apps.strip(), "contexts": (ctx0, contexts), "tls": source}
+    finally:
+        if ep is not None:
+            ep.stop()
+            db.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _pool_state(svc, root: str) -> str:
+    """What a failed 11d run leaves to read: the pool's counters and the
+    end of each worker's stderr."""
+    import os
+
+    m = svc.metrics
+    tails = {}
+    for k in range(POOL_WORKERS):
+        path = os.path.join(root, f"w{k}.err")
+        if os.path.exists(path):
+            with open(path) as f:
+                tails[f"w{k}"] = f.read()[-600:]
+    return (f"workers {svc.worker_count}, in flight {svc.in_flight}, lost "
+            f"{m.meter('Verifier.WorkersLost').count}, redispatched "
+            f"{m.meter('Verifier.Redispatched').count}; worker stderr {tails}")
+
+
+def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
+                   check_contexts: bool = True) -> dict:
+    """Phase 11d: a port node with `verifier_type = "out_of_process"`
+    (TLS off: a worker dials the node by address, as the reference's
+    worker does) and two `python -m corda_tpu_torch.node.verifier`
+    processes. A warm-up request each, after which each worker must hold
+    a CUDA context (with `check_contexts`: one more context on the card
+    per worker); then worker 0 is frozen (SIGSTOP), so that it holds its
+    share of the batch unanswered whatever the timing, and every (ltx,
+    stx) goes through the pool over the durable journals. Once
+    TCP_POOL_KILL_AT of the answers are in, worker 0 gets SIGKILL: its
+    nonces re-dispatch to the survivor when its lease expires. Raises
+    unless every future is answered exactly once; returns the answers
+    and the figures."""
+    import dataclasses
+    import os
+    import signal
+
+    from corda_tpu_torch.node.config import NodeConfig
+    from corda_tpu_torch.node.node import Node
+
+    os.makedirs(root, exist_ok=True)
+    label = "pool over TCP (11d)"
+    node = Node(NodeConfig(name="PoolNode", base_dir=os.path.join(root, "PoolNode"),
+                           key_seed=NODE_SEED, use_tls=False,
+                           verifier_type="out_of_process")).start()
+    svc = node.verifier_service
+    # a 16,384-request burst queues past the pool's default 5 s attempt
+    # and 30 s request deadlines; the lease (worker loss) keeps its default
+    svc.policy = dataclasses.replace(svc.policy, attempt_timeout_micros=TCP_POOL_DEADLINE,
+                                     request_timeout_micros=TCP_POOL_DEADLINE)
+    workers = []
+    base = _cuda_contexts() if check_contexts else 0
+    contexts = None
+    try:
+        for k in range(POOL_WORKERS):
+            log = os.path.join(root, f"w{k}")
+            args = ["-m", "corda_tpu_torch.node.verifier", "--name", f"w{k}",
+                    "--node", "PoolNode", "--node-port", str(node.messaging.listen_port),
+                    "--db", os.path.join(root, f"w{k}.db"), "--seed", str(k + 2),
+                    "--batch-window", str(TCP_POOL_WINDOW)]
+            workers.append(_spawn(args + (["--cpu"] if cpu_workers else []), log))
+        deadline = time.monotonic() + NODE_TIMEOUT
+        while svc.worker_count < POOL_WORKERS:
+            if time.monotonic() > deadline or any(w.poll() is not None for w in workers):
+                raise RuntimeError(f"{label}: {svc.worker_count} workers attached")
+            node.pump(timeout=0.05)
+        warm = [svc.verify(ltx, stx) for ltx, stx in zip(ltxs[:POOL_WORKERS], stxs)]
+        while not all(f.done for f in warm):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"{label}: the warm-up requests were not answered")
+            node.pump(timeout=0.05)
+        if check_contexts:
+            contexts = _cuda_contexts()
+            if contexts - base < POOL_WORKERS:
+                raise RuntimeError(f"{label}: {contexts - base} new CUDA contexts for "
+                                   f"{POOL_WORKERS} workers ({_smi_apps().strip()!r})")
+        workers[0].send_signal(signal.SIGSTOP)
+        m = svc.metrics
+        success = m.meter("TransactionVerifierService.Verification.Success")
+        failure = m.meter("TransactionVerifierService.Verification.Failure")
+        accepted0 = success.count + failure.count    # the warm-up answers
+        n = len(ltxs)
+        with _GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            futs = [svc.verify(ltx, stx) for ltx, stx in zip(ltxs, stxs)]
+            send_s = time.perf_counter() - t0
+            deliver_s = killed_at = None
+            next_probe = 0.0
+            deadline = time.monotonic() + NODE_TIMEOUT
+            while True:
+                node.pump(timeout=0.005)
+                answered = sum(1 for f in futs if f.done)
+                now = time.perf_counter() - t0
+                if deliver_s is None and now >= next_probe:
+                    next_probe = now + 0.05
+                    live = [f"w{k}" for k in range(POOL_WORKERS)
+                            if killed_at is None or k != 0]
+                    backlog = node.messaging.wire_depths()["backlog"]
+                    if not any(backlog.get(w, 0) for w in live):
+                        deliver_s = now
+                if killed_at is None and answered >= TCP_POOL_KILL_AT * n:
+                    workers[0].send_signal(signal.SIGKILL)
+                    workers[0].wait()
+                    killed_at = (now, answered)
+                if answered == n:
+                    break
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"{label}: {n - answered} of {n} unanswered; "
+                                       f"{_pool_state(svc, root)}")
+            wall = time.perf_counter() - t0
+        answers = [_verdict(f) for f in futs]
+        accepted = success.count + failure.count - accepted0
+        redispatched = m.meter("Verifier.Redispatched").count
+        lost = m.meter("Verifier.WorkersLost").count
+        if accepted != n or svc.in_flight:
+            raise RuntimeError(f"{label}: {accepted} answers accepted for {n} requests; "
+                               f"{_pool_state(svc, root)}")
+        if killed_at is None or lost != 1 or redispatched == 0:
+            raise RuntimeError(f"{label}: killed at {killed_at}, workers lost {lost}, "
+                               f"redispatched {redispatched}; {_pool_state(svc, root)}")
+        stop_s = _stop_process(workers[1], f"{label} w1", signal.SIGINT)
+        with open(os.path.join(root, "w1.err")) as f:
+            summary = [line.strip() for line in f if line.startswith("verifier worker")]
+        return {"answers": answers, "wall_s": wall, "send_s": send_s,
+                "deliver_s": deliver_s, "killed_at": killed_at, "redispatched": redispatched,
+                "lost": lost, "survivor": summary, "stop_s": stop_s, "gc": str(gc_clock),
+                "contexts": (base, contexts)}
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+        node.stop()
+
+
+def phase_nodes(device, card: str, fx) -> dict:
+    """Phase 11 (module docstring); returns the in-process launches of
+    11a and 11b."""
+    import os
+    import tempfile
+
+    from corda_tpu_torch.crypto import batch_verifier as bv
+    from corda_tpu_torch.testing.notary_fixture import notary_hub
+
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "corda_tpu_torch")
+    os.makedirs(scratch, exist_ok=True)
+    t_phase = time.perf_counter()
+    verifier = _recording_verifier(CLUSTER_BATCHES, device)
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="nodes-") as tmp:
+        # the in-process nodes' backend "tpu" is default_verifier(): this
+        # recording CudaBatchVerifier on the card
+        bv.set_default_verifier(verifier)
+        _zero_counters()
+        trio = node_trio_drive(os.path.join(tmp, "trio"), "tpu", verifier.calls)
+        clusters = {kind: node_cluster_drive(os.path.join(tmp, kind), "tpu", kind)
+                    for kind in ("raft", "bft")}
+        launches = _read_counters()
+        bv.set_default_verifier(None)
+        rows = trio["rows"]
+        print(f"trio (11a): TLS from {trio['tls']}; booted and discovered in "
+              f"{trio['boot_s']:.3f} s; {trio['flows']} flows in {trio['flows_s']:.3f} s = "
+              f"{trio['flows'] / trio['flows_s']:.3f} flows/s; {trio['calls']} card verify calls "
+              f"= {trio['calls'] / trio['flows']:.2f} per flow, rows per call "
+              f"{min(rows)}-{max(rows)} (mean {sum(rows) / len(rows):.2f}); the "
+              f"{2 * NODE_CONCURRENT} concurrent payments answered by "
+              f"{trio['concurrent_flushes']} notary flush(es); refused "
+              f"{trio['ledger']['refused']}; balances {trio['ledger']['balances']}; {card}")
+        print(f"trio (11a) fabric: {json.dumps(trio['wire'])}")
+        cpu = node_trio_drive(os.path.join(tmp, "trio-cpu"), "cpu")
+        _same_node_ledger(trio["ledger"], cpu["ledger"])
+        print(f"trio (11a) over verifier_backend = \"cpu\": the same {len(cpu['ledger']['ids'])} "
+              f"transaction ids, refusals, balances, {len(cpu['ledger']['consumed'])} consumed "
+              f"refs and {len(cpu['ledger']['commits'])} notary commits")
+        for kind, c in clusters.items():
+            print(f"{kind} cluster (11b): ids {len(c['ids'])}, refused {c['refused']}, leaders "
+                  f"{c['leaders']}, balances {c['balances']}, {c['wall_s']:.3f} s; {card}")
+        for kernel in ("ed_ladder", "wei_ladder_windowed", "wei_ladder"):
+            if launches[kernel] == 0:
+                raise RuntimeError(f"{kernel} was not launched by the phase-11 nodes")
+
+        cli = cli_drive(os.path.join(tmp, "cli"))
+        print(f"cli (11c): TLS from {cli['tls']}; issue and payment over RPCClient in "
+              f"{cli['wall_s']:.3f} s, ids {cli['ids']}, vaults over RPC {cli['balances']}; "
+              f"CUDA contexts on the card {cli['contexts'][0]} before the node processes, "
+              f"{cli['contexts'][1]} while they ran (nvidia-smi: {cli['apps']!r}); "
+              f"SIGTERM exits 0 in {json.dumps({k: round(v, 3) for k, v in cli['stop_s'].items()})} s; "
+              f"{card}")
+
+        hub = notary_hub(fx, bv.CpuBatchVerifier())
+        ltxs = [stx.to_ledger_transaction(hub) for stx in fx.spends]
+        pool = pool_tcp_drive(os.path.join(tmp, "pool"), ltxs, fx.spends)
+    _check_pool_answers(pool["answers"], fx.labels, "pool over TCP (11d)")
+    n = len(ltxs)
+    print(f"pool over TCP (11d): {n} requests in {pool['wall_s']:.3f} s = "
+          f"{n / pool['wall_s']:.1f} verified transactions/s, every answer its label, each "
+          f"answered once; journaled in {pool['send_s']:.3f} s, frames delivered through the "
+          f"journals in {pool['deliver_s']} s, answered in {pool['wall_s']:.3f} s ({pool['gc']}); "
+          f"worker 0 frozen before the batch and killed after {pool['killed_at'][1]} answers "
+          f"at {pool['killed_at'][0]:.3f} "
+          f"s, workers lost {pool['lost']}, redispatched {pool['redispatched']}; survivor "
+          f"{pool['survivor']}, SIGINT exit 0 in {pool['stop_s']:.3f} s; CUDA contexts "
+          f"{pool['contexts'][0]} before the workers, {pool['contexts'][1]} after their warm-up "
+          f"requests; {card}")
+    print(f"nodes (ph. 11) launches: {json.dumps(launches)}; wall "
+          f"{time.perf_counter() - t_phase:.3f} s; {card}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the kernel table JSON here")
@@ -2157,11 +2852,14 @@ def main(argv=None) -> int:
     phase_flows(device, card)
     phase_pool(device, card, fx)
     clusters = phase_clusters(device, card, fx)
+    nodes = phase_nodes(device, card, fx)
     for n, r in report.items():
         r["clusters_launches"] = clusters[n]
+        r["nodes_launches"] = nodes[n]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "clusters_launches")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "clusters_launches",
+            "nodes_launches")
     table = {"kernels": [
         {k: ({"name": n, **r}[k]) for k in keys} for n, r in report.items()
     ]}

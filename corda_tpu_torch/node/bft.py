@@ -5,9 +5,9 @@ Port of corda_tpu/node/bft.py: the PBFT messages, `BftConfig`,
 prepared certificates, checkpoints, catch-up) and `BFTNotaryService`,
 with the reference's frames and checkpoint digests. Its Bft.Phase.*
 timers and `bft.<phase>` spans go through the port's utils/metrics.py
-and utils/tracing.py. Not ported: the tx-story hooks (`txstory=`) and
-the clock-offset evidence traced frames feed the reference's cross-node
-trace assembly (ROADMAP Queue 1 #6 and #10).
+and utils/tracing.py; traced frames feed the tracer's `ClockSync`, the
+clock-offset evidence of cross-node trace assembly. Not ported: the
+tx-story hooks (`txstory=`, ROADMAP Queue 1 #6).
 
 Reference: `BFTSMaRt` client/replica (node/.../transactions/
 BFTSMaRt.kt:52-173) + `BFTNonValidatingNotaryService`
@@ -1253,6 +1253,9 @@ class BftReplica:
         except ser.SerializationError:
             return
         sender = msg.sender
+        if msg.trace is not None and self._tracing():
+            # clock-offset evidence for cross-node span ordering
+            self.tracer.clock_sync.observe_header(sender, msg.trace)
         if isinstance(m, BftRequest):
             if sender == m.origin or sender == self.name:
                 self._on_request(m, msg.trace)

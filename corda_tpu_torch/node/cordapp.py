@@ -21,6 +21,15 @@ from typing import Any
 _SERVICE_REGISTRY: list[type] = []
 
 
+def port_module_name(name: str) -> str:
+    """A module named in the reference's terms (a config's cordapps, a
+    worker's --app), read as the port's: `corda_tpu.x` ->
+    `corda_tpu_torch.x`; any other name as it reads."""
+    if name == "corda_tpu" or name.startswith("corda_tpu."):
+        return "corda_tpu_torch" + name[len("corda_tpu"):]
+    return name
+
+
 def corda_service(cls: type) -> type:
     """Class decorator: mark a CorDapp service for node installation.
     The class is constructed once per node as `cls(services)` during
@@ -52,7 +61,7 @@ def install_cordapp_services(
     for cls in _SERVICE_REGISTRY:
         if cordapps is not None and not any(
             cls.__module__ == m or cls.__module__.startswith(m + ".")
-            for m in cordapps
+            for m in map(port_module_name, cordapps)
         ):
             continue
         try:

@@ -801,6 +801,7 @@ class _NotaryShard:
     __slots__ = (
         "id", "pending", "oldest_arrival", "cond",
         "queue_bound", "flushes", "requests", "answered", "wake", "busy",
+        "heartbeat",
     )
 
     def __init__(self, sid: int, queue_bound: int, metrics):
@@ -815,6 +816,7 @@ class _NotaryShard:
         metrics.gauge(f"Notary.Shard{sid}.Depth", lambda: len(self.pending))
         self.wake = False              # worker flush requested
         self.busy = False              # a flush of this shard is running
+        self.heartbeat = None          # attach_health wires one per shard
 
     def depth(self) -> int:
         return len(self.pending)
@@ -912,6 +914,7 @@ class BatchingNotaryService(NotaryService):
         self._pending: list[_PendingNotarisation] = []
         self._oldest_arrival: Optional[int] = None
         self._ingest_ring = None       # attach_ingest
+        self._health_heartbeat = None   # attach_health: flush-loop liveness
         self.metrics = metrics if metrics is not None else MetricRegistry()
         self._batches_counter = self.metrics.counter(
             "Notary.BatchesDispatched"
@@ -1100,6 +1103,45 @@ class BatchingNotaryService(NotaryService):
         # ring filling up shows BEFORE it stalls the producer
         register_ring_gauges(self.metrics, "notary", ring)
 
+    def attach_health(self, monitor) -> None:
+        """Register this notary's flush loop on the health plane
+        (utils/health.py): a `notary.flush` heartbeat beaten every
+        tick, carrying requests answered as progress and the live
+        queue depth (pending + ingest ring) for livelock detection. On
+        the sharded plane every shard also registers its own
+        `notary.shard<k>.flush` heartbeat, beaten by its flush with its
+        own queue depth, so one wedged shard flips /healthz while its
+        siblings serve. A `notary.degraded_mode` alert fires while the
+        device path is distrusted. Pass None to detach."""
+        if monitor is None:
+            self._health_heartbeat = None
+            for shard in self._shards or ():
+                shard.heartbeat = None
+            return
+        self._health_heartbeat = monitor.heartbeat(
+            "notary.flush",
+            queue_depth=lambda: self.backlog() + (
+                len(self._ingest_ring) if self._ingest_ring is not None else 0
+            ),
+        )
+        for shard in self._shards or ():
+            shard.heartbeat = monitor.heartbeat(
+                f"notary.shard{shard.id}.flush",
+                queue_depth=(lambda s=shard: s.depth()),
+            )
+        from ..utils.health import AlertRule
+
+        monitor.add_rule(
+            AlertRule(
+                "notary.degraded_mode",
+                lambda now: (self._degraded, self.degraded_evidence),
+                severity="critical",
+                for_micros=0,
+                clear_for_micros=0,
+                trace_filter="notar",
+            )
+        )
+
     def _drain_ingest(self) -> None:
         """Move every batch waiting on the ingest ring into the queue:
         per shard on the sharded plane (a full shard flushes, as at
@@ -1132,8 +1174,11 @@ class BatchingNotaryService(NotaryService):
         if self._shards is not None:
             return self._tick_sharded()
         self._drain_ingest()
+        hb = self._health_heartbeat
         n = len(self._pending)
         if not n:
+            if hb is not None:
+                hb.beat()
             return 0
         if self.max_wait_micros and n < self.max_batch:
             age = (
@@ -1141,8 +1186,13 @@ class BatchingNotaryService(NotaryService):
                 - (self._oldest_arrival or 0)
             )
             if age < self.max_wait_micros:
-                return 0   # held while a batch forms
+                # held while a batch forms: alive (beat), zero progress
+                if hb is not None:
+                    hb.beat()
+                return 0
         self.flush()
+        if hb is not None:
+            hb.beat(progress=n)
         return n
 
     def _tick_sharded(self) -> int:
@@ -1159,18 +1209,27 @@ class BatchingNotaryService(NotaryService):
             with shard.cond:
                 n = len(shard.pending)
                 if not n:
+                    if not self._workers and shard.heartbeat is not None:
+                        shard.heartbeat.beat()   # alive, quiescent
                     continue
                 wait = self.max_wait_micros
                 if wait and n < self.max_batch:
                     if now - (shard.oldest_arrival or 0) < wait:
-                        continue   # held while a batch forms
+                        # held while a batch forms, not wedged
+                        if shard.heartbeat is not None:
+                            shard.heartbeat.beat()
+                        continue
                 if self._workers:
                     shard.wake = True
                     shard.cond.notify_all()
                 else:
                     due.append(shard)
         answered = self._flush_wave(due) if due else 0
-        return answered + self._drain_completions()
+        answered += self._drain_completions()
+        hb = self._health_heartbeat
+        if hb is not None:
+            hb.beat(progress=answered)
+        return answered
 
     def _drain_completions(self) -> int:
         """Resolve worker-flushed answers on the calling (pump) thread."""
@@ -1346,6 +1405,8 @@ class BatchingNotaryService(NotaryService):
         if answered:
             shard.requests.inc(answered)
             shard.answered.inc(answered)
+        if shard.heartbeat is not None:
+            shard.heartbeat.beat(progress=answered)
         with shard.cond:
             shard.busy = False
             shard.cond.notify_all()
@@ -1368,11 +1429,15 @@ class BatchingNotaryService(NotaryService):
                 woken, shard.wake = shard.wake, False
                 n = len(shard.pending)
                 if not n:
+                    if shard.heartbeat is not None:
+                        shard.heartbeat.beat()   # alive, quiescent
                     continue
                 if not woken:
                     wait = self.max_wait_micros
                     if wait and n < self.max_batch:
                         if clock.now_micros() - (shard.oldest_arrival or 0) < wait:
+                            if shard.heartbeat is not None:
+                                shard.heartbeat.beat()   # held, not wedged
                             continue
             try:
                 self._flush_one_shard(shard)
@@ -1468,13 +1533,16 @@ class BatchingNotaryService(NotaryService):
         if not pending:
             return None
         t = self._mark("stage", t, marks)
-        verifier = self.services.batch_verifier
         poison: set = set()
         try:
             collector: Optional[threading.Thread] = None
             box: dict = {}
             handle = None
             results = None
+            # inside the handler: the default verifier is built at first
+            # use, and on a host without a card that raises the device
+            # error, which answers this flush like a failed dispatch
+            verifier = self.services.batch_verifier
             try:
                 # a named region in a torch.profiler capture, so the
                 # host span lines up with the card's kernels

@@ -5,10 +5,10 @@ sqlite log, meta and snapshot tables, `RaftNode` (election,
 replication, snapshots and chunked InstallSnapshot) and
 `RaftUniquenessProvider`. Frames, log rows and snapshot blobs are the
 reference's bytes. Its Raft.Phase.* timers and `raft.<phase>` spans go
-through the port's utils/metrics.py and utils/tracing.py. Not ported:
-the tx-story hook (`txstory=`), the clock-offset evidence traced frames
-feed the reference's cross-node trace assembly, and
-`partition_raft_groups` (the distributed uniqueness plane); ROADMAP
+through the port's utils/metrics.py and utils/tracing.py. Traced
+frames feed the tracer's `ClockSync`, the clock-offset evidence of
+cross-node trace assembly. Not ported: the tx-story hook (`txstory=`)
+and `partition_raft_groups` (the distributed uniqueness plane); ROADMAP
 Queue 1 #6 lists them.
 
 Reference: `RaftUniquenessProvider` (node/.../transactions/
@@ -243,8 +243,9 @@ class RaftNode:
         (always-on, the Notary.FlushPhase.* discipline). `tracer`: an
         optional utils/tracing.Tracer — commands submitted with a
         trace context get per-member `raft.<phase>` spans stamped into
-        it. Both default to None: the bare protocol stays dependency-
-        and overhead-free."""
+        it, and traced protocol frames feed the tracer's ClockSync so
+        cross-node assembly can order spans honestly. Both default to
+        None: the bare protocol stays dependency- and overhead-free."""
         import random as _random
 
         assert name in peers, "peers must include this member"
@@ -758,6 +759,11 @@ class RaftNode:
             m = ser.decode(msg.payload)
         except ser.SerializationError:
             return
+        if msg.trace is not None and self._tracing():
+            # traced frames carry the sender's monotonic send stamp:
+            # the receive pairing is the clock-offset evidence cross-
+            # node assembly orders spans by (tracing.ClockSync)
+            self.tracer.clock_sync.observe_header(msg.sender, msg.trace)
         if isinstance(m, RequestVote):
             self._on_request_vote(m, msg.sender)
         elif isinstance(m, VoteReply):

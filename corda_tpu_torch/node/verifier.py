@@ -27,13 +27,17 @@ checks across every request in its queue into ONE
 dispatch by default. Store-and-forward: requests sent before any worker
 attaches are buffered and flushed on the first `verifier.ready`.
 
-Not ported: the reference's `health=`/`perf=` worker arguments, the
-pool's `watch_health` and `txstory` hooks (their planes are not
-ported; passing one is a TypeError), and the standalone worker process
-`main()`, which needs the TCP fabric and node persistence. With no TCP
-fabric, the pool takes no `register_peer=` or `allowed_workers=` and the
-worker no `advertised_address=`: a worker announces `WorkerReady(name,
-"", 0)`. A ring-fed worker's ring depth is `INGEST_WINDOW`.
+Over the TCP fabric (node/fabric.py) the pool takes `register_peer=`
+and `allowed_workers=` and the worker `advertised_address=`, as the
+reference's do; the worker's `health=` registers its drain heartbeat
+and the pool's `watch_health` its degraded-pool rule. `main()` is the
+standalone worker process (`python -m corda_tpu_torch.node.verifier`),
+on a CudaBatchVerifier unless `--cpu` asks for CpuBatchVerifier.
+
+Not ported: the worker's `perf=` and the pool's `txstory` hook (their
+planes are ROADMAP Queue 1 #5 and #6; passing `perf=` is a TypeError,
+and the worker process refuses `--profile-hz` above 0). A ring-fed
+worker's ring depth is `INGEST_WINDOW`.
 """
 
 from __future__ import annotations
@@ -240,17 +244,23 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
         self,
         messaging: msglib.MessagingService,
         metrics: Optional[MetricRegistry] = None,
+        register_peer=None,   # Callable[[str, host, port], None] for TCP fabrics
+        allowed_workers: Optional[set[str]] = None,
         clock=None,           # node clock for lease/timeout judgement;
         #                       None = wall micros. Rigs on a TestClock
         #                       MUST pass it.
         policy: Optional[RedispatchPolicy] = None,
     ):
         self._messaging = messaging
+        self._register_peer = register_peer
+        # only these authenticated peer names may join the pool; None
+        # admits any authenticated peer (dev mode)
+        self._allowed_workers = allowed_workers
         self._clock = clock
         self.policy = policy or RedispatchPolicy()
         self._rng = random.Random(0xFA17)   # jitter: seeded, deterministic
         # guards the pool state below; never held across a fabric
-        # send or a future resolution
+        # send, a register_peer callback or a future resolution
         self._lock = locks.make_lock(
             "OutOfProcessTransactionVerifierService._lock"
         )
@@ -261,6 +271,7 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
         self._rr = 0
         self._buffer: list[_PendingVerify] = []    # store-and-forward
         self._nonce = 0
+        self._last_lost_micros: Optional[int] = None
         self.metrics = metrics or MetricRegistry()
         self._duration = self.metrics.timer(
             "TransactionVerifierService.Verification.Duration"
@@ -487,6 +498,7 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
         self._workers.remove(worker)
         self._leases.pop(worker, None)
         self._workers_lost.mark()
+        self._last_lost_micros = now
         pol = self.policy
         for entry in self._pending.values():
             touched = entry.worker == worker
@@ -522,6 +534,37 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
         else:
             exc = VerificationTimeoutError(nonce, entry.worker, elapsed)
         return entry.fut, exc
+
+    def watch_health(self, monitor) -> None:
+        """Register the `verifier.pool_degraded` rule on a
+        HealthMonitor (utils/health.py): fires while work is waiting
+        with NO live worker, or within one lease window of a worker
+        loss."""
+        from ..utils.health import AlertRule
+
+        def check(now: int):
+            starved = (
+                not self._workers
+                and (self._pending or self._buffer)
+            )
+            healing = (
+                self._last_lost_micros is not None
+                and now - self._last_lost_micros <= self.policy.lease_micros
+            )
+            return bool(starved or healing), {
+                "workers": len(self._workers),
+                "in_flight": len(self._pending),
+                "buffered": len(self._buffer),
+                "workers_lost": self._workers_lost.count,
+                "redispatched": self._redispatched.count,
+            }
+
+        monitor.add_rule(
+            AlertRule(
+                "verifier.pool_degraded", check,
+                for_micros=0, clear_for_micros=0,
+            )
+        )
 
     # -- internals ---------------------------------------------------------
 
@@ -565,6 +608,17 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
         # sender: a peer can only attach as itself.
         if ready.worker != msg.sender:
             return
+        if (
+            self._allowed_workers is not None
+            and ready.worker not in self._allowed_workers
+        ):
+            return
+        if ready.host and self._register_peer is not None:
+            # every announcement refreshes the dial-back address (a
+            # worker restarted on a new port within its lease), outside
+            # the service lock and before the worker joins _workers, so
+            # no nonce binds to a peer the fabric cannot resolve yet
+            self._register_peer(ready.worker, ready.host, ready.port)
         now = self._now_micros()
         sends: list[tuple] = []
         with self._lock:
@@ -666,6 +720,7 @@ class VerifierWorker:
         batch_verifier: Optional[BatchSignatureVerifier] = None,
         metrics: Optional[MetricRegistry] = None,
         batch_window: int = 0,
+        advertised_address: Optional[tuple[str, int]] = None,
         ingest: Optional[IngestPipeline] = None,
         heartbeat_micros: int = 2_000_000,   # WorkerReady re-announce
         #                            cadence (lease renewal on the node
@@ -674,6 +729,10 @@ class VerifierWorker:
         #                            None = wall clock; simulated-time rigs
         #                            MUST pass the TestClock that minted
         #                            their deadlines
+        health=None,               # Optional[utils.health.HealthMonitor]:
+        #                            a `verifier.drain` heartbeat the drain
+        #                            beats (progress = requests answered,
+        #                            queue depth = ring + handler backlog)
     ):
         self._messaging = messaging
         self._verifier = batch_verifier or default_verifier()
@@ -707,11 +766,31 @@ class VerifierWorker:
                 # fabric has no ring seam: the handler path below still
                 # feeds the pipeline via self._raw
                 pass
+        self._heartbeat = None
+        if health is not None:
+            self._heartbeat = health.heartbeat(
+                "verifier.drain",
+                queue_depth=lambda: len(self._queue)
+                + len(self._raw)
+                + (len(self._ring) if self._ring is not None else 0),
+            )
+            if self._ring is not None:
+                parked = getattr(self._messaging, "parked_count", None)
+                health.watch_ring(
+                    msglib.TOPIC_VERIFIER_REQ,
+                    lambda: len(self._ring),
+                    self._ring.depth,
+                    parked_fn=(
+                        (lambda: parked(msglib.TOPIC_VERIFIER_REQ))
+                        if parked is not None else None
+                    ),
+                )
         messaging.add_handler(msglib.TOPIC_VERIFIER_REQ, self._on_request)
         # announce attachment so buffered requests flush to us. The
         # SAME announcement doubles as the lease heartbeat: the pump
         # loop re-sends it every `heartbeat_micros` (maybe_heartbeat).
         self._node_address = node_address
+        self._advertised = advertised_address or ("", 0)
         self._heartbeat_micros = heartbeat_micros
         self._last_ready_micros = self._now_micros()
         self._send_ready()
@@ -724,7 +803,7 @@ class VerifierWorker:
     def _send_ready(self) -> None:
         self._messaging.send(
             TOPIC_READY,
-            ser.encode(WorkerReady(self._messaging.my_address)),
+            ser.encode(WorkerReady(self._messaging.my_address, *self._advertised)),
             self._node_address,
         )
 
@@ -806,6 +885,8 @@ class VerifierWorker:
             self._pull_ingested()
         pending, self._queue = self._queue, []
         if not pending:
+            if self._heartbeat is not None:
+                self._heartbeat.beat()
             return 0
         t0 = time.perf_counter()
         sig_reqs, spans = [], []
@@ -879,4 +960,127 @@ class VerifierWorker:
             "contract": t2 - t1, "answer": t3 - t2,
         })
         self._decode_s = 0.0
+        if self._heartbeat is not None:
+            self._heartbeat.beat(progress=len(pending))
         return len(pending)
+
+
+# ---------------------------------------------------------------------------
+# standalone worker process (reference: Verifier.main, Verifier.kt:50-88)
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    """`python -m corda_tpu_torch.node.verifier --name w1 --node nodeA
+    --node-host 127.0.0.1 --node-port 10001 --db /tmp/w1.db`
+
+    Connects a fabric endpoint to the requesting node, announces
+    readiness, and pumps until SIGINT. The verifier is built at start: a
+    CudaBatchVerifier on the card, which raises where there is none, or
+    CpuBatchVerifier with `--cpu`. The reference's `--profile-hz` runs
+    the perf plane's sampling profiler, which is not ported (ROADMAP
+    Queue 1 #5): a rate above 0 exits non-zero. On exit the worker
+    prints one line to stderr: the requests it answered and its drains.
+    """
+    import argparse
+    import importlib
+    import sys
+
+    from ..crypto import schemes
+    from ..crypto.batch_verifier import CpuBatchVerifier, CudaBatchVerifier
+    from ..utils.health import HealthMonitor
+    from .cordapp import port_module_name
+    from .fabric import FabricEndpoint, PeerAddress
+    from .persistence import NodeDatabase
+
+    p = argparse.ArgumentParser(description="out-of-process verifier worker")
+    p.add_argument("--name", required=True)
+    p.add_argument("--node", required=True, help="requesting node's name")
+    p.add_argument("--node-host", default="127.0.0.1")
+    p.add_argument("--node-port", type=int, required=True)
+    p.add_argument("--db", required=True)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument(
+        "--cpu", action="store_true", help="use the CPU reference verifier"
+    )
+    p.add_argument("--batch-window", type=int, default=0)
+    p.add_argument(
+        "--ingest-shards",
+        type=int,
+        default=0,
+        help="enable the pipelined wire-ingest path with this many "
+        "decode shards (0 = per-message decode, the default)",
+    )
+    p.add_argument(
+        "--profile-hz",
+        type=float,
+        default=0.0,
+        help="the perf plane's sampling profiler (not ported: above 0 "
+        "exits non-zero)",
+    )
+    p.add_argument("--profile-out", default="")
+    p.add_argument(
+        "--app",
+        action="append",
+        default=[],
+        help="contract module(s) to import so their states/commands are "
+        "codec-registered (the reference's names, `corda_tpu.` read as "
+        "`corda_tpu_torch.`)",
+    )
+    args = p.parse_args(argv)
+    if args.profile_hz > 0:
+        p.exit(2, "--profile-hz: the perf plane is not ported "
+                  "(ROADMAP Queue 1 #5)\n")
+
+    for mod in args.app or ["corda_tpu.finance"]:
+        importlib.import_module(port_module_name(mod))
+
+    verifier = CpuBatchVerifier() if args.cpu else CudaBatchVerifier()
+    keypair = schemes.generate_keypair(
+        seed=args.seed if args.seed is not None else 1
+    )
+    db = NodeDatabase(args.db)
+    node_addr = PeerAddress(args.node_host, args.node_port, None)
+    ep = FabricEndpoint(
+        args.name,
+        keypair,
+        db,
+        resolve=lambda peer: node_addr if peer == args.node else None,
+    )
+    ep.start()
+    ingest = (
+        request_ingest_pipeline(shards=args.ingest_shards)
+        if args.ingest_shards
+        else None
+    )
+    # the drain heartbeat (and the ring rule) live on a HealthMonitor
+    # ticked by the pump loop, so a wedged drain shows in-process
+    health = HealthMonitor()
+    worker = VerifierWorker(
+        ep,
+        args.node,
+        batch_verifier=verifier,
+        batch_window=args.batch_window,
+        advertised_address=("127.0.0.1", ep.listen_port),
+        ingest=ingest,
+        health=health,
+    )
+    try:
+        while True:
+            ep.pump(block=True, timeout=1.0)
+            worker.drain()
+            health.tick()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        m = worker.metrics
+        answered = m.meter("Verifier.Verified").count + m.meter("Verifier.Failed").count
+        drains = m.histogram("Verifier.BatchSize").count
+        print(f"verifier worker {args.name}: {answered} requests answered in {drains} "
+              f"drains ({answered / max(drains, 1):.1f} requests per drain)",
+              file=sys.stderr, flush=True)
+        ep.stop()
+        db.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,7 @@
 against the reference.
 
 Every case of the reference's tests/test_bft.py (17; its real-node and
-node-config cases wait for node/node.py and node/config.py) runs in
+node-config cases run in test_torch_persistence.py) runs in
 corda_tpu and, with its imports read as corda_tpu_torch, in the port,
 on the same seed over CpuBatchVerifier. Each run must pass its own
 assertions, and the two runs must record equal frames (requests,

@@ -417,3 +417,87 @@ def test_cluster_checks_raise_on_a_wrong_answer(monkeypatch, tmp_path):
     (tmp_path / "crash").mkdir()
     with pytest.raises(RuntimeError, match="signed a double spend"):
         cs.crash_drive(CpuBatchVerifier(), str(tmp_path / "crash"))
+
+
+def _pool_inputs(n: int):
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+    from corda_tpu_torch.testing.notary_fixture import build_fixture, notary_hub
+
+    fx = build_fixture(n, **SMALL_FIXTURE)
+    hub = notary_hub(fx, CpuBatchVerifier())
+    return fx, [stx.to_ledger_transaction(hub) for stx in fx.spends]
+
+
+def test_node_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
+    """chip_smoke's phase 11 on the CPU at small depth: (a) the trio over
+    verifier_backend "cpu" nodes twice, with one concurrent payment per
+    payer, leaving the equal ledgers phase 11 requires of the card's run
+    and the CPU's; (b) the Raft cluster (its leader stopped, a payment
+    under the new one) and the BFT cluster; (c) the two CLI node
+    processes over RPC; (d) 32 phase-6 spends through two `--cpu` worker
+    processes over TCP, worker 0 killed mid-batch. Every check of each
+    part runs and passes."""
+    monkeypatch.setattr(cs, "NODE_CONCURRENT", 1)
+    one = cs.node_trio_drive(str(tmp_path / "a1"), "cpu")
+    two = cs.node_trio_drive(str(tmp_path / "a2"), "cpu")
+    cs._same_node_ledger(one["ledger"], two["ledger"])
+    assert [r[2] for r in one["ledger"]["refused"]] == [None, "invalid-transaction", "conflict"]
+    assert one["ledger"]["balances"]["Carol"] == 140 and len(one["ledger"]["commits"]) >= 7
+    assert one["concurrent_flushes"] >= 1 and one["tls"]
+    raft = cs.node_cluster_drive(str(tmp_path / "raft"), "cpu", "raft")
+    assert len(set(raft["leaders"])) == 2 and raft["refused"][0][2] == "conflict"
+    bft = cs.node_cluster_drive(str(tmp_path / "bft"), "cpu", "bft")
+    assert bft["balances"] == {"Hub": 100, "Alice": 0}
+    cli = cs.cli_drive(str(tmp_path / "cli"), backend="cpu", check_contexts=False)
+    assert cli["balances"] == {"CliHub": 300, "CliBob": 700}
+    fx, ltxs = _pool_inputs(32)
+    pool = cs.pool_tcp_drive(str(tmp_path / "pool"), ltxs, fx.spends, cpu_workers=True,
+                             check_contexts=False)
+    cs._check_pool_answers(pool["answers"], fx.labels, "t")
+    assert pool["lost"] == 1 and pool["redispatched"] > 0 and pool["deliver_s"] is not None
+    assert pool["survivor"][0].startswith("verifier worker w1: ")
+
+
+def test_node_checks_raise_on_a_wrong_answer(monkeypatch, tmp_path):
+    """Each phase-11 check refuses a wrong answer: card and CPU ledgers
+    that differ, a "double spend" the notary signs (11a), a balance off
+    by one (11b), node processes that add no CUDA context (11c), and a
+    pool run in which no worker is killed (11d)."""
+    ledger = {"ids": ["a"], "refused": [], "balances": {}, "consumed": [], "commits": []}
+    cs._same_node_ledger(ledger, dict(ledger))
+    for key, wrong in (("ids", ["b"]), ("consumed", ["x"]), ("commits", [[1]])):
+        with pytest.raises(RuntimeError, match=f"the card nodes' {key} differ"):
+            cs._same_node_ledger(ledger, {**ledger, key: wrong})
+    # 11a: the double spend spends a fresh coin, which the notary signs
+    monkeypatch.setattr(cs, "NODE_CONCURRENT", 1)
+    spend, spends = cs._spend, []
+
+    def fresh_second(node, coin, notary, owner):
+        spends.append(coin)
+        if len(spends) == 2:
+            from corda_tpu_torch.finance import CashState
+
+            coin, = [s for s in node.vault.unconsumed_states(CashState) if s != coin][:1]
+        return spend(node, coin, notary, owner)
+
+    monkeypatch.setattr(cs, "_spend", fresh_second)
+    with pytest.raises(RuntimeError, match="double spend Alice -> Carol: was not refused"):
+        cs.node_trio_drive(str(tmp_path / "a"), "cpu")
+    monkeypatch.setattr(cs, "_spend", spend)
+    # 11b: a balance off by one
+    cash = cs._cash_of
+    monkeypatch.setattr(cs, "_cash_of", lambda node: cash(node) + (node.config.name == "Hub"))
+    with pytest.raises(RuntimeError, match="bft cluster .11b.: balances"):
+        cs.node_cluster_drive(str(tmp_path / "bft"), "cpu", "bft")
+    monkeypatch.setattr(cs, "_cash_of", cash)
+    # 11c: the node processes add no CUDA context
+    monkeypatch.setattr(cs, "_cuda_contexts", lambda: 1)
+    monkeypatch.setattr(cs, "_smi_apps", lambda: "1, 600 MiB")
+    with pytest.raises(RuntimeError, match="0 new CUDA contexts for 2 node processes"):
+        cs.cli_drive(str(tmp_path / "cli"), backend="cpu")
+    # 11d: worker 0 is never killed (its lease still expires)
+    monkeypatch.setattr(cs, "TCP_POOL_KILL_AT", 2.0)
+    fx, ltxs = _pool_inputs(16)
+    with pytest.raises(RuntimeError, match="killed at None, workers lost 1"):
+        cs.pool_tcp_drive(str(tmp_path / "pool"), ltxs, fx.spends, cpu_workers=True,
+                          check_contexts=False)

@@ -1,0 +1,182 @@
+"""The health plane (utils/health.py) and the rest of utils/tracing.py in
+the port, held against the reference.
+
+- Every case of the reference's tests/test_health.py but those in
+  LEFT_OUT runs with its imports read as corda_tpu_torch on the port
+  (its module-level import of the web gateway, which no ported case
+  uses, is dropped); the reference side is the reference's own module.
+  Among them: a wedged verifier drain thread (the worker's `health=`),
+  the watchdog's stall and livelock detection, alert hysteresis, the
+  ring rule, the event log, the canary riding a real batching-notary
+  flush (`attach_health`), its deadman, and the cluster rollup's stale
+  peer.
+- The same health drive in both packages leaves equal snapshots and
+  event logs; the same spans give equal Chrome exports, stage and phase
+  summaries.
+- Traced Raft and BFT frames feed the tracer's ClockSync in both
+  packages.
+- The watchers of planes the port lacks raise NotImplementedError
+  naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import re
+import sys
+import types
+
+import pytest
+
+pytest.importorskip("torch")
+
+from test_torch_fabric import port_cases, run_port_case  # noqa: E402
+from test_torch_persistence import TESTS  # noqa: E402
+
+PACKAGES = ("corda_tpu", "corda_tpu_torch")
+GATEWAY = "the web gateway, client/webserver.py (ROADMAP Queue 1 #3.4)"
+LEFT_OUT = {
+    "test_wedged_flush_tick_flips_healthz_and_auto_resolves": f"serves /healthz: {GATEWAY}",
+    "test_wedged_ingest_feed_loop_trips_watchdog":
+        "IngestPipeline(frame_cache_size=) and feed(heartbeat=) (ROADMAP Queue 1 #6)",
+    "test_slo_burn_rate_fires_on_sustained_breach_only": "the QoS plane, NotaryQos "
+                                                         "(ROADMAP Queue 1 #6)",
+    "test_shed_ratio_rule_fires_under_sustained_shedding": "the QoS plane, NotaryQos "
+                                                           "(ROADMAP Queue 1 #6)",
+    "test_webserver_index_content_types_and_json_404": GATEWAY,
+    "test_health_summary_query_serves_condensed_form": GATEWAY,
+    "test_cluster_rollup_two_nodes_with_stale_peer": GATEWAY,
+    "test_node_boots_health_plane_and_serves_endpoints": f"web_port: {GATEWAY}",
+    "test_node_health_peer_urls_follow_the_network_map": f"web_port: {GATEWAY}",
+    "test_bench_quick_health_emits_wellformed_record":
+        "the reference's bench.py (the port's benchmark is ROADMAP Queue 1 #1)",
+}
+
+
+def health_port_module() -> types.ModuleType:
+    """tests/test_health.py on the port, without its web-gateway import."""
+    key = "_torch_port_test_health"
+    if key not in sys.modules:
+        src = (TESTS / "test_health.py").read_text()
+        src = src.replace("from corda_tpu.client.webserver import NodeWebServer\n", "")
+        src = re.sub(r"\bcorda_tpu\.", "corda_tpu_torch.", src)
+        mod = types.ModuleType(key)
+        mod.__file__ = str(TESTS / "test_health.py")
+        sys.modules[key] = mod
+        exec(compile(src, mod.__file__, "exec"), mod.__dict__)
+    return sys.modules[key]
+
+
+def _m(prefix: str, name: str):
+    return importlib.import_module(f"{prefix}.{name}")
+
+
+@pytest.mark.parametrize("name,case", port_cases("test_health", LEFT_OUT))
+def test_reference_case_on_the_port(name, case, tmp_path):
+    run_port_case(health_port_module(), case, tmp_path)
+
+
+def test_case_count():
+    assert len(port_cases("test_health", LEFT_OUT)) == 8
+    assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_health")))
+
+
+def _health_drive(prefix: str, log_path) -> list:
+    hlib, svc = _m(prefix, "utils.health"), _m(prefix, "node.services")
+    metrics = _m(prefix, "utils.metrics").MetricRegistry()
+    clock = svc.TestClock()
+    monitor = hlib.HealthMonitor(clock=clock, metrics=metrics, event_log_path=str(log_path),
+                                 policy=hlib.HealthPolicy(heartbeat_deadline_micros=100_000))
+    busy = monitor.heartbeat("pump", queue_depth=lambda: 3)
+    idle = monitor.heartbeat("drain")
+    level = {"v": 0}
+    monitor.add_rule(hlib.AlertRule("depth.high", lambda now: (level["v"] > 5, {"v": level["v"]}),
+                                    for_micros=50_000, clear_for_micros=50_000))
+    snaps = []
+    for step in range(40):
+        clock.advance(20_000)
+        level["v"] = 10 if 5 <= step < 20 else 0
+        if step < 10 or step > 25:
+            busy.beat(progress=step)
+        idle.beat()
+        monitor.tick()
+        snaps.append(json.dumps(monitor.snapshot(), sort_keys=True, default=str))
+    snaps.append(json.dumps(monitor.healthz(), sort_keys=True, default=str))
+    return snaps + [log_path.read_text()]
+
+
+def test_health_drive_equals_the_references(tmp_path):
+    ref = _health_drive("corda_tpu", tmp_path / "ref.jsonl")
+    port = _health_drive("corda_tpu_torch", tmp_path / "port.jsonl")
+    assert port == ref
+    assert '"firing"' in "".join(ref) and ref[-1].count("\n") >= 4
+
+
+def _traces(prefix: str) -> list:
+    tr = _m(prefix, "utils.tracing")
+    tracer = tr.Tracer(enabled=False)
+    out = []
+    for t in range(3):
+        spans = []
+        for k, (name, parent) in enumerate((("notary.request", None), ("notary.stage", 0),
+                                            ("raft.append", 0), ("notary.commit", 1))):
+            s = tr.Span(tracer, name, 1000 + t, 10 * t + k,
+                        None if parent is None else 10 * t + parent,
+                        1.0 + t + k * 0.001, {"shard": t % 2, "member": f"N{k}"})
+            s.end_time = s.start + 0.0005 * (k + 1) * (t + 1)
+            spans.append(s)
+        out.append(tr.Trace(1000 + t, spans))
+    return out
+
+
+def test_trace_exports_equal_the_references():
+    got = {}
+    for prefix in PACKAGES:
+        tr = _m(prefix, "utils.tracing")
+        traces = _traces(prefix)
+        chrome = tr.chrome_trace(traces)
+        got[prefix] = json.dumps([chrome, tr.stage_summary(traces),
+                                  tr.phase_summary(chrome["traceEvents"]),
+                                  tr.parse_trace_id("0x3e8"), tr.parse_trace_id("junk")],
+                                 sort_keys=True, default=str)
+    assert got["corda_tpu_torch"] == got["corda_tpu"]
+
+
+@pytest.mark.parametrize("kind", ["raft", "bft"])
+def test_traced_consensus_frames_feed_clock_sync(kind):
+    for prefix in PACKAGES:
+        tr, msg = _m(prefix, "utils.tracing"), _m(prefix, "node.messaging")
+        ser, svc = _m(prefix, "core.serialization"), _m(prefix, "node.services")
+        raft = _m(prefix, "node.raft")
+        net = msg.InMemoryMessagingNetwork()
+        tracer = tr.Tracer(enabled=True)
+        peers = ["A", "B", "C", "D"]
+        if kind == "raft":
+            node = raft.RaftNode("A", peers, net.endpoint("A"), lambda cmd: None,
+                                 svc.TestClock(), tracer=tracer)
+            topic = node.topic
+        else:
+            node = _m(prefix, "node.bft").BftReplica("A", peers, net.endpoint("A"),
+                                                    lambda cmd, ts: (None, None),
+                                                    svc.TestClock(), tracer=tracer)
+            topic = node.topic
+        payload = ser.encode(raft.VoteReply(0, False, "B"))
+        sent = tr.wire_trace(tracer.start_trace("client"))
+        node._on_message(msg.Message(topic, payload, "B", 1, trace=sent))
+        node._on_message(msg.Message(topic, payload, "C", 2))       # untraced: no evidence
+        assert tracer.clock_sync.min_skew("B") is not None, prefix
+        assert tracer.clock_sync.min_skew("C") is None
+
+
+WATCHERS = [("watch_qos", (None,), "#6)"), ("watch_distributed_uniqueness", (None,), "#6(1)"),
+            ("watch_perf", (None,), "#5)"), ("watch_device", (None,), "#5)"),
+            ("watch_wire", (None,), "#5)"), ("watch_txstory", (None, {}), "#6(4)")]
+
+
+@pytest.mark.parametrize("method,args,item", WATCHERS, ids=[w[0] for w in WATCHERS])
+def test_unported_plane_watchers_raise(method, args, item):
+    from corda_tpu_torch.utils.health import HealthMonitor
+
+    with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP Queue 1 {item}")):
+        getattr(HealthMonitor(), method)(*args)

@@ -9,7 +9,10 @@ by the reference's module names, and runs a two-node payment through
 MockNetwork whose flow is restored from its checkpoint by the
 `corda_tpu.`-path class tag. The CUDA and C++ sources hold no
 Python, but they are in the package too: the scan checks that every
-csrc and native file is one the port's builds know.
+csrc and native file is one the port's builds know. A third check runs
+the node CLI (`python -m corda_tpu_torch.node`) and the verifier
+worker process (`python -m corda_tpu_torch.node.verifier --cpu`) with
+the same block, and reads their `sys.modules` once they serve.
 """
 
 import ast
@@ -44,13 +47,16 @@ def test_ast_scan_finds_no_banned_import():
     paper, obligation) and of the flow slice (the state machine, the core
     flows, the fabric, the scheduler, the CorDapp services, MockNetwork,
     the test flows, the trade flows) and of the pool slice (the verifier
-    pool and worker, the wire ingest, deadline shedding) are scanned.
+    pool and worker, the wire ingest, deadline shedding) and of the node
+    slice (the TCP fabric, config, the network map, RPC, node boot and
+    its CLI, the health plane, tracing, X.509 and legal names,
+    cordform, the dev TLS identities) are scanned.
     The Cash contract's
     wire name, "corda_tpu.finance.Cash", the sandbox's platform module
     names and the flows' class tags are strings, not imports."""
     offenders = []
     files = _modules()
-    assert len(files) >= 59
+    assert len(files) >= 71
     for must in ("crypto/eddsa.py", "node/notary.py", "node/services.py",
                  "core/transactions.py", "finance/cash.py", "native/__init__.py",
                  "native/build.py", "crypto/sphincs.py", "core/sandbox.py",
@@ -58,7 +64,11 @@ def test_ast_scan_finds_no_banned_import():
                  "finance/obligation.py", "flows/statemachine.py", "flows/core_flows.py",
                  "node/messaging.py", "node/scheduler.py", "node/cordapp.py",
                  "testing/mock_network.py", "testing/flows.py", "finance/trade_flows.py",
-                 "node/verifier.py", "node/ingest.py", "node/qos.py"):
+                 "node/verifier.py", "node/ingest.py", "node/qos.py",
+                 "node/fabric.py", "node/config.py", "node/network_map.py", "node/rpc.py",
+                 "node/node.py", "node/__main__.py", "utils/health.py", "utils/tracing.py",
+                 "utils/x509.py", "utils/legal_name.py", "testing/cordform.py",
+                 "testing/dev_tls.py"):
         assert PKG / must in files
     assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
         "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh", "wei_ladder.cu"
@@ -165,4 +175,50 @@ def test_imports_with_jax_and_reference_blocked():
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 59
+    assert int(out.stdout.strip().splitlines()[-1]) >= 71
+
+
+_SERVING_PROCESS = r"""
+import os, signal, sys, threading, time
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "corda_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+which, argv = sys.argv[1], sys.argv[2:]
+
+def check():
+    time.sleep(4)      # serving: the node pumps, the worker announced itself
+    banned = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu"))
+    print("SERVING", "torch" in sys.modules, banned, flush=True)
+    os.kill(os.getpid(), signal.SIGTERM if which == "node" else signal.SIGINT)
+
+threading.Thread(target=check, daemon=True).start()
+if which == "node":
+    from corda_tpu_torch.node.__main__ import main
+    sys.exit(main(argv))
+from corda_tpu_torch.node.verifier import main
+main(argv)
+"""
+
+
+def test_cli_node_and_worker_process_load_neither_jax_nor_the_reference(tmp_path):
+    """`python -m corda_tpu_torch.node` and the verifier worker, each
+    serving for a few seconds with importing jax or corda_tpu blocked:
+    neither module is in its sys.modules, and each exits 0."""
+    from corda_tpu_torch.node.config import NodeConfig, write_config
+
+    toml = tmp_path / "node.toml"
+    write_config(NodeConfig(name="Solo", base_dir=str(tmp_path / "solo")), str(toml))
+    runs = {
+        "node": ["--config", str(toml), "--print-port"],
+        "worker": ["--name", "w0", "--node", "Solo", "--node-port", "1", "--cpu",
+                   "--db", str(tmp_path / "w0.db")],
+    }
+    for which, argv in runs.items():
+        out = subprocess.run([sys.executable, "-c", _SERVING_PROCESS, which, *argv],
+                             cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        serving, = [line for line in out.stdout.splitlines() if line.startswith("SERVING")]
+        assert serving == "SERVING True []", which

@@ -1,0 +1,484 @@
+"""Node boot, config, the network map and RPC in the port, held against
+the reference.
+
+- Every case of the reference's tests/test_node.py but those in
+  LEFT_OUT runs with its imports read as corda_tpu_torch on the port,
+  over real sockets (test_torch_fabric.run_port_case); the reference
+  side is the reference's own module.
+- Byte equality: `write_config` output (each file loads in the other
+  package to the same config); the frames of a network-map exchange
+  (signed registrations, fetches, map updates and acks) and of an RPC
+  session (requests, replies, flow handles, observations) on the
+  in-memory fabric, recorded in both packages on the same seed.
+- One network over real TCP of both packages: a reference Hub (map host
+  and validating notary), a port Alice and a reference Bob; then the
+  packages swapped. An issue, a payment each way and a refused double
+  spend; both arrangements leave the same transaction ids, balances,
+  consumed refs and notary commits.
+- A whole node carried across: stopped with undelivered frames in its
+  outbound journal, it boots in the other package with the same
+  identity, TLS fingerprint and vault, and the frames are delivered
+  once. Both directions.
+- No fallback: a node with the default backend ("tpu": the card) boots
+  without one; its first signature check raises the device error and
+  a notary on the default backend answers no flush `ok`; nothing
+  answers on the CPU in its place.
+- D6 and the refusals: a default node boots without the perf, device,
+  wire and txstory planes with one WARNING; every answer-path option
+  whose plane is not ported raises NotImplementedError naming its
+  ROADMAP item before the node opens its database or binds a port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import logging
+import os
+import socket
+import time
+
+import pytest
+
+pytest.importorskip("torch")
+
+from test_torch_fabric import port_cases, run_port_case  # noqa: E402
+from test_torch_persistence import port_module  # noqa: E402
+
+PACKAGES = ("corda_tpu", "corda_tpu_torch")
+LEFT_OUT = {
+    "test_web_gateway_from_config": "the web gateway, client/webserver.py (ROADMAP Queue 1 #3.4)",
+    "test_remote_shell_login": "the shell, client/shell.py (ROADMAP Queue 1 #3.4)",
+}
+
+
+def _m(prefix: str, name: str):
+    return importlib.import_module(f"{prefix}.{name}")
+
+
+@pytest.mark.parametrize("name,case", port_cases("test_node", LEFT_OUT))
+def test_reference_case_on_the_port(name, case, tmp_path):
+    run_port_case(port_module(name), case, tmp_path)
+
+
+def test_case_count():
+    assert len(port_cases("test_node", LEFT_OUT)) == 9
+    assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_node")))
+
+
+# ---------------------------------------------------------------------------
+# config, map and RPC bytes
+
+
+def _configs(prefix: str) -> list:
+    cfg = _m(prefix, "node.config")
+    users = (cfg.RpcUserConfig("admin", 'p"w\\x', ("ALL", "StartFlow.x")),)
+    return [
+        cfg.NodeConfig(name="Solo", base_dir="/tmp/solo"),
+        cfg.NodeConfig(name="Hub", base_dir="/n/hub", notary="batching", notary_shards=4,
+                       notary_batch_wait_micros=250, rpc_users=users, scheme="secp256r1"),
+        cfg.NodeConfig(name="N0", base_dir="/n/n0", notary="raft-validating",
+                       cluster_peers=("N0", "N1", "N2"), network_map_peer="Hub",
+                       network_map_host="10.0.0.1", network_map_port=10001,
+                       network_map_fingerprint=bytes(range(32)), verifier_backend="cpu",
+                       verifier_type="out_of_process", perf_enabled=False, key_seed=9),
+    ]
+
+
+def test_write_config_is_the_references_and_loads_across(tmp_path):
+    for k, (ref, port) in enumerate(zip(_configs("corda_tpu"), _configs("corda_tpu_torch"))):
+        paths = {p: tmp_path / f"{p}-{k}.toml" for p in PACKAGES}
+        _m("corda_tpu", "node.config").write_config(ref, str(paths["corda_tpu"]))
+        _m("corda_tpu_torch", "node.config").write_config(port, str(paths["corda_tpu_torch"]))
+        assert paths["corda_tpu_torch"].read_bytes() == paths["corda_tpu"].read_bytes()
+        for reader in PACKAGES:
+            for writer in PACKAGES:
+                got = _m(reader, "node.config").load_config(str(paths[writer]))
+                assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+
+
+def _recorded(prefix: str, drive) -> list:
+    """Every in-memory frame of `drive(P)` in send order."""
+    msg = _m(prefix, "node.messaging")
+    frames = []
+    enqueue = msg.InMemoryMessagingNetwork._enqueue
+
+    def recording(net, m, target):
+        frames.append((m.sender, target, m.topic, m.unique_id, bytes(m.payload)))
+        return enqueue(net, m, target)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(msg.InMemoryMessagingNetwork, "_enqueue", recording)
+        drive(prefix)
+    return frames
+
+
+def _map_exchange(prefix: str) -> None:
+    msg, nm = _m(prefix, "node.messaging"), _m(prefix, "node.network_map")
+    svc = _m(prefix, "node.services")
+    schemes, identity = _m(prefix, "crypto.schemes"), _m(prefix, "core.identity")
+    clock = svc.TestClock()
+    net = msg.InMemoryMessagingNetwork(clock=clock)
+    hub = nm.NetworkMapService(net.endpoint("Hub"), clock)
+    clients = []
+    for k, name in enumerate(("Alice", "Bob")):
+        kp = schemes.generate_keypair(seed=20 + k)
+        party = identity.Party(name, kp.public)
+        info = svc.NodeInfo(address=name, legal_identity=party, host="127.0.0.1",
+                            port=10002 + k, tls_fingerprint=bytes([k]) * 32)
+        hub_svc = svc.ServiceHub(info, svc.KeyManagementService(kp),
+                                 svc.IdentityService(party), clock=clock,
+                                 batch_verifier=_m(prefix, "crypto.batch_verifier")
+                                 .CpuBatchVerifier())
+        client = nm.NetworkMapClient(hub_svc, net.endpoint(name), "Hub", kp.private)
+        client.register()
+        client.fetch(subscribe=True)
+        clients.append(client)
+        net.run()
+    clock.advance(nm.NetworkMapClient.DEFAULT_TTL_MICROS)
+    for client in clients:
+        client.tick()
+    net.run()
+    assert hub._version >= 2
+
+
+def test_network_map_frames_are_the_references():
+    ref, port = _recorded("corda_tpu", _map_exchange), _recorded("corda_tpu_torch", _map_exchange)
+    assert port == ref and len(ref) >= 8
+
+
+def _rpc_session(prefix: str) -> None:
+    mock, bv = _m(prefix, "testing.mock_network"), _m(prefix, "crypto.batch_verifier")
+    rpc, cash = _m(prefix, "node.rpc"), _m(prefix, "finance.cash")
+    vq = _m(prefix, "node.vault_query")
+    net = mock.MockNetwork(seed=23, batch_verifier=bv.CpuBatchVerifier())
+    notary = net.create_notary("Notary", validating=True)
+    alice = net.create_node("Alice")
+    ops = rpc.CordaRPCOpsImpl(alice.services, alice.smm)
+    rpc.RPCServer(ops, alice.messaging, rpc.RPCUserService(rpc.RpcUser("admin", "pw", ("ALL",))))
+    client = rpc.RPCClient(net.fabric.endpoint("console"), "Alice", "admin", "pw")
+    ident = client.node_identity()
+    net.run()
+    assert ident.get().legal_identity == alice.party
+    fut = client.start_flow(cash.CashIssueFlow(100, "USD", alice.party, notary.party))
+    net.run()
+    handle = fut.get()
+    net.run()
+    assert handle.result.get().id is not None
+    page = client.vault_query_by(vq.VaultQueryCriteria())
+    bad = rpc.RPCClient(net.fabric.endpoint("console2"), "Alice", "admin", "wrong")
+    refused = bad.node_identity()
+    net.run()
+    assert len(page.get().states) == 1
+    with pytest.raises(Exception):
+        refused.get()
+
+
+def test_rpc_frames_are_the_references():
+    ref, port = _recorded("corda_tpu", _rpc_session), _recorded("corda_tpu_torch", _rpc_session)
+    assert port == ref
+    topics = {f[2] for f in ref}
+    assert {"rpc.requests", "rpc.replies"} <= topics
+
+
+# ---------------------------------------------------------------------------
+# real TCP: both packages in one network, a node carried across
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Net:
+    """Nodes of either package over real sockets, pumped together."""
+
+    def __init__(self, root):
+        self.root, self.nodes = root, []
+
+    def boot(self, prefix: str, name: str, hub=None, port: int = 0, **kw):
+        cfg = _m(prefix, "node.config")
+        if hub is not None:
+            kw.update(network_map_peer=hub.config.name, network_map_host="127.0.0.1",
+                      network_map_port=hub.messaging.listen_port,
+                      network_map_fingerprint=hub.tls.fingerprint)
+        config = cfg.NodeConfig(name=name, base_dir=str(self.root / name), key_seed=31,
+                                p2p_port=port, **kw)
+        node = _m(prefix, "node.node").Node(
+            config, batch_verifier=_m(prefix, "crypto.batch_verifier").CpuBatchVerifier()).start()
+        self.nodes.append(node)
+        return node
+
+    def pump_until(self, pred, timeout: float = 60.0) -> None:
+        deadline = time.monotonic() + timeout
+        while not pred():
+            assert time.monotonic() < deadline, "not done in time"
+            for n in self.nodes:
+                n.pump()
+            time.sleep(0.002)
+
+    def discover(self) -> None:
+        k = len(self.nodes)
+        self.pump_until(lambda: all(len(n.services.network_map_cache.all_nodes()) == k
+                                    for n in self.nodes))
+
+    def run(self, node, logic):
+        fsm = node.smm.start_flow(logic)
+        self.pump_until(lambda: fsm.done)
+        return fsm.result_or_throw()
+
+    def stop(self, node) -> None:
+        node.stop()
+        self.nodes.remove(node)
+
+    def close(self) -> None:
+        for n in list(self.nodes):
+            self.stop(n)
+
+
+def _mixed_drive(root, hub_pkg: str, alice_pkg: str, bob_pkg: str) -> dict:
+    net = _Net(root)
+    try:
+        hub = net.boot(hub_pkg, "Hub", notary="validating")
+        alice = net.boot(alice_pkg, "Alice", hub)
+        bob = net.boot(bob_pkg, "Bob", hub, scheme="secp256r1")
+        net.discover()
+        A, B = (_m(p, "finance") for p in (alice_pkg, bob_pkg))
+
+        def party(viewer, name):   # a party as the viewer's package holds it
+            return viewer.services.network_map_cache.node_by_name(name).legal_identity
+
+        ids = [net.run(alice, A.CashIssueFlow(500, "USD", alice.party, party(alice, "Hub"))).id]
+        ids.append(net.run(alice, A.CashPaymentFlow(200, "USD", party(alice, "Bob"))).id)
+        ids.append(net.run(bob, B.CashPaymentFlow(50, "USD", party(bob, "Alice"))).id)
+        coin = min(bob.vault.unconsumed_states(B.CashState),
+                   key=lambda s: (s.state.data.amount.quantity, str(s.ref)))
+        cf, tx = _m(bob_pkg, "flows.core_flows"), _m(bob_pkg, "core.transactions")
+        cash = _m(bob_pkg, "finance.cash")
+
+        def spend(owner):
+            b = tx.TransactionBuilder(party(bob, "Hub"))
+            b.add_input_state(coin)
+            b.add_output_state(coin.state.data.with_owner(owner.owning_key), cash.CASH_CONTRACT)
+            b.add_command(cash.CashMove(), bob.party.owning_key)
+            return bob.services.sign_initial_transaction(b)
+
+        ids.append(net.run(bob, cf.FinalityFlow(spend(party(bob, "Alice")))).id)
+        fsm = bob.smm.start_flow(cf.FinalityFlow(spend(party(bob, "Hub"))))
+        net.pump_until(lambda: fsm.done)
+        with pytest.raises(_m(bob_pkg, "node.notary").NotaryException) as e:
+            fsm.result_or_throw()
+        assert e.value.error.kind == "conflict"
+        nodes = (hub, alice, bob)
+        fin = {n: _m(type(n).__module__.rsplit(".", 2)[0], "finance") for n in nodes}
+        return {
+            "ids": [str(i) for i in ids],
+            "balances": {n.config.name: sum(s.state.data.amount.quantity
+                                            for s in n.vault.unconsumed_states(fin[n].CashState))
+                         for n in nodes},
+            "consumed": sorted({str(s.ref) for n in nodes
+                                for s in n.vault.consumed_states(fin[n].CashState)}),
+            "commits": hub.db.query("SELECT ref_tx, ref_index, consumer, requester"
+                                    " FROM notary_commits ORDER BY ref_tx, ref_index"),
+        }
+    finally:
+        net.close()
+
+
+def test_mixed_network_over_tcp_leaves_equal_ledgers(tmp_path):
+    one = _mixed_drive(tmp_path / "a", "corda_tpu", "corda_tpu_torch", "corda_tpu")
+    two = _mixed_drive(tmp_path / "b", "corda_tpu_torch", "corda_tpu", "corda_tpu_torch")
+    assert one == two
+    assert one["balances"] == {"Hub": 0, "Alice": 500, "Bob": 0}
+    assert len(one["commits"]) == 3 and len(one["ids"]) == 4
+
+
+@pytest.mark.parametrize("first,second", [("corda_tpu", "corda_tpu_torch"),
+                                          ("corda_tpu_torch", "corda_tpu")])
+def test_node_carried_across_delivers_its_journal_once(first, second, tmp_path):
+    net = _Net(tmp_path)
+    try:
+        a = net.boot(first, "A", notary="validating")
+        b = net.boot(first, "B", a, port=_free_port())
+        net.discover()
+        net.run(a, _m(first, "finance").CashIssueFlow(100, "USD", a.party, a.party))
+        before = {"party": a.party.owning_key.data, "tls": a.tls.fingerprint,
+                  "vault": sorted(str(s.ref) for s in a.vault.unconsumed_states(
+                      _m(first, "finance").CashState))}
+        config_b = b.config
+        net.stop(b)
+        for k in range(3):
+            a.messaging.send("test.carry", f"frame {k}".encode(), "B")
+        assert a.messaging.pending_outbound == 3
+        net.stop(a)
+
+        a2 = net.boot(second, "A", notary="validating")
+        assert a2.config == _m(second, "node.config").NodeConfig(
+            **{f.name: getattr(a.config, f.name) for f in dataclasses.fields(a.config)})
+        after = {"party": a2.party.owning_key.data, "tls": a2.tls.fingerprint,
+                 "vault": sorted(str(s.ref) for s in a2.vault.unconsumed_states(
+                     _m(second, "finance").CashState))}
+        assert after == before and before["vault"]
+        assert a2.messaging.pending_outbound == 3
+        got = []
+        b2 = _m(first, "node.node").Node(
+            config_b, batch_verifier=_m(first, "crypto.batch_verifier").CpuBatchVerifier())
+        b2.messaging.add_handler("test.carry", lambda msg: got.append((msg.sender, msg.payload)))
+        net.nodes.append(b2.start())
+        net.pump_until(lambda: len(got) == 3 and a2.messaging.pending_outbound == 0)
+        deadline = time.monotonic() + 0.5
+        while time.monotonic() < deadline:
+            for n in net.nodes:
+                n.pump()
+        assert got == [("A", f"frame {k}".encode()) for k in range(3)]
+    finally:
+        net.close()
+
+
+# ---------------------------------------------------------------------------
+# no fallback, D6 and the refusals
+
+
+def test_default_backend_without_a_card_fails_with_the_device_error(tmp_path, monkeypatch):
+    import torch
+
+    from corda_tpu_torch.crypto import batch_verifier as bv
+    from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow
+    from corda_tpu_torch.flows.api import FlowSessionException
+    from corda_tpu_torch.node.config import NodeConfig
+    from corda_tpu_torch.node.node import Node
+    from corda_tpu_torch.node.notary import NotaryException
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default backend verifies on it")
+    monkeypatch.setattr(bv, "_default", None)
+    used = []
+    verify = bv.CpuBatchVerifier.verify_batch
+    monkeypatch.setattr(bv.CpuBatchVerifier, "verify_batch",
+                        lambda self, reqs: used.append(len(reqs)) or verify(self, reqs))
+    nodes = []
+
+    def boot(name, **kw):
+        node = Node(NodeConfig(name=name, base_dir=str(tmp_path / name), key_seed=5,
+                               **kw)).start()
+        nodes.append(node)
+        return node
+
+    def run(node, logic):
+        fsm = node.smm.start_flow(logic)
+        deadline = time.monotonic() + 60
+        while not fsm.done:
+            assert time.monotonic() < deadline
+            for n in nodes:
+                n.pump()
+        return fsm
+
+    try:
+        hub = boot("Hub", notary="batching")            # the default backend: the card
+        kw = dict(network_map_peer="Hub", network_map_host="127.0.0.1",
+                  network_map_port=hub.messaging.listen_port,
+                  network_map_fingerprint=hub.tls.fingerprint)
+        alice = boot("Alice", **kw)                      # the card too
+        bob = boot("Bob", verifier_backend="cpu", **kw)  # asks for the CPU
+        deadline = time.monotonic() + 60
+        while not all(len(n.services.network_map_cache.all_nodes()) == 3 for n in nodes):
+            assert time.monotonic() < deadline
+            for n in nodes:
+                n.pump()
+        assert hub.config.verifier_backend == alice.config.verifier_backend == "tpu"
+        # Alice's first signature check raises the device error
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run(alice, CashIssueFlow(100, "USD", alice.party, hub.party)).result_or_throw()
+        # Bob (asked for the CPU) issues; his payment reaches the hub, whose
+        # notary service checks it on the card: the device error fails
+        # the notary's side, and the payment is not notarised
+        run(bob, CashIssueFlow(100, "USD", bob.party, hub.party)).result_or_throw()
+        with pytest.raises((NotaryException, FlowSessionException)) as e:
+            run(bob, CashPaymentFlow(40, "USD", alice.party)).result_or_throw()
+        assert "RuntimeError" in str(e.value) or "CUDA is not available" in str(e.value)
+        notary = hub.services.notary_service
+        assert notary.degraded_fallback is False
+        assert notary.metrics.counter("Notary.DegradedFlushes").count == 0
+        assert notary.uniqueness.committed_count == 0
+        assert bv._default is None and used        # only Bob's own checks ran on the CPU
+    finally:
+        for n in nodes:
+            n.stop()
+
+
+def test_default_node_boots_without_the_unported_planes(tmp_path, caplog):
+    from corda_tpu_torch.node.config import NodeConfig
+    from corda_tpu_torch.node.node import Node
+
+    caplog.set_level(logging.WARNING, logger="corda_tpu_torch.node")
+    node = Node(NodeConfig(name="Solo", base_dir=str(tmp_path / "solo"))).start()
+    try:
+        assert node.unported_planes == ("perf", "device", "wire", "txstory")
+        assert (node.perf, node.device_plane, node.wire_plane, node.txstory) == (None,) * 4
+        warnings = [r for r in caplog.records if r.name == "corda_tpu_torch.node"
+                    and r.levelno == logging.WARNING]
+        assert len(warnings) == 1
+        assert "perf, device, wire, txstory" in warnings[0].getMessage()
+        assert node.health is not None and node.rpc_server is not None
+    finally:
+        node.stop()
+    quiet = Node(NodeConfig(name="Quiet", base_dir=str(tmp_path / "quiet"), perf_enabled=False,
+                            device_telemetry_enabled=False, wire_telemetry_enabled=False,
+                            txstory_enabled=False))
+    assert quiet.unported_planes == ()
+    quiet.messaging.stop()
+    quiet.db.close()
+
+
+REFUSED = [
+    ("qos_enabled", dict(notary="batching", qos_enabled=True), "#6 "),
+    ("notary_cluster_shards", dict(notary="batching", notary_cluster_shards=2,
+                                   cluster_peers=("X",)), "#6(1)"),
+    ("notary_state_store", dict(notary="batching", notary_state_store="commitlog"), "#6(3)"),
+    ("notary_intent_wal", dict(notary="batching", notary_intent_wal=True), "#6(2)"),
+    ("txstory_index", dict(txstory_index=True), "#6(4)"),
+    ("web_port", dict(web_port=0, rpc_users=()), "#3.4"),
+]
+
+
+@pytest.mark.parametrize("option,kw,item", REFUSED, ids=[r[0] for r in REFUSED])
+def test_answer_path_option_raises_before_the_node_binds(option, kw, item, tmp_path):
+    from corda_tpu_torch.node.config import NodeConfig, RpcUserConfig
+    from corda_tpu_torch.node.node import Node
+
+    if option == "web_port":
+        kw = dict(kw, rpc_users=(RpcUserConfig("u", "p", ("ALL",)),))
+    cfg = NodeConfig(name="X", base_dir=str(tmp_path / "x"), **kw)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}".replace("(", r"\(")
+                       .replace(")", r"\)")):
+        Node(cfg)
+    assert not os.path.exists(tmp_path / "x")
+
+
+def test_initial_registration_raises(tmp_path):
+    from corda_tpu_torch.node.__main__ import main
+
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #3\.6"):
+        main(["--config", str(tmp_path / "none.toml"), "--initial-registration"])
+
+
+def test_worker_process_without_cpu_exits_with_the_device_error(tmp_path):
+    """`python -m corda_tpu_torch.node.verifier` builds a CudaBatchVerifier
+    at start: without `--cpu` and without a card it exits non-zero with
+    the device error; `--profile-hz` (the perf plane) exits non-zero."""
+    import subprocess
+    import sys
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the worker verifies on it")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = [sys.executable, "-m", "corda_tpu_torch.node.verifier", "--name", "w0",
+            "--node", "A", "--node-port", "1", "--db", str(tmp_path / "w0.db")]
+    out = subprocess.run(base, cwd=root, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "CUDA is not available" in out.stderr
+    out = subprocess.run(base + ["--cpu", "--profile-hz", "19"], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "ROADMAP Queue 1 #5" in out.stderr

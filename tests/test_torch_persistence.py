@@ -30,10 +30,15 @@ checkpointed flow, the Raft members' logs and snapshots) and opens the
 files in the other: equal vault pages, uniqueness map and Raft maps,
 the checkpointed flow restores to the same suspension, and the notary
 refuses a double spend. (The restored flow does not finish there: the
-frame it awaits died with the writer's in-memory fabric; the durable
-fabric, node/fabric.py, is not ported. `restart_node`, which keeps the
-fabric, finishes such a flow: test_flow_checkpoint_survives_process_
-restart.)
+frame it awaits died with the writer's in-memory fabric. `restart_node`,
+which keeps the fabric, finishes such a flow:
+test_flow_checkpoint_survives_process_restart; a whole node over the
+durable TCP fabric is carried across in test_torch_node.py.)
+
+The reference's cases that boot real nodes over TCP from a node config
+(REAL_NODES) run on the port and must pass their own assertions; their
+runs are not recorded, since every TLS certificate and handshake nonce
+is fresh. The reference's own modules run them on corda_tpu.
 """
 
 from __future__ import annotations
@@ -55,12 +60,12 @@ from test_torch_chip_smoke import _counted_plain_versions  # noqa: E402
 
 PACKAGES = ("corda_tpu", "corda_tpu_torch")
 TESTS = Path(__file__).resolve().parent
-# the reference's cases that boot real nodes over TCP from a node config:
-# node/node.py, node/fabric.py and node/config.py are not ported
-NOT_PORTED = {
-    "test_raft_cluster_over_real_nodes",
-    "test_bft_cluster_over_real_nodes",
-    "test_config_path_always_installs_signed_certificate_mode",
+# the reference's cases that boot real nodes over TCP from a node config,
+# by module: run on the port with their own assertions (module docstring)
+REAL_NODES = {
+    "test_raft_cluster_over_real_nodes": "test_raft_notary",
+    "test_bft_cluster_over_real_nodes": "test_bft",
+    "test_config_path_always_installs_signed_certificate_mode": "test_bft",
 }
 # parametrised fixtures of the reference's cases, with their params
 FIXTURE_PARAMS = {"ledger": ("memory", "sqlite")}
@@ -98,7 +103,7 @@ def cases_of(name: str) -> list:
     mod = reference_module(name)
     out = []
     for case, fn in vars(mod).items():
-        if not case.startswith("test_") or not callable(fn) or case in NOT_PORTED:
+        if not case.startswith("test_") or not callable(fn) or case in REAL_NODES:
             continue
         params = [FIXTURE_PARAMS[a] for a in inspect.signature(fn).parameters
                   if a in FIXTURE_PARAMS]
@@ -264,6 +269,13 @@ def test_case_count():
     """Every case of the three reference modules is held: 10 + 8 + 21."""
     got = [len(cases_of(n)) for n in ("test_persistence", "test_schemas", "test_vault_query")]
     assert got == [10, 8, 21]
+
+
+@pytest.mark.parametrize("case", sorted(REAL_NODES))
+def test_real_node_case_on_the_port(case, tmp_path):
+    from test_torch_fabric import run_port_case
+
+    run_port_case(port_module(REAL_NODES[case]), case, tmp_path)
 
 
 @pytest.mark.parametrize("name,case", [

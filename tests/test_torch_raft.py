@@ -2,7 +2,8 @@
 against the reference.
 
 Every case of the reference's tests/test_raft.py (16) and
-tests/test_raft_notary.py (3; its real-node case waits for node/node.py)
+tests/test_raft_notary.py (3; its real-node case runs in
+test_torch_persistence.py)
 runs in corda_tpu and, with its imports read as corda_tpu_torch, in the
 port, on the same seed over CpuBatchVerifier. Each run must pass its own
 assertions, and the two runs must record equal frames (RequestVote,

@@ -78,7 +78,7 @@ Phases (any failure raises and exits non-zero):
      signature byte is refused by FinalityFlow (InvalidSignature) and by
      the notary ("invalid-transaction"); a double spend raises
      NotaryException "conflict"; every balance exact; (b) a batching
-     notary for shards 1 and 4: 16 payments from 8 payers (issuance
+     notary for shards 1 and 4: 8 payments from 4 payers (issuance
      recorded straight into the vaults) started before one pump round
      and notarised in one flush (one dispatch per shard holding
      requests), every payment completed and every balance exact, no
@@ -169,7 +169,7 @@ Phases (any failure raises and exits non-zero):
      batching notary of 1 shard over PersistentUniquenessProvider, a
      300 ms batch wait), Alice (ed25519), Bob (p256) and Carol
      (secp256k1): discovery through the map, an issue, payments across
-     the schemes (Carol resolving a backchain), 4 payments each from
+     the schemes (Carol resolving a backchain), 2 payments each from
      Alice and Bob started together (the notary flushes answering them
      printed), a flipped signature refused at finality and by the
      notary, a double spend refused "conflict", Bob stopped and booted
@@ -201,15 +201,44 @@ Phases (any failure raises and exits non-zero):
      `verify(ltx, stx)` requests through the durable journals; once a
      quarter is answered worker 0 gets SIGKILL; its unanswered nonces
      re-dispatch to the survivor when its lease expires. Every answer
-     must be its label and every future answered once (the pool's
-     attempt and request deadlines are set past the burst); prints
+     must be its label, every future answered once and only worker 0
+     lost (the pool's attempt and request deadlines and its lease are
+     set past the burst); prints the survivor's longest silence at the
+     node beside the lease,
      verified transactions/s, the seconds to deliver the frames
      through the journals against the seconds to answer them, gc
      seconds and the survivor's drains;
- 12. print the kernel table as one JSON line (with each kernel's
-     launches in phase 10 as "clusters_launches" and in 11a-11b as
-     "nodes_launches"), then the result line {"ok": true, "device":
-     {...}}.
+ 12. the multi-process Driver, the load test, the ledger fuzzer and the
+     demos (testing/driver.py, testing/loadtest.py,
+     testing/generators.py, samples/): (a) the Driver's default backend
+     (the card, in each node process) boots Hub (map host, batching
+     notary, a 50 ms batch wait), Alice (ed25519), Bob (p256) and Carol
+     (secp256k1) as `python -m corda_tpu_torch.node` processes;
+     CrossCashLoadTest(seed=31) runs 16 commands in a tight loop, a
+     traffic node killed (-9) and restarted at 0.35 and the notary at
+     0.65; no command may fail, the model must reconcile, every traffic
+     node's vault total over RPC must equal the model, and the card must
+     hold a new CUDA context per node while the commands run; then 50
+     empty flows on Alice (EmptyFlowLoadTest); prints each node's boot
+     seconds, the restarts' seconds, commands/s, p50 and max per-command
+     latency and empty flows/s; the children's launches go uncounted.
+     The launch counters set to 0 before 12b and read after 12d: (b)
+     samples/notary_demo.run on its default verifier (the card),
+     "batching" with 4 payments (sharing flushes) and "single" with 3:
+     one notary signature per transaction, and the same transaction ids
+     and signer keys as the same run over CpuBatchVerifier; prints tx/s;
+     (c) the reference's fuzz corpus (GeneratedLedger(13).grow(30),
+     mutated: flipped, tampered, truncated rows) and the same mutation
+     over GeneratedLedger(17).grow(2000), all three schemes, through
+     CudaBatchVerifier(batch_sizes=(128, 1024, 4096)): every verdict must
+     equal its label, and CpuBatchVerifier's on the small corpus and 256
+     sampled rows of the large one; (d) samples/trader_demo.run on the
+     card: one paper to the buyer, 92,000 to the seller. ed_ladder,
+     wei_ladder_windowed and wei_ladder must launch within (b)-(d);
+ 13. print the kernel table as one JSON line (with each kernel's
+     launches in phase 10 as "clusters_launches", in 11a-11b as
+     "nodes_launches" and in 12b-12d as "drives_launches"), then the
+     result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
 """
@@ -990,7 +1019,7 @@ def phase_schemes(device, card: str, fx) -> dict:
 
 FLOW_SEED = 11
 FLOW_BATCHES = (128, 4096)
-FLOW_PAYERS = 8              # phase 8b: payer nodes (1 in 4 p256, 1 in 4 secp256k1)
+FLOW_PAYERS = 4              # phase 8b: payer nodes (1 in 4 p256, 1 in 4 secp256k1; 8 cut)
 FLOW_COINS = 2               # phase 8b: issued coins per payer, one payment each
 FLOW_SHARDS = (1, 4)         # phase 8b: the batching notary's shards
 
@@ -2167,11 +2196,13 @@ def phase_clusters(device, card: str, fx) -> dict:
 
 NODE_SEED = 17               # every phase-11 node's dev key seed
 NODE_BATCH_WAIT = 300_000    # 11a: µs the hub's batching notary holds a flush open
-NODE_CONCURRENT = 4          # 11a: concurrent payments per payer (two payers)
+NODE_CONCURRENT = 2          # 11a: concurrent payments per payer (two payers; 4 cut)
 NODE_TIMEOUT = 180.0         # s any one node-drive step may take before the phase fails
 TCP_POOL_WINDOW = 256        # 11d: a worker's --batch-window (requests per handler drain)
 TCP_POOL_KILL_AT = 0.25      # 11d: share of answers after which worker 0 gets SIGKILL
 TCP_POOL_DEADLINE = 600_000_000   # 11d: the pool's attempt and request deadlines (µs)
+TCP_POOL_LEASE = 60_000_000  # 11d: the pool's lease (µs) for the burst; the default 10 s
+#                              is shorter than a heartbeat's wait behind the burst's frames
 
 
 class _NodeRig:
@@ -2619,6 +2650,13 @@ def _pool_state(svc, root: str) -> str:
             f"{m.meter('Verifier.Redispatched').count}; worker stderr {tails}")
 
 
+def _silence(heard: dict, worker: str, t0: float) -> float:
+    """The longest time since `t0` in which the node processed no
+    heartbeat of `worker`, the gap after its last one included."""
+    last, longest = heard.get(worker, (t0, 0.0))
+    return max(longest, time.perf_counter() - last)
+
+
 def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
                    check_contexts: bool = True) -> dict:
     """Phase 11d: a port node with `verifier_type = "out_of_process"`
@@ -2630,15 +2668,22 @@ def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
     share of the batch unanswered whatever the timing, and every (ltx,
     stx) goes through the pool over the durable journals. Once
     TCP_POOL_KILL_AT of the answers are in, worker 0 gets SIGKILL: its
-    nonces re-dispatch to the survivor when its lease expires. Raises
-    unless every future is answered exactly once; returns the answers
-    and the figures."""
+    nonces re-dispatch to the survivor when its lease expires. A
+    worker's heartbeats ride the same journaled frames as its answers,
+    so under the burst the node processes them further apart than the
+    default 10 s lease and can detach the survivor too (ROADMAP Queue
+    3): the burst runs with a lease of TCP_POOL_LEASE. Raises unless
+    every future is answered exactly once and only worker 0 was lost;
+    returns the answers and the figures, with the survivor's longest
+    silence at the node (seconds between two of its heartbeats that
+    the node processed)."""
     import dataclasses
     import os
     import signal
 
     from corda_tpu_torch.node.config import NodeConfig
     from corda_tpu_torch.node.node import Node
+    from corda_tpu_torch.node.verifier import TOPIC_READY
 
     os.makedirs(root, exist_ok=True)
     label = "pool over TCP (11d)"
@@ -2647,9 +2692,11 @@ def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
                            verifier_type="out_of_process")).start()
     svc = node.verifier_service
     # a 16,384-request burst queues past the pool's default 5 s attempt
-    # and 30 s request deadlines; the lease (worker loss) keeps its default
+    # and 30 s request deadlines, and holds the survivor's heartbeats
+    # back past the default 10 s lease
     svc.policy = dataclasses.replace(svc.policy, attempt_timeout_micros=TCP_POOL_DEADLINE,
-                                     request_timeout_micros=TCP_POOL_DEADLINE)
+                                     request_timeout_micros=TCP_POOL_DEADLINE,
+                                     lease_micros=TCP_POOL_LEASE)
     workers = []
     base = _cuda_contexts() if check_contexts else 0
     contexts = None
@@ -2677,6 +2724,14 @@ def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
                 raise RuntimeError(f"{label}: {contexts - base} new CUDA contexts for "
                                    f"{POOL_WORKERS} workers ({_smi_apps().strip()!r})")
         workers[0].send_signal(signal.SIGSTOP)
+        heard: dict = {}       # worker -> (last heartbeat processed, longest silence)
+
+        def on_ready(msg):
+            now = time.perf_counter()
+            last, longest = heard.get(msg.sender, (now, 0.0))
+            heard[msg.sender] = (now, max(longest, now - last))
+
+        node.messaging.add_handler(TOPIC_READY, on_ready)
         m = svc.metrics
         success = m.meter("TransactionVerifierService.Verification.Success")
         failure = m.meter("TransactionVerifierService.Verification.Failure")
@@ -2726,7 +2781,8 @@ def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
         return {"answers": answers, "wall_s": wall, "send_s": send_s,
                 "deliver_s": deliver_s, "killed_at": killed_at, "redispatched": redispatched,
                 "lost": lost, "survivor": summary, "stop_s": stop_s, "gc": str(gc_clock),
-                "contexts": (base, contexts)}
+                "contexts": (base, contexts), "silence_s": _silence(heard, "w1", t0),
+                "lease_s": svc.policy.lease_micros / 1e6}
     finally:
         for w in workers:
             if w.poll() is None:
@@ -2799,11 +2855,308 @@ def phase_nodes(device, card: str, fx) -> dict:
           f"journals in {pool['deliver_s']} s, answered in {pool['wall_s']:.3f} s ({pool['gc']}); "
           f"worker 0 frozen before the batch and killed after {pool['killed_at'][1]} answers "
           f"at {pool['killed_at'][0]:.3f} "
-          f"s, workers lost {pool['lost']}, redispatched {pool['redispatched']}; survivor "
+          f"s, workers lost {pool['lost']}, redispatched {pool['redispatched']}; the "
+          f"survivor's longest silence at the node {pool['silence_s']:.3f} s of its "
+          f"{pool['lease_s']:g} s lease; survivor "
           f"{pool['survivor']}, SIGINT exit 0 in {pool['stop_s']:.3f} s; CUDA contexts "
           f"{pool['contexts'][0]} before the workers, {pool['contexts'][1]} after their warm-up "
           f"requests; {card}")
     print(f"nodes (ph. 11) launches: {json.dumps(launches)}; wall "
+          f"{time.perf_counter() - t_phase:.3f} s; {card}")
+    return launches
+
+
+# -- phase 12: the Driver, the load test, the fuzzer's corpus and the demos ---
+
+LOAD_SEED = 31               # 12a: CrossCashLoadTest's seed (the reference soak's)
+LOAD_COUNT = 16              # 12a: load-test commands (the soak's; 24 were cut for time)
+LOAD_BATCH_WAIT = 50_000     # 12a: µs the hub's batching notary holds a flush open (the soak's)
+LOAD_EMPTY = 50              # 12a: EmptyFlowLoadTest's round trips on Alice
+DEMO_SEED = 42               # 12b, 12d: the demos' default seed
+DEMO_TXS = (("batching", 4), ("single", 3))    # 12b: notary_demo flavours and their n_txs (16, 8 cut)
+FUZZ_CORPUS = (13, 30)       # 12c: the reference's slow bit-exact test's corpus (seed, n_txs)
+FUZZ_SCALE = (17, 2000)      # 12c: the same mutation over a 2,000-transaction ledger
+FUZZ_BATCHES = (128, 1024, 4096)   # 12c: phase 5's buckets
+FUZZ_SAMPLE = 256            # 12c: rows of the scaled corpus held against CpuBatchVerifier
+
+
+def load_drive(root: str, backend: str = "tpu", check_contexts: bool = True) -> dict:
+    """Phase 12a: the port's Driver (testing/driver.py) in `root` boots Hub
+    (map host, batching notary, LOAD_BATCH_WAIT), Alice (ed25519), Bob
+    (p256) and Carol (secp256k1) as `python -m corda_tpu_torch.node`
+    processes, on the Driver's default backend (the card) unless `backend`
+    names another. CrossCashLoadTest(seed=LOAD_SEED) runs LOAD_COUNT
+    commands in a tight loop, a traffic node killed (-9) and restarted at
+    0.35 and the notary at 0.65 (the reference soak's disruptions; each
+    restart waits until the new process sees the network); then
+    EmptyFlowLoadTest on Alice. Raises unless no command failed, the model
+    reconciles, every traffic node's vault total over RPC equals the model
+    and (with `check_contexts`) the card held at least one new CUDA
+    context per node while the commands ran."""
+    from corda_tpu_torch.node.vault_query import VaultQueryCriteria
+    from corda_tpu_torch.testing.driver import driver
+    from corda_tpu_torch.testing.loadtest import (
+        CrossCashLoadTest, Disruption, EmptyFlowLoadTest, kill_and_restart)
+
+    label = "load test (12a)"
+    kw = {} if backend == "tpu" else {"verifier_backend": backend}
+    base = _cuda_contexts() if check_contexts else 0
+    contexts = []
+    with driver(root) as d:
+        boot = {}
+
+        def start(name, **extra):
+            t0 = time.perf_counter()
+            d.start_node(name, **kw, **extra)
+            boot[name] = time.perf_counter() - t0
+
+        start("Hub", notary="batching", timeout=600.0, notary_batch_wait_micros=LOAD_BATCH_WAIT)
+        # the map host first; the traffic nodes boot together (each process
+        # spends most of its boot importing torch)
+        with ThreadPoolExecutor(3) as pool:
+            for f in [pool.submit(start, name, **extra) for name, extra in (
+                    ("Alice", {}), ("Bob", {"scheme": "secp256r1"}),
+                    ("Carol", {"scheme": "secp256k1"}))]:
+                f.result()
+        d.wait_for_network(4)
+        hub = d.nodes["Hub"]
+        lt = CrossCashLoadTest(d, [d.nodes[n] for n in ("Alice", "Bob", "Carol")],
+                               d.notary_identity(), seed=LOAD_SEED)
+        latencies, restarts = [], []
+        apply = lt._apply
+
+        def timed_apply(kind, *args):
+            t0 = time.perf_counter()
+            try:
+                apply(kind, *args)
+            finally:
+                latencies.append((kind, time.perf_counter() - t0))
+                if check_contexts:
+                    contexts.append(_cuda_contexts())
+
+        def timed_restart(drv, handle):
+            # kill -9 and boot, then wait until the replacement's map shows
+            # every node, as the Driver waits after a first boot: a node
+            # that pays before its map knows the notary validates sends a
+            # tear-off, which the notary refuses (both packages)
+            t0 = time.perf_counter()
+            replacement = kill_and_restart(drv, handle)
+            drv.wait_until(lambda: len(drv.wait(drv.rpc(replacement).network_map_snapshot(),
+                                                NODE_TIMEOUT)) >= len(drv.nodes), NODE_TIMEOUT)
+            restarts.append((handle.name, time.perf_counter() - t0))
+            return replacement
+
+        lt._apply = timed_apply
+        result = lt.run(count=LOAD_COUNT, timeout_per_flow=NODE_TIMEOUT, disruptions=(
+            Disruption("kill+restart traffic node", 0.35, timed_restart),
+            Disruption("kill+restart notary", 0.65, timed_restart, target=hub)))
+        if result.failed or not result.reconciled:
+            raise RuntimeError(f"{label}: {result.failed} of {result.submitted} commands failed, "
+                               f"reconciled {result.reconciled}: expected {result.expected}, "
+                               f"actual {result.actual}; notary stderr "
+                               f"{d.nodes['Hub'].stderr_tail(600)!r}")
+        totals = {}
+        for node in lt.nodes:
+            page = d.wait(d.rpc(node).vault_query_by(VaultQueryCriteria()), NODE_TIMEOUT)
+            totals[node.name] = sum(s.state.data.amount.quantity for s in page.states)
+        if totals != result.expected:
+            raise RuntimeError(f"{label}: vault totals over RPC {totals}, model {result.expected}")
+        if check_contexts and max(contexts) - base < len(d.nodes):
+            raise RuntimeError(f"{label}: at most {max(contexts) - base} new CUDA contexts for "
+                               f"{len(d.nodes)} node processes ({_smi_apps().strip()!r})")
+        if len(restarts) != 2:
+            raise RuntimeError(f"{label}: {len(restarts)} restarts, expected 2")
+        empty = EmptyFlowLoadTest(d, d.nodes["Alice"]).run(count=LOAD_EMPTY)
+    def p50(kinds):
+        lat = sorted(s for k, s in latencies if k in kinds)
+        return lat[len(lat) // 2] if lat else None
+
+    return {"result": result, "totals": totals, "boot_s": boot, "restarts": restarts,
+            "p50_s": {"all": p50(("issue", "pay")), "issue": p50(("issue",)),
+                      "pay": p50(("pay",))},
+            "max_s": max(s for _, s in latencies), "empty": empty,
+            "contexts": (base, max(contexts) if contexts else None)}
+
+
+class recorded_networks:
+    """Records every MockNetwork a demo builds (the demos return no
+    network): patches `mock_network.MockNetwork`, which the demos import
+    when they run, with a subclass that keeps each instance in `.nets`.
+    Takes the module, so a test can record either package's networks."""
+
+    def __init__(self, mock_network):
+        self.module, self.nets = mock_network, []
+
+    def __enter__(self):
+        nets, self.base = self.nets, self.module.MockNetwork
+
+        class Recording(self.base):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                nets.append(self)
+
+        self.module.MockNetwork = Recording
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.module.MockNetwork = self.base
+
+    def ids(self) -> list:
+        """Every transaction id any node of the networks recorded, sorted."""
+        return sorted({str(stx.id) for net in self.nets for node in net.nodes
+                       for stx in node.services.validated_transactions.all()})
+
+
+def notary_demo_drive(verifier=None) -> dict:
+    """Phase 12b: samples/notary_demo.run for each of DEMO_TXS over
+    `verifier` (None: the demo's default, CudaBatchVerifier() on the card),
+    then again over CpuBatchVerifier. Raises unless every transaction
+    carries one notary signature and both runs leave the same transaction
+    ids and signer keys."""
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+    from corda_tpu_torch.samples import notary_demo
+    from corda_tpu_torch.testing import mock_network
+
+    out = {}
+    for flavour, n in DEMO_TXS:
+        label = f"notary demo {flavour} (12b)"
+        runs = []
+        for v in (verifier, CpuBatchVerifier()):
+            with recorded_networks(mock_network) as rec:
+                signers, elapsed = notary_demo.run(flavour, n_txs=n, seed=DEMO_SEED,
+                                                   batch_verifier=v)
+            runs.append((signers, rec.ids(), elapsed))
+        (signers, ids, elapsed), (cpu_signers, cpu_ids, _) = runs
+        if len(signers) != n or any(len(s) != 1 for s in signers):
+            raise RuntimeError(f"{label}: notary signatures per transaction "
+                               f"{[len(s) for s in signers]}, expected {n} of 1")
+        if ids != cpu_ids or signers != cpu_signers:
+            raise RuntimeError(f"{label}: the ids or signer keys differ from the "
+                               f"CpuBatchVerifier run's")
+        out[flavour] = {"txs": n, "elapsed_s": elapsed, "ids": len(ids)}
+    return out
+
+
+def mutated_corpus(seed: int, n_txs: int) -> tuple:
+    """The reference's fuzz corpus (tests/test_generators.py
+    `_mutated_corpus`) with its labels: every signature of
+    GeneratedLedger(seed).grow(n_txs), a quarter with the last byte's low
+    bit flipped, 15% with a byte added to the payload, 10% truncated to
+    half (the draws of random.Random(seed + 1)). Returns (requests,
+    labels); a label is True for an intact row, which must verify."""
+    from corda_tpu_torch.crypto.batch_verifier import VerificationRequest
+    from corda_tpu_torch.testing.generators import GeneratedLedger
+
+    rng = random.Random(seed + 1)
+    reqs, labels = [], []
+    for pub, sig, payload in GeneratedLedger(seed=seed).grow(n_txs).all_signatures():
+        roll = rng.random()
+        intact = False
+        if roll < 0.25:
+            sig = bytes(sig[:-1]) + bytes([sig[-1] ^ 0x01])
+        elif roll < 0.4:
+            payload = payload + b"\x00"
+        elif roll < 0.5 and len(sig) > 4:
+            sig = sig[: len(sig) // 2]
+        else:
+            intact = True
+        reqs.append(VerificationRequest(pub, sig, payload))
+        labels.append(intact)
+    return reqs, labels
+
+
+def fuzz_drive(verifier, cpu) -> dict:
+    """Phase 12c: the FUZZ_CORPUS corpus and the FUZZ_SCALE one through
+    `verifier` (one call each); every verdict must equal its label, and
+    CpuBatchVerifier's on the whole small corpus and FUZZ_SAMPLE sampled
+    rows of the large one."""
+    t0 = time.perf_counter()
+    small, small_labels = mutated_corpus(*FUZZ_CORPUS)
+    big, big_labels = mutated_corpus(*FUZZ_SCALE)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_small = verifier.verify_batch(small)
+    got_big = verifier.verify_batch(big)
+    verify_s = time.perf_counter() - t0
+    pick = sorted(random.Random(FUZZ_SCALE[0]).sample(range(len(big)), FUZZ_SAMPLE))
+    cpu_small = cpu.verify_batch(small)
+    cpu_big = cpu.verify_batch([big[i] for i in pick])
+    for name, got, want in (
+            ("30-tx corpus against its labels", got_small, small_labels),
+            ("scaled corpus against its labels", got_big, big_labels),
+            ("30-tx corpus against CpuBatchVerifier", got_small, cpu_small),
+            ("sampled rows against CpuBatchVerifier", [got_big[i] for i in pick], cpu_big)):
+        wrong = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        if len(got) != len(want) or wrong:
+            raise RuntimeError(f"fuzz (12c): {name}: rows {wrong[:8]} differ")
+    schemes = {}
+    for r in small + big:
+        schemes[r.key.scheme_id] = schemes.get(r.key.scheme_id, 0) + 1
+    return {"rows": (len(small), len(big)), "intact": (sum(small_labels), sum(big_labels)),
+            "schemes": schemes, "gen_s": gen_s, "verify_s": verify_s}
+
+
+def trader_drive(verifier=None) -> dict:
+    """Phase 12d: samples/trader_demo.run over `verifier` (None: the
+    demo's default, the card). Raises unless the buyer holds one paper and
+    the seller 92,000."""
+    from corda_tpu_torch.samples import trader_demo
+
+    t0 = time.perf_counter()
+    paper, cash = trader_demo.run(seed=DEMO_SEED, batch_verifier=verifier)
+    if len(paper) != 1 or cash != 92_000:
+        raise RuntimeError(f"trader demo (12d): buyer paper {len(paper)}, seller cash {cash}")
+    return {"paper": len(paper), "cash": cash, "wall_s": time.perf_counter() - t0}
+
+
+def phase_drives(device, card: str) -> dict:
+    """Phase 12 (module docstring); returns the in-process launches of
+    12b-12d."""
+    import os
+    import tempfile
+
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier, CudaBatchVerifier
+
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "corda_tpu_torch")
+    os.makedirs(scratch, exist_ok=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="drives-") as tmp:
+        load = load_drive(os.path.join(tmp, "load"))
+    r = load["result"]
+    print(f"load test (12a): nodes booted in "
+          f"{json.dumps({k: round(v, 3) for k, v in load['boot_s'].items()})} s; {r.submitted} "
+          f"commands, {r.failed} failed, in {r.elapsed_s:.3f} s = {r.throughput:.3f} "
+          f"commands/s, per command p50 {load['p50_s']['all']:.3f} s (issues "
+          f"{load['p50_s']['issue']:.3f} s, payments {load['p50_s']['pay']:.3f} s), max "
+          f"{load['max_s']:.3f} s; "
+          f"restarts (kill -9 and boot) {[(n, round(s, 3)) for n, s in load['restarts']]}; "
+          f"reconciled, vault totals over RPC {load['totals']}; empty flows "
+          f"{load['empty']['count']} at {load['empty']['flows_per_s']:.2f} flows/s, "
+          f"{load['empty']['avg_latency_ms']:.2f} ms each; CUDA contexts "
+          f"{load['contexts'][0]} before the nodes, at most {load['contexts'][1]} while the "
+          f"commands ran; {card}")
+    _zero_counters()
+    demos = notary_demo_drive()
+    for flavour, d in demos.items():
+        print(f"notary demo {flavour} (12b): {d['txs']} payments notarised in "
+              f"{d['elapsed_s']:.3f} s = {d['txs'] / d['elapsed_s']:.3f} tx/s, one notary "
+              f"signature each; {d['ids']} transaction ids and the signer keys equal to "
+              f"CpuBatchVerifier's; {card}")
+    fuzz = fuzz_drive(CudaBatchVerifier(device=device, batch_sizes=FUZZ_BATCHES),
+                      CpuBatchVerifier())
+    print(f"fuzz (12c): {fuzz['rows'][0]} + {fuzz['rows'][1]} rows (intact "
+          f"{fuzz['intact'][0]} + {fuzz['intact'][1]}; by scheme id {json.dumps(fuzz['schemes'])}), "
+          f"generated in {fuzz['gen_s']:.3f} s, verified on the card in {fuzz['verify_s']:.3f} s: "
+          f"every verdict its label; the 30-tx corpus and {FUZZ_SAMPLE} sampled rows equal to "
+          f"CpuBatchVerifier; {card}")
+    trader = trader_drive()
+    print(f"trader demo (12d): buyer {trader['paper']} paper, seller {trader['cash']} in "
+          f"{trader['wall_s']:.3f} s; {card}")
+    launches = _read_counters()
+    for kernel in ("ed_ladder", "wei_ladder_windowed", "wei_ladder"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} was not launched in 12b-12d")
+    print(f"drives (ph. 12) launches in 12b-12d: {json.dumps(launches)}; wall "
           f"{time.perf_counter() - t_phase:.3f} s; {card}")
     return launches
 
@@ -2853,13 +3206,15 @@ def main(argv=None) -> int:
     phase_pool(device, card, fx)
     clusters = phase_clusters(device, card, fx)
     nodes = phase_nodes(device, card, fx)
+    drives = phase_drives(device, card)
     for n, r in report.items():
         r["clusters_launches"] = clusters[n]
         r["nodes_launches"] = nodes[n]
+        r["drives_launches"] = drives[n]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "clusters_launches",
-            "nodes_launches")
+            "nodes_launches", "drives_launches")
     table = {"kernels": [
         {k: ({"name": n, **r}[k]) for k in keys} for n, r in report.items()
     ]}

@@ -2,8 +2,8 @@
 the scheduled heartbeat).
 
 Port of corda_tpu/testing/flows.py, with the vault-query fixture
-(DummyLinearState, `make_linear_state_tx`) and without the reference's
-NoOpFlow performance probe. Module-
+(DummyLinearState, `make_linear_state_tx`) and the empty-flow probe
+(NoOpFlow, which the load test's EmptyFlowLoadTest starts). Module-
 level so checkpoint restore can re-import them
 (statemachine._reconstruct_logic); their tags are the reference's paths
 (`corda_tpu.testing.flows.PingFlow`).
@@ -205,3 +205,12 @@ class NoResponderFlow(FlowLogic):
         reply = yield from self.send_and_receive(self.other, 1, int)
         return reply
 
+
+
+@initiating_flow
+class NoOpFlow(FlowLogic):
+    """The empty flow: no IO, returns immediately — the
+    NodePerformanceTests round-trip probe (NodePerformanceTests.kt:59)."""
+
+    def call(self):
+        return "done"

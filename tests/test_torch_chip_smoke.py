@@ -428,6 +428,14 @@ def _pool_inputs(n: int):
     return fx, [stx.to_ledger_transaction(hub) for stx in fx.spends]
 
 
+def _default_lease(monkeypatch):
+    """11d at a few dozen requests holds no heartbeat back: the pool's
+    default lease, so that worker 0 is detached in seconds."""
+    from corda_tpu_torch.node.verifier import RedispatchPolicy
+
+    monkeypatch.setattr(cs, "TCP_POOL_LEASE", RedispatchPolicy().lease_micros)
+
+
 def test_node_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
     """chip_smoke's phase 11 on the CPU at small depth: (a) the trio over
     verifier_backend "cpu" nodes twice, with one concurrent payment per
@@ -451,10 +459,12 @@ def test_node_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
     cli = cs.cli_drive(str(tmp_path / "cli"), backend="cpu", check_contexts=False)
     assert cli["balances"] == {"CliHub": 300, "CliBob": 700}
     fx, ltxs = _pool_inputs(32)
+    _default_lease(monkeypatch)
     pool = cs.pool_tcp_drive(str(tmp_path / "pool"), ltxs, fx.spends, cpu_workers=True,
                              check_contexts=False)
     cs._check_pool_answers(pool["answers"], fx.labels, "t")
     assert pool["lost"] == 1 and pool["redispatched"] > 0 and pool["deliver_s"] is not None
+    assert 0 < pool["silence_s"] < pool["lease_s"]
     assert pool["survivor"][0].startswith("verifier worker w1: ")
 
 
@@ -497,7 +507,91 @@ def test_node_checks_raise_on_a_wrong_answer(monkeypatch, tmp_path):
         cs.cli_drive(str(tmp_path / "cli"), backend="cpu")
     # 11d: worker 0 is never killed (its lease still expires)
     monkeypatch.setattr(cs, "TCP_POOL_KILL_AT", 2.0)
+    _default_lease(monkeypatch)
     fx, ltxs = _pool_inputs(16)
     with pytest.raises(RuntimeError, match="killed at None, workers lost 1"):
         cs.pool_tcp_drive(str(tmp_path / "pool"), ltxs, fx.spends, cpu_workers=True,
                           check_contexts=False)
+
+
+def test_drives_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread):
+    """chip_smoke.phase_drives end to end on the CPU at small depth: (a)
+    the load test through four `verifier_backend = "cpu"` node processes,
+    8 commands with both restarts and 5 empty flows, no command failed and
+    the model the reference's for the seed; (b) the notary demo, batching
+    (2 payments) and single (1), and (d) the trader demo, on MockNetwork's
+    default verifier made CpuBatchVerifier; (c) the 30-tx corpus cut to 6
+    and a 20-tx ledger's mutation through the card's path on the CPU
+    (CudaBatchVerifier(device="cpu"), counted plain versions), every
+    verdict its label. Every check and print of the phase runs; the three
+    kernels of the path launch in (c)."""
+    import torch
+    from test_torch_loadtest import SOAK, command_stream
+
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+    from corda_tpu_torch.testing import mock_network
+
+    monkeypatch.setattr(cs, "LOAD_COUNT", 8)
+    monkeypatch.setattr(cs, "LOAD_EMPTY", 5)
+    monkeypatch.setattr(cs, "DEMO_TXS", (("batching", 2), ("single", 1)))
+    monkeypatch.setattr(cs, "FUZZ_CORPUS", (13, 6))
+    monkeypatch.setattr(cs, "FUZZ_SCALE", (17, 20))
+    monkeypatch.setattr(cs, "FUZZ_SAMPLE", 8)
+    monkeypatch.setattr(mock_network, "CudaBatchVerifier", CpuBatchVerifier)
+    _counted_plain_versions(monkeypatch)
+    load, real = {}, cs.load_drive
+    monkeypatch.setattr(cs, "load_drive", lambda root: load.update(
+        real(root, "cpu", check_contexts=False)) or load)
+    launches = cs.phase_drives(torch.device("cpu"), "cpu rehearsal")
+    assert all(launches[k] > 0 for k in ("ed_ladder", "wei_ladder_windowed", "wei_ladder"))
+    r = load["result"]
+    assert (r.submitted, r.failed, r.reconciled) == (8, 0, True)
+    want = command_stream("corda_tpu", cs.LOAD_SEED, ("Alice", "Bob", "Carol"), 8, SOAK)
+    assert r.expected == load["totals"] == want["expected"]
+    assert [n for n, _ in load["restarts"]] == [want["victims"][0], "Hub"]
+    assert set(load["boot_s"]) == {"Hub", "Alice", "Bob", "Carol"}
+    assert all(v > 0 for v in load["p50_s"].values()) and load["max_s"] >= load["p50_s"]["all"]
+    assert load["empty"]["count"] == 5 and load["contexts"] == (0, None)
+    out = capsys.readouterr().out
+    for line in ("load test (12a): nodes booted", "notary demo batching (12b): 2 payments",
+                 "notary demo single (12b): 1 payments", "every verdict its label",
+                 "trader demo (12d): buyer 1 paper, seller 92000", "drives (ph. 12) launches"):
+        assert line in out, line
+
+
+def test_drive_checks_raise_on_a_wrong_answer(monkeypatch):
+    """Each phase-12 check refuses a wrong answer: a verifier that accepts
+    every row (12c), a notary demo whose transaction carries two notary
+    signatures or whose card run differs from the CPU run (12b), a
+    trader demo with no paper delivered (12d)."""
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+    from corda_tpu_torch.samples import notary_demo, trader_demo
+
+    monkeypatch.setattr(cs, "FUZZ_CORPUS", (13, 4))
+    monkeypatch.setattr(cs, "FUZZ_SCALE", (17, 4))
+    monkeypatch.setattr(cs, "FUZZ_SAMPLE", 4)
+
+    class AcceptsAll:
+        def verify_batch(self, requests):
+            return [True] * len(requests)
+
+    with pytest.raises(RuntimeError, match="30-tx corpus against its labels"):
+        cs.fuzz_drive(AcceptsAll(), CpuBatchVerifier())
+    monkeypatch.setattr(cs, "DEMO_TXS", (("single", 1),))
+    run = notary_demo.run
+    monkeypatch.setattr(notary_demo, "run", lambda *a, **kw: (
+        lambda out: ([s * 2 for s in out[0]], out[1]))(run(*a, **kw)))
+    with pytest.raises(RuntimeError, match="notary signatures per transaction"):
+        cs.notary_demo_drive(CpuBatchVerifier())
+    calls = []
+
+    def seeded(*a, **kw):
+        calls.append(1)
+        return run(*a, **{**kw, "seed": kw["seed"] + len(calls)})
+
+    monkeypatch.setattr(notary_demo, "run", seeded)
+    with pytest.raises(RuntimeError, match="differ from the CpuBatchVerifier run"):
+        cs.notary_demo_drive(CpuBatchVerifier())
+    monkeypatch.setattr(trader_demo, "run", lambda **kw: ([], 92_000))
+    with pytest.raises(RuntimeError, match="buyer paper 0"):
+        cs.trader_drive(CpuBatchVerifier())

@@ -50,13 +50,15 @@ def test_ast_scan_finds_no_banned_import():
     pool and worker, the wire ingest, deadline shedding) and of the node
     slice (the TCP fabric, config, the network map, RPC, node boot and
     its CLI, the health plane, tracing, X.509 and legal names,
-    cordform, the dev TLS identities) are scanned.
+    cordform, the dev TLS identities) and of the driver slice (the
+    multi-process Driver, the load test, the ledger fuzzer, the demos,
+    the client plumbing) are scanned.
     The Cash contract's
     wire name, "corda_tpu.finance.Cash", the sandbox's platform module
     names and the flows' class tags are strings, not imports."""
     offenders = []
     files = _modules()
-    assert len(files) >= 71
+    assert len(files) >= 81
     for must in ("crypto/eddsa.py", "node/notary.py", "node/services.py",
                  "core/transactions.py", "finance/cash.py", "native/__init__.py",
                  "native/build.py", "crypto/sphincs.py", "core/sandbox.py",
@@ -68,7 +70,10 @@ def test_ast_scan_finds_no_banned_import():
                  "node/fabric.py", "node/config.py", "node/network_map.py", "node/rpc.py",
                  "node/node.py", "node/__main__.py", "utils/health.py", "utils/tracing.py",
                  "utils/x509.py", "utils/legal_name.py", "testing/cordform.py",
-                 "testing/dev_tls.py"):
+                 "testing/dev_tls.py", "testing/driver.py", "testing/loadtest.py",
+                 "testing/generators.py", "samples/__init__.py", "samples/notary_demo.py",
+                 "samples/trader_demo.py", "samples/bank_of_corda_demo.py",
+                 "samples/attachment_demo.py", "client/__init__.py", "client/common.py"):
         assert PKG / must in files
     assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
         "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh", "wei_ladder.cu"
@@ -154,6 +159,13 @@ net.run()
 assert worker.drain() == 1
 net.run()
 fut.result()
+from corda_tpu_torch.client.common import find_flow_class
+assert find_flow_class("CashPaymentFlow") == "corda_tpu.finance.cash.CashPaymentFlow"
+assert find_flow_class("NoOpFlow") == "corda_tpu.testing.flows.NoOpFlow"
+assert find_flow_class("ShareAttachmentFlow") == "corda_tpu.samples.attachment_demo.ShareAttachmentFlow"
+from corda_tpu_torch.samples import notary_demo
+signers, _ = notary_demo.run("single", n_txs=1, batch_verifier=CpuBatchVerifier())
+assert [len(s) for s in signers] == [1]
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu")]
 assert not bad, bad
 print(len(names))
@@ -168,14 +180,15 @@ def test_imports_with_jax_and_reference_blocked():
     passes and rejects as it should, and a payment between two nodes,
     checkpointed while it awaits the validating notary, is restored by a
     fresh state machine from its `corda_tpu.finance.cash` class tag and
-    completes, and a verifier worker with the ingest pipeline verifies
-    that payment for the pool."""
+    completes, a verifier worker with the ingest pipeline verifies
+    that payment for the pool, `find_flow_class` resolves flows by the
+    reference's tags and the notary demo runs."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 71
+    assert int(out.stdout.strip().splitlines()[-1]) >= 81
 
 
 _SERVING_PROCESS = r"""
@@ -188,7 +201,12 @@ class Block:
 sys.meta_path.insert(0, Block())
 which, argv = sys.argv[1], sys.argv[2:]
 
+imported = threading.Event()
+
 def check():
+    # the signal waits for the imports (seconds on a loaded host: a signal
+    # that lands in torch's import is a KeyboardInterrupt there, not a stop)
+    imported.wait()
     time.sleep(4)      # serving: the node pumps, the worker announced itself
     banned = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu"))
     print("SERVING", "torch" in sys.modules, banned, flush=True)
@@ -197,8 +215,10 @@ def check():
 threading.Thread(target=check, daemon=True).start()
 if which == "node":
     from corda_tpu_torch.node.__main__ import main
+    imported.set()
     sys.exit(main(argv))
 from corda_tpu_torch.node.verifier import main
+imported.set()
 main(argv)
 """
 

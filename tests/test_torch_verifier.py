@@ -5,8 +5,10 @@ Every case of the reference's tests/test_verifier.py (offload, buffering
 until a worker attaches, an invalid signature, round robin, one dispatch
 per batched drain, a malformed transaction, worker churn, a lost answer,
 the buffer drained exactly once, the signature gate before contract
-execution, failures delivered before sends) and the typed timeout of
-`wait` run on the same seeded MockNetwork in each package over
+execution, failures delivered before sends), the typed timeout of
+`wait` and the lease fault both packages share (a worker whose drain
+outlasts its lease is re-dispatched onto itself until a drain fits) run
+on the same seeded MockNetwork in each package over
 CpuBatchVerifier. Required equal between the packages: every frame on
 the verifier topics (sender, target, topic, payload bytes: requests,
 responses, WorkerReady), every answer (its exception class and message),
@@ -302,6 +304,56 @@ def case_lost_answer_redispatched(P):
     assert _answer(fut) == "ok" and svc.worker_count == 2
     assert svc.metrics.meter("Verifier.WorkersLost").count == 0
     return _outcome(rig, svc, [fut], [w1, w2])
+
+
+def case_drain_outlasting_its_lease(P):
+    """The lease fault both packages share: a worker renews its lease
+    only when a drain starts (`maybe_heartbeat`), so a drain longer than
+    `lease_micros` (a slow verifier: the TestClock moves 250 ms inside
+    each verify_batch, against a 100 ms lease) detaches it before its
+    answers land. The answers are refused as stale, the nonces
+    re-dispatched onto the same worker when it re-announces, and so on:
+    no future is answered while the drains stay slow. Once a drain fits
+    in the lease, every future is answered."""
+    rig = Rig(P)
+    clock = rig.net.clock
+    svc = _churn_pool(rig)
+
+    class Slow(P.bv.CpuBatchVerifier):
+        slow = True
+
+        def verify_batch(self, requests):
+            if self.slow:
+                clock.advance(250_000)
+            return super().verify_batch(requests)
+
+    verifier = Slow()
+    w = rig.worker("worker-1", clock=clock, heartbeat_micros=50_000, batch_window=100,
+                   batch_verifier=verifier)
+    rig.run()
+    futs = [svc.verify(rig.ltx, rig.stx) for _ in range(3)]
+    rig.run()
+    rounds = []
+
+    def one_round():
+        drained = w.drain()
+        svc.tick()              # the node's tick lands inside the slow drain's wake
+        rig.run()
+        clock.advance(60_000)
+        svc.tick()              # back-off over: re-dispatch
+        rig.run()
+        m = _pool_metrics(svc)
+        rounds.append((drained, m["redispatched"], m["workers_lost"], m["in_flight"]))
+
+    for _ in range(4):
+        one_round()
+    assert not any(f.done for f in futs)
+    assert rounds[-1][1] >= 6 and rounds[-1][2] >= 3
+    verifier.slow = False
+    while not all(f.done for f in futs) and len(rounds) < 10:
+        one_round()
+    assert [_answer(f) for f in futs] == ["ok"] * 3 and svc.in_flight == 0
+    return {**_outcome(rig, svc, futs, [w]), "rounds": rounds}
 
 
 def case_straggler_hedged_first_answer_wins(P):

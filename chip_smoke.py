@@ -197,7 +197,7 @@ Phases (any failure raises and exits non-zero):
      corda_tpu_torch.node.verifier` processes (batch window 256): a
      warm-up request each, after which each worker must hold a CUDA
      context (counted as in (c)); worker 0 frozen (SIGSTOP) so that it
-     holds its share unanswered; the 16,384 phase-6 spends as
+     holds its share unanswered; the first 4,096 phase-6 spends as
      `verify(ltx, stx)` requests through the durable journals; once a
      quarter is answered worker 0 gets SIGKILL; its unanswered nonces
      re-dispatch to the survivor when its lease expires. Every answer
@@ -235,10 +235,35 @@ Phases (any failure raises and exits non-zero):
      sampled rows of the large one; (d) samples/trader_demo.run on the
      card: one paper to the buyer, 92,000 to the seller. ed_ladder,
      wei_ladder_windowed and wei_ladder must launch within (b)-(d);
- 13. print the kernel table as one JSON line (with each kernel's
+ 13. the perf, device and wire planes (utils/perf.py,
+     utils/device_telemetry.py, utils/wire_telemetry.py) over the first
+     4,096 phase-6 spends, their wire bytes delivered over an in-memory
+     fabric to a batching notary over CudaBatchVerifier(batch_sizes=
+     (4096,)), with fresh process kernel and device ledgers and a
+     HealthMonitor watching the three planes: (a) two flushes, every
+     answer its label under phase 6's checks: one compile per (scheme,
+     batch) key on the first, executes only and 0 retraces after
+     mark_warm() on the second; the card's device row (platform "gpu",
+     its name, its total memory as the limit, live buffers > 0), the
+     device ledger of cuda:0 (busy seconds, dispatches, queue wait,
+     transfer bytes and seconds), the plane's busy fraction, the
+     capacity model's binding constraint with every headroom fraction,
+     the alerts and the wire totals; (b) one torch.profiler window (CPU
+     and CUDA) over one warm ed25519 chunk of that flush: summed kernel
+     time, the ladder kernel's share of it and the card's busy share of
+     the window, beside the device plane's busy fraction (the launch
+     wall) for the same window; (c) the flush with the planes on and
+     off, 3 interleaved pairs, the min-of-walls overhead (not gated);
+     (d) a `python -m corda_tpu_torch.node.verifier --profile-hz 19
+     --profile-out <file>` process draining 256 requests for a node's
+     pool, every answer its label, SIGINT exit 0 and a non-empty
+     folded-stack file. ed_ladder and wei_ladder_windowed must launch
+     in (a)-(c);
+ 14. print the kernel table as one JSON line (with each kernel's
      launches in phase 10 as "clusters_launches", in 11a-11b as
-     "nodes_launches" and in 12b-12d as "drives_launches"), then the
-     result line {"ok": true, "device": {...}}.
+     "nodes_launches", in 12b-12d as "drives_launches" and in 13a-13c
+     as "telemetry_launches"), then the result line {"ok": true,
+     "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
 """
@@ -248,6 +273,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+from contextlib import contextmanager
 from concurrent.futures import ThreadPoolExecutor
 import random
 import subprocess
@@ -840,9 +866,10 @@ def _check_codecs(wire: list, card: str) -> None:
           f"{(t5 - t4) * us:.1f}, encode {(t3 - t2) * us:.1f} / {(t6 - t5) * us:.1f}; {card}")
 
 
-def _check_notary(fx, svc, answers, calls, label: str) -> dict:
-    """Hold one notary pass to its fixture; returns the pass's dispatch
-    figures (host staging s, device s, rows)."""
+def _check_notary(fx, svc, answers, calls, label: str, sample_rows: int | None = None) -> dict:
+    """Hold one notary pass to its fixture, with `sample_rows` of the
+    card's verdicts (NOTARY_SAMPLE by default) against CpuBatchVerifier;
+    returns the pass's dispatch figures (host staging s, device s, rows)."""
     import random as _random
 
     from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
@@ -867,7 +894,9 @@ def _check_notary(fx, svc, answers, calls, label: str) -> dict:
     if len(reqs) != len(verdicts) or verdicts.count(False) != fx.labels.count("invalid-signature"):
         raise RuntimeError(f"{label}: the card rejected {verdicts.count(False)} of "
                            f"{len(verdicts)} rows")
-    sample = sorted(_random.Random(len(reqs)).sample(range(len(reqs)), min(NOTARY_SAMPLE, len(reqs))))
+    if sample_rows is None:
+        sample_rows = NOTARY_SAMPLE
+    sample = sorted(_random.Random(len(reqs)).sample(range(len(reqs)), min(sample_rows, len(reqs))))
     if CpuBatchVerifier().verify_batch([reqs[i] for i in sample]) != [verdicts[i] for i in sample]:
         raise RuntimeError(f"{label}: the card's verdicts differ from CpuBatchVerifier")
     signed = [i for i, k in enumerate(kinds) if k == "ok"]
@@ -2201,7 +2230,8 @@ NODE_TIMEOUT = 180.0         # s any one node-drive step may take before the pha
 TCP_POOL_WINDOW = 256        # 11d: a worker's --batch-window (requests per handler drain)
 TCP_POOL_KILL_AT = 0.25      # 11d: share of answers after which worker 0 gets SIGKILL
 TCP_POOL_DEADLINE = 600_000_000   # 11d: the pool's attempt and request deadlines (µs)
-TCP_POOL_LEASE = 60_000_000  # 11d: the pool's lease (µs) for the burst; the default 10 s
+TCP_POOL_REQUESTS = 4096     # 11d: the first phase-6 spends as requests (16,384 cut for time)
+TCP_POOL_LEASE = 30_000_000  # 11d: the pool's lease (µs) for the burst; the default 10 s
 #                              is shorter than a heartbeat's wait behind the burst's frames
 
 
@@ -2691,9 +2721,9 @@ def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
                            key_seed=NODE_SEED, use_tls=False,
                            verifier_type="out_of_process")).start()
     svc = node.verifier_service
-    # a 16,384-request burst queues past the pool's default 5 s attempt
-    # and 30 s request deadlines, and holds the survivor's heartbeats
-    # back past the default 10 s lease
+    # a burst of thousands of requests queues past the pool's default
+    # 5 s attempt and 30 s request deadlines, and can hold the survivor's
+    # heartbeats back past the default 10 s lease
     svc.policy = dataclasses.replace(svc.policy, attempt_timeout_micros=TCP_POOL_DEADLINE,
                                      request_timeout_micros=TCP_POOL_DEADLINE,
                                      lease_micros=TCP_POOL_LEASE)
@@ -2845,8 +2875,9 @@ def phase_nodes(device, card: str, fx) -> dict:
               f"{card}")
 
         hub = notary_hub(fx, bv.CpuBatchVerifier())
-        ltxs = [stx.to_ledger_transaction(hub) for stx in fx.spends]
-        pool = pool_tcp_drive(os.path.join(tmp, "pool"), ltxs, fx.spends)
+        picks = fx.spends[:TCP_POOL_REQUESTS]
+        ltxs = [stx.to_ledger_transaction(hub) for stx in picks]
+        pool = pool_tcp_drive(os.path.join(tmp, "pool"), ltxs, picks)
     _check_pool_answers(pool["answers"], fx.labels, "pool over TCP (11d)")
     n = len(ltxs)
     print(f"pool over TCP (11d): {n} requests in {pool['wall_s']:.3f} s = "
@@ -3161,6 +3192,450 @@ def phase_drives(device, card: str) -> dict:
     return launches
 
 
+# -- phase 13: the perf, device and wire planes on the card -------------------
+
+TELEMETRY_SPENDS = 4096      # 13a-13c: the first phase-6 spends, one chunk per scheme
+TELEMETRY_SAMPLE = 16        # 13a: the first pass's card verdicts held against the CPU
+TELEMETRY_PAIRS = 3          # 13c: interleaved on/off pairs of the flush
+TELEMETRY_WORKER = 256       # 13d: requests drained by the profiled worker process
+TELEMETRY_PROFILE_HZ = 19    # 13d: the worker's --profile-hz
+TOPIC_SUBMIT = "telemetry.submit"
+
+
+@contextmanager
+def _private_ledgers():
+    """Fresh process kernel and device ledgers (what every
+    CudaBatchVerifier records into) for the block, the old ones put back
+    after it; yields the device ledger."""
+    from corda_tpu_torch.utils import device_telemetry as dlib
+    from corda_tpu_torch.utils import perf as plib
+
+    saved = (plib.get_kernel_accounting(), dlib.get_device_accounting())
+    acct = dlib.DeviceAccounting()
+    plib.set_kernel_accounting(plib.KernelAccounting())
+    dlib.set_device_accounting(acct)
+    try:
+        yield acct
+    finally:
+        plib.set_kernel_accounting(saved[0])
+        dlib.set_device_accounting(saved[1])
+
+
+class _Planes:
+    """The three planes of one phase-13 run over a notary: the perf plane
+    attached to the notary, the device plane over the notary's queues
+    and the card (`sampler`), the wire plane on the in-memory fabric the
+    spends arrive by (the notary's endpoint, and the client's sends), a
+    HealthMonitor watching all three. The planes adopt the process
+    ledgers of the moment."""
+
+    def __init__(self, svc, fabric, client, sampler):
+        from corda_tpu_torch.utils import device_telemetry as dlib
+        from corda_tpu_torch.utils import perf as plib
+        from corda_tpu_torch.utils import wire_telemetry as wlib
+        from corda_tpu_torch.utils.health import HealthMonitor
+
+        self.perf = plib.PerfPlane(metrics=svc.metrics, policy=plib.PerfPolicy(
+            sample_gap_micros=0, profile_hz=TELEMETRY_PROFILE_HZ))
+        self.device = dlib.DevicePlane(metrics=svc.metrics, perf=self.perf, sampler=sampler,
+                                       policy=dlib.DevicePolicy(sample_gap_micros=0))
+        self.wire = wlib.WirePlane(metrics=svc.metrics,
+                                   policy=wlib.WirePolicy(sample_gap_micros=0))
+        self.monitor = HealthMonitor(metrics=svc.metrics)
+        self.monitor.watch_perf(self.perf)
+        self.monitor.watch_device(self.device)
+        self.monitor.watch_wire(self.wire)
+        self.device.set_wire_feed(self.wire.wire_host_seconds)
+        self._svc, self._fabric, self._client = svc, fabric, client
+        svc.attach_device(self.device)
+        self.on(True)
+
+    def on(self, flag: bool) -> None:
+        """Attach (True) or detach (False) the perf and wire planes."""
+        self._svc.attach_perf(self.perf if flag else None)
+        if flag:
+            self.wire.attach_fabric(self._fabric)
+            self._client.telemetry = self.wire.fabric
+        else:
+            self._fabric.telemetry = self._client.telemetry = None
+
+    def tick(self) -> None:
+        self.perf.tick()
+        self.device.tick()
+        self.wire.tick()
+        self.monitor.tick()
+
+    def close(self) -> None:
+        self.on(False)
+
+
+def telemetry_flush(svc, planes, wire: list, fx, verifier, ticked: bool, label: str,
+                    sample_rows: int = 0) -> tuple:
+    """One 13a/13c pass: every spend's wire bytes over the in-memory
+    fabric to the notary's endpoint, decoded there, `process`ed and
+    flushed, the answers held to their labels (phase 6's checks, with
+    `sample_rows` verdicts against the CPU: phase 6 checked more); with
+    `ticked` the planes tick after the flush, inside the wall, and
+    garbage collection is off inside it. Returns
+    (wall seconds, signature rows dispatched)."""
+    from corda_tpu_torch.node.notary import (
+        InMemoryUniquenessProvider, finish_process, run_process)
+
+    svc.uniqueness = InMemoryUniquenessProvider()
+    verifier.calls = []
+    client, received = planes["client"], planes["received"]
+    received.clear()
+    gc.disable()      # no collection inside either arm of 13c's A/B
+    try:
+        t0 = time.perf_counter()
+        for blob in wire:
+            client.send(TOPIC_SUBMIT, blob, "TelemetryNotary")
+        planes["net"].run()
+        started = run_process([svc.process(stx, fx.requester) for stx in received])
+        svc.flush()
+        answers = finish_process(started)
+        if ticked:
+            planes["planes"].tick()
+        wall = time.perf_counter() - t0
+    finally:
+        gc.enable()
+    disp = _check_notary(fx, svc, answers, verifier.calls, label, sample_rows)
+    return wall, disp["rows"]
+
+
+def _kernel_intervals(events) -> tuple:
+    """(window µs, [(start, end, name)] µs of the device activities) of a
+    torch.profiler capture's raw events (`prof.profiler.kineto_results
+    .events()`, read without building the Python event tree, which takes
+    minutes for a chunk's ~200,000 events). The window spans every event;
+    user annotations (record_function ranges, also mirrored on the
+    device's timeline) are not device work."""
+    from torch.autograd import DeviceType
+
+    lo = hi = None
+    kernels = []
+    for evt in events:
+        start, end = evt.start_ns() / 1e3, evt.end_ns() / 1e3
+        lo = start if lo is None else min(lo, start)
+        hi = end if hi is None else max(hi, end)
+        name = evt.name()
+        if (evt.device_type() == DeviceType.CUDA and not evt.is_user_annotation()
+                and not name.startswith("corda_tpu.")):
+            kernels.append((start, end, name))
+    return (hi - lo if lo is not None else 0.0), kernels
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, None
+    for s, e, _ in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def profile_window(verifier, reqs, planes) -> dict:
+    """13b: one torch.profiler window (CPU and CUDA activities) over one
+    verify_batch of `reqs` (one chunk), with a device plane and ledgers
+    of its own, anchored just before and ticked just after, so its busy
+    fraction covers the same window. Raises if the capture holds no device time
+    or the ladder kernel is not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from corda_tpu_torch.utils import device_telemetry as dlib
+
+    # the window's launch, slowed by the profiler, goes to ledgers of its
+    # own, not to the flushes' (13a's readings and capacity model)
+    with _private_ledgers() as acct:
+        # an empty row for the card, so that the window's first tick
+        # anchors it (a plane windows only the rows it has seen twice)
+        acct.record_transfer(verifier.device.index or 0, 0, 0.0)
+        window_plane = dlib.DevicePlane(sampler=planes.device.sampler, accounting=acct,
+                                        policy=dlib.DevicePolicy(sample_gap_micros=0,
+                                                                 live_buffer_census=False))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            window_plane.tick()
+            verdicts = verifier.verify_batch(reqs)
+            torch.cuda.synchronize()
+            window_plane.tick()
+            t1 = time.perf_counter()
+        t2 = time.perf_counter()
+    window_us, kernels = _kernel_intervals(prof.profiler.kineto_results.events())
+    t3 = time.perf_counter()
+    if not kernels:
+        raise RuntimeError("profiler window (13b): no device time in the capture")
+    kernel_us = sum(e - s for s, e, _ in kernels)
+    ladder_us = sum(e - s for s, e, name in kernels if "ladder" in name)
+    if ladder_us <= 0:
+        raise RuntimeError("profiler window (13b): no ladder kernel in the capture")
+    if window_plane.busy_fraction_max() <= 0:
+        raise RuntimeError("profiler window (13b): the device plane read no busy time")
+    return {"rows": len(reqs), "verdicts": verdicts, "window_ms": window_us / 1e3,
+            "capture_s": t1 - t0, "stop_s": t2 - t1, "read_s": t3 - t2,
+            "kernels": len(kernels), "kernel_ms": kernel_us / 1e3,
+            "ladder_ms": ladder_us / 1e3, "ladder_share": ladder_us / kernel_us,
+            "busy_share": _union_us(kernels) / window_us,
+            "plane_busy_fraction": window_plane.busy_fraction_max()}
+
+
+class ProfiledWorker:
+    """13d: a node with `verifier_type = "out_of_process"` (TLS off) and
+    one `python -m corda_tpu_torch.node.verifier --profile-hz 19
+    --profile-out <root>/p0.folded` process, started (`start`) before
+    13a so its boot overlaps the flushes; `drain` sends it requests and
+    waits for every answer, then SIGINT must end it with exit 0 and a
+    non-empty folded-stack file. `close` stops whatever still runs."""
+
+    label = "profiled worker (13d)"
+
+    def __init__(self, root: str, cpu_worker: bool = False):
+        self.root, self.cpu_worker = root, cpu_worker
+        self.node = self.proc = None
+
+    def start(self) -> "ProfiledWorker":
+        import os
+
+        from corda_tpu_torch.node.config import NodeConfig
+        from corda_tpu_torch.node.node import Node
+
+        os.makedirs(self.root, exist_ok=True)
+        self.node = Node(NodeConfig(
+            name="ProfNode", base_dir=os.path.join(self.root, "ProfNode"), key_seed=NODE_SEED,
+            use_tls=False, verifier_type="out_of_process",
+            verifier_backend="cpu" if self.cpu_worker else "tpu")).start()
+        self.folded = os.path.join(self.root, "p0.folded")
+        self.log = os.path.join(self.root, "p0")
+        args = ["-m", "corda_tpu_torch.node.verifier", "--name", "p0", "--node", "ProfNode",
+                "--node-port", str(self.node.messaging.listen_port),
+                "--db", os.path.join(self.root, "p0.db"), "--seed", "2",
+                "--batch-window", str(TELEMETRY_WORKER),
+                "--profile-hz", str(TELEMETRY_PROFILE_HZ), "--profile-out", self.folded]
+        self.t_start = time.perf_counter()
+        self.proc = _spawn(args + (["--cpu"] if self.cpu_worker else []), self.log)
+        return self
+
+    def drain(self, ltxs, stxs) -> dict:
+        import os
+        import signal
+
+        svc, node, label = self.node.verifier_service, self.node, self.label
+        deadline = time.monotonic() + NODE_TIMEOUT
+        while svc.worker_count < 1:
+            if time.monotonic() > deadline or self.proc.poll() is not None:
+                raise RuntimeError(f"{label}: the worker did not attach")
+            node.pump(timeout=0.05)
+        attach_s = time.perf_counter() - self.t_start
+        t1 = time.perf_counter()
+        futs = [svc.verify(ltx, stx) for ltx, stx in zip(ltxs, stxs)]
+        while not all(f.done for f in futs):
+            if time.monotonic() > deadline or self.proc.poll() is not None:
+                raise RuntimeError(f"{label}: {sum(not f.done for f in futs)} of "
+                                   f"{len(futs)} unanswered")
+            node.pump(timeout=0.01)
+        wall = time.perf_counter() - t1
+        stop_s = _stop_process(self.proc, label, signal.SIGINT)
+        with open(self.log + ".err") as f:
+            err = f.read()
+        if not os.path.exists(self.folded):
+            raise RuntimeError(f"{label}: no folded-stack file ({err[-600:]})")
+        with open(self.folded) as f:
+            stacks = [line for line in f.read().splitlines() if line]
+        if not stacks or not all(line.rsplit(" ", 1)[1].isdigit() for line in stacks):
+            raise RuntimeError(f"{label}: the folded-stack file is empty or malformed")
+        return {"answers": [_verdict(f) for f in futs], "attach_s": attach_s, "wall_s": wall,
+                "stop_s": stop_s, "stacks": len(stacks),
+                "samples": sum(int(line.rsplit(" ", 1)[1]) for line in stacks),
+                "bytes": os.path.getsize(self.folded),
+                "summary": [ln for ln in err.splitlines() if ln.startswith("verifier worker")]}
+
+    def close(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if self.node is not None:
+            self.node.stop()
+
+
+def phase_telemetry(device, card: str, fx, sampler=None, cpu_worker: bool = False) -> dict:
+    """Phase 13 (module docstring); returns its figures and the in-process
+    launches of 13a-13c. `sampler` and `cpu_worker` are the CPU
+    rehearsal's (the default sampler reads the card). The order: the
+    worker process starts first, so its boot overlaps the flushes; 13a's
+    first flush; 13b's window over a warm chunk; then 13c's interleaved
+    on/off flushes, whose first is 13a's warm pass; then 13d's drain."""
+    import os
+    import tempfile
+    import types
+
+    import torch
+
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+    from corda_tpu_torch.node.messaging import InMemoryMessagingNetwork
+    from corda_tpu_torch.node.notary import BatchingNotaryService, InMemoryUniquenessProvider
+    from corda_tpu_torch.testing.notary_fixture import notary_hub
+    from corda_tpu_torch.utils import device_telemetry as dlib
+
+    n = min(TELEMETRY_SPENDS, len(fx.spends))
+    sub = types.SimpleNamespace(spends=fx.spends[:n], labels=fx.labels[:n],
+                                requester=fx.requester)
+    t_phase = time.perf_counter()
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "corda_tpu_torch")
+    os.makedirs(scratch, exist_ok=True)
+    cpu_hub = notary_hub(fx, CpuBatchVerifier())
+    picks = sub.spends[:TELEMETRY_WORKER]
+    ltxs = [stx.to_ledger_transaction(cpu_hub) for stx in picks]
+    verifier = _recording_verifier((CHUNK,), device)
+    hub = notary_hub(fx, verifier)
+    svc = BatchingNotaryService(hub, InMemoryUniquenessProvider(), max_batch=n, shards=1,
+                                shard_workers=False, shard_queue_depth=n,
+                                degraded_fallback=False)
+    net = InMemoryMessagingNetwork()
+    client, ep = net.endpoint("TelemetryClient"), net.endpoint("TelemetryNotary")
+    received: list = []
+    ep.add_handler(TOPIC_SUBMIT, lambda m: received.append(ser.decode(m.payload)))
+    wire = [ser.encode(stx) for stx in sub.spends]
+    out, marks = {}, {}
+
+    def accounting() -> tuple:
+        kern = planes.perf.kernels.snapshot()
+        rows = {k: {f: (round(v, 6) if isinstance(v, float) else v) for f, v in r.items()
+                    if f in ("compiles", "executes", "compile_seconds", "execute_mean_s",
+                             "transfer_bytes", "transfer_seconds")}
+                for k, r in kern["keys"].items()}
+        return kern, rows
+
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="telemetry-") as tmp, \
+            _private_ledgers():
+        worker = ProfiledWorker(tmp, cpu_worker=cpu_worker)
+        planes = _Planes(svc, ep, client, sampler or dlib.DeviceSampler())
+        rig = {"client": client, "net": net, "received": received, "planes": planes}
+        try:
+            worker.start()
+            _zero_counters()
+            label = "telemetry (13a) first pass"
+            first_s, rows_sent = telemetry_flush(svc, rig, wire, sub, verifier, True, label,
+                                                 TELEMETRY_SAMPLE)
+            kern, rows = accounting()
+            print(f"{label}: {n} spends in {first_s:.3f} s, every answer its label ("
+                  f"{TELEMETRY_SAMPLE} card verdicts equal to CpuBatchVerifier's); kernel "
+                  f"accounting {json.dumps(rows)}; compiles {kern['compiles']}, retraces "
+                  f"{kern['retraces']}; {card}")
+            if len(rows) != 2 or kern["retraces"] or any(
+                    (r["compiles"], r["executes"]) != (1, 0) for r in rows.values()):
+                raise RuntimeError(f"{label}: not one compile for each of the 2 keys (ed25519 "
+                                   f"and p256 at batch {CHUNK}): {rows}")
+            planes.perf.kernels.mark_warm()
+            marks["13a first"] = time.perf_counter() - t_phase
+
+            reqs, pv = verifier.calls[-1]
+            ed = [(r, ok) for r, ok in zip(reqs, pv.result())
+                  if r.key.scheme_id == schemes.EDDSA_ED25519_SHA512][:CHUNK]
+            win = profile_window(verifier, [r for r, _ in ed], planes)
+            if win["verdicts"] != [ok for _, ok in ed]:
+                raise RuntimeError("profiler window (13b): the verdicts differ from the flush's")
+            print(f"telemetry (13b) profiler window over one warm {win['rows']}-row ed25519 "
+                  f"chunk (batch {CHUNK}): window {win['window_ms']:.3f} ms, {win['kernels']} "
+                  f"device activities, their time {win['kernel_ms']:.3f} ms, the ladder kernel "
+                  f"{win['ladder_ms']:.3f} ms = {100 * win['ladder_share']:.2f}% of it; the card "
+                  f"busy {100 * win['busy_share']:.2f}% of the window; the device plane's busy "
+                  f"fraction (launch wall) for the same window {win['plane_busy_fraction']:.4f}; "
+                  f"capture {win['capture_s']:.3f} s, profiler stop {win['stop_s']:.3f} s, "
+                  f"events read {win['read_s']:.3f} s; {card}")
+            out["window"] = win
+            marks["13b"] = time.perf_counter() - t_phase
+
+            ab = {"on": [], "off": []}
+            for k in range(2 * TELEMETRY_PAIRS):
+                mode = ("on", "off")[k % 2]
+                planes.on(mode == "on")
+                label = ("telemetry (13a) warm pass" if k == 0
+                         else f"telemetry (13c) planes {mode}")
+                wall, rows = telemetry_flush(svc, rig, wire, sub, verifier, mode == "on", label)
+                ab[mode].append(wall)
+                if k == 0:
+                    rows_sent += rows
+                    kern, rows = accounting()
+                    print(f"{label} (13c's first planes-on flush): {n} spends in {wall:.3f} s, "
+                          f"every answer its label; kernel accounting {json.dumps(rows)}; "
+                          f"compiles {kern['compiles']}, retraces {kern['retraces']}; {card}")
+                    if kern["retraces"] or any((r["compiles"], r["executes"]) != (1, 1)
+                                               for r in rows.values()):
+                        raise RuntimeError(f"{label}: after mark_warm the keys recompiled: "
+                                           f"{rows}")
+                    snap = planes.device.snapshot()
+                    cap = planes.device.capacity()
+                    alerts = {a: v["state"]
+                              for a, v in planes.monitor.snapshot()["alerts"].items()}
+                    busy = planes.device.busy_fraction_max()
+            planes.on(True)
+            overhead = min(ab["on"]) / min(ab["off"]) - 1.0
+            launches = _read_counters()
+            marks["13c"] = time.perf_counter() - t_phase
+            w = worker.drain(ltxs, picks)
+            marks["13d"] = time.perf_counter() - t_phase
+        finally:
+            planes.close()
+            worker.close()
+
+    row = next(r for r in snap["devices"] if r["id"] == 0)
+    if sampler is None:
+        want = ("gpu", torch.cuda.get_device_name(0),
+                torch.cuda.get_device_properties(0).total_memory)
+        if (row["platform"], row["kind"], row["hbm"]["bytes_limit"]) != want:
+            raise RuntimeError(f"telemetry (13a): the device row {row} is not the card")
+        if not row["live_buffers"] or row["live_buffers"]["count"] <= 0:
+            raise RuntimeError(f"telemetry (13a): no live buffers on the card: {row}")
+    totals = row["dispatch_totals"]
+    # the first and warm flushes dispatched one chunk per scheme each
+    if not totals or totals["dispatches"] != 4 or totals["requests"] != rows_sent:
+        raise RuntimeError(f"telemetry (13a): device ledger {totals}, not 4 dispatches of "
+                           f"{rows_sent} requests")
+    if totals["transfer_bytes"] <= 0 or totals["transfer_seconds"] <= 0:
+        raise RuntimeError(f"telemetry (13a): no timed transfer on the ledger: {totals}")
+    if cap["binding_constraint"] is None:
+        raise RuntimeError(f"telemetry (13a): the capacity model named nothing: {cap}")
+    print(f"telemetry (13a) device row: "
+          f"{json.dumps({k: row[k] for k in ('id', 'platform', 'kind', 'hbm', 'live_buffers')})}"
+          f"; {card}")
+    print(f"telemetry (13a) device ledger cuda:0 (the first and warm flushes): "
+          f"{json.dumps(totals)}; busy fraction (max, window) {busy:.4f}, queue wait "
+          f"{row['queue_wait_micros']:.1f} us per dispatch; {card}")
+    print(f"telemetry (13a) capacity: binding {cap['binding_constraint']} at "
+          f"{cap['predicted_ceiling_per_sec']} notarisations/s; headroom "
+          f"{json.dumps({k: r['headroom_fraction'] for k, r in cap['resources'].items()})}; "
+          f"{cap['sentence']}; alerts {json.dumps(alerts)}; {card}")
+    print(f"telemetry (13a) wire (in-memory fabric, both endpoints): "
+          f"{json.dumps(planes.wire.fabric.totals())}; {card}")
+    print(f"telemetry (13c) planes on vs off, {TELEMETRY_PAIRS} interleaved pairs of the "
+          f"{n}-spend flush: walls on {[round(x, 3) for x in ab['on']]} s, off "
+          f"{[round(x, 3) for x in ab['off']]} s; min-of-walls overhead {100 * overhead:+.2f}% "
+          f"(the reference's acceptance: 2%; not gated here: the host moves walls between "
+          f"calls); {card}")
+    _check_pool_answers(w["answers"], sub.labels[:len(picks)], ProfiledWorker.label)
+    print(f"telemetry (13d) profiled worker (--profile-hz {TELEMETRY_PROFILE_HZ}): attached "
+          f"{w['attach_s']:.3f} s after its start, {len(picks)} requests answered in "
+          f"{w['wall_s']:.3f} s, every answer its label; SIGINT exit 0 in {w['stop_s']:.3f} s; "
+          f"folded stacks {w['stacks']} lines, {w['samples']} samples, {w['bytes']} bytes; "
+          f"{w['summary']}; {card}")
+    for kernel in ("ed_ladder", "wei_ladder_windowed"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} was not launched in 13a-13c")
+    print(f"telemetry (ph. 13) launches in 13a-13c: {json.dumps(launches)}; wall "
+          f"{marks['13d']:.3f} s (ends of its steps "
+          f"{json.dumps({k: round(v, 3) for k, v in marks.items()})} s); {card}")
+    out.update(first_s=first_s, overhead=overhead, capacity=cap["binding_constraint"],
+               worker=w, launches=launches, marks=marks)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the kernel table JSON here")
@@ -3207,14 +3682,16 @@ def main(argv=None) -> int:
     clusters = phase_clusters(device, card, fx)
     nodes = phase_nodes(device, card, fx)
     drives = phase_drives(device, card)
+    telemetry = phase_telemetry(device, card, fx)["launches"]
     for n, r in report.items():
         r["clusters_launches"] = clusters[n]
         r["nodes_launches"] = nodes[n]
         r["drives_launches"] = drives[n]
+        r["telemetry_launches"] = telemetry[n]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "clusters_launches",
-            "nodes_launches", "drives_launches")
+            "nodes_launches", "drives_launches", "telemetry_launches")
     table = {"kernels": [
         {k: ({"name": n, **r}[k]) for k in keys} for n, r in report.items()
     ]}

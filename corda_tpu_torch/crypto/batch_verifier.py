@@ -24,6 +24,15 @@ that work overlaps the card's — the reference's semantics
 kernel never goes to the host, and any other id (COMPOSITE, unknown)
 raises UnsupportedScheme. A CUDA error or a refused launch raises
 DeviceFaultError, the class the batching notary's degraded mode catches.
+
+Every chunk is accounted as in the reference: the staging copy's bytes
+and seconds (`record_transfer` on the kernel and the device ledgers),
+the launch wall (`KernelAccounting.record_call`: the first call of a
+(scheme, batch) on this instance is the "compile", where the kernels'
+build and module load land) and `DeviceAccounting.record_dispatch`
+(busy = the launch wall, with the queue wait since the bucket's entry),
+and each launch is named by `tracing.annotate` in a torch.profiler
+capture.
 """
 
 from __future__ import annotations
@@ -37,6 +46,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import device_telemetry as devlib
+from ..utils import perf as perflib
+from ..utils import tracing
 from . import encodings, schemes
 from .cuda_ec import DeviceFaultError
 from .ecdsa import ecdsa_verify_packed
@@ -130,6 +142,14 @@ class CudaBatchVerifier(BatchSignatureVerifier):
     plain torch versions (the tests do). `windowed` forces the windowed
     (True) or plain (False) ladder for every curve; None keeps each
     curve's default (cuda_ec.use_windowed_ladder).
+
+    `perf`: a utils/perf.KernelAccounting this verifier records its
+    per-(scheme, batch) first-call-vs-execute timings, retraces and
+    transfer bytes into; None records into the process default
+    (perf.get_kernel_accounting()), which the node's PerfPlane adopts.
+    The device ledger is always the process default
+    (device_telemetry.get_device_accounting()), keyed by the torch
+    device index (0 on the CPU).
     """
 
     def __init__(
@@ -137,6 +157,7 @@ class CudaBatchVerifier(BatchSignatureVerifier):
         batch_sizes: tuple[int, ...] = (128, 1024, 4096),
         device="cuda",
         windowed: Optional[bool] = None,
+        perf=None,
     ):
         self._cpu = CpuBatchVerifier()
         self.device = torch.device(device)
@@ -152,6 +173,12 @@ class CudaBatchVerifier(BatchSignatureVerifier):
             raise ValueError(f"bad batch_sizes {batch_sizes!r}")
         self.batch_sizes = tuple(sorted(batch_sizes))
         self.windowed = windowed
+        self.perf = perf
+        # first-call-per-key is judged per instance, as in the reference:
+        # each instance's first launch of a (scheme, batch) records as
+        # the "compile" on a possibly shared ledger
+        self._warm_shapes: set = set()
+        self._device_id: Optional[int] = None
 
     def _pick_batch(self, n: int) -> int:
         for b in self.batch_sizes:
@@ -159,22 +186,60 @@ class CudaBatchVerifier(BatchSignatureVerifier):
                 return b
         return self.batch_sizes[-1]
 
-    def _run_chunk(self, verify, arrays: tuple, idxs, n):
+    def _dispatch_device_id(self) -> int:
+        if self._device_id is None:
+            if self.device.type == "cpu":
+                self._device_id = 0
+            elif self.device.index is not None:
+                self._device_id = self.device.index
+            else:
+                self._device_id = torch.cuda.current_device()
+        return self._device_id
+
+    def _run_chunk(self, scheme_id: int, batch: int, verify, arrays: tuple, idxs, n,
+                   t_entry: float):
         """Run verify(*tensors) on one chunk's staged numpy arrays: as
-        they are on the CPU path; on the card through pinned buffers
-        and non-blocking copies, with the result copied back behind the
-        chunk's event."""
+        torch tensors on the CPU path; on the card through pinned
+        buffers and non-blocking copies, with the result copied back
+        behind the chunk's event. The copy in (bytes and host seconds)
+        and the launch wall go to the kernel and device ledgers."""
+        acct = self.perf if self.perf is not None else perflib.get_kernel_accounting()
+        devacct = devlib.get_device_accounting()
+        dev_id = self._dispatch_device_id()
+        nbytes = sum(int(a.nbytes) for a in arrays)
+        first = (scheme_id, batch) not in self._warm_shapes
+        span = f"corda_tpu.verify_dispatch.s{scheme_id}.b{batch}"
+        started = done = None
+        hosts: tuple = ()
         if self.device.type == "cpu":
-            return _Chunk(verify(*(torch.from_numpy(a.copy()) for a in arrays)), idxs, n)
-        with _device_faults("verify dispatch"), torch.cuda.device(self.device):
-            hosts = tuple(_pinned(a) for a in arrays)
-            started = torch.cuda.Event(enable_timing=True)
-            done = torch.cuda.Event(enable_timing=True)
-            started.record()
-            res = verify(*(h.to(self.device, non_blocking=True) for h in hosts))
-            out = torch.empty(res.shape, dtype=torch.bool, pin_memory=True)
-            out.copy_(res, non_blocking=True)
-            done.record()
+            t_put = time.perf_counter()
+            staged = tuple(torch.from_numpy(a.copy()) for a in arrays)
+            put_s = time.perf_counter() - t_put
+            t_call = time.perf_counter()
+            with tracing.annotate(span):
+                out = verify(*staged)
+            call_s = time.perf_counter() - t_call
+        else:
+            with _device_faults("verify dispatch"), torch.cuda.device(self.device):
+                t_put = time.perf_counter()
+                hosts = tuple(_pinned(a) for a in arrays)
+                started = torch.cuda.Event(enable_timing=True)
+                done = torch.cuda.Event(enable_timing=True)
+                started.record()
+                staged = tuple(h.to(self.device, non_blocking=True) for h in hosts)
+                put_s = time.perf_counter() - t_put
+                t_call = time.perf_counter()
+                with tracing.annotate(span):
+                    res = verify(*staged)
+                call_s = time.perf_counter() - t_call
+                out = torch.empty(res.shape, dtype=torch.bool, pin_memory=True)
+                out.copy_(res, non_blocking=True)
+                done.record()
+        self._warm_shapes.add((scheme_id, batch))
+        acct.record_transfer(scheme_id, batch, nbytes, put_s)
+        devacct.record_transfer(dev_id, nbytes, put_s)
+        acct.record_call(scheme_id, batch, call_s, first=first)
+        devacct.record_dispatch(dev_id, n, call_s, queue_wait_seconds=t_call - t_entry)
         return _Chunk(out, idxs, n, started, done, hosts)
 
     def _dispatch(self, scheme_id: int, items: list, idxs: list):
@@ -191,14 +256,15 @@ class CudaBatchVerifier(BatchSignatureVerifier):
             verify = partial(ecdsa_verify_packed, curve, windowed=self.windowed)
         max_b = self.batch_sizes[-1]
         chunks, stage_s = [], 0.0
+        t_entry = time.perf_counter()
         for off in range(0, len(items), max_b):
             chunk = items[off : off + max_b]
+            batch = self._pick_batch(len(chunk))
             t0 = time.perf_counter()
-            arrays = stage(chunk, self._pick_batch(len(chunk)))
+            arrays = stage(chunk, batch)
             stage_s += time.perf_counter() - t0
-            chunks.append(
-                self._run_chunk(verify, arrays, idxs[off : off + len(chunk)], len(chunk))
-            )
+            chunks.append(self._run_chunk(scheme_id, batch, verify, arrays,
+                                          idxs[off : off + len(chunk)], len(chunk), t_entry))
         return chunks, stage_s
 
     # -- SPI ---------------------------------------------------------------

@@ -5,8 +5,9 @@ Port of corda_tpu/node/fabric.py: `FabricEndpoint`, `PeerAddress`,
 outbound and inbound sqlite journals (the reference's DDL, frame bytes
 and uid mapping, so a journal written by either package drains in the
 other), the per-peer bridges, the trace and deadline headers, parked
-topics, `pump` and `wire_depths`. The wire-telemetry seam
-(`telemetry=`) is not ported: the wire plane is ROADMAP Queue 1 #5.
+topics, `pump` and `wire_depths`, and the wire-telemetry seam
+(`telemetry`: codec walls split native vs Python, journal append and
+commit latency, frames per link, redeliveries and dedupe hits).
 Like the reference's, this fabric has no ingest-ring seam
 (`add_ring` raises), so ring consumers use the handler path.
 
@@ -45,6 +46,7 @@ import asyncio
 import hashlib
 import ssl
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -143,7 +145,7 @@ _DEDUPE_PRUNE_EVERY = 256
 # framing
 
 
-async def _read_frame(reader: asyncio.StreamReader) -> list:
+async def _read_frame(reader: asyncio.StreamReader, telemetry=None) -> list:
     try:
         header = await reader.readexactly(4)
         length = int.from_bytes(header, "big")
@@ -152,17 +154,31 @@ async def _read_frame(reader: asyncio.StreamReader) -> list:
         body = await reader.readexactly(length)
     except asyncio.IncompleteReadError as e:
         raise ConnectionError("peer closed mid-frame") from e
+    t0 = time.perf_counter() if telemetry is not None else 0.0
     try:
         frame = ser.decode(body)
     except ser.SerializationError as e:
         raise ConnectionError(f"undecodable frame: {e}") from e
     if not isinstance(frame, list) or not frame:
         raise ConnectionError("malformed frame")
+    if telemetry is not None and frame[0] == "msg" and len(frame) >= 3:
+        telemetry.record_codec(
+            "decode", ser._native_codec() is not None, str(frame[2]),
+            time.perf_counter() - t0, len(body),
+        )
     return frame
 
 
-def _write_frame(writer: asyncio.StreamWriter, frame: list) -> None:
+def _write_frame(
+    writer: asyncio.StreamWriter, frame: list, telemetry=None
+) -> None:
+    t0 = time.perf_counter() if telemetry is not None else 0.0
     body = ser.encode(frame)
+    if telemetry is not None and frame[0] == "msg":
+        telemetry.record_codec(
+            "encode", ser._native_codec() is not None, str(frame[2]),
+            time.perf_counter() - t0, len(body),
+        )
     writer.write(len(body).to_bytes(4, "big") + body)
 
 
@@ -251,6 +267,7 @@ class FabricEndpoint(MessagingService):
         advertise_host: Optional[str] = None,
         faults: Optional[FabricFaults] = None,
         dedupe_keep: int = DEDUPE_KEEP,
+        telemetry=None,
     ):
         self._name = name
         self._keypair = keypair
@@ -267,6 +284,13 @@ class FabricEndpoint(MessagingService):
         # exercise the SAME recovery paths a real outage would. None
         # (production default) costs one attribute check per frame.
         self.faults = faults
+        # wire-telemetry seam (utils.wire_telemetry.WireAccounting):
+        # mutable like `faults` — node.py attaches a WirePlane after
+        # construction; None costs one attribute check per frame.
+        # Recorded at: send (journal append/commit wall),
+        # _write_frame/_read_frame (codec wall per topic), _drain_loop
+        # (frames out + redelivery), _ingest (frames in + dedupe hits).
+        self.telemetry = telemetry
         # per-sender bound on retained processed dedupe rows
         self.dedupe_keep = int(dedupe_keep)
         self._ingests_since_prune = 0
@@ -339,6 +363,9 @@ class FabricEndpoint(MessagingService):
         senders attach headers (header-less sends keep the old
         5-element frame, so the upgrade order is receivers first)."""
         headers = _encode_headers(trace, deadline)
+        tel = self.telemetry
+        t0 = time.perf_counter() if tel is not None else 0.0
+        t1 = t0
         with self._db.transaction():
             if unique_id is None:
                 unique_id = self._next_uid()
@@ -347,6 +374,12 @@ class FabricEndpoint(MessagingService):
                 " VALUES (?,?,?,?,?)",
                 (target, topic, payload, _to_db_uid(unique_id), headers),
             )
+            if tel is not None:
+                t1 = time.perf_counter()
+        if tel is not None:
+            # append = the journaled INSERT, commit = the transaction
+            # exit (WAL-mode fsync lands there)
+            tel.record_journal(t1 - t0, time.perf_counter() - t1)
         if self._loop is not None:
             self._loop.call_soon_threadsafe(self._wake_bridge, target)
 
@@ -507,18 +540,24 @@ class FabricEndpoint(MessagingService):
                     continue
                 except asyncio.TimeoutError:
                     return   # idle: close connection, journal is empty
+            tel = self.telemetry
             for seq, topic, payload, uid, headers in rows:
                 frame = ["msg", seq, topic, bytes(payload), _from_db_uid(uid)]
                 if headers is not None:
                     # headers ride as a 6th element; pre-headers peers
                     # never see it (their journals carry NULL)
                     frame.append(bytes(headers))
-                _write_frame(writer, frame)
-                if seq > self._sent_seq_hw.get(peer, 0):
-                    # a row at or below the mark already crossed the
-                    # wire on an earlier connection and was never acked
-                    # (at-least-once redelivery)
+                _write_frame(writer, frame, tel)
+                if seq <= self._sent_seq_hw.get(peer, 0):
+                    # this row already crossed the wire on an earlier
+                    # connection and was never acked — at-least-once
+                    # redelivery, counted per peer
+                    if tel is not None:
+                        tel.record_redelivery(peer)
+                else:
                     self._sent_seq_hw[peer] = seq
+                if tel is not None:
+                    tel.record_frame("out", peer, topic, len(payload))
             await writer.drain()
             for _ in rows:
                 frame = await asyncio.wait_for(_read_frame(reader), timeout=30)
@@ -583,7 +622,7 @@ class FabricEndpoint(MessagingService):
                 # its journal holds the frames for redelivery on heal
                 raise ConnectionError("fault: partitioned")
             while True:
-                frame = await _read_frame(reader)
+                frame = await _read_frame(reader, self.telemetry)
                 if frame[0] != "msg":
                     raise ConnectionError(f"unexpected frame {frame[0]!r}")
                 if len(frame) not in (5, 6):
@@ -691,7 +730,7 @@ class FabricEndpoint(MessagingService):
         Headers land durably too — a frame redelivered after a crash
         keeps its trace link and (crucially) its deadline."""
         self._arrival_counter += 1
-        self._db.execute(
+        cur = self._db.execute(
             "INSERT OR IGNORE INTO fabric_in"
             " (sender, uid, arrival, topic, payload, headers)"
             " VALUES (?,?,?,?,?,?)",
@@ -700,6 +739,13 @@ class FabricEndpoint(MessagingService):
                 topic, payload, headers,
             ),
         )
+        tel = self.telemetry
+        if tel is not None:
+            if cur.rowcount == 0:
+                # IGNOREd: the (sender, uid) dedupe key swallowed it
+                tel.record_dedupe_hit(sender)
+            else:
+                tel.record_frame("in", sender, topic, len(payload))
         self._ingests_since_prune += 1
         if self._ingests_since_prune >= _DEDUPE_PRUNE_EVERY:
             self._ingests_since_prune = 0
@@ -731,8 +777,8 @@ class FabricEndpoint(MessagingService):
                 )
 
     def wire_depths(self) -> dict:
-        """The journals' depths (the reference's wire plane pulls them
-        once per tick): outbound journal depth total and per peer (the unacked
+        """The WirePlane's per-tick depth pull (attach_fabric adopts
+        it): outbound journal depth total and per peer (the unacked
         backlog) plus the retained dedupe-table depth — COUNT queries
         paid once per tick, never on the send path."""
         backlog = {

@@ -40,9 +40,10 @@ Per-blob fault isolation throughout: a malformed blob yields an
 IngestedTx carrying its exception in ITS slot — the rest of the batch
 ingests normally (mirrors the notary flush's per-tx staging guard).
 
-The reference's `perf=` and `txstory=` hooks are not ported (their
-planes are not): `IngestPipeline` has no such arguments. Its cache
-sizes are the module constants below, and decode and staging always run.
+`IngestPipeline(perf=)` reports every batch's frames and stage seconds
+to the perf plane (`PerfPlane.observe_ingest`). The reference's
+`txstory=` hook is not ported (its plane is not). The cache sizes are
+the module constants below, and decode and staging always run.
 """
 
 from __future__ import annotations
@@ -326,7 +327,13 @@ class IngestPipeline:
     id/stage — identity for bare stx blobs, `lambda req: req.stx` for
     verifier-request envelopes. `stage_seconds` sums each stage's
     host seconds (decode, which includes any overlap waited out at the
-    decode handle; merkle_id; stage) over every batch."""
+    decode handle; merkle_id; stage) over every batch.
+
+    `perf`: an optional utils/perf.PerfPlane. Every finished batch
+    reports its frame count and per-stage (decode / merkle-id /
+    staging) host seconds, so the plane attributes the pre-flush host
+    work, and its `wire_ingest_pipelined_per_sec` history key tracks
+    the live ingest rate."""
 
     def __init__(
         self,
@@ -334,6 +341,7 @@ class IngestPipeline:
         ring_depth: int = 2,
         extract: Callable[[Any], Optional[SignedTransaction]] = None,
         tracer=None,
+        perf=None,
     ):
         self.pool = DecodePool(shards)
         self.ring = IngestRing(ring_depth)
@@ -349,6 +357,7 @@ class IngestPipeline:
         # explicit tracer, or the process default resolved per batch
         # (None here so a later set_tracer()/env enable is honoured)
         self.tracer = tracer
+        self.perf = perf
 
     def _tracer(self):
         return self.tracer if self.tracer is not None else tracing.get_tracer()
@@ -479,6 +488,16 @@ class IngestPipeline:
         sec["decode"] += t_decode - t0
         sec["merkle_id"] += t_id - t_decode
         sec["stage"] += t_stage - t_id
+        if self.perf is not None:
+            # per-batch host-stage seconds (decode includes any overlap
+            # waited out at handle.result(); hits skipped both) + frame
+            # count into the plane's ingest-rate history key
+            self.perf.observe_ingest(
+                len(entries),
+                max(0.0, t_decode - t0),
+                max(0.0, t_id - t_decode),
+                max(0.0, t_stage - t_id),
+            )
         tracer = self._tracer()
         if tracer.enabled:
             self._emit_spans(

@@ -5,8 +5,10 @@ Port of corda_tpu/node/messaging.py: `Message`, `MessagingService`,
 `InMemoryMessaging`) with its manual pump and (sender, unique_id)
 dedupe, and the ingest-ring seam (`add_ring`, `parked_count`,
 `retry_parked`, `register_ring_gauges`) that the verifier worker's and
-the notary's pipelined ingest drain. The reference's wire-telemetry
-hook and the TCP fabric (node/fabric.py) are not ported.
+the notary's pipelined ingest drain, and the wire-telemetry seam: an
+endpoint's `telemetry` (a utils/wire_telemetry.WireAccounting) records
+its sends, deliveries and dedupe hits, and `wire_depths()` feeds the
+wire plane's tick. The TCP fabric is node/fabric.py.
 
 Reference: the `MessagingService` API (node/.../services/messaging/
 Messaging.kt — send, addMessageHandler(topic), createMessage) backed in
@@ -490,6 +492,10 @@ class InMemoryMessaging(MessagingService):
         self._undelivered: deque[Message] = deque()
         self.running = True
         self.dedupe_keep = DEDUPE_KEEP
+        # wire-telemetry seam (utils.wire_telemetry.WireAccounting):
+        # mutable like FabricEndpoint.telemetry — None costs one
+        # attribute check per frame
+        self.telemetry = None
 
     @property
     def my_address(self) -> str:
@@ -512,6 +518,9 @@ class InMemoryMessaging(MessagingService):
             unique_id = self._next_id
             self._next_id += 1
         msg = Message(topic, payload, self._name, unique_id, trace, deadline)
+        tel = self.telemetry
+        if tel is not None:
+            tel.record_frame("out", target, topic, len(payload))
         self._network._enqueue(msg, target)
 
     def add_handler(self, topic: str, handler: Handler) -> None:
@@ -566,27 +575,50 @@ class InMemoryMessaging(MessagingService):
             if not ring.offer(m):
                 break   # still full: keep FIFO order, stop early
             self._undelivered.remove(m)
-            self._remember(key)
+            self._remember(key, m)
             moved += 1
         return moved
 
-    def _remember(self, key: tuple[str, int]) -> None:
-        """Mark a frame delivered (dedupe), evicting the oldest key past
-        the DEDUPE_KEEP bound."""
+    def _remember(self, key: tuple[str, int], msg: Message) -> None:
+        """Mark a frame delivered (dedupe) and record the inbound link,
+        evicting the oldest key past the DEDUPE_KEEP bound: one seam for
+        the three delivery paths."""
+        tel = self.telemetry
+        if tel is not None:
+            tel.record_frame("in", msg.sender, msg.topic, len(msg.payload))
         self._seen[key] = None
         if len(self._seen) > self.dedupe_keep:
             self._seen.pop(next(iter(self._seen)))
 
+    def wire_depths(self) -> dict:
+        """The WirePlane's per-tick depth pull (the TCP fabric's
+        `wire_depths` shape): undelivered frames queued toward each
+        peer stand in for the unacked journal backlog."""
+        backlog = {
+            target: len(q)
+            for (sender, target), q in self._network._queues.items()
+            if sender == self._name and q
+        }
+        return {
+            "journal_depth": sum(backlog.values()),
+            "dedupe_depth": len(self._seen),
+            "backlog": backlog,
+        }
+
     def _deliver(self, msg: Message) -> None:
         key = (msg.sender, msg.unique_id)
         if key in self._seen:
-            return   # at-least-once upstream, exactly-once to handlers
+            # at-least-once upstream, exactly-once to handlers
+            tel = self.telemetry
+            if tel is not None:
+                tel.record_dedupe_hit(msg.sender)
+            return
         ring = self._rings.get(msg.topic)
         if ring is not None:
             # ring seam: enqueue the raw frame for the bulk decoder; a
             # full ring parks it (backpressure) for retry_parked
             if ring.offer(msg):
-                self._remember(key)
+                self._remember(key, msg)
             else:
                 self._undelivered.append(msg)
             return
@@ -594,6 +626,6 @@ class InMemoryMessaging(MessagingService):
         if not handlers:
             self._undelivered.append(msg)
             return
-        self._remember(key)
+        self._remember(key, msg)
         for h in list(handlers):
             h(msg)

@@ -16,10 +16,13 @@ The options whose planes the port lacks and that change answers or
 durability, or serve over HTTP (`qos_enabled`, `notary_cluster_shards`,
 the commit-log state store, `notary_intent_wal`, `txstory_index`,
 `web_port`), raise NotImplementedError at boot naming their ROADMAP
-item. The observation planes (perf, device, wire, txstory) keep the
-reference's default True; the node boots without them, logs one
-WARNING naming them and lists them in `unported_planes` (ROADMAP
-Queue 3, D6).
+item. The perf, device and wire planes are built as the reference
+builds them (utils/perf.py, utils/device_telemetry.py,
+utils/wire_telemetry.py), ticked on the pump; the device plane samples
+the card on a node that verifies on it, and no device on a node that
+verifies on the CPU. The txstory plane keeps the reference's default
+True; the node boots without it, logs one WARNING and lists it in
+`unported_planes` (ROADMAP Queue 3, D6).
 
 Reference: `AbstractNode.start()` boot ordering (node/.../internal/
 AbstractNode.kt:163-222 — database, services, messaging, notary, SMM,
@@ -275,26 +278,36 @@ class Node:
         from ..utils import tracing
         from ..utils.health import ClusterHealth, HealthMonitor
         from ..utils.metrics import MetricRegistry
+        from ..utils.perf import PerfPlane, PerfPolicy
 
         self.metrics = MetricRegistry()
         self.tracer = tracing.get_tracer()
-        # the observation planes the port lacks (D6): each stays None,
-        # as the reference leaves it when its config flag is off
-        self.unported_planes = tuple(
-            plane for plane, on in (
-                ("perf", config.perf_enabled),
-                ("device", config.device_telemetry_enabled),
-                ("wire", config.wire_telemetry_enabled),
-                ("txstory", config.txstory_enabled),
-            ) if on
-        )
+        # the observation plane the port lacks (D6) stays None, as the
+        # reference leaves it when its config flag is off
+        self.unported_planes = ("txstory",) if config.txstory_enabled else ()
         if self.unported_planes:
             logging.getLogger("corda_tpu_torch.node").warning(
                 "%s: booting without the %s plane(s): not ported "
-                "(ROADMAP Queue 1 #5, #6; divergence D6)",
+                "(ROADMAP Queue 1 #6; divergence D6)",
                 config.name, ", ".join(self.unported_planes),
             )
+        # performance-attribution plane (utils/perf.py): kernel
+        # first-call-vs-execute accounting (it adopts the process
+        # default, so every CudaBatchVerifier this process builds records
+        # into it), per-shard skew, the in-process history + baseline
+        # diff, and the sampling profiler. Created BEFORE the notary so
+        # attach_perf can wire the flush feeds.
         self.perf = None
+        if config.perf_enabled:
+            self.perf = PerfPlane(
+                clock=self.services.clock,
+                metrics=self.metrics,
+                tracer=self.tracer,
+                policy=PerfPolicy(
+                    profile_hz=config.perf_profile_hz or 19.0
+                ),
+                baseline_path=config.perf_baseline or None,
+            )
         # the QoS plane is not ported: qos_enabled raises at boot
         self.qos = None
         # health plane (utils/health.py): watchdog over every long-
@@ -356,8 +369,49 @@ class Node:
             rng=random.Random(self._dev_seed("smm", per_boot=True)),
         )
         self._install_notary()
+        # device telemetry and capacity attribution (utils/
+        # device_telemetry.py): per-device memory/busy/queue/transfer
+        # over the card, fed by the process device accounting every
+        # CudaBatchVerifier records into, and the capacity model naming
+        # the binding constraint. Built AFTER the notary so attach_device
+        # can map its queues and bridge the degraded-mode flag.
         self.device_plane = None
+        self._device_plane_error = None
+        if config.device_telemetry_enabled:
+            from ..utils.device_telemetry import DevicePlane, DeviceSampler
+            from .notary import _on_card
+
+            self.device_plane = DevicePlane(
+                clock=self.services.clock,
+                metrics=self.metrics,
+                perf=self.perf,
+                # a node that verifies on the CPU has no device to read;
+                # one on the card samples the card (and raises without it)
+                sampler=(DeviceSampler() if _on_card(self.services)
+                         else DeviceSampler(lambda: [])),
+            )
+            notary = getattr(self.services, "notary_service", None)
+            if isinstance(notary, BatchingNotaryService):
+                notary.attach_device(self.device_plane)
+            self.health.watch_device(self.device_plane)
+        # wire telemetry (utils/wire_telemetry.py): per-link frame/byte
+        # accounting pushed by the fabric's seams, codec cost split
+        # native vs Python, journal append/commit latency, redelivery/
+        # dedupe/backlog depths pulled per tick, joined into the
+        # capacity model as the "wire" resource via the device plane.
         self.wire_plane = None
+        if config.wire_telemetry_enabled:
+            from ..utils.wire_telemetry import WirePlane
+
+            self.wire_plane = WirePlane(
+                clock=self.services.clock,
+                metrics=self.metrics,
+            )
+            self.wire_plane.attach_fabric(self.messaging)
+            self.health.watch_wire(self.wire_plane)
+            if self.device_plane is not None:
+                self.device_plane.set_wire_feed(
+                    self.wire_plane.wire_host_seconds)
         self.scheduler = NodeSchedulerService(self.services, self.smm.start_flow)
 
         # -- verifier offload ------------------------------------------
@@ -641,6 +695,13 @@ class Node:
                 # heartbeat and the canary probe riding real flushes
                 self.services.notary_service.attach_health(self.health)
                 self.health.attach_canary(self._launch_canary)
+                # perf plane over the same path: flush phase marks feed
+                # the skew/overlap telemetry, the served-request counter
+                # becomes the in-process notarisations/s history, and
+                # the retrace + skew alerts land on the health monitor
+                if self.perf is not None:
+                    self.services.notary_service.attach_perf(self.perf)
+                    self.health.watch_perf(self.perf)
                 return
             cls = {
                 "simple": SimpleNotaryService,
@@ -766,6 +827,10 @@ class Node:
                 "restored %d checkpointed flows", restored
             )
         self.running = True
+        if self.perf is not None and self.config.perf_profile_hz > 0:
+            # continuous profiling over this node's long-lived threads,
+            # started after boot so first launches don't dominate
+            self.perf.profiler.start()
         # boot work (map registration, checkpoint restore) may exceed
         # the watchdog deadline: the pump loop starts NOW, so its
         # heartbeat clock does too
@@ -801,6 +866,25 @@ class Node:
         # health plane last: the watchdog judges the beats this tick
         # just made, the canary launches, alert rules walk their states
         self.health.tick()
+        if self.perf is not None:
+            # history sampling rides the same cadence (self-throttled
+            # to the perf policy's sample gap)
+            self.perf.tick()
+        if self.device_plane is not None:
+            # after health.tick, so rules judge last-sample state
+            try:
+                self.device_plane.tick()
+            except RuntimeError as e:
+                # a node on the card whose host has none: the sampler
+                # raises, as its verifier does at its first check; the
+                # error is logged once and the pump keeps serving
+                if self._device_plane_error is None:
+                    self._device_plane_error = str(e)
+                    logging.getLogger("corda_tpu_torch.node").error(
+                        "%s: device plane: %s", self.config.name, e)
+        if self.wire_plane is not None:
+            # fabric depths (journal/dedupe/backlog), self-throttled alike
+            self.wire_plane.tick()
 
     def run(self) -> None:
         """The pump loop — the single server thread (Node.kt:344)."""
@@ -833,6 +917,9 @@ class Node:
             return
         self._stopped = True
         self.running = False
+        perf = getattr(self, "perf", None)
+        if perf is not None:
+            perf.profiler.stop()
         # an embedded run() thread must drain its current pump before
         # the database closes under it
         run_thread = getattr(self, "_run_thread", None)

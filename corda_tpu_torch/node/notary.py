@@ -9,11 +9,16 @@ card, CudaBatchVerifier — whose streamed handle
 (`PendingVerification.chunks()`) the flush's streaming tail consumes.
 The pipelined wire ingest's seam is ported (`attach_ingest`: the flush
 drains a ring of pre-decoded, id'd and staged requests, node/ingest.py).
-The reference's other optional planes are not: QoS (node/qos.py keeps
-only deadline shedding), the health plane, the txstory ledger, the perf
-and device planes and the intent journal; the constructor has no
-argument for them, and the `deadline` every `process` takes is ignored,
-as the reference ignores it without a QoS plane. The flow state machine
+So are the health plane (`attach_health`) and the perf and device
+planes (`attach_perf`: each flush's phase marks feed the skew window
+and the wave overlap, and the served-request counter becomes the
+plane's notarisations/s history key; `attach_device`: the shard queues
+as the device plane's dispatch queues, and the degraded flag as its
+fallback bridge). The reference's other optional planes are not: QoS
+(node/qos.py keeps only deadline shedding), the txstory ledger and the
+intent journal; the constructor has no argument for them, and the
+`deadline` every `process` takes is ignored, as the reference ignores
+it without a QoS plane. The flow state machine
 (flows/statemachine.py) drives `process` from NotaryServiceFlow; a
 caller without flows drives it with `run_process`.
 
@@ -915,6 +920,7 @@ class BatchingNotaryService(NotaryService):
         self._oldest_arrival: Optional[int] = None
         self._ingest_ring = None       # attach_ingest
         self._health_heartbeat = None   # attach_health: flush-loop liveness
+        self._perf = None               # attach_perf: attribution plane
         self.metrics = metrics if metrics is not None else MetricRegistry()
         self._batches_counter = self.metrics.counter(
             "Notary.BatchesDispatched"
@@ -1160,11 +1166,59 @@ class BatchingNotaryService(NotaryService):
         if self._pending and self._oldest_arrival is None:
             self._oldest_arrival = self.services.clock.now_micros()
 
+    def attach_perf(self, plane) -> None:
+        """Wire the performance-attribution plane (utils/perf.py):
+        every flush feeds its phase marks in — per-shard flush wall +
+        request counts for the skew window, link-blocked time for the
+        wave overlap-efficiency gauge — and the notary's served-request
+        counter becomes the plane's in-process
+        `batching_notary_notarisations_per_sec` history key (the
+        benchmark's key, so the node can diff itself against a baseline
+        record). Pass None to detach (A/B rigs)."""
+        self._perf = plane
+        if plane is None:
+            return
+        if self._shards is not None:
+            plane.attach_shards(
+                self.n_shards,
+                [(lambda s=shard: s.depth()) for shard in self._shards],
+            )
+        else:
+            plane.attach_shards(1, [lambda: len(self._pending)])
+        plane.watch_rate(
+            "batching_notary_notarisations_per_sec",
+            lambda: self._requests_counter.count,
+        )
+
     def backlog(self) -> int:
         """Live pending depth across the commit plane."""
         if self._shards is not None:
             return sum(shard.depth() for shard in self._shards)
         return len(self._pending)
+
+    def attach_device(self, plane) -> None:
+        """Wire the device-telemetry plane (utils/device_telemetry):
+        per-shard pending-queue depths mapped onto the devices their
+        verifiers pin to (the per-device dispatch-queue feed), and the
+        degraded-mode flag bridged as `device.fallback_active`
+        evidence. The notary holds no reference back — the plane reads
+        THROUGH the registered lambdas — so None is simply a no-op
+        (re-attach a different notary to repoint a plane). Every shard
+        verifies through the hub's one verifier (per-card verifiers are
+        ROADMAP Queue 1 #7), so no queue is pinned to a device: on one
+        card each counts toward it."""
+        if plane is None:
+            return
+        if self._shards is not None:
+            plane.attach_queues(
+                [(lambda s=shard: s.depth()) for shard in self._shards],
+                [None] * len(self._shards),
+            )
+        else:
+            plane.attach_queues([lambda: len(self._pending)], [None])
+        plane.watch_fallback(
+            lambda: self.degraded, lambda: self.degraded_evidence
+        )
 
     def tick(self) -> int:
         """Pump hook: flush whatever accumulated since the last tick —
@@ -1376,6 +1430,16 @@ class BatchingNotaryService(NotaryService):
                     self._emit_flush_trace(pending, marks, shard)
                     self._shard_done(shard, len(pending))
                 total += len(pending)
+            if self._perf is not None and staged:
+                # one wave observation: per-shard skew feeds plus the
+                # dispatch-vs-consume overlap efficiency (device work of
+                # shard k+1 under host consume of shard k)
+                self._perf.observe_wave(
+                    [
+                        (shard.id, len(pending), marks)
+                        for shard, pending, marks, _ctx in staged
+                    ]
+                )
         finally:
             self._gc_resume()
         return total
@@ -1395,6 +1459,8 @@ class BatchingNotaryService(NotaryService):
                     self._consume_flush(ctx, marks)
             finally:
                 self._emit_flush_trace(pending, marks, shard)
+                if self._perf is not None:
+                    self._perf.observe_flush(shard.id, len(pending), marks)
                 self._shard_done(shard, len(pending))
             return len(pending)
         finally:
@@ -1464,6 +1530,8 @@ class BatchingNotaryService(NotaryService):
                 self._consume_flush(ctx, marks)
         finally:
             self._emit_flush_trace(pending, marks)
+            if self._perf is not None:
+                self._perf.observe_flush(0, len(pending), marks)
 
     def _emit_flush_trace(self, pending, marks, shard=None) -> None:
         """Per-request trace assembly: the flush phases ran batched, so

@@ -29,15 +29,15 @@ attaches are buffered and flushed on the first `verifier.ready`.
 
 Over the TCP fabric (node/fabric.py) the pool takes `register_peer=`
 and `allowed_workers=` and the worker `advertised_address=`, as the
-reference's do; the worker's `health=` registers its drain heartbeat
-and the pool's `watch_health` its degraded-pool rule. `main()` is the
-standalone worker process (`python -m corda_tpu_torch.node.verifier`),
-on a CudaBatchVerifier unless `--cpu` asks for CpuBatchVerifier.
+reference's do; the worker's `health=` registers its drain heartbeat,
+its `perf=` its verified-request rate (utils/perf.py), and the pool's
+`watch_health` its degraded-pool rule. `main()` is the standalone
+worker process (`python -m corda_tpu_torch.node.verifier`), on a
+CudaBatchVerifier unless `--cpu` asks for CpuBatchVerifier, with a
+perf plane and, with `--profile-hz`, its sampling profiler.
 
-Not ported: the worker's `perf=` and the pool's `txstory` hook (their
-planes are ROADMAP Queue 1 #5 and #6; passing `perf=` is a TypeError,
-and the worker process refuses `--profile-hz` above 0). A ring-fed
-worker's ring depth is `INGEST_WINDOW`.
+Not ported: the pool's `txstory` hook (its plane is ROADMAP Queue 1
+#6). A ring-fed worker's ring depth is `INGEST_WINDOW`.
 """
 
 from __future__ import annotations
@@ -733,6 +733,12 @@ class VerifierWorker:
         #                            a `verifier.drain` heartbeat the drain
         #                            beats (progress = requests answered,
         #                            queue depth = ring + handler backlog)
+        perf=None,                 # Optional[utils.perf.PerfPlane]: the
+        #                            worker's verified-request counter
+        #                            becomes an in-process rate history
+        #                            key, and an ingest pipeline built
+        #                            with no plane reports its stage
+        #                            seconds there
     ):
         self._messaging = messaging
         self._verifier = batch_verifier or default_verifier()
@@ -766,6 +772,13 @@ class VerifierWorker:
                 # fabric has no ring seam: the handler path below still
                 # feeds the pipeline via self._raw
                 pass
+        if perf is not None:
+            perf.watch_rate(
+                "verifier_worker_verified_per_sec",
+                lambda: self._verified.count,
+            )
+            if ingest is not None and getattr(ingest, "perf", None) is None:
+                ingest.perf = perf
         self._heartbeat = None
         if health is not None:
             self._heartbeat = health.heartbeat(
@@ -976,10 +989,12 @@ def main(argv: Optional[list[str]] = None) -> None:
     Connects a fabric endpoint to the requesting node, announces
     readiness, and pumps until SIGINT. The verifier is built at start: a
     CudaBatchVerifier on the card, which raises where there is none, or
-    CpuBatchVerifier with `--cpu`. The reference's `--profile-hz` runs
-    the perf plane's sampling profiler, which is not ported (ROADMAP
-    Queue 1 #5): a rate above 0 exits non-zero. On exit the worker
-    prints one line to stderr: the requests it answered and its drains.
+    CpuBatchVerifier with `--cpu`. The worker attributes itself on a
+    perf plane (kernel accounting, drain-rate history) and, with
+    `--profile-hz`, profiles its threads continuously; the folded
+    stacks land in `--profile-out` (default `<db>.folded`) on exit. On
+    exit the worker prints one line to stderr: the requests it answered
+    and its drains.
     """
     import argparse
     import importlib
@@ -988,6 +1003,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     from ..crypto import schemes
     from ..crypto.batch_verifier import CpuBatchVerifier, CudaBatchVerifier
     from ..utils.health import HealthMonitor
+    from ..utils.perf import PerfPlane, PerfPolicy
     from .cordapp import port_module_name
     from .fabric import FabricEndpoint, PeerAddress
     from .persistence import NodeDatabase
@@ -1014,10 +1030,16 @@ def main(argv: Optional[list[str]] = None) -> None:
         "--profile-hz",
         type=float,
         default=0.0,
-        help="the perf plane's sampling profiler (not ported: above 0 "
-        "exits non-zero)",
+        help="continuous sampling-profiler rate over this worker's "
+        "threads (utils/perf.py; 0 = off). Folded stacks are written "
+        "to --profile-out on shutdown",
     )
-    p.add_argument("--profile-out", default="")
+    p.add_argument(
+        "--profile-out",
+        default="",
+        help="where the folded collapsed stacks land on shutdown "
+        "(flamegraph.pl format; default <db>.folded)",
+    )
     p.add_argument(
         "--app",
         action="append",
@@ -1027,9 +1049,6 @@ def main(argv: Optional[list[str]] = None) -> None:
         "`corda_tpu_torch.`)",
     )
     args = p.parse_args(argv)
-    if args.profile_hz > 0:
-        p.exit(2, "--profile-hz: the perf plane is not ported "
-                  "(ROADMAP Queue 1 #5)\n")
 
     for mod in args.app or ["corda_tpu.finance"]:
         importlib.import_module(port_module_name(mod))
@@ -1055,6 +1074,14 @@ def main(argv: Optional[list[str]] = None) -> None:
     # the drain heartbeat (and the ring rule) live on a HealthMonitor
     # ticked by the pump loop, so a wedged drain shows in-process
     health = HealthMonitor()
+    # the worker attributes itself too: kernel first-call-vs-execute
+    # accounting (its verifier records into the plane's process
+    # default), drain-rate history, and with --profile-hz continuous
+    # folded-stack profiling of the pump and decode-pool threads
+    perf = PerfPlane(policy=PerfPolicy(profile_hz=args.profile_hz or 19.0))
+    health.watch_perf(perf)
+    if args.profile_hz:
+        perf.profiler.start()
     worker = VerifierWorker(
         ep,
         args.node,
@@ -1063,15 +1090,30 @@ def main(argv: Optional[list[str]] = None) -> None:
         advertised_address=("127.0.0.1", ep.listen_port),
         ingest=ingest,
         health=health,
+        perf=perf,
     )
     try:
         while True:
             ep.pump(block=True, timeout=1.0)
             worker.drain()
             health.tick()
+            perf.tick()
     except KeyboardInterrupt:
         pass
     finally:
+        perf.profiler.stop()
+        if args.profile_hz and perf.profiler.samples:
+            # the worker has no web gateway to serve the profile from:
+            # the capture lands in a file
+            out_path = args.profile_out or (args.db + ".folded")
+            try:
+                with open(out_path, "w") as f:
+                    f.write(perf.profiler.collapsed() + "\n")
+                print(f"profile: folded stacks -> {out_path}",
+                      file=sys.stderr)
+            except OSError as e:
+                print(f"profile: could not write {out_path}: {e}",
+                      file=sys.stderr)
         m = worker.metrics
         answered = m.meter("Verifier.Verified").count + m.meter("Verifier.Failed").count
         drains = m.histogram("Verifier.BatchSize").count

@@ -5,9 +5,10 @@ event log, alert rules with hysteresis (burn rate, shed ratio, ring),
 the canary probe and `HealthMonitor`, `ClusterHealth`,
 `IncidentRecorder` and the notary canary, which notarises through the
 real flush path (on the card, one CudaBatchVerifier dispatch).
-`watch_qos`, `watch_distributed_uniqueness`, `watch_perf`,
-`watch_device`, `watch_wire` and `watch_txstory` watch planes the port
-lacks and raise NotImplementedError naming their ROADMAP item.
+`watch_perf`, `watch_device` and `watch_wire` install the perf,
+device and wire planes' rules; `watch_qos`,
+`watch_distributed_uniqueness` and `watch_txstory` watch planes the
+port lacks and raise NotImplementedError naming their ROADMAP item.
 
 Every node has rich telemetry (/metrics, /traces, /qos), but
 nothing in-process WATCHES it without this plane: a wedged flush loop, a stalled
@@ -693,25 +694,35 @@ class HealthMonitor:
         )
 
     def watch_perf(self, perf) -> None:
-        """the perf plane (utils/perf.py): not ported (ROADMAP Queue 1 #5); raises."""
-        raise NotImplementedError(
-            "HealthMonitor.watch_perf: the perf plane (utils/perf.py) is not ported "
-            "(ROADMAP Queue 1 #5)"
-        )
+        """Install the performance-attribution rules over a
+        utils/perf.PerfPlane: cold-shape-after-warmup and per-shard
+        skew (utils/perf.py `_perf_rules` — the plane owns the
+        telemetry, this monitor owns the alert walks + evidence)."""
+        perf.install_rules(self)
 
     def watch_device(self, plane) -> None:
-        """the device plane (utils/device_telemetry.py): not ported (ROADMAP Queue 1 #5); raises."""
-        raise NotImplementedError(
-            "HealthMonitor.watch_device: the device plane (utils/device_telemetry.py) is not ported "
-            "(ROADMAP Queue 1 #5)"
-        )
+        """Install the device-telemetry rules over a
+        utils/device_telemetry.DevicePlane: `device.hbm_pressure`
+        (sustained device memory occupancy over threshold),
+        `device.fallback_active` (the notary's degraded-mode gauge bridged
+        with device evidence) and `device.utilization_collapse` (busy
+        fraction dropping while the backlog grows — the pump starved
+        the chip). The plane owns the telemetry, this monitor the
+        alert walks + evidence (the watch_perf pattern)."""
+        plane.install_rules(self)
 
     def watch_wire(self, plane) -> None:
-        """the wire plane (utils/wire_telemetry.py): not ported (ROADMAP Queue 1 #5); raises."""
-        raise NotImplementedError(
-            "HealthMonitor.watch_wire: the wire plane (utils/wire_telemetry.py) is not ported "
-            "(ROADMAP Queue 1 #5)"
-        )
+        """Install the wire-telemetry rules over a
+        utils/wire_telemetry.WirePlane: `wire.journal_growth` (the
+        store-and-forward journal deep AND still growing across the
+        sample window — drains aren't keeping up), `wire.backlog`
+        (some peer's unacked backlog over threshold, detail naming
+        the peer and its high-water) and `gateway.saturated` (the
+        web gateway stealing more than the allowed fraction of pump
+        wall — handlers starving message delivery). Same ownership
+        split as watch_device: the plane owns the telemetry, this
+        monitor the alert walks + evidence."""
+        plane.install_rules(self)
 
     def watch_txstory(self, story, targets: dict, window_micros=None) -> None:
         """the tx-story plane (utils/txstory.py): not ported (ROADMAP Queue 1 #6(4)); raises."""

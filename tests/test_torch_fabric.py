@@ -50,9 +50,10 @@ def port_cases(name: str, left_out: dict) -> list:
             if case.startswith("test_") and callable(fn) and case not in left_out]
 
 
-def run_port_case(mod, case: str, tmp_path) -> None:
+def run_port_case(mod, case: str, tmp_path, **given) -> None:
     """One reference case, from the port module `mod`, with its fixtures
-    (plain or generator) built the way pytest builds them."""
+    (plain or generator) built the way pytest builds them; `given`
+    supplies pytest's own fixtures (e.g. monkeypatch) by name."""
     fn = getattr(mod, case)
     teardown, kwargs, counter = [], {}, iter(range(100))
 
@@ -63,6 +64,9 @@ def run_port_case(mod, case: str, tmp_path) -> None:
 
     try:
         for arg in inspect.signature(fn).parameters:
+            if arg in given:
+                kwargs[arg] = given[arg]
+                continue
             if arg == "tmp_path":
                 kwargs[arg] = tmp()
                 continue

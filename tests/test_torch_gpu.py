@@ -99,3 +99,53 @@ def test_ed_kernel_matches_plain(cuda, kind, B):
     if B > 3:
         assert g[2] == refmath.ed_mul(c, 9, base)        # A = identity
         assert g[3] == refmath.ed_mul(c, 8, pts[2])      # s = L: s*B = 0
+
+
+def test_device_sampler_reads_the_card(cuda):
+    """The default DeviceSampler lists every card with the reference's
+    row shape: platform "gpu", the card's name, its total memory as the
+    limit, and the allocator's census counting a resident tensor."""
+    from corda_tpu_torch.utils import device_telemetry as dlib
+
+    pin = torch.ones((1 << 20,), dtype=torch.float32, device=cuda)
+    rows = dlib.DeviceSampler().sample()
+    assert [r["id"] for r in rows] == list(range(torch.cuda.device_count()))
+    row = rows[torch.cuda.current_device()]
+    assert row["platform"] == "gpu" and row["kind"] == torch.cuda.get_device_name()
+    hbm = row["hbm"]
+    assert hbm["bytes_limit"] == torch.cuda.get_device_properties(row["id"]).total_memory
+    assert hbm["bytes_in_use"] >= pin.numel() * 4 and 0 < hbm["utilization"] < 1
+    assert row["live_buffers"]["count"] >= 1 and row["live_buffers"]["bytes"] >= pin.numel() * 4
+    del pin
+
+
+def test_verifier_accounting_on_the_card(cuda):
+    """A CudaBatchVerifier on cuda:0 records each chunk into both ledgers:
+    the first call of a (scheme, batch) as the compile, the next as an
+    execute, the staging copy's bytes and seconds, and the dispatch on
+    device 0 with its queue wait; the device plane windows the busy
+    seconds."""
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.crypto.batch_verifier import CudaBatchVerifier
+    from corda_tpu_torch.testing.selfcheck import build_requests
+    from corda_tpu_torch.utils import device_telemetry as dlib
+    from corda_tpu_torch.utils import perf as plib
+
+    acct, devacct = plib.KernelAccounting(), dlib.DeviceAccounting()
+    dlib.set_device_accounting(devacct)
+    try:
+        v = CudaBatchVerifier(batch_sizes=(128,), device=torch.device("cuda", 0), perf=acct)
+        reqs = build_requests(96, seed=3, scheme_ids=(schemes.EDDSA_ED25519_SHA512,))
+        first = v.verify_batch(reqs)
+        acct.mark_warm()
+        assert v.verify_batch(reqs) == first
+    finally:
+        dlib.set_device_accounting(None)
+    row = acct.snapshot()["keys"][f"scheme{schemes.EDDSA_ED25519_SHA512}/batch128"]
+    assert (row["compiles"], row["executes"]) == (1, 1) and acct.retraces == 0
+    assert row["transfer_bytes"] == 2 * 128 * (128 + 4 + 4 + 1)
+    assert row["transfer_seconds"] > 0 and row["execute_seconds"] > 0
+    dev = devacct.snapshot()["devices"][0]
+    assert dev["dispatches"] == 2 and dev["requests"] == 192
+    assert dev["busy_seconds"] > 0 and dev["queue_wait_seconds"] > 0
+    assert dev["transfer_bytes"] == row["transfer_bytes"]

@@ -15,8 +15,10 @@ the port, held against the reference.
   summaries.
 - Traced Raft and BFT frames feed the tracer's ClockSync in both
   packages.
-- The watchers of planes the port lacks raise NotImplementedError
-  naming their ROADMAP item.
+- The watchers of planes the port lacks (QoS, distributed uniqueness,
+  txstory) raise NotImplementedError naming their ROADMAP item; the
+  perf, device and wire watchers are held in
+  tests/test_torch_{perf,device_telemetry,wire_telemetry}.py.
 """
 
 from __future__ import annotations
@@ -54,18 +56,30 @@ LEFT_OUT = {
 }
 
 
-def health_port_module() -> types.ModuleType:
-    """tests/test_health.py on the port, without its web-gateway import."""
-    key = "_torch_port_test_health"
+def port_test_module(name: str, subs=(), **overrides) -> types.ModuleType:
+    """tests/<name>.py on the port: its module-level import of the web
+    gateway dropped, `subs` ((old, new) source pairs) applied,
+    `corda_tpu.` read as `corda_tpu_torch.`, and `overrides` set on the
+    module (port-side versions of its helpers and cases)."""
+    key = f"_torch_port_{name}"
     if key not in sys.modules:
-        src = (TESTS / "test_health.py").read_text()
+        src = (TESTS / f"{name}.py").read_text()
         src = src.replace("from corda_tpu.client.webserver import NodeWebServer\n", "")
+        for a, b in subs:
+            assert a in src, a
+            src = src.replace(a, b)
         src = re.sub(r"\bcorda_tpu\.", "corda_tpu_torch.", src)
         mod = types.ModuleType(key)
-        mod.__file__ = str(TESTS / "test_health.py")
+        mod.__file__ = str(TESTS / f"{name}.py")
         sys.modules[key] = mod
         exec(compile(src, mod.__file__, "exec"), mod.__dict__)
+        vars(mod).update(overrides)
     return sys.modules[key]
+
+
+def health_port_module() -> types.ModuleType:
+    """tests/test_health.py on the port, without its web-gateway import."""
+    return port_test_module("test_health")
 
 
 def _m(prefix: str, name: str):
@@ -170,8 +184,7 @@ def test_traced_consensus_frames_feed_clock_sync(kind):
 
 
 WATCHERS = [("watch_qos", (None,), "#6)"), ("watch_distributed_uniqueness", (None,), "#6(1)"),
-            ("watch_perf", (None,), "#5)"), ("watch_device", (None,), "#5)"),
-            ("watch_wire", (None,), "#5)"), ("watch_txstory", (None, {}), "#6(4)")]
+            ("watch_txstory", (None, {}), "#6(4)")]
 
 
 @pytest.mark.parametrize("method,args,item", WATCHERS, ids=[w[0] for w in WATCHERS])

@@ -12,7 +12,9 @@ Python, but they are in the package too: the scan checks that every
 csrc and native file is one the port's builds know. A third check runs
 the node CLI (`python -m corda_tpu_torch.node`) and the verifier
 worker process (`python -m corda_tpu_torch.node.verifier --cpu`) with
-the same block, and reads their `sys.modules` once they serve.
+the same block, and reads their `sys.modules` once they serve; the
+worker runs once more with `--profile-hz`, its sampling profiler on,
+and must write its folded stacks.
 """
 
 import ast
@@ -52,13 +54,14 @@ def test_ast_scan_finds_no_banned_import():
     its CLI, the health plane, tracing, X.509 and legal names,
     cordform, the dev TLS identities) and of the driver slice (the
     multi-process Driver, the load test, the ledger fuzzer, the demos,
-    the client plumbing) are scanned.
+    the client plumbing) and of the telemetry slice (the perf, device
+    and wire planes) are scanned.
     The Cash contract's
     wire name, "corda_tpu.finance.Cash", the sandbox's platform module
     names and the flows' class tags are strings, not imports."""
     offenders = []
     files = _modules()
-    assert len(files) >= 81
+    assert len(files) >= 84
     for must in ("crypto/eddsa.py", "node/notary.py", "node/services.py",
                  "core/transactions.py", "finance/cash.py", "native/__init__.py",
                  "native/build.py", "crypto/sphincs.py", "core/sandbox.py",
@@ -73,7 +76,8 @@ def test_ast_scan_finds_no_banned_import():
                  "testing/dev_tls.py", "testing/driver.py", "testing/loadtest.py",
                  "testing/generators.py", "samples/__init__.py", "samples/notary_demo.py",
                  "samples/trader_demo.py", "samples/bank_of_corda_demo.py",
-                 "samples/attachment_demo.py", "client/__init__.py", "client/common.py"):
+                 "samples/attachment_demo.py", "client/__init__.py", "client/common.py",
+                 "utils/perf.py", "utils/device_telemetry.py", "utils/wire_telemetry.py"):
         assert PKG / must in files
     assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
         "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh", "wei_ladder.cu"
@@ -166,6 +170,18 @@ assert find_flow_class("ShareAttachmentFlow") == "corda_tpu.samples.attachment_d
 from corda_tpu_torch.samples import notary_demo
 signers, _ = notary_demo.run("single", n_txs=1, batch_verifier=CpuBatchVerifier())
 assert [len(s) for s in signers] == [1]
+from corda_tpu_torch.utils import device_telemetry, perf, wire_telemetry
+perf_plane = perf.PerfPlane()
+device_plane = device_telemetry.DevicePlane(
+    perf=perf_plane, sampler=device_telemetry.DeviceSampler(lambda: []))
+wire_plane = wire_telemetry.WirePlane()
+wire_plane.attach_fabric(alice.messaging)
+alice.messaging.send("isolation.t", b"frame", "Bob")
+net.run()
+for plane in (perf_plane, device_plane, wire_plane):
+    plane.tick()
+assert wire_plane.fabric.totals()["frames_out"] == 1
+assert "kernels" in perf_plane.snapshot() and device_plane.capacity()["resources"]
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu")]
 assert not bad, bad
 print(len(names))
@@ -188,7 +204,7 @@ def test_imports_with_jax_and_reference_blocked():
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 81
+    assert int(out.stdout.strip().splitlines()[-1]) >= 84
 
 
 _SERVING_PROCESS = r"""
@@ -242,3 +258,20 @@ def test_cli_node_and_worker_process_load_neither_jax_nor_the_reference(tmp_path
         assert out.returncode == 0, out.stderr
         serving, = [line for line in out.stdout.splitlines() if line.startswith("SERVING")]
         assert serving == "SERVING True []", which
+
+
+def test_profiled_worker_process_loads_neither_jax_nor_the_reference(tmp_path):
+    """The verifier worker with `--profile-hz 19 --profile-out f` (the
+    perf plane's sampling profiler over its threads), serving with
+    importing jax or corda_tpu blocked: neither is in its sys.modules,
+    it exits 0 and f holds its folded stacks."""
+    folded = tmp_path / "w0.folded"
+    argv = ["--name", "w0", "--node", "Solo", "--node-port", "1", "--cpu",
+            "--db", str(tmp_path / "w0.db"), "--profile-hz", "19", "--profile-out", str(folded)]
+    out = subprocess.run([sys.executable, "-c", _SERVING_PROCESS, "worker", *argv],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    serving, = [line for line in out.stdout.splitlines() if line.startswith("SERVING")]
+    assert serving == "SERVING True []"
+    stacks = folded.read_text().splitlines()
+    assert stacks and all(line.rsplit(" ", 1)[1].isdigit() for line in stacks)

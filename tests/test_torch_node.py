@@ -408,18 +408,33 @@ def test_default_backend_without_a_card_fails_with_the_device_error(tmp_path, mo
 
 
 def test_default_node_boots_without_the_unported_planes(tmp_path, caplog):
+    """A default node builds the perf, device and wire planes (as the
+    reference's does) and boots without the txstory plane alone (D6)."""
     from corda_tpu_torch.node.config import NodeConfig
     from corda_tpu_torch.node.node import Node
+    from corda_tpu_torch.utils import device_telemetry, perf, wire_telemetry
 
     caplog.set_level(logging.WARNING, logger="corda_tpu_torch.node")
     node = Node(NodeConfig(name="Solo", base_dir=str(tmp_path / "solo"))).start()
     try:
-        assert node.unported_planes == ("perf", "device", "wire", "txstory")
-        assert (node.perf, node.device_plane, node.wire_plane, node.txstory) == (None,) * 4
+        assert node.unported_planes == ("txstory",)
+        assert isinstance(node.perf, perf.PerfPlane)
+        assert isinstance(node.device_plane, device_telemetry.DevicePlane)
+        assert isinstance(node.wire_plane, wire_telemetry.WirePlane)
+        assert node.txstory is None
+        # the perf plane adopted the process kernel accounting, and the
+        # wire plane is the fabric's telemetry seam
+        assert node.perf.kernels is perf.get_kernel_accounting()
+        assert node.messaging.telemetry is node.wire_plane.fabric
+        alerts = node.health.snapshot()["alerts"]
+        # (the perf rules come with a batching notary, as in the reference)
+        assert {"device.hbm_pressure",
+                "device.fallback_active", "device.utilization_collapse",
+                "wire.journal_growth", "wire.backlog", "gateway.saturated"} <= set(alerts)
         warnings = [r for r in caplog.records if r.name == "corda_tpu_torch.node"
                     and r.levelno == logging.WARNING]
         assert len(warnings) == 1
-        assert "perf, device, wire, txstory" in warnings[0].getMessage()
+        assert "txstory" in warnings[0].getMessage()
         assert node.health is not None and node.rpc_server is not None
     finally:
         node.stop()
@@ -427,6 +442,8 @@ def test_default_node_boots_without_the_unported_planes(tmp_path, caplog):
                             device_telemetry_enabled=False, wire_telemetry_enabled=False,
                             txstory_enabled=False))
     assert quiet.unported_planes == ()
+    assert (quiet.perf, quiet.device_plane, quiet.wire_plane) == (None,) * 3
+    assert quiet.messaging.telemetry is None
     quiet.messaging.stop()
     quiet.db.close()
 
@@ -466,7 +483,9 @@ def test_initial_registration_raises(tmp_path):
 def test_worker_process_without_cpu_exits_with_the_device_error(tmp_path):
     """`python -m corda_tpu_torch.node.verifier` builds a CudaBatchVerifier
     at start: without `--cpu` and without a card it exits non-zero with
-    the device error; `--profile-hz` (the perf plane) exits non-zero."""
+    the device error; with `--cpu --profile-hz 19 --profile-out f` it
+    serves, profiles its threads and on SIGINT writes the folded stacks
+    to f and exits 0."""
     import subprocess
     import sys
 
@@ -479,6 +498,29 @@ def test_worker_process_without_cpu_exits_with_the_device_error(tmp_path):
             "--node", "A", "--node-port", "1", "--db", str(tmp_path / "w0.db")]
     out = subprocess.run(base, cwd=root, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "CUDA is not available" in out.stderr
-    out = subprocess.run(base + ["--cpu", "--profile-hz", "19"], cwd=root,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "ROADMAP Queue 1 #5" in out.stderr
+    folded = tmp_path / "w0.folded"
+    out = subprocess.run([sys.executable, "-c", _SIGINT_WHEN_SERVING, *base[3:], "--cpu",
+                          "--profile-hz", "19", "--profile-out", str(folded)],
+                         cwd=root, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert f"profile: folded stacks -> {folded}" in out.stderr
+    stacks = folded.read_text().splitlines()
+    assert stacks and all(line.rsplit(" ", 1)[1].isdigit() for line in stacks)
+    assert any("verifier.py:main" in line for line in stacks)
+
+
+# the worker's main() with these arguments, sent SIGINT once it has
+# served a few seconds (a signal landing in the imports would be a
+# KeyboardInterrupt there, not a stop)
+_SIGINT_WHEN_SERVING = r"""
+import os, signal, sys, threading, time
+imported = threading.Event()
+def stop():
+    imported.wait()
+    time.sleep(3)
+    os.kill(os.getpid(), signal.SIGINT)
+threading.Thread(target=stop, daemon=True).start()
+from corda_tpu_torch.node.verifier import main
+imported.set()
+main(sys.argv[1:])
+"""

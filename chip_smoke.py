@@ -78,7 +78,7 @@ Phases (any failure raises and exits non-zero):
      signature byte is refused by FinalityFlow (InvalidSignature) and by
      the notary ("invalid-transaction"); a double spend raises
      NotaryException "conflict"; every balance exact; (b) a batching
-     notary for shards 1 and 4: 8 payments from 4 payers (issuance
+     notary for shards 1 and 4: 4 payments from 4 payers (issuance
      recorded straight into the vaults) started before one pump round
      and notarised in one flush (one dispatch per shard holding
      requests), every payment completed and every balance exact, no
@@ -197,7 +197,7 @@ Phases (any failure raises and exits non-zero):
      corda_tpu_torch.node.verifier` processes (batch window 256): a
      warm-up request each, after which each worker must hold a CUDA
      context (counted as in (c)); worker 0 frozen (SIGSTOP) so that it
-     holds its share unanswered; the first 4,096 phase-6 spends as
+     holds its share unanswered; the first 2,048 phase-6 spends as
      `verify(ltx, stx)` requests through the durable journals; once a
      quarter is answered worker 0 gets SIGKILL; its unanswered nonces
      re-dispatch to the survivor when its lease expires. Every answer
@@ -214,7 +214,7 @@ Phases (any failure raises and exits non-zero):
      (the card, in each node process) boots Hub (map host, batching
      notary, a 50 ms batch wait), Alice (ed25519), Bob (p256) and Carol
      (secp256k1) as `python -m corda_tpu_torch.node` processes;
-     CrossCashLoadTest(seed=31) runs 16 commands in a tight loop, a
+     CrossCashLoadTest(seed=31) runs 12 commands in a tight loop, a
      traffic node killed (-9) and restarted at 0.35 and the notary at
      0.65; no command may fail, the model must reconcile, every traffic
      node's vault total over RPC must equal the model, and the card must
@@ -259,11 +259,55 @@ Phases (any failure raises and exits non-zero):
      pool, every answer its label, SIGINT exit 0 and a non-empty
      folded-stack file. ed_ladder and wei_ladder_windowed must launch
      in (a)-(c);
- 14. print the kernel table as one JSON line (with each kernel's
+ 14. the notary's serving-path planes (node/qos.py, utils/txstory.py,
+     persistence.NotaryIntentJournal and TxStoryIndex,
+     node/statestore.py) over the phase-6 fixture and
+     CudaBatchVerifier(batch_sizes=(4096,)), degraded_fallback=False,
+     the launch counters set to 0 before 14a and read after 14d: (a)
+     the first 8,192 spends through `process` into a 1-shard batching
+     notary with NotaryQos (a p99 target of 10 s, batch up to 4,096, a
+     wait up to 300 ms, a 64-token bucket refilled at 50/s per
+     requester) and a TxStory: 1 spend in 32 arrives with its deadline
+     already past, 1 in 16 comes from one requester over its bucket, the
+     rest from 240 requesters inside theirs (no shed ever opens a
+     double-spend pair); every spend answered once, as its label or
+     `shed` (ExpiredIngress, ExpiredFlush, Admission or a brownout
+     reason), the Qos counters equal to the answers, every admitted
+     answer equal to a notary's without QoS over the same admitted
+     spends, and the story's lifecycle check (one story per spend past
+     the notary check, each closed by exactly one terminal that agrees
+     with its answer and shed reason; none open, none evicted); prints
+     the controller's batch and wait after each flush, the admitted
+     p99, the sheds by reason, the brownout transitions and
+     notarisations/s, then one flush of 4,096 with the planes on and
+     one with them off (no gate); (b) QosPolicy() over 256 spends in 4
+     arrival rounds, the same readings after each flush and the same
+     reconciliation; (c) a NodeDatabase, a
+     ShardedCommitLogUniquenessProvider of 4 partitions and a
+     NotaryIntentJournal under a 4-shard notary: 4,096 spends admitted,
+     the notary killed before its flush (the database closed without
+     the buffered deletes), the database and store reopened and
+     `replay_intents` flushed once on the card, every journaled spend
+     answered exactly once as its label; killed again before the
+     deletes and replayed again (the same-transaction re-commit absorbs
+     the committed), the same answers; the committed map equal to a
+     PersistentUniquenessProvider's over the same spends (which accepts
+     the same re-commit), and unchanged by compaction, a reopen and
+     `migrate_sqlite_state` into a fresh store; (d) a Node from
+     node.toml, provisioned with the fixture's notary key, with every
+     plane (batching, qos_enabled, notary_intent_wal, the commit-log
+     store, txstory_enabled, txstory_index): unported_planes == (),
+     256 spends through its notary, every answer its label, and after a
+     pump tick each admitted spend's story with its terminal in the
+     TxStoryIndex, the QoS and txstory rules on the health monitor, the
+     WAL drained and the commit log holding the accepted spends'
+     inputs. ed_ladder and wei_ladder_windowed must launch; prints each
+     part's wall and the phase's;
+ 15. print the kernel table as one JSON line (with each kernel's
      launches in phase 10 as "clusters_launches", in 11a-11b as
-     "nodes_launches", in 12b-12d as "drives_launches" and in 13a-13c
-     as "telemetry_launches"), then the result line {"ok": true,
-     "device": {...}}.
+     "nodes_launches", in 12b-12d as "drives_launches", in 13a-13c as
+     "telemetry_launches" and in 14a-14d as "planes_launches"), then the
+     result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
 """
@@ -273,6 +317,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 from contextlib import contextmanager
 from concurrent.futures import ThreadPoolExecutor
 import random
@@ -1049,7 +1094,7 @@ def phase_schemes(device, card: str, fx) -> dict:
 FLOW_SEED = 11
 FLOW_BATCHES = (128, 4096)
 FLOW_PAYERS = 4              # phase 8b: payer nodes (1 in 4 p256, 1 in 4 secp256k1; 8 cut)
-FLOW_COINS = 2               # phase 8b: issued coins per payer, one payment each
+FLOW_COINS = 1               # phase 8b: issued coins per payer, one payment each (2 cut)
 FLOW_SHARDS = (1, 4)         # phase 8b: the batching notary's shards
 
 
@@ -2230,7 +2275,7 @@ NODE_TIMEOUT = 180.0         # s any one node-drive step may take before the pha
 TCP_POOL_WINDOW = 256        # 11d: a worker's --batch-window (requests per handler drain)
 TCP_POOL_KILL_AT = 0.25      # 11d: share of answers after which worker 0 gets SIGKILL
 TCP_POOL_DEADLINE = 600_000_000   # 11d: the pool's attempt and request deadlines (µs)
-TCP_POOL_REQUESTS = 4096     # 11d: the first phase-6 spends as requests (16,384 cut for time)
+TCP_POOL_REQUESTS = 2048     # 11d: the first phase-6 spends as requests (16,384, 4,096 cut)
 TCP_POOL_LEASE = 30_000_000  # 11d: the pool's lease (µs) for the burst; the default 10 s
 #                              is shorter than a heartbeat's wait behind the burst's frames
 
@@ -2900,7 +2945,7 @@ def phase_nodes(device, card: str, fx) -> dict:
 # -- phase 12: the Driver, the load test, the fuzzer's corpus and the demos ---
 
 LOAD_SEED = 31               # 12a: CrossCashLoadTest's seed (the reference soak's)
-LOAD_COUNT = 16              # 12a: load-test commands (the soak's; 24 were cut for time)
+LOAD_COUNT = 12              # 12a: load-test commands (the soak's 24, then 16, cut for time)
 LOAD_BATCH_WAIT = 50_000     # 12a: µs the hub's batching notary holds a flush open (the soak's)
 LOAD_EMPTY = 50              # 12a: EmptyFlowLoadTest's round trips on Alice
 DEMO_SEED = 42               # 12b, 12d: the demos' default seed
@@ -3636,6 +3681,557 @@ def phase_telemetry(device, card: str, fx, sampler=None, cpu_worker: bool = Fals
     return out
 
 
+# -- phase 14: the notary's serving-path planes ---------------------------------
+
+PLANES_SPENDS = 8192         # 14a: the first phase-6 spends through QoS and the story
+PLANES_EXPIRED_EVERY = 32    # 14a: 1 spend in 32 arrives with its deadline already past
+PLANES_FLOOD_EVERY = 16      # 14a: 1 spend in 16 from the requester over its bucket
+PLANES_CLIENTS = 240         # 14a: the other requesters (~31 spends each: inside the burst)
+PLANES_POLICY = dict(target_p99_micros=10_000_000, max_batch=4096, max_wait_micros=300_000,
+                     admission_rate_per_sec=50, admission_burst=64)   # 14a: sized for this card
+PLANES_TIMED = 4096          # 14a: spends in the planes-on and the planes-off flush
+DEFAULT_SPENDS = 256         # 14b: spends under QosPolicy()
+DEFAULT_WAVES = 4            # 14b: arrival rounds, a tick after each
+DURABLE_SPENDS = 4096        # 14c: spends admitted before the kill
+DURABLE_SHARDS = 4           # 14c: the notary's shards and the commit log's partitions
+NODE_PLANE_SPENDS = 256      # 14d: spends through the node's notary
+PLANES_TIMEOUT = 120.0       # s any one drain may take before the phase fails
+
+
+def _wait_micros(clock, micros: int) -> None:
+    """Let `micros` pass on the notary's clock: a TestClock advances, the
+    wall clock is slept on."""
+    if hasattr(clock, "advance"):
+        clock.advance(micros)
+    else:
+        time.sleep(micros / 1e6)
+
+
+def _drain_ticks(svc, clock, label: str) -> int:
+    """Tick a batching notary until its queue is empty, letting the
+    controller's batching window pass whenever a tick holds; returns the
+    ticks taken."""
+    deadline, ticks = time.monotonic() + PLANES_TIMEOUT, 0
+    while svc._pending:
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{label}: {len(svc._pending)} requests still queued")
+        ticks += 1
+        if not svc.tick():
+            _wait_micros(clock, max(svc.effective_wait_micros, 1_000))
+    return ticks
+
+
+def _observe_flushes(qos) -> list:
+    """The controller's readings after every flush it observes: (flush
+    size, backlog, batch, wait µs, admitted p99 µs, brownout level)."""
+    seen, observe = [], qos.observe_flush
+
+    def observed(batch_size: int, backlog: int) -> None:
+        observe(batch_size, backlog)
+        seen.append((batch_size, backlog, qos.controller.batch, qos.controller.wait_micros,
+                     round(qos.admitted_latency.quantile(0.99)), qos.brownout_level))
+
+    qos.observe_flush = observed
+    return seen
+
+
+def _expected_kinds(labels: list, shed: set) -> list:
+    """The answer each spend must get once the `shed` ones are gone: its
+    label, but a double spend whose earlier spend was shed is accepted."""
+    return ["ok" if k == "conflict" and i - 1 in shed else k for i, k in enumerate(labels)]
+
+
+def _check_planes_answers(kinds: list, reasons: list, labels: list, allowed: set,
+                          label: str) -> None:
+    """Every spend answered once: as its label (a double spend of a shed
+    spend accepted instead), or `shed` with one of the `allowed`
+    reasons."""
+    if len(kinds) != len(labels):
+        raise RuntimeError(f"{label}: {len(kinds)} answers for {len(labels)} spends")
+    shed = {i for i, k in enumerate(kinds) if k == "shed"}
+    for i in sorted(shed):
+        if reasons[i] not in allowed:
+            raise RuntimeError(f"{label}: spend {i} shed for {reasons[i]!r}, not one of "
+                               f"{sorted(allowed)}")
+    want = _expected_kinds(labels, shed)
+    bad = [i for i, k in enumerate(kinds) if i not in shed and k != want[i]]
+    if bad:
+        i = bad[0]
+        raise RuntimeError(f"{label}: {len(bad)} answers differ from their labels; spend {i} "
+                           f"answered {kinds[i]}, label {want[i]}")
+
+
+def _check_lifecycle(stories: list, tx_ids: list, kinds: list, reasons: list,
+                     label: str, evicted: int = 0) -> None:
+    """The story's lifecycle check: every spend that passed the notary
+    check has exactly one story, closed by exactly one terminal event
+    that agrees with its answer (a shed with its reason); a spend
+    answered `wrong-notary` has none (it is answered before admission,
+    as in the reference); no story is left open or was evicted."""
+    from corda_tpu_torch.utils.txstory import TERMINALS, shed_reason
+
+    if evicted:
+        raise RuntimeError(f"{label}: {evicted} stories evicted: the ledger was too small")
+    by_id = {s["tx_id"]: s for s in stories}
+    terminal_names = set(TERMINALS.values())
+    want_terminal = {"ok": "committed", "conflict": "rejected",
+                     "invalid-signature": "rejected", "shed": "shed"}
+    for tid, kind, reason in zip(tx_ids, kinds, reasons):
+        s = by_id.get(tid)
+        if kind == "wrong-notary":
+            if s is not None:
+                raise RuntimeError(f"{label}: {tid} answered wrong-notary has a story")
+            continue
+        if s is None:
+            raise RuntimeError(f"{label}: no lifecycle story for submitted {tid} ({kind})")
+        terms = [e["name"] for e in s["events"] if e["name"] in terminal_names]
+        if len(terms) != 1:
+            raise RuntimeError(f"{label}: {tid} recorded {len(terms)} terminal events {terms}")
+        if s["terminal"] != want_terminal.get(kind):
+            raise RuntimeError(f"{label}: {tid} answered {kind} but its story closed "
+                               f"{s['terminal']!r}")
+        if kind == "shed" and s["reason"] != shed_reason(reason):
+            raise RuntimeError(f"{label}: {tid} shed for {reason} but its story says "
+                               f"{s['reason']!r}")
+    extra = set(by_id) - set(tx_ids)
+    open_ = [s["tx_id"] for s in stories if s["terminal"] is None]
+    if extra or open_:
+        raise RuntimeError(f"{label}: {len(extra)} stories of no submission, {len(open_)} open")
+
+
+def _shed_reason_of(answer):
+    """The QoS reason behind a shed answer's message (qos.SHED_*)."""
+    from corda_tpu_torch.node import qos as qoslib
+
+    msg = getattr(answer, "message", "")
+    if "already expired at arrival" in msg:
+        return qoslib.SHED_EXPIRED_INGRESS
+    if "expired while queued" in msg:
+        return qoslib.SHED_EXPIRED_FLUSH
+    if "admission rate" in msg:
+        return qoslib.SHED_ADMISSION
+    if "brownout" in msg:
+        return qoslib.SHED_BROWNOUT_NO_DEADLINE
+    return msg
+
+
+def _check_same_as_plain(kinds: list, plain: dict, label: str) -> None:
+    """Each admitted spend's answer equals a notary's without QoS over
+    the same admitted spends (`plain`: index -> its answer kind)."""
+    bad = [i for i, k in plain.items() if kinds[i] != k]
+    if bad:
+        i = bad[0]
+        raise RuntimeError(f"{label}: {len(bad)} admitted answers differ from the notary "
+                           f"without QoS; spend {i}: {kinds[i]} against {plain[i]}")
+
+
+def _planes_notary(fx, verifier, clock, qos=None, story=None, **kw):
+    from corda_tpu_torch.node.notary import BatchingNotaryService, InMemoryUniquenessProvider
+    from corda_tpu_torch.testing.notary_fixture import notary_hub
+
+    hub = notary_hub(fx, verifier)
+    hub.clock = clock
+    svc = BatchingNotaryService(hub, kw.pop("uniqueness", None) or InMemoryUniquenessProvider(),
+                                qos=qos, degraded_fallback=False, **kw)
+    if story is not None:
+        svc.attach_txstory(story)
+    return svc
+
+
+def _answers(started: list) -> tuple:
+    from corda_tpu_torch.node.notary import finish_process
+    from corda_tpu_torch.testing.notary_fixture import answer_kind
+
+    answers = finish_process(started)
+    return answers, [answer_kind(a) for a in answers], [_shed_reason_of(a) for a in answers]
+
+
+def planes_qos(fx, verifier, clock, card: str) -> dict:
+    """14a (module docstring): QoS and the story with PLANES_POLICY over
+    the first PLANES_SPENDS spends, checked and reconciled; then the
+    planes-on and planes-off flush of PLANES_TIMED spends."""
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.core.identity import Party
+    from corda_tpu_torch.node import qos as qoslib
+    from corda_tpu_torch.node.notary import run_process
+    from corda_tpu_torch.utils.txstory import TxStory
+
+    n = min(PLANES_SPENDS, len(fx.spends))
+    spends, labels = fx.spends[:n], fx.labels[:n]
+    # shed candidates never open a double-spend pair (its answer would change)
+    free = [i for i in range(n) if labels[i] != "wrong-notary"
+            and not (i + 1 < n and labels[i + 1] == "conflict")]
+    expired = {i for i in free if i % PLANES_EXPIRED_EVERY == 5}
+    flood = {i for i in free if i % PLANES_FLOOD_EVERY == 9} - expired
+    key = fx.requester.owning_key
+    flooder = Party("O=Flooder,L=London,C=GB", key)
+    clients = [Party(f"O=Client{k},L=London,C=GB", key) for k in range(PLANES_CLIENTS)]
+    who = [flooder if i in flood else clients[i % PLANES_CLIENTS] for i in range(n)]
+    qos = qoslib.NotaryQos(qoslib.QosPolicy(**PLANES_POLICY), clock=clock)
+    story = TxStory(clock=clock, max_open=2 * n, keep_done=2 * n)
+    qos.txstory = story
+    flushes = _observe_flushes(qos)
+    svc = _planes_notary(fx, verifier, clock, qos, story,
+                         max_batch=PLANES_POLICY["max_batch"],
+                         max_wait_micros=PLANES_POLICY["max_wait_micros"])
+    t0 = time.perf_counter()
+    started = run_process([
+        svc.process(stx, who[i], deadline=clock.now_micros() - 1 if i in expired else None)
+        for i, stx in enumerate(spends)])
+    t1 = time.perf_counter()
+    ticks = _drain_ticks(svc, clock, "planes (14a)")
+    _, kinds, reasons = _answers(started)
+    wall = time.perf_counter() - t0
+    allowed = {qoslib.SHED_EXPIRED_INGRESS, qoslib.SHED_EXPIRED_FLUSH, qoslib.SHED_ADMISSION,
+               qoslib.SHED_BROWNOUT_BULK, qoslib.SHED_BROWNOUT_NO_DEADLINE}
+    _check_planes_answers(kinds, reasons, labels, allowed, "planes (14a)")
+    tids = [str(stx.id) for stx in spends]
+    _check_lifecycle(story.stories(), tids, kinds, reasons, "planes (14a)", story.evicted)
+    snap = qos.snapshot()
+    by_reason = {r: reasons.count(r) for r in sorted({reasons[i] for i, k in enumerate(kinds)
+                                                      if k == "shed"})}
+    if snap["shed"] != by_reason or snap["admitted"] != n - kinds.count("shed") - kinds.count(
+            "wrong-notary"):
+        raise RuntimeError(f"planes (14a): Qos counters {snap['shed']}, admitted "
+                           f"{snap['admitted']} do not reconcile with the answers {by_reason}")
+    if [i for i in sorted(expired) if reasons[i] != qoslib.SHED_EXPIRED_INGRESS]:
+        raise RuntimeError("planes (14a): a spend past its deadline at arrival was not shed")
+    # the same admitted spends through a notary without QoS
+    kept = [i for i, k in enumerate(kinds) if k != "shed"]
+    plain_svc = _planes_notary(fx, verifier, clock, max_batch=len(kept) + 1)
+    plain_started = run_process([plain_svc.process(spends[i], who[i]) for i in kept])
+    plain_svc.flush()
+    _, plain_kinds, _ = _answers(plain_started)
+    _check_same_as_plain(kinds, dict(zip(kept, plain_kinds)), "planes (14a)")
+    served = n - kinds.count("shed") - kinds.count("wrong-notary")
+    print(f"planes (14a): {n} spends, {served} served in {wall:.3f} s = {served / wall:.1f} "
+          f"notarisations/s (intake {t1 - t0:.3f} s, {ticks} ticks after it); admitted p99 "
+          f"{qos.admitted_latency.quantile(0.99) / 1e3:.1f} ms; sheds {json.dumps(by_reason)} "
+          f"({len(expired)} past their deadline, {len(flood)} from the flooder); brownout "
+          f"transitions {qos.brownout_transitions}; every answer its label or a typed shed, "
+          f"{len(kept)} equal to the notary without QoS, {len(story.stories())} stories "
+          f"reconciled; {card}")
+    for k, (size, backlog, batch, wait, p99, level) in enumerate(flushes):
+        print(f"planes (14a) flush {k}: {size} served, backlog {backlog} -> controller batch "
+              f"{batch}, wait {wait} us, admitted p99 {p99} us, brownout {level}")
+    # one flush with the planes on and one with them off, a fresh decode each
+    wire = [ser.encode(stx) for stx in spends[:min(PLANES_TIMED, n)]]
+    walls = {}
+    for mode in ("on", "off"):
+        received = [ser.decode(b) for b in wire]
+        if mode == "on":
+            q = qoslib.NotaryQos(qoslib.QosPolicy(**PLANES_POLICY), clock=clock)
+            s = TxStory(clock=clock, max_open=2 * n, keep_done=2 * n)
+            q.txstory = s
+            timed = _planes_notary(fx, verifier, clock, q, s, max_batch=len(wire),
+                                   max_wait_micros=PLANES_POLICY["max_wait_micros"])
+        else:
+            timed = _planes_notary(fx, verifier, clock, max_batch=len(wire))
+        ta = time.perf_counter()
+        st = run_process([timed.process(stx, clients[i % PLANES_CLIENTS])
+                          for i, stx in enumerate(received)])
+        timed.flush()
+        _, k2, _ = _answers(st)
+        walls[mode] = time.perf_counter() - ta
+        _check_planes_answers(k2, [None] * len(k2), fx.labels[:len(k2)], set(),
+                              f"planes (14a) {mode}")
+    print(f"planes (14a) one flush of {len(wire)}: planes on {walls['on']:.3f} s, off "
+          f"{walls['off']:.3f} s ({(walls['on'] / walls['off'] - 1) * 100:+.1f}%, not gated); "
+          f"{card}")
+    return {"wall_s": wall, "rate": served / wall, "flushes": flushes, "sheds": by_reason,
+            "walls": walls}
+
+
+def planes_default(fx, verifier, clock, card: str) -> dict:
+    """14b (module docstring): QosPolicy() over DEFAULT_SPENDS spends in
+    DEFAULT_WAVES arrival rounds, reconciled as 14a."""
+    from corda_tpu_torch.node import qos as qoslib
+    from corda_tpu_torch.node.notary import run_process
+    from corda_tpu_torch.utils.txstory import TxStory
+
+    n = min(DEFAULT_SPENDS, len(fx.spends))
+    spends, labels = fx.spends[:n], fx.labels[:n]
+    qos = qoslib.NotaryQos(qoslib.QosPolicy(), clock=clock)
+    story = TxStory(clock=clock, max_open=2 * n, keep_done=2 * n)
+    qos.txstory = story
+    flushes = _observe_flushes(qos)
+    svc = _planes_notary(fx, verifier, clock, qos, story)
+    wave = -(-n // DEFAULT_WAVES)
+    started, t0 = [], time.perf_counter()
+    for off in range(0, n, wave):
+        started += run_process([svc.process(stx, fx.requester) for stx in spends[off:off + wave]])
+        _wait_micros(clock, svc.effective_wait_micros)
+        svc.tick()
+    _drain_ticks(svc, clock, "planes (14b)")
+    _, kinds, reasons = _answers(started)
+    wall = time.perf_counter() - t0
+    allowed = {qoslib.SHED_EXPIRED_FLUSH, qoslib.SHED_BROWNOUT_NO_DEADLINE}
+    _check_planes_answers(kinds, reasons, labels, allowed, "planes (14b)")
+    _check_lifecycle(story.stories(), [str(s.id) for s in spends], kinds, reasons,
+                     "planes (14b)", story.evicted)
+    by_kind = {k: kinds.count(k) for k in sorted(set(kinds))}
+    for k, (size, backlog, batch, wait, p99, level) in enumerate(flushes):
+        print(f"planes (14b) QosPolicy() flush {k}: {size} served, backlog {backlog} -> "
+              f"controller batch {batch}, wait {wait} us, admitted p99 {p99} us, brownout "
+              f"{level}")
+    print(f"planes (14b) QosPolicy(): {n} spends in {wall:.3f} s, {len(flushes)} flushes; "
+          f"settled batch {qos.controller.batch}, wait {qos.controller.wait_micros} us, "
+          f"brownout {qos.brownout_level}; answers {json.dumps(by_kind)}; stories reconciled; "
+          f"{card}")
+    return {"wall_s": wall, "flushes": flushes, "answers": by_kind}
+
+
+def _reopen_durable(tmp: str):
+    from corda_tpu_torch.node.persistence import NodeDatabase, NotaryIntentJournal
+    from corda_tpu_torch.node.statestore import ShardedCommitLogUniquenessProvider
+
+    db = NodeDatabase(os.path.join(tmp, "notary.db"))
+    store = ShardedCommitLogUniquenessProvider(os.path.join(tmp, "statestore"),
+                                               DURABLE_SHARDS)
+    return db, store, NotaryIntentJournal(db)
+
+
+def _check_replay(replayed: list, journaled: list, kinds: dict, labels: dict, label: str) -> None:
+    """Every journaled spend replayed exactly once and answered as its
+    label (`kinds`, `labels`: tx id -> kind)."""
+    ids = [str(tx) for _seq, tx, _fut in replayed]
+    if sorted(ids) != sorted(journaled) or len(set(ids)) != len(ids):
+        raise RuntimeError(f"{label}: {len(ids)} intents replayed ({len(set(ids))} distinct) "
+                           f"for {len(journaled)} journaled")
+    bad = [t for t in ids if kinds.get(t) != labels[t]]
+    if bad:
+        raise RuntimeError(f"{label}: {len(bad)} replayed spends answered unlike their labels; "
+                           f"{bad[0]}: {kinds.get(bad[0])}, label {labels[bad[0]]}")
+
+
+def planes_durable(fx, verifier, clock, root: str, card: str) -> dict:
+    """14c (module docstring): the intent WAL and the commit-log store
+    across a kill, replayed on the card; the committed map against
+    sqlite's, across compaction, reopen and migration."""
+    from corda_tpu_torch.node.notary import run_process
+    from corda_tpu_torch.node.persistence import NodeDatabase, PersistentUniquenessProvider
+    from corda_tpu_torch.node.statestore import (
+        ShardedCommitLogUniquenessProvider,
+        migrate_sqlite_state,
+    )
+    from corda_tpu_torch.testing.notary_fixture import answer_kind
+
+    n = min(DURABLE_SPENDS, len(fx.spends))
+    spends, labels = fx.spends[:n], fx.labels[:n]
+    label_of = {str(s.id): k for s, k in zip(spends, labels)}
+    tmp = os.path.join(root, "durable")
+    os.makedirs(tmp)
+    t0 = time.perf_counter()
+    db, store, journal = _reopen_durable(tmp)
+    svc = _planes_notary(fx, verifier, clock, uniqueness=store, shards=DURABLE_SHARDS,
+                         max_batch=n, shard_queue_depth=n, intent_journal=journal)
+    started = run_process([svc.process(stx, fx.requester) for stx in spends])
+    at_entry = [a for a in started if not isinstance(a, tuple)]
+    journaled = [str(stx.id) for stx, a in zip(spends, started) if isinstance(a, tuple)]
+    if journal.unresolved_count != len(journaled) or svc.backlog() != len(journaled):
+        raise RuntimeError(f"planes (14c): {journal.unresolved_count} intents journaled, "
+                           f"{svc.backlog()} queued, for {len(journaled)} admitted")
+    # the kill: the notary dropped before its flush, the database closed
+    # without the buffered deletes
+    del svc, started
+    journal.lose_unflushed_resolutions()
+    store.close()
+    db.close()
+    t1 = time.perf_counter()
+    replays, maps = [], []
+    for attempt in ("replay", "replay again"):
+        db, store, journal = _reopen_durable(tmp)
+        svc = _planes_notary(fx, verifier, clock, uniqueness=store, shards=DURABLE_SHARDS,
+                             max_batch=n, shard_queue_depth=n, intent_journal=journal)
+        ta = time.perf_counter()
+        replayed = svc.replay_intents()
+        svc.flush()
+        replay_s = time.perf_counter() - ta
+        kinds = {str(tx): answer_kind(fut.result()) for _seq, tx, fut in replayed}
+        _check_replay(replayed, journaled, kinds, label_of, f"planes (14c) {attempt}")
+        replays.append(replay_s)
+        maps.append(dict(store.committed))
+        # a second kill before the deletes reach the WAL: every intent
+        # replays again, and the same-tx re-commit absorbs the committed
+        journal.lose_unflushed_resolutions()
+        store.close()
+        db.close()
+    _maps_equal(maps, "planes (14c) replays")
+    committed = maps[0]
+    # the same spends through sqlite: PersistentUniquenessProvider's map
+    sdb = NodeDatabase(os.path.join(tmp, "sqlite.db"))
+    sqlite = PersistentUniquenessProvider(sdb)
+    entries = [(list(s.wtx.inputs), s.id, fx.requester) for s, k in zip(spends, labels)
+               if k in ("ok", "conflict")]
+    outcomes = sqlite.commit_many(entries)
+    again = sqlite.commit_many([e for e, o in zip(entries, outcomes) if o is None])
+    if any(o is not None for o in again):
+        raise RuntimeError("planes (14c): sqlite refused a same-transaction re-commit")
+    rows = sdb.query("SELECT ref_tx, ref_index, consumer FROM notary_commits")
+    plain = {(bytes(r.txhash.bytes_), r.index): bytes(t.bytes_) for r, t in committed.items()}
+    sqlite_map = {(bytes(t), i): bytes(c) for t, i, c in rows}
+    if plain != sqlite_map:
+        raise RuntimeError(f"planes (14c): the commit log holds {len(plain)} refs, sqlite "
+                           f"{len(sqlite_map)}; the maps differ")
+    # compaction, reopen, migration
+    db, store, journal = _reopen_durable(tmp)
+    if journal.unresolved_count != len(journaled):
+        raise RuntimeError("planes (14c): the WAL lost intents across the kills")
+    store.compact_all()
+    stats = store.stats()
+    store.close()
+    db.close()
+    db, store, journal = _reopen_durable(tmp)
+    reopened = dict(store.committed)
+    store.close()
+    db.close()
+    migrated = ShardedCommitLogUniquenessProvider(os.path.join(tmp, "migrated"), DURABLE_SHARDS)
+    moved = migrate_sqlite_state(sdb, migrated)
+    _maps_equal([committed, reopened, dict(migrated.committed)],
+                "planes (14c) compaction, reopen and migration")
+    migrated.close()
+    sdb.close()
+    wall = time.perf_counter() - t0
+    print(f"planes (14c): {len(journaled)} spends journaled ({len(at_entry)} answered at entry), "
+          f"the notary killed before its flush ({t1 - t0:.3f} s); replayed into one flush on "
+          f"the card in {replays[0]:.3f} s, each answered once as its label; killed again "
+          f"before the deletes and replayed in {replays[1]:.3f} s, the same answers; the "
+          f"commit log's {len(committed)} refs equal sqlite's, after compaction "
+          f"({stats['compactions']} folds, {stats['segments']} segments), reopen and "
+          f"migration ({moved} rows); wall {wall:.3f} s; {card}")
+    return {"wall_s": wall, "replay_s": replays, "refs": len(committed)}
+
+
+def _seed_identity(base: str, keypair) -> None:
+    """Provision a node directory with `keypair` as its identity, as an
+    operator's key import does: the fixture's spends name that notary."""
+    from corda_tpu_torch.node.persistence import NodeDatabase, PersistentKVStore
+
+    os.makedirs(base, exist_ok=True)
+    db = NodeDatabase(os.path.join(base, "node.db"))
+    PersistentKVStore(db, "node_identity").put(
+        b"private", keypair.private.scheme_id.to_bytes(4, "big") + keypair.private.data)
+    db.close()
+
+
+def _check_node_planes(node, spends: list, kinds: list, label: str) -> None:
+    """14d's reading after a pump tick: every admitted spend's story in
+    the TxStoryIndex with its terminal, the QoS and txstory rules on the
+    health monitor, no plane left out, the WAL drained and the commit
+    log holding the accepted spends' inputs."""
+    from corda_tpu_torch.utils.txstory import TERMINALS
+
+    want = {"ok": TERMINALS["committed"], "conflict": TERMINALS["rejected"],
+            "invalid-signature": TERMINALS["rejected"]}
+    if node.unported_planes != ():
+        raise RuntimeError(f"{label}: planes left out: {node.unported_planes}")
+    for stx, kind in zip(spends, kinds):
+        if kind == "wrong-notary":
+            continue
+        names = [e["name"] for e in node.txstory.index.events_for(str(stx.id))]
+        if want.get(kind) not in names or "notary.admit" not in names:
+            raise RuntimeError(f"{label}: TxStoryIndex holds {names} for {stx.id} ({kind})")
+    alerts = set(node.health.snapshot()["alerts"])
+    if not {"slo.burn_rate", "qos.shed_ratio", "txstory.stage_slo"} <= alerts:
+        raise RuntimeError(f"{label}: the health monitor carries {sorted(alerts)}")
+    svc = node.services.notary_service
+    if svc.intent_journal.unresolved_count:
+        raise RuntimeError(f"{label}: {svc.intent_journal.unresolved_count} intents unresolved")
+    if node.statestore.committed_count != kinds.count("ok"):
+        raise RuntimeError(f"{label}: the commit log holds {node.statestore.committed_count} "
+                           f"refs for {kinds.count('ok')} accepted spends")
+
+
+def planes_node(fx, verifier, root: str, card: str) -> dict:
+    """14d (module docstring): one in-process Node from node.toml with
+    every plane, NODE_PLANE_SPENDS spends through its notary."""
+    from corda_tpu_torch.node.config import NodeConfig, load_config, write_config
+    from corda_tpu_torch.node.node import Node
+    from corda_tpu_torch.node.notary import run_process
+
+    n = min(NODE_PLANE_SPENDS, len(fx.spends))
+    spends, labels = fx.spends[:n], fx.labels[:n]
+    base = os.path.join(root, "node")
+    _seed_identity(base, fx.notary_key)
+    toml = os.path.join(root, "node.toml")
+    write_config(NodeConfig(name=fx.notary.name, base_dir=base, notary="batching",
+                            qos_enabled=True, notary_intent_wal=True,
+                            notary_state_store="commitlog", txstory_enabled=True,
+                            txstory_index=True, txstory_stage_slo_micros=10_000_000,
+                            use_tls=False), toml)
+    t0 = time.perf_counter()
+    node = Node(load_config(toml), batch_verifier=verifier).start()
+    try:
+        boot_s = time.perf_counter() - t0
+        if node.party != fx.notary:
+            raise RuntimeError("planes (14d): the node booted as another notary")
+        for party in (fx.bank, fx.requester, fx.other_notary):
+            node.services.identity.register(party)
+        node.services.record_transactions(fx.issues)
+        svc = node.services.notary_service
+        t1 = time.perf_counter()
+        started = run_process([svc.process(stx, fx.requester) for stx in spends])
+        deadline = time.monotonic() + PLANES_TIMEOUT
+        while any(isinstance(a, tuple) and not a[1].done for a in started):
+            if time.monotonic() > deadline:
+                raise RuntimeError("planes (14d): the node's notary left requests unanswered")
+            node.pump(timeout=0.01)
+        _, kinds, reasons = _answers(started)
+        serve_s = time.perf_counter() - t1
+        node.pump()
+        _check_planes_answers(kinds, reasons, labels, set(), "planes (14d)")
+        _check_node_planes(node, spends, kinds, "planes (14d)")
+        snap = node.qos.snapshot()
+        print(f"planes (14d): a node from node.toml with every plane (unported_planes "
+              f"{node.unported_planes}) booted in {boot_s:.3f} s; {n} spends through its "
+              f"notary in {serve_s:.3f} s, every answer its label; TxStoryIndex "
+              f"{node.txstory.index.row_count} rows, each story's terminal in it; controller "
+              f"batch {snap['controller']['batch']}, wait {snap['controller']['wait_micros']} "
+              f"us; commit log {node.statestore.stats()['committed_states']} refs; {card}")
+    finally:
+        node.stop()
+    return {"boot_s": boot_s, "serve_s": serve_s}
+
+
+def phase_planes(device, card: str, fx, clock=None) -> dict:
+    """Phase 14 (module docstring); returns its walls and the launches of
+    14a-14d. `clock` is the CPU rehearsal's TestClock (the notary's
+    clock; the wall clock by default)."""
+    import tempfile
+
+    from corda_tpu_torch.node.services import Clock
+
+    clock = clock or Clock()
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "corda_tpu_torch")
+    os.makedirs(scratch, exist_ok=True)
+    verifier = _recording_verifier((CHUNK,), device)
+    t_phase = time.perf_counter()
+    _zero_counters()
+    walls = {}
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="planes-") as tmp:
+        t0 = time.perf_counter()
+        qos = planes_qos(fx, verifier, clock, card)
+        walls["14a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        planes_default(fx, verifier, clock, card)
+        walls["14b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        planes_durable(fx, verifier, clock, tmp, card)
+        walls["14c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        planes_node(fx, verifier, tmp, card)
+        walls["14d"] = time.perf_counter() - t0
+    launches = _read_counters()
+    for kernel in ("ed_ladder", "wei_ladder_windowed"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} was not launched in the planes phase")
+    wall = time.perf_counter() - t_phase
+    print(f"planes (ph. 14) launches: {json.dumps(launches)}; walls "
+          f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}; wall {wall:.3f} s; "
+          f"{card}")
+    return {"launches": launches, "walls": walls, "wall_s": wall, "rate": qos["rate"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the kernel table JSON here")
@@ -3683,15 +4279,17 @@ def main(argv=None) -> int:
     nodes = phase_nodes(device, card, fx)
     drives = phase_drives(device, card)
     telemetry = phase_telemetry(device, card, fx)["launches"]
+    planes = phase_planes(device, card, fx)["launches"]
     for n, r in report.items():
         r["clusters_launches"] = clusters[n]
         r["nodes_launches"] = nodes[n]
         r["drives_launches"] = drives[n]
         r["telemetry_launches"] = telemetry[n]
+        r["planes_launches"] = planes[n]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "clusters_launches",
-            "nodes_launches", "drives_launches", "telemetry_launches")
+            "nodes_launches", "drives_launches", "telemetry_launches", "planes_launches")
     table = {"kernels": [
         {k: ({"name": n, **r}[k]) for k in keys} for n, r in report.items()
     ]}

@@ -6,8 +6,10 @@ prepared certificates, checkpoints, catch-up) and `BFTNotaryService`,
 with the reference's frames and checkpoint digests. Its Bft.Phase.*
 timers and `bft.<phase>` spans go through the port's utils/metrics.py
 and utils/tracing.py; traced frames feed the tracer's `ClockSync`, the
-clock-offset evidence of cross-node trace assembly. Not ported: the
-tx-story hooks (`txstory=`, ROADMAP Queue 1 #6).
+clock-offset evidence of cross-node trace assembly. `txstory=` stamps
+each executed notarisation on its transaction's lifecycle story, and
+`BFTNotaryService` admits and closes the coordinator's story
+(utils/txstory.py).
 
 Reference: `BFTSMaRt` client/replica (node/.../transactions/
 BFTSMaRt.kt:52-173) + `BFTNonValidatingNotaryService`
@@ -63,6 +65,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 from ..core import serialization as ser
+from ..crypto.hashes import SecureHash
 from ..utils import tracing
 from ..flows.api import FlowFuture
 from .messaging import Message, MessagingService
@@ -78,6 +81,26 @@ BFT_PHASES = (
     "pre_prepare", "prepare", "commit", "reply", "view_change", "catch_up",
 )
 _TRACE_TABLE_CAP = 4096
+
+
+def _story_bft_commit(story, outcome, seq: int, member: str) -> None:
+    """Stamp `consensus.commit` on an executed notarisation's
+    lifecycle story (utils/txstory.py): the replica state machine's
+    success outcome `["ok", tx_id_bytes]` carries the id. Anything
+    else (errors, foreign state machines) is skipped — the ledger is
+    an observer, never a failure source."""
+    try:
+        if (
+            isinstance(outcome, (list, tuple))
+            and len(outcome) >= 2
+            and outcome[0] == "ok"
+        ):
+            story.consensus_commit(
+                str(SecureHash(bytes(outcome[1]))),
+                index=seq, member=member,
+            )
+    except Exception:   # noqa: BLE001 - observer plane, never fatal
+        pass
 
 
 class BftUnavailable(Exception):
@@ -284,12 +307,17 @@ class BftReplica:
         config: BftConfig = BftConfig(),
         metrics=None,
         tracer=None,
+        txstory=None,
     ):
         """`metrics` / `tracer`: the consensus observability seam (see
         raft.RaftNode — same contract): Bft.Phase.* timers + lag/view
         gauges on the registry, per-member `bft.<phase>` spans joined
-        to a submitted command's trace context. Both None by default —
-        the bare protocol pays nothing."""
+        to a submitted command's trace context, ClockSync feeding from
+        traced frames. `txstory`: an optional utils/txstory.TxStory —
+        every successfully-executed notarisation stamps a
+        `consensus.commit` lifecycle event (sequence + member) on its
+        transaction's story, on EVERY replica that executes it. All
+        None by default — the bare protocol pays nothing."""
         import random as _random
 
         assert name in peers
@@ -386,6 +414,7 @@ class BftReplica:
         # -- observability: phase timers, gauges, spans ----------------
         self.metrics = metrics
         self.tracer = tracer
+        self.txstory = txstory
         self._phase_timers: dict[str, Any] = {}
         if metrics is not None:
             for phase in BFT_PHASES:
@@ -697,6 +726,8 @@ class BftReplica:
             outcome, signature = self.execute_fn(
                 _canon(command), timestamp,
             )
+            if self.txstory is not None:
+                _story_bft_commit(self.txstory, outcome, seq, self.name)
             self.executed[seq] = (cmd_id, origin, outcome, signature)
             self._watch.pop((origin, cmd_id), None)
             self.pending_requests.pop((origin, cmd_id), None)
@@ -1539,18 +1570,33 @@ class BFTNotaryService:
 
         if not isinstance(ftx, FilteredTransaction):
             return NotaryError("invalid-proof", "BFT notary takes a tear-off")
+        # lifecycle ledger: the BFT flavour's coordinator-side admit +
+        # terminal (replicas stamp their own consensus.commit events)
+        story = getattr(self.services, "txstory", None)
+        if story is not None:
+            story.admit(
+                str(ftx.id), requester=getattr(requester, "name", None)
+            )
         fut = self.replica.submit(["notarise", ser.encode(ftx)], trace=trace)
         try:
             outcome, sigs = yield from wait_future(fut)
         except BftUnavailable as e:
-            return NotaryError("unavailable", str(e))
+            err = NotaryError("unavailable", str(e))
+            if story is not None:
+                story.terminal_from(str(ftx.id), err)
+            return err
         outcome = list(outcome)
         if outcome[0] == "err":
             kind, detail = outcome[1], outcome[2]
             conflict = dict(detail) if kind == "conflict" else None
-            return NotaryError(
+            err = NotaryError(
                 kind,
                 str(detail) if conflict is None else "input states consumed",
                 conflict=conflict,
             )
+            if story is not None:
+                story.terminal_from(str(ftx.id), err)
+            return err
+        if story is not None:
+            story.close(str(ftx.id), "committed")
         return list(sigs)

@@ -41,9 +41,11 @@ IngestedTx carrying its exception in ITS slot — the rest of the batch
 ingests normally (mirrors the notary flush's per-tx staging guard).
 
 `IngestPipeline(perf=)` reports every batch's frames and stage seconds
-to the perf plane (`PerfPlane.observe_ingest`). The reference's
-`txstory=` hook is not ported (its plane is not). The cache sizes are
-the module constants below, and decode and staging always run.
+to the perf plane (`PerfPlane.observe_ingest`), and `txstory=` stamps
+each ingested frame's decode and stage on its transaction's lifecycle
+story. The leaf and root cache sizes are the module constants below;
+the frame cache's is `frame_cache_size=` (FRAME_CACHE_SIZE by default,
+0 disables it). Staging always runs.
 """
 
 from __future__ import annotations
@@ -212,19 +214,21 @@ class DecodePool:
     waits on the card (GIL released), the workers decode batch N+1 in
     that window. Shards stay small accordingly."""
 
-    def __init__(self, shards: Optional[int] = None):
+    def __init__(self, shards: Optional[int] = None, decode=ser.decode):
         # 2, not cpu_count: decode holds the GIL, so more shards only
         # buy contention
         self.shards = shards or 2
+        self._decode = decode
         self._ex = ThreadPoolExecutor(
             max_workers=self.shards, thread_name_prefix="cts-ingest"
         )
 
     def _decode_slice(self, blobs: list) -> list:
         out = []
+        decode = self._decode
         for b in blobs:
             try:
-                out.append(ser.decode(b))
+                out.append(decode(b))
             except Exception as e:  # noqa: BLE001 - per-blob isolation
                 out.append(e)
         return out
@@ -333,7 +337,16 @@ class IngestPipeline:
     reports its frame count and per-stage (decode / merkle-id /
     staging) host seconds, so the plane attributes the pre-flush host
     work, and its `wire_ingest_pipelined_per_sec` history key tracks
-    the live ingest rate."""
+    the live ingest rate.
+
+    `txstory`: an optional utils/txstory.TxStory. Every successfully
+    ingested frame stamps `ingest.decode` + `ingest.stage` lifecycle
+    events (batch-shared stage seconds as attributes) onto its
+    transaction's story — the earliest per-tx provenance a wire arrival
+    gets.
+
+    `decode` replaces the CTS decoder (a test's counting decoder);
+    `frame_cache_size` bounds the frame cache (0 disables it)."""
 
     def __init__(
         self,
@@ -342,15 +355,21 @@ class IngestPipeline:
         extract: Callable[[Any], Optional[SignedTransaction]] = None,
         tracer=None,
         perf=None,
+        txstory=None,
+        decode=ser.decode,
+        frame_cache_size: int = FRAME_CACHE_SIZE,
     ):
-        self.pool = DecodePool(shards)
+        self.pool = DecodePool(shards, decode)
         self.ring = IngestRing(ring_depth)
         self.leaf_cache = DigestCache(LEAF_CACHE_SIZE)
         self.root_cache = DigestCache(ROOT_CACHE_SIZE)
         # frame cache: blob bytes -> finished (stx, obj, staged
-        # requests). Only SUCCESSFUL ingests are cached — a malformed
-        # frame re-decodes so every arrival reports its own error.
-        self.frame_cache = DigestCache(FRAME_CACHE_SIZE)
+        # requests). 0 disables. Only SUCCESSFUL ingests are cached — a
+        # malformed frame re-decodes so every arrival reports its own
+        # error.
+        self.frame_cache = (
+            DigestCache(frame_cache_size) if frame_cache_size else None
+        )
         self.frame_hits = 0
         self.stage_seconds = {"decode": 0.0, "merkle_id": 0.0, "stage": 0.0}
         self._extract = extract or (lambda obj: obj)
@@ -358,6 +377,7 @@ class IngestPipeline:
         # (None here so a later set_tracer()/env enable is honoured)
         self.tracer = tracer
         self.perf = perf
+        self.txstory = txstory
 
     def _tracer(self):
         return self.tracer if self.tracer is not None else tracing.get_tracer()
@@ -414,11 +434,12 @@ class IngestPipeline:
                         deadline=d,
                     )
         hits: dict[int, tuple] = {}
+        cache = self.frame_cache
         misses, miss_idx = [], []
         for i, b in enumerate(blobs):
             if i in shed:
                 continue
-            cached = self.frame_cache.get(b)
+            cached = cache.get(b) if cache is not None else None
             if cached is None:
                 misses.append(b)
                 miss_idx.append(i)
@@ -476,7 +497,8 @@ class IngestPipeline:
                 # memoised on the stx: downstream drains reuse this
                 # exact list instead of re-staging
                 e.requests = e.stx.signature_requests()
-            self.frame_cache.put(e.blob, (e.stx, e.obj, e.requests))
+            if self.frame_cache is not None:
+                self.frame_cache.put(e.blob, (e.stx, e.obj, e.requests))
         if deadlines is not None:
             # live deadlines ride out per-arrival (cache hits included:
             # the deadline belongs to THIS arrival, never to the cache)
@@ -498,6 +520,21 @@ class IngestPipeline:
                 max(0.0, t_id - t_decode),
                 max(0.0, t_stage - t_id),
             )
+        if self.txstory is not None:
+            # lifecycle ledger: decode+stage events for every frame
+            # whose tx id resolved (errors carry no id to key on) —
+            # one lock hold for the whole batch
+            ids = [
+                e.tx_id for e in entries
+                if e is not None and e.error is None
+                and e.tx_id is not None
+            ]
+            if ids:
+                self.txstory.ingest_batch(
+                    ids,
+                    max(0.0, t_decode - t0),
+                    max(0.0, t_stage - t_id),
+                )
         tracer = self._tracer()
         if tracer.enabled:
             self._emit_spans(
@@ -576,15 +613,23 @@ class IngestPipeline:
         self,
         batches: Iterable[list],
         wrap: Optional[Callable[[list[IngestedTx]], Any]] = None,
+        heartbeat=None,
     ) -> threading.Thread:
         """Producer loop on its own thread: ingest each batch and
         `put` it on self.ring, BLOCKING when the ring is full — the
         backpressure path the notary flush drains
         (BatchingNotaryService.attach_ingest). `wrap` maps each entry
-        batch before the put (e.g. to _PendingNotarisation lists)."""
+        batch before the put (e.g. to _PendingNotarisation lists).
+
+        `heartbeat`: an optional utils/health.Heartbeat beaten once per
+        produced batch (progress = frames ingested), so a wedged decode
+        pool — or a feed thread parked forever on a full ring nobody
+        drains — trips the health plane's watchdog."""
 
         def run() -> None:
             for entries in self.pipeline(batches):
+                if heartbeat is not None:
+                    heartbeat.beat(progress=len(entries))
                 item = wrap(entries) if wrap is not None else entries
                 if not self.ring.put(item):
                     break   # ring closed: consumer shut down

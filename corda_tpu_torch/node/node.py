@@ -12,17 +12,20 @@ a CudaBatchVerifier on the card, built at first use: a node without a
 card boots, discovers and answers RPC, and its first signature check
 raises the device error. "cpu" builds CpuBatchVerifier.
 
-The options whose planes the port lacks and that change answers or
-durability, or serve over HTTP (`qos_enabled`, `notary_cluster_shards`,
-the commit-log state store, `notary_intent_wal`, `txstory_index`,
-`web_port`), raise NotImplementedError at boot naming their ROADMAP
-item. The perf, device and wire planes are built as the reference
-builds them (utils/perf.py, utils/device_telemetry.py,
+The notary's serving-path planes are built as the reference builds
+them: the QoS plane (`qos_enabled`, node/qos.py), the intent WAL
+(`notary_intent_wal`, replayed at boot), the commit-log state store
+(`notary_state_store = "commitlog"`, node/statestore.py, with the
+one-way sqlite migration at boot and compaction on the pump) and the
+transaction story (`txstory_enabled`, utils/txstory.py, with its
+`txstory_index` spill group-committed on the pump). So are the perf,
+device and wire planes (utils/perf.py, utils/device_telemetry.py,
 utils/wire_telemetry.py), ticked on the pump; the device plane samples
 the card on a node that verifies on it, and no device on a node that
-verifies on the CPU. The txstory plane keeps the reference's default
-True; the node boots without it, logs one WARNING and lists it in
-`unported_planes` (ROADMAP Queue 3, D6).
+verifies on the CPU. `unported_planes` is `()`: the node builds every
+plane its config asks for. The options whose planes the port lacks
+(`notary_cluster_shards > 0`, `web_port >= 0`) raise
+NotImplementedError at boot naming their ROADMAP item.
 
 Reference: `AbstractNode.start()` boot ordering (node/.../internal/
 AbstractNode.kt:163-222 — database, services, messaging, notary, SMM,
@@ -80,15 +83,8 @@ def _refuse_unported(config: NodeConfig) -> None:
     config options that change answers or durability, or serve over
     HTTP, whose planes the port lacks."""
     for opt, on, item in (
-        ("qos_enabled", config.qos_enabled, "#6 (the QoS plane)"),
         ("notary_cluster_shards > 0", config.notary_cluster_shards > 0,
          "#6(1) (distributed uniqueness)"),
-        ('notary_state_store = "commitlog"',
-         config.notary_state_store == "commitlog", "#6(3) (the statestore)"),
-        ("notary_intent_wal", config.notary_intent_wal,
-         "#6(2) (the notary intent journal)"),
-        ("txstory_index", config.txstory_index,
-         "#6(4) (TxStoryIndex)"),
         ("web_port >= 0", config.web_port >= 0, "#3.4 (the web gateway)"),
     ):
         if on:
@@ -282,15 +278,8 @@ class Node:
 
         self.metrics = MetricRegistry()
         self.tracer = tracing.get_tracer()
-        # the observation plane the port lacks (D6) stays None, as the
-        # reference leaves it when its config flag is off
-        self.unported_planes = ("txstory",) if config.txstory_enabled else ()
-        if self.unported_planes:
-            logging.getLogger("corda_tpu_torch.node").warning(
-                "%s: booting without the %s plane(s): not ported "
-                "(ROADMAP Queue 1 #6; divergence D6)",
-                config.name, ", ".join(self.unported_planes),
-            )
+        # every plane the config asks for is built (none is left out)
+        self.unported_planes = ()
         # performance-attribution plane (utils/perf.py): kernel
         # first-call-vs-execute accounting (it adopts the process
         # default, so every CudaBatchVerifier this process builds records
@@ -308,7 +297,8 @@ class Node:
                 ),
                 baseline_path=config.perf_baseline or None,
             )
-        # the QoS plane is not ported: qos_enabled raises at boot
+        # QoS plane (node/qos.py): installed with the batching notary
+        # when config.qos_enabled; None keeps every hot path unchanged
         self.qos = None
         # health plane (utils/health.py): watchdog over every long-
         # lived loop, SLO/shed/ring alert rules, the canary probe and
@@ -355,8 +345,40 @@ class Node:
         self.health.attach_incidents(
             self.incidents, node=config.name, background=True
         )
+        # transaction provenance plane (utils/txstory.py): the per-tx
+        # lifecycle ledger every serving-path seam emits into, with
+        # Tx.Stage.* histograms on /metrics. Created BEFORE the notary
+        # so every flavour can attach; `services.txstory` is the seam
+        # the flavour-shared commit_and_sign path reads.
         self.txstory = None
         self.cluster_tx = None
+        if config.txstory_enabled:
+            from ..utils.txstory import ClusterTxStory, TxStory
+
+            index = None
+            if config.txstory_index:
+                from .persistence import TxStoryIndex
+
+                index = TxStoryIndex(self.db)
+            self.txstory = TxStory(
+                metrics=self.metrics,
+                clock=self.services.clock,
+                tracer=self.tracer,
+                index=index,
+            )
+            self.services.txstory = self.txstory
+            self.cluster_tx = ClusterTxStory(
+                config.name,
+                self.txstory,
+                self._peer_web_urls,
+                tracer=self.tracer,
+            )
+            if config.txstory_stage_slo_micros > 0:
+                t = config.txstory_stage_slo_micros
+                self.health.watch_txstory(
+                    self.txstory,
+                    {"queue": t, "verify": t, "commit": t},
+                )
 
         # -- flows, notary, scheduler ----------------------------------
         # @corda_service instances from the imported cordapps, before
@@ -436,6 +458,8 @@ class Node:
             # pool-degraded alerting: a lost worker (or a starved
             # pool) pages before client timeouts do
             self.verifier_service.watch_health(self.health)
+            # per-attempt verify history on the lifecycle ledger
+            self.verifier_service.txstory = self.txstory
 
         # -- RPC --------------------------------------------------------
         users = [
@@ -621,6 +645,68 @@ class Node:
 
     # -- notary ---------------------------------------------------------------
 
+    def _build_qos(self) -> None:
+        """SLO plane for the serving path: deadline shedding, priority
+        lanes, admission gating and the adaptive batching controller,
+        on the node's registry so /metrics carries Qos.*. An
+        operator-configured batching window is the controller's CEILING
+        (it tunes inside the fence, never past the configured bound);
+        unset (0) falls back to the policy default ceiling."""
+        from .qos import NotaryQos, QosPolicy
+
+        self.qos = NotaryQos(
+            QosPolicy(
+                target_p99_micros=self.config.qos_target_p99_micros,
+                max_wait_micros=(
+                    self.config.notary_batch_wait_micros
+                    or QosPolicy.max_wait_micros
+                ),
+                admission_rate_per_sec=(
+                    self.config.qos_admission_rate_per_sec
+                ),
+                admission_burst=self.config.qos_admission_burst,
+            ),
+            clock=self.services.clock,
+            metrics=self.metrics,
+        )
+        # shed/admit events land on the lifecycle ledger with the tx
+        # id attached (qos.admit_tx / shed_tx)
+        self.qos.txstory = self.txstory
+
+    def _build_state_store(self, n_shards: int):
+        """Mount the commit-log committed-state registry
+        (node/statestore.py) under <base_dir>/statestore, drain the
+        sqlite tables into it (ONE-WAY boot migration — commit-log
+        appends are idempotent, and the sqlite clear runs last, so a
+        crash mid-migration simply re-migrates on next boot), and
+        export the Statestore.* gauges."""
+        from .statestore import (
+            ShardedCommitLogUniquenessProvider,
+            migrate_sqlite_state,
+        )
+
+        store = ShardedCommitLogUniquenessProvider(
+            os.path.join(self.config.base_dir, "statestore"), n_shards
+        )
+        migrate_sqlite_state(self.db, store)
+        self.statestore = store
+
+        def stat(key):
+            return lambda s=store, k=key: s.stats()[k]
+
+        self.metrics.gauge(
+            "Statestore.CommittedStates", stat("committed_states")
+        )
+        self.metrics.gauge("Statestore.Segments", stat("segments"))
+        self.metrics.gauge(
+            "Statestore.SnapshotStates", stat("snapshot_states")
+        )
+        self.metrics.gauge(
+            "Statestore.MemtableStates", stat("memtable_states")
+        )
+        self.metrics.gauge("Statestore.Compactions", stat("compactions"))
+        return store
+
     def _gauge_committed_states(self, uniqueness) -> None:
         # set-growth without a scan: every backend maintains the count
         # O(1), so health/capacity can watch it for free
@@ -633,6 +719,7 @@ class Node:
         kind = self.config.notary
         self.raft = None
         self.bft = None
+        self.statestore = None
         if kind == "":
             return
         if kind in ("simple", "validating", "batching"):
@@ -666,7 +753,13 @@ class Node:
                     shards = max(int.from_bytes(stored, "big"), 1)
             else:
                 shards = 0                     # classic legacy layout
-            if shards:
+            if self.config.notary_state_store == "commitlog":
+                # the segmented commit log + mmap hash index replaces
+                # the sqlite tables; a one-way boot migration drains
+                # whichever layout they held (legacy or partitioned)
+                shards = max(self.config.notary_shards, 1)
+                uniqueness = self._build_state_store(shards)
+            elif shards:
                 uniqueness = ShardedPersistentUniquenessProvider(
                     self.db, shards
                 )
@@ -679,21 +772,42 @@ class Node:
                 # CPU fallback, so the flag holds off the card only
                 from .notary import _on_card
 
+                if self.config.qos_enabled:
+                    self._build_qos()
+                intent_journal = None
+                if self.config.notary_intent_wal:
+                    # durable intake: intents share the node database
+                    # (same file, same WAL-mode fsync discipline as the
+                    # fabric journals)
+                    from .persistence import NotaryIntentJournal
+
+                    intent_journal = NotaryIntentJournal(self.db)
                 self.services.notary_service = BatchingNotaryService(
                     self.services,
                     uniqueness,
                     max_wait_micros=self.config.notary_batch_wait_micros,
                     metrics=self.metrics,
+                    qos=self.qos,
                     shards=max(shards, 1),
                     shard_workers=self.config.notary_shard_workers,
                     degraded_fallback=(
                         self.config.notary_degraded_fallback
                         and not _on_card(self.services)
                     ),
+                    intent_journal=intent_journal,
                 )
+                self.services.notary_service.attach_txstory(self.txstory)
+                if intent_journal is not None:
+                    # boot replay: requests admitted-but-in-flight at
+                    # the last crash re-enter the normal flush path;
+                    # uniqueness dedupe absorbs already-committed ones
+                    self.services.notary_service.replay_intents()
                 # health plane over the serving path: the flush loop's
-                # heartbeat and the canary probe riding real flushes
+                # heartbeat, the SLO burn-rate + shed-ratio rules (when
+                # QoS is on), and the canary probe riding real flushes
                 self.services.notary_service.attach_health(self.health)
+                if self.qos is not None:
+                    self.health.watch_qos(self.qos)
                 self.health.attach_canary(self._launch_canary)
                 # perf plane over the same path: flush phase marks feed
                 # the skew/overlap telemetry, the served-request counter
@@ -728,9 +842,11 @@ class Node:
                     rng=random.Random(self._dev_seed("raft")),
                     # consensus observability: Raft.Phase.* timers +
                     # lag gauges on this node's scrape surface, phase
-                    # spans joined to propagated client traces
+                    # spans joined to propagated client traces, applied
+                    # commits stamped onto the lifecycle ledger
                     metrics=self.metrics,
                     tracer=self.tracer,
+                    txstory=self.txstory,
                     **raft_kw,
                 )
 
@@ -763,6 +879,7 @@ class Node:
                 rng=random.Random(self._dev_seed("bft")),
                 metrics=self.metrics,
                 tracer=self.tracer,
+                txstory=self.txstory,
             )
             self.bft = replica
             self.services.notary_service = BFTNotaryService(
@@ -849,6 +966,11 @@ class Node:
             # pool self-healing: lease expiry, redispatch backoff and
             # hedging all walk on the pump cadence
             self.verifier_service.tick()
+        if self.statestore is not None:
+            # commit-log compaction walks on the pump cadence: fold
+            # piled-up sealed segments into the next snapshot
+            # generation off the serving path
+            self.statestore.maintain()
         if self.raft is not None:
             if self._hb_raft is None:
                 self._hb_raft = self.health.heartbeat("raft.driver")
@@ -863,6 +985,9 @@ class Node:
             # liveness heartbeat: periodic map re-registration keeps
             # the explorer's last-seen column meaningful
             self.network_map_client.tick()
+        if self.txstory is not None:
+            # lifecycle ledger: group-commit the sqlite index buffer
+            self.txstory.tick()
         # health plane last: the watchdog judges the beats this tick
         # just made, the canary launches, alert rules walk their states
         self.health.tick()
@@ -938,6 +1063,9 @@ class Node:
         if self.bft is not None:
             self.bft.stop()
         self.messaging.stop()
+        if getattr(self, "statestore", None) is not None:
+            # the commit-log index is an mmap: close it with its files
+            self.statestore.close()
         self.db.close()
 
     # -- conveniences ---------------------------------------------------------

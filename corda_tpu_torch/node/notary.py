@@ -14,11 +14,16 @@ planes (`attach_perf`: each flush's phase marks feed the skew window
 and the wave overlap, and the served-request counter becomes the
 plane's notarisations/s history key; `attach_device`: the shard queues
 as the device plane's dispatch queues, and the degraded flag as its
-fallback bridge). The reference's other optional planes are not: QoS
-(node/qos.py keeps only deadline shedding), the txstory ledger and the
-intent journal; the constructor has no argument for them, and the
-`deadline` every `process` takes is ignored, as the reference ignores
-it without a QoS plane. The flow state machine
+fallback bridge). So are the serving path's optional planes: QoS
+(`qos=`, node/qos.NotaryQos: dead-on-arrival, admission and brownout
+sheds at `process`, the expired-at-flush shed before staging, the
+adaptive controller's batch and wait per shard, `observe_flush` /
+`observe_backlog`), the intent WAL (`intent_journal=`,
+`attach_intent_journal`, `replay_intents`) and the lifecycle ledger
+(`attach_txstory`, and `services.txstory` on the simple and validating
+flavours). A shed answers `NotaryError(kind="shed")` without verify
+work; every admitted request still dispatches on the hub's verifier.
+The flow state machine
 (flows/statemachine.py) drives `process` from NotaryServiceFlow; a
 caller without flows drives it with `run_process`.
 
@@ -73,6 +78,7 @@ from ..crypto.schemes import CODE_NAMES
 from ..flows.api import FlowFuture, _WaitFuture, wait_future
 from ..utils import locks, tracing
 from ..utils.metrics import MetricRegistry
+from . import qos as qoslib
 from .messaging import register_ring_gauges
 from .services import ServiceHub
 
@@ -394,6 +400,26 @@ class ShardedUniquenessProvider(UniquenessProvider):
         for ref, tx_id, _requester in rows:
             committed[ref] = tx_id
 
+    # -- partition primitives (the store seam) -----------------------------
+
+    def prior_consumer(self, partition: int, ref: StateRef):
+        """Committed consumer of `ref` on `partition` (None = free),
+        under the partition condition — the check half of the store
+        seam a distributed provider keeps its own reservations over."""
+        part = self._parts[partition]
+        with part.cond:
+            return self._prior_consumer(partition, ref)
+
+    def write_partition(self, partition: int, refs, tx_id, requester) -> None:
+        """Durably commit `refs` -> tx_id on one partition, under its
+        condition — the write half of the store seam. Idempotent (the
+        backing writes are INSERT OR IGNORE / dict assignment), so a
+        re-driven commit replays safely."""
+        part = self._parts[partition]
+        with part.cond:
+            self._write_shard(partition, refs, tx_id, requester)
+            part.cond.notify_all()
+
     # -- the two-phase core ------------------------------------------------
 
     def reserve(self, states, tx_id, requester) -> ShardReservation:
@@ -683,11 +709,25 @@ class NotaryService:
         TransactionSignature or a NotaryError. `trace`: optional trace
         context handed to the provider so a distributed commit's
         consensus-phase spans join the requester's trace."""
+        # lifecycle ledger (utils/txstory.py): the non-batching
+        # flavours (simple/validating, raft-backed included) admit and
+        # terminal here — commit_and_sign IS their serving path. The
+        # batching notary never reaches this method (enqueue_pending
+        # owns its intake), so no double-admit.
+        story = getattr(self.services, "txstory", None)
+        if story is not None:
+            story.admit(
+                str(tx_id),
+                requester=getattr(requester, "name", None),
+            )
         if not self.time_window_checker.is_valid(time_window):
-            return NotaryError(
+            err = NotaryError(
                 "time-window-invalid",
                 f"window {time_window} outside notary clock tolerance",
             )
+            if story is not None:
+                story.terminal_from(str(tx_id), err)
+            return err
         try:
             yield from wait_future(
                 self.uniqueness.commit_async(
@@ -695,16 +735,25 @@ class NotaryService:
                 )
             )
         except UniquenessConflict as e:
-            return NotaryError(
+            err = NotaryError(
                 "conflict",
                 str(e),
                 conflict={str(r): h for r, h in e.conflict.items()},
             )
+            if story is not None:
+                story.terminal_from(str(tx_id), err)
+            return err
         except Exception as e:
-            return NotaryError("commit-unavailable", str(e))
-        return self.services.key_management.sign(
+            err = NotaryError("commit-unavailable", str(e))
+            if story is not None:
+                story.terminal_from(str(tx_id), err)
+            return err
+        sig = self.services.key_management.sign(
             tx_id, self.identity.owning_key
         )
+        if story is not None:
+            story.close(str(tx_id), "committed")
+        return sig
 
 
 class SimpleNotaryService(NotaryService):
@@ -719,13 +768,13 @@ class SimpleNotaryService(NotaryService):
         deadline: Optional[int] = None,
         trace=None,
     ):
-        # `deadline` (the reference's QoS plane) is accepted on every
-        # notary flavour so the service flow passes it uniformly;
-        # without a QoS plane every flavour ignores it, as the
-        # reference does when its `qos` is None. `trace`: an optional
-        # trace context threaded to the uniqueness provider, where a
-        # distributed (Raft) commit stamps per-member consensus-phase
-        # spans into it.
+        # `deadline` (node/qos.py) is accepted on every notary flavour
+        # so the service flow passes it uniformly; only the batching
+        # notary sheds on it (this flavour serves per-request — by the
+        # time it runs, answering costs less than shedding). `trace`:
+        # an optional trace context threaded to the uniqueness
+        # provider, where a distributed (Raft) commit stamps per-member
+        # consensus-phase spans into it.
         del deadline
         try:
             ftx.verify()
@@ -767,6 +816,21 @@ class _PendingNotarisation:
     # flush attributes its phase intervals to it and ENDS it when this
     # request is answered. None when tracing is off.
     span: Any = None
+    # QoS (node/qos.py): the request's propagated absolute-microsecond
+    # deadline and its arrival time on the node clock. A request whose
+    # deadline passed while it queued is shed pre-stage (the flush
+    # answers a typed `shed` NotaryError without spending verify work);
+    # arrival feeds the admitted-latency histogram the adaptive
+    # batching controller steers by. Both None when QoS is off.
+    deadline: Optional[int] = None
+    arrival_micros: Optional[int] = None
+    # durable intake: this request's row id in the intent WAL. Set by
+    # enqueue_pending when a journal is attached (or by replay_intents
+    # re-enqueueing an unresolved intent — which must NOT append a
+    # second row); the resolution callback deletes the row when the
+    # future answers. None when the WAL is off. The sentinel -1 means
+    # "synthetic, never journal" (the health canary).
+    intent_seq: Optional[int] = None
 
 
 class _ShardAnswer:
@@ -870,10 +934,12 @@ class BatchingNotaryService(NotaryService):
         max_batch: int = 512,
         max_wait_micros: int = 0,
         metrics: Optional[MetricRegistry] = None,
+        qos=None,
         shards: int = 1,
         shard_workers: bool = False,
         shard_queue_depth: int = 0,
         degraded_fallback: bool = False,
+        intent_journal=None,
     ):
         """`max_wait_micros` is the batching DEADLINE: 0 (default)
         flushes every pump tick; positive, the tick HOLDS arrivals until
@@ -883,6 +949,16 @@ class BatchingNotaryService(NotaryService):
         gauge, flush-phase timers); None keeps a private registry. Set
         CORDA_TPU_NOTARY_PROFILE=1 to also sum per-phase wall seconds
         into `phase_seconds`.
+
+        `qos`: an optional node/qos.NotaryQos. With one attached,
+        max_batch/max_wait_micros become the STARTING point of its
+        adaptive batching controller (which retunes both each flush to
+        hold the configured p99 target), expired requests are shed
+        pre-stage into typed `shed` errors, and every answered request
+        feeds the admitted-latency histogram the controller steers by.
+        A shed answers without verify work; every request the plane
+        admits still dispatches on the hub's verifier. None keeps the
+        static knobs and a zero-cost hot path.
 
         `shards` > 1 partitions the COMMIT PLANE: requests route by
         state-ref prefix (shard_of_tx) onto N shards, each with its own
@@ -905,7 +981,14 @@ class BatchingNotaryService(NotaryService):
         deterministically (the CPU pass raises too) is bisected to
         quarantine the poison transaction(s). False (the default): one
         dispatch failure answers the whole flush
-        `verification-unavailable`."""
+        `verification-unavailable`.
+
+        `intent_journal`: a persistence.NotaryIntentJournal — every
+        admitted request is appended BEFORE it enters the pending queue
+        and deleted when its future resolves; `replay_intents()`
+        re-enqueues unresolved intents on boot through the normal flush
+        path (uniqueness dedupe absorbs already-committed replays), so
+        a request admitted before a kill is answered after it."""
         if degraded_fallback and _on_card(services):
             raise ValueError(
                 "degraded_fallback moves a flush to the CPU: refused while "
@@ -916,11 +999,13 @@ class BatchingNotaryService(NotaryService):
         )
         self.max_batch = max_batch
         self.max_wait_micros = max_wait_micros
+        self.qos = qos
         self._pending: list[_PendingNotarisation] = []
         self._oldest_arrival: Optional[int] = None
         self._ingest_ring = None       # attach_ingest
         self._health_heartbeat = None   # attach_health: flush-loop liveness
         self._perf = None               # attach_perf: attribution plane
+        self.txstory = None             # attach_txstory: lifecycle ledger
         self.metrics = metrics if metrics is not None else MetricRegistry()
         self._batches_counter = self.metrics.counter(
             "Notary.BatchesDispatched"
@@ -944,6 +1029,7 @@ class BatchingNotaryService(NotaryService):
         )
         # -- fault-tolerance plane -----------------------------------------
         self.degraded_fallback = degraded_fallback
+        self.intent_journal = intent_journal
         self._degraded = False         # device path currently distrusted
         self._degraded_last: dict = {}     # evidence: error, at_micros
         self._cpu_reference = None         # lazy CpuBatchVerifier
@@ -957,6 +1043,11 @@ class BatchingNotaryService(NotaryService):
         self.metrics.gauge(
             "Notary.DegradedMode", lambda: 1 if self._degraded else 0
         )
+        if intent_journal is not None:
+            self.metrics.gauge(
+                "Notary.IntentUnresolved",
+                lambda: intent_journal.unresolved_count,
+            )
         # -- sharded commit plane --------------------------------------------
         self.n_shards = max(1, int(shards))
         self._shards: Optional[list[_NotaryShard]] = None
@@ -979,6 +1070,8 @@ class BatchingNotaryService(NotaryService):
                 for k in range(self.n_shards)
             ]
             self.metrics.gauge("Notary.Shards", lambda: self.n_shards)
+            if qos is not None and hasattr(qos, "ensure_shards"):
+                qos.ensure_shards(self.n_shards)
             if shard_workers:
                 self._completions = deque()
                 for shard in self._shards:
@@ -1008,6 +1101,22 @@ class BatchingNotaryService(NotaryService):
         the live object, so callers may clear() it between passes."""
         return self._phase_profile
 
+    @property
+    def effective_max_batch(self) -> int:
+        """The live flush-depth knob: the adaptive controller's when
+        QoS is attached, the static config otherwise."""
+        qos = self.qos
+        return qos.controller.batch if qos is not None else self.max_batch
+
+    @property
+    def effective_wait_micros(self) -> int:
+        """The live batching-window knob (see effective_max_batch)."""
+        qos = self.qos
+        return (
+            qos.controller.wait_micros if qos is not None
+            else self.max_wait_micros
+        )
+
     def process(
         self,
         stx: SignedTransaction,
@@ -1016,13 +1125,53 @@ class BatchingNotaryService(NotaryService):
         trace=None,
     ):
         """The service flow's entry (a generator: see `run_process`).
-        `deadline` is ignored: no QoS plane (see SimpleNotaryService)."""
-        del deadline
+        With a QoS plane, `deadline` (absolute node-clock micros) sheds
+        the request dead on arrival or once it expires in the queue."""
         if stx.wtx.notary != self.identity:
             return NotaryError(
                 "wrong-notary",
                 f"tx names notary {stx.wtx.notary}, I am {self.identity}",
             )
+        qos = self.qos
+        arrival = None
+        if qos is not None:
+            arrival = self.services.clock.now_micros()
+            if qoslib.expired(deadline, arrival):
+                # dead on arrival: answer without queuing. These
+                # pre-queue sheds have no answer future, so shed_tx
+                # closes the lifecycle story directly (terminal=True).
+                qos.shed_tx(
+                    qoslib.SHED_EXPIRED_INGRESS, stx.id,
+                    terminal=True,
+                )
+                return NotaryError(
+                    qoslib.SHED_KIND,
+                    f"deadline {deadline} already expired at arrival",
+                )
+            # per-client admission gate on the REQUEST path: one
+            # flooding requester is rate-shaped here, before any queue
+            # slot or verify work is spent on it
+            if not qos.admission.admit(requester.name, arrival):
+                qos.shed_tx(
+                    qoslib.SHED_ADMISSION, stx.id, terminal=True
+                )
+                return NotaryError(
+                    qoslib.SHED_KIND,
+                    f"admission rate exceeded for {requester.name}",
+                )
+            # brownout on the request path: at level 2 deadline-less
+            # traffic sheds here too — with no SLO to serve it by, it
+            # is the first load the degraded notary stops carrying
+            if qos.brownout_level >= 2 and deadline is None:
+                qos.shed_tx(
+                    qoslib.SHED_BROWNOUT_NO_DEADLINE, stx.id,
+                    terminal=True,
+                )
+                return NotaryError(
+                    qoslib.SHED_KIND,
+                    "brownout: deadline-less requests are being shed",
+                )
+            qos.admit_tx(stx.id)
         fut = FlowFuture()
         # a root span per notarisation; with a propagated `trace`
         # context it JOINS the requester's trace
@@ -1033,29 +1182,65 @@ class BatchingNotaryService(NotaryService):
                 "notarise.request", parent=trace,
                 tx_id=str(stx.id), requester=requester.name,
             )
-        self.enqueue_pending(_PendingNotarisation(stx, requester, fut, span=span))
-        if self._shards is None and len(self._pending) >= self.max_batch:
+        p = _PendingNotarisation(
+            stx, requester, fut, span=span,
+            deadline=deadline, arrival_micros=arrival,
+        )
+        self.enqueue_pending(p)
+        if (
+            self._shards is None
+            and len(self._pending) >= self.effective_max_batch
+        ):
             self.flush()
         result = yield from wait_future(fut)
         return result
 
-    def submit(self, stx: SignedTransaction, requester: Party):
+    def submit(
+        self,
+        stx: SignedTransaction,
+        requester: Party,
+        deadline: Optional[int] = None,
+        arrival_micros: Optional[int] = None,
+    ):
         """Queue one notarisation WITHOUT the flow machinery and return
         its FlowFuture (bench rigs, tests, embedded drivers). Routes to
         the owning shard on the sharded plane. The future resolves on
-        flush; unlike `process`, no notary check runs at intake (a tx
-        naming another notary fails its signature checks instead)."""
+        flush; unlike `process`, no notary check and no admission gate
+        runs at intake (a tx naming another notary fails its signature
+        checks instead); a `deadline` still sheds at the flush."""
         fut = FlowFuture()
-        self.enqueue_pending(_PendingNotarisation(stx, requester, fut))
+        p = _PendingNotarisation(
+            stx, requester, fut,
+            deadline=deadline, arrival_micros=arrival_micros,
+        )
+        self.enqueue_pending(p)
         return fut
 
     def enqueue_pending(self, p: _PendingNotarisation) -> None:
-        """THE queue-routing step every intake path shares: the owning
-        shard on the sharded plane, the single pending queue — with its
-        oldest-arrival stamp — otherwise. Full-batch flush triggers stay
-        with the callers: process() flushes the unsharded queue at
-        max_batch, the shard router flushes a full shard itself,
-        submit() never flushes."""
+        """THE queue-routing step every intake path shares (process,
+        submit, the canary probe): the owning shard on the sharded
+        plane, the single pending queue — with its oldest-arrival stamp
+        — otherwise. Full-batch flush triggers stay with the callers:
+        process() flushes the unsharded queue at effective_max_batch,
+        the shard router flushes a full shard itself, submit() never
+        flushes."""
+        journal = self.intent_journal
+        fresh = p.intent_seq is None
+        if journal is not None and fresh:
+            # durable intake: the intent row lands BEFORE the request
+            # can enter any queue — from here on a crash replays it
+            # instead of losing it. Resolution (any answer: signature,
+            # conflict, shed, unavailable) deletes the row; the delete
+            # itself is group-committed per flush tick.
+            p.intent_seq = journal.append(p.stx, p.requester, p.deadline)
+            p.future.add_done_callback(
+                lambda f, j=journal, s=p.intent_seq: j.mark_resolved(s)
+            )
+        # lifecycle ledger: admit (+ journal) events for a fresh
+        # arrival, `wal.replay` was already stamped by replay_intents
+        # for a re-enqueued intent — either way the future's answer
+        # records this transaction's one terminal event
+        self._story_intake(p, fresh)
         if self._shards is not None:
             self._enqueue_sharded(p)
             return
@@ -1063,12 +1248,65 @@ class BatchingNotaryService(NotaryService):
             self._oldest_arrival = self.services.clock.now_micros()
         self._pending.append(p)
 
+    def attach_intent_journal(self, journal) -> None:
+        """Wire (or detach, with None) the durable intake WAL after
+        construction (node.py passes it at build time)."""
+        self.intent_journal = journal
+
+    def replay_intents(self) -> list:
+        """Boot-time recovery: re-enqueue every unresolved intent from
+        the WAL through the NORMAL intake path with a fresh future.
+        Already-committed replays (the answer raced the crash) are
+        absorbed by the uniqueness provider's same-tx idempotent
+        re-commit; genuinely lost requests flush as if they had just
+        arrived. Returns [(seq, tx_id, future)] so an embedding driver
+        can re-attach waiters it still holds for those transactions."""
+        journal = self.intent_journal
+        if journal is None:
+            return []
+        out = []
+        now = self.services.clock.now_micros()
+        for seq, stx, requester, deadline in journal.unresolved():
+            fut = FlowFuture()
+            fut.add_done_callback(
+                lambda f, j=journal, s=seq: j.mark_resolved(s)
+            )
+            if self.txstory is not None:
+                # the replay marker doubles as the story's (re-)admit
+                # milestone — a tx whose pre-crash story died with the
+                # process still reconciles: replay -> one terminal
+                self.txstory.replay(str(stx.id), seq)
+            p = _PendingNotarisation(
+                stx, requester, fut,
+                deadline=deadline, arrival_micros=now, intent_seq=seq,
+            )
+            self.enqueue_pending(p)
+            journal.replayed += 1
+            out.append((seq, stx.id, fut))
+        return out
+
     # -- shard routing -------------------------------------------------------
 
     def shard_of(self, stx) -> int:
         """The shard a transaction routes to (state-ref-prefix of its
         first input; pure and restart-stable — see shard_of_tx)."""
         return shard_of_tx(stx, self.n_shards)
+
+    def _shard_cap(self, shard) -> int:
+        qos = self.qos
+        if qos is None:
+            return self.max_batch
+        if hasattr(qos, "controller_for"):
+            return qos.controller_for(shard.id).batch
+        return qos.controller.batch
+
+    def _shard_wait(self, shard) -> int:
+        qos = self.qos
+        if qos is None:
+            return self.max_wait_micros
+        if hasattr(qos, "controller_for"):
+            return qos.controller_for(shard.id).wait_micros
+        return qos.controller.wait_micros
 
     def _enqueue_sharded(self, p: _PendingNotarisation):
         shard = self._shards[shard_of_tx(p.stx, self.n_shards)]
@@ -1083,7 +1321,7 @@ class BatchingNotaryService(NotaryService):
                 shard.oldest_arrival = self.services.clock.now_micros()
             shard.pending.append(p)
             depth = len(shard.pending)
-            if depth >= self.max_batch or depth >= shard.queue_bound:
+            if depth >= self._shard_cap(shard) or depth >= shard.queue_bound:
                 # full batch (or full bounded queue): flush THIS shard —
                 # the others keep accumulating their own batches
                 if self._workers:
@@ -1156,15 +1394,63 @@ class BatchingNotaryService(NotaryService):
         ring = self._ingest_ring
         if ring is None:
             return
+        story = self.txstory
         if self._shards is not None:
             for batch in ring.drain():
                 for p in batch:
+                    if story is not None:
+                        # ring arrivals bypass enqueue_pending (no
+                        # intent journal on the wire path) but still
+                        # admit into the lifecycle ledger
+                        self._story_intake(p, fresh=True)
                     self._enqueue_sharded(p)
             return
         for batch in ring.drain():
+            if story is not None:
+                for p in batch:
+                    self._story_intake(p, fresh=True)
             self._pending.extend(batch)
         if self._pending and self._oldest_arrival is None:
             self._oldest_arrival = self.services.clock.now_micros()
+
+    def attach_txstory(self, story) -> None:
+        """Wire the transaction lifecycle ledger (utils/txstory.py):
+        every intake path emits `notary.admit` (+ `wal.journal` /
+        `wal.replay` under the intent WAL), every flush stamps
+        `notary.flush` membership with its batch id (+ shard), the
+        validate pass stamps `notary.verified`, degraded flushes and
+        quarantines carry their outcomes, and the answer future's
+        resolution records EXACTLY ONE terminal event per admitted
+        transaction. Pass None to detach (A/B rigs)."""
+        self.txstory = story
+
+    def _story_intake(self, p: _PendingNotarisation, fresh: bool) -> None:
+        """The shared lifecycle-intake hook (enqueue_pending AND the
+        ingest-ring drain): admit + journal events for fresh arrivals,
+        terminal hook on the answer future either way. The canary
+        (intent_seq == -1 sentinel) stays invisible — a synthetic
+        probe per tick would churn one story with endless re-answers."""
+        story = self.txstory
+        if story is None or p.intent_seq == -1:
+            return
+        tid = str(p.stx.id)
+        if fresh:
+            span = p.span
+            story.admit(
+                tid,
+                trace_id=(
+                    f"{span.trace_id:#x}"
+                    if span and not span.ended else None
+                ),
+                deadline=p.deadline,
+                requester=(
+                    p.requester.name
+                    if getattr(p.requester, "name", None) else None
+                ),
+            )
+            if p.intent_seq is not None:
+                story.journal(tid, p.intent_seq)
+        story.watch_future(tid, p.future)
 
     def attach_perf(self, plane) -> None:
         """Wire the performance-attribution plane (utils/perf.py):
@@ -1225,6 +1511,11 @@ class BatchingNotaryService(NotaryService):
         unless a batching deadline is set and neither it nor max_batch
         has been reached yet. Returns requests answered (0 = held or
         quiescent)."""
+        if self.intent_journal is not None:
+            # group-commit the WAL's resolution deletes once per tick:
+            # answers buffered since the last tick clear in ONE
+            # transaction
+            self.intent_journal.flush_resolved()
         if self._shards is not None:
             return self._tick_sharded()
         self._drain_ingest()
@@ -1234,12 +1525,12 @@ class BatchingNotaryService(NotaryService):
             if hb is not None:
                 hb.beat()
             return 0
-        if self.max_wait_micros and n < self.max_batch:
+        if self.effective_wait_micros and n < self.effective_max_batch:
             age = (
                 self.services.clock.now_micros()
                 - (self._oldest_arrival or 0)
             )
-            if age < self.max_wait_micros:
+            if age < self.effective_wait_micros:
                 # held while a batch forms: alive (beat), zero progress
                 if hb is not None:
                     hb.beat()
@@ -1259,15 +1550,17 @@ class BatchingNotaryService(NotaryService):
         self._drain_ingest()
         now = self.services.clock.now_micros()
         due: list[_NotaryShard] = []
+        total_backlog = 0
         for shard in self._shards:
             with shard.cond:
                 n = len(shard.pending)
+                total_backlog += n
                 if not n:
                     if not self._workers and shard.heartbeat is not None:
                         shard.heartbeat.beat()   # alive, quiescent
                     continue
-                wait = self.max_wait_micros
-                if wait and n < self.max_batch:
+                wait = self._shard_wait(shard)
+                if wait and n < self._shard_cap(shard):
                     if now - (shard.oldest_arrival or 0) < wait:
                         # held while a batch forms, not wedged
                         if shard.heartbeat is not None:
@@ -1280,6 +1573,12 @@ class BatchingNotaryService(NotaryService):
                     due.append(shard)
         answered = self._flush_wave(due) if due else 0
         answered += self._drain_completions()
+        if self.qos is not None and hasattr(self.qos, "observe_backlog"):
+            # ONE brownout observation per pump round, on the aggregate
+            # backlog — per-shard flush feedback only retunes that
+            # shard's controller (a hot shard cannot brown out the node
+            # by itself; a node-wide backlog still does)
+            self.qos.observe_backlog(total_backlog)
         hb = self._health_heartbeat
         if hb is not None:
             hb.beat(progress=answered)
@@ -1361,6 +1660,8 @@ class BatchingNotaryService(NotaryService):
         wave, or — with worker threads — by waking every shard and
         blocking until they go idle, then resolving the completions on
         the calling thread (which acts as the pump)."""
+        if self.intent_journal is not None:
+            self.intent_journal.flush_resolved()
         self._drain_ingest()   # pre-ingested arrivals join this flush
         if self._shards is not None:
             if self._workers:
@@ -1419,8 +1720,13 @@ class BatchingNotaryService(NotaryService):
                 pending = self._take_pending(shard)
                 if not pending:
                     continue
+                if self.qos is not None:
+                    pending = self._qos_admit(pending, shard)
+                    if not pending:
+                        self._shard_done(shard, 0)
+                        continue
                 marks: list[tuple[str, float, float]] = []
-                ctx = self._stage_and_dispatch(pending, marks)
+                ctx = self._stage_and_dispatch(pending, marks, shard)
                 staged.append((shard, pending, marks, ctx))
             for shard, pending, marks, ctx in staged:
                 try:
@@ -1428,6 +1734,8 @@ class BatchingNotaryService(NotaryService):
                         self._consume_flush(ctx, marks)
                 finally:
                     self._emit_flush_trace(pending, marks, shard)
+                    if self.qos is not None:
+                        self._qos_feedback(pending, shard)
                     self._shard_done(shard, len(pending))
                 total += len(pending)
             if self._perf is not None and staged:
@@ -1452,15 +1760,22 @@ class BatchingNotaryService(NotaryService):
             return 0
         self._gc_pause()
         try:
+            if self.qos is not None:
+                pending = self._qos_admit(pending, shard)
+                if not pending:
+                    self._shard_done(shard, 0)
+                    return 0
             marks: list[tuple[str, float, float]] = []
             try:
-                ctx = self._stage_and_dispatch(pending, marks)
+                ctx = self._stage_and_dispatch(pending, marks, shard)
                 if ctx is not None:
                     self._consume_flush(ctx, marks)
             finally:
                 self._emit_flush_trace(pending, marks, shard)
                 if self._perf is not None:
                     self._perf.observe_flush(shard.id, len(pending), marks)
+                if self.qos is not None:
+                    self._qos_feedback(pending, shard)
                 self._shard_done(shard, len(pending))
             return len(pending)
         finally:
@@ -1499,8 +1814,8 @@ class BatchingNotaryService(NotaryService):
                         shard.heartbeat.beat()   # alive, quiescent
                     continue
                 if not woken:
-                    wait = self.max_wait_micros
-                    if wait and n < self.max_batch:
+                    wait = self._shard_wait(shard)
+                    if wait and n < self._shard_cap(shard):
                         if clock.now_micros() - (shard.oldest_arrival or 0) < wait:
                             if shard.heartbeat is not None:
                                 shard.heartbeat.beat()   # held, not wedged
@@ -1520,6 +1835,11 @@ class BatchingNotaryService(NotaryService):
         self._oldest_arrival = None
         if not pending:
             return
+        if self.qos is not None:
+            pending = self._qos_admit(pending)
+            if not pending:
+                self.qos.observe_flush(0, len(self._pending))
+                return
         # `marks` collects this flush's phase intervals; the finally
         # attributes them to every member's trace and ENDS the
         # per-request root spans on every exit path
@@ -1532,6 +1852,96 @@ class BatchingNotaryService(NotaryService):
             self._emit_flush_trace(pending, marks)
             if self._perf is not None:
                 self._perf.observe_flush(0, len(pending), marks)
+            if self.qos is not None:
+                self._qos_feedback(pending)
+
+    def _qos_admit(
+        self, pending: list[_PendingNotarisation], shard=None
+    ) -> list[_PendingNotarisation]:
+        """Pre-stage QoS pass over one flush's intake: shed requests
+        whose deadline passed while they queued (a typed `shed` answer
+        — the client gave up; verifying it would burn batch rows on the
+        card for a dead request), then cap the served depth at the
+        adaptive controller's batch (the owning SHARD's controller on
+        the sharded plane) so one flush cannot blow the latency budget;
+        the overflow re-queues AHEAD of newer arrivals (FIFO holds)."""
+        qos = self.qos
+        now = self.services.clock.now_micros()
+        live: list[_PendingNotarisation] = []
+        for p in pending:
+            if qoslib.expired(p.deadline, now):
+                # the answer future below carries the story terminal;
+                # shed_tx only stamps the qos.shed event + counter
+                qos.shed_tx(qoslib.SHED_EXPIRED_FLUSH, p.stx.id)
+                if p.span:
+                    # shed events are span events: the trace shows WHY
+                    # this notarisation never reached the dispatch
+                    p.span.add_event(
+                        "qos.shed", reason=qoslib.SHED_EXPIRED_FLUSH
+                    )
+                    p.span.set_attribute("shed", qoslib.SHED_EXPIRED_FLUSH)
+                    p.span.end()
+                p.future.set_result(
+                    NotaryError(
+                        qoslib.SHED_KIND,
+                        f"deadline {p.deadline} expired while queued "
+                        f"(now {now})",
+                    )
+                )
+            else:
+                live.append(p)
+        cap = (
+            self._shard_cap(shard) if shard is not None
+            else qos.controller.batch
+        )
+        if len(live) > cap:
+            overflow = live[cap:]
+            live = live[:cap]
+            arrival = (
+                overflow[0].arrival_micros
+                if overflow[0].arrival_micros is not None
+                else now
+            )
+            if shard is not None:
+                with shard.cond:
+                    shard.pending = overflow + shard.pending
+                    shard.oldest_arrival = arrival
+            else:
+                self._pending = overflow + self._pending
+                self._oldest_arrival = arrival
+        return live
+
+    def _qos_feedback(
+        self, served: list[_PendingNotarisation], shard=None
+    ) -> None:
+        """Post-flush QoS pass: admitted-request completion latency
+        (node-clock micros, arrival -> answer) into the histogram the
+        adaptive controller reads, then one controller observation with
+        the depth served and the backlog left — the owning shard's
+        controller on the sharded plane, so a hot shard retunes ITSELF
+        without collapsing the other shards' batching windows. Futures
+        still open here (a distributed commit resolves them later)
+        record at RESOLUTION via a done callback, so slow commits reach
+        the p99 the controller steers by."""
+        qos = self.qos
+        now = self.services.clock.now_micros()
+        sid = shard.id if shard is not None else None
+        for p in served:
+            if p.arrival_micros is None:
+                continue
+            fut = p.future
+            if getattr(fut, "done", False):
+                qos.record_admitted(now - p.arrival_micros, shard=sid)
+            elif hasattr(fut, "add_done_callback"):
+                fut.add_done_callback(
+                    lambda f, arr=p.arrival_micros, q=qos, s=sid: (
+                        q.record_admitted(q.now_micros() - arr, shard=s)
+                    )
+                )
+        if shard is not None and hasattr(qos, "observe_shard_flush"):
+            qos.observe_shard_flush(sid, len(served), shard.depth())
+        else:
+            qos.observe_flush(len(served), len(self._pending))
 
     def _emit_flush_trace(self, pending, marks, shard=None) -> None:
         """Per-request trace assembly: the flush phases ran batched, so
@@ -1560,7 +1970,7 @@ class BatchingNotaryService(NotaryService):
             else:
                 fut.add_done_callback(lambda f, s=span: s.end())
 
-    def _stage_and_dispatch(self, pending, marks):
+    def _stage_and_dispatch(self, pending, marks, shard=None):
         """Phase A of a flush: stage every pending transaction's
         signature requests and launch the (async) SPI dispatch on the
         hub's verifier. Returns the flush context for _consume_flush, or
@@ -1600,6 +2010,13 @@ class BatchingNotaryService(NotaryService):
         pending = live
         if not pending:
             return None
+        if self.txstory is not None:
+            # flush membership: batch id + owning shard on every
+            # member transaction's story, one lock hold for the batch
+            self.txstory.flush_membership(
+                [str(p.stx.id) for p in pending],
+                shard=shard.id if shard is not None else None,
+            )
         t = self._mark("stage", t, marks)
         poison: set = set()
         try:
@@ -1736,6 +2153,13 @@ class BatchingNotaryService(NotaryService):
         every other transaction still gets real results. Returns
         (results, poison_tx_indices)."""
         self._enter_degraded(error)
+        if self.txstory is not None:
+            # degraded outcome, attributed per member transaction: the
+            # flush that answers these was served by the CPU reference
+            self.txstory.degraded_flush(
+                [str(p.stx.id) for p in pending],
+                f"{type(error).__name__}: {error}",
+            )
         cpu = self._cpu_ref()
         try:
             return list(cpu.verify_batch(reqs)), set()
@@ -2134,6 +2558,10 @@ class BatchingNotaryService(NotaryService):
                 )
             )
             return False
+        if self.txstory is not None:
+            # the verify->commit stage boundary: signatures + contracts
+            # held, this transaction proceeds to the uniqueness commit
+            self.txstory.record(str(stx.id), "notary.verified")
         return True
 
 

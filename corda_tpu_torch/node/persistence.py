@@ -6,9 +6,11 @@ stores, the uniqueness providers (single table and sharded, with the
 shard-count migration), key management, the vault with its schema
 projections, and the hub assembly. The DDL, the CTS-encoded blobs and
 the key layout are the reference's, so a node database written by
-either package opens in the other. The notary intent journal, the
-cross-shard journals and the tx-story index are not ported; asking for
-them raises NotImplementedError naming their ROADMAP item.
+either package opens in the other. So are the batching notary's intent
+journal (`NotaryIntentJournal`) and the tx-story spill
+(`TxStoryIndex`): their tables and rows are byte-equal to the
+reference's. The cross-shard journals are not ported; asking for them
+raises NotImplementedError naming their ROADMAP item.
 
 Reference: the node's JDBC/H2 storage layer — `DBTransactionStorage`,
 `NodeAttachmentService`, `DBCheckpointStorage` (node/.../services/
@@ -30,9 +32,12 @@ HibernateQueryCriteriaParser does.
 
 from __future__ import annotations
 
+import json
+import logging
 import sqlite3
-from ..utils import locks
 from typing import Optional
+
+from ..utils import locks
 
 from ..core import serialization as ser
 from ..core.contracts import StateRef
@@ -601,6 +606,243 @@ class ShardedPersistentUniquenessProvider(ShardedUniquenessProvider):
         return self._counts[shard]
 
 
+class NotaryIntentJournal:
+    """Durable intake WAL for the batching notary.
+
+    Every ADMITTED notarisation request appends one intent row —
+    transaction, requester, deadline — BEFORE it enters the pending
+    queue, and the row is deleted when the request's future resolves
+    (any answer counts: signature, conflict, shed, unavailable). The
+    table lives in the node's WAL-mode sqlite database under the same
+    fsync discipline as the fabric journals: appends are WAL writes
+    (synchronous=NORMAL — no per-row fsync), resolution deletes are
+    buffered in memory and group-committed once per flush tick.
+
+    On boot, `BatchingNotaryService.replay_intents` re-enqueues every
+    row still present — requests that were admitted but in flight when
+    the process died — through the normal flush path. Replays of
+    requests that had actually committed before the crash (the answer
+    raced the buffered delete) are absorbed by the uniqueness
+    provider's idempotent same-tx re-commit, so the replay can only
+    ADD answers, never change one: in-flight-at-kill loss goes to
+    zero.
+    """
+
+    _SCHEMA = """
+    CREATE TABLE IF NOT EXISTS notary_intents (
+        seq       INTEGER PRIMARY KEY AUTOINCREMENT,
+        tx_id     BLOB NOT NULL,
+        data      BLOB NOT NULL,
+        requester BLOB NOT NULL,
+        deadline  INTEGER
+    );
+    """
+
+    def __init__(self, db: NodeDatabase):
+        self._db = db
+        db.execute_script(self._SCHEMA)
+        self._lock = locks.make_lock("NotaryIntentJournal._lock")
+        self._resolved_buf: list[int] = []
+        self.appended = 0
+        self.resolved = 0
+        self.replayed = 0
+        # intents whose payload no longer decodes (a cordapp removed
+        # between boots): kept in the table, surfaced here, never
+        # allowed to crash the boot replay
+        self.undecodable: list[int] = []
+
+    def append(self, stx, requester: Party, deadline: Optional[int]) -> int:
+        """Journal one admitted request; returns its intent seq. The
+        row is on the WAL before this returns — from here a crash
+        replays the request instead of losing it."""
+        cur = self._db.execute(
+            "INSERT INTO notary_intents (tx_id, data, requester, deadline)"
+            " VALUES (?,?,?,?)",
+            (
+                stx.id.bytes_,
+                ser.encode(stx),
+                ser.encode(requester),
+                deadline,
+            ),
+        )
+        self.appended += 1
+        return cur.lastrowid
+
+    def mark_resolved(self, seq: int) -> None:
+        """Buffer one intent's resolution (called from the answer
+        path's done-callback — cheap, lock-only). The delete lands in
+        the next `flush_resolved` group commit; a crash inside that
+        window replays an already-answered request, which the
+        uniqueness dedupe absorbs."""
+        with self._lock:
+            self._resolved_buf.append(seq)
+
+    def flush_resolved(self) -> int:
+        """Group-commit every buffered resolution in ONE transaction
+        (the per-flush-tick fsync discipline). Returns rows cleared."""
+        with self._lock:
+            buf, self._resolved_buf = self._resolved_buf, []
+        if not buf:
+            return 0
+        with self._db.transaction() as conn:
+            conn.executemany(
+                "DELETE FROM notary_intents WHERE seq=?",
+                [(s,) for s in buf],
+            )
+        self.resolved += len(buf)
+        return len(buf)
+
+    def lose_unflushed_resolutions(self) -> int:
+        """Crash simulation: a real
+        process death loses the in-memory resolution buffer — those
+        answered-but-undeleted intents must REPLAY on boot (and be
+        absorbed by uniqueness dedupe). Drops the buffer; returns how
+        many resolutions were lost."""
+        with self._lock:
+            n, self._resolved_buf = len(self._resolved_buf), []
+        return n
+
+    def unresolved(self) -> list:
+        """Every intent not yet resolved, oldest first, decoded:
+        [(seq, stx, requester_party, deadline)]. Buffered-but-unflushed
+        resolutions are excluded — they ARE answered, only their
+        delete is pending."""
+        with self._lock:
+            buffered = set(self._resolved_buf)
+        out = []
+        self.undecodable = []
+        for seq, data, requester, deadline in self._db.query(
+            "SELECT seq, data, requester, deadline FROM notary_intents"
+            " ORDER BY seq"
+        ):
+            if seq in buffered:
+                continue
+            try:
+                stx = ser.decode(bytes(data))
+                who = ser.decode(bytes(requester))
+            except Exception as e:   # noqa: BLE001 - surfaced, not fatal
+                # a state/contract class registered when this intent
+                # was journaled but absent now (cordapp change between
+                # boots) must not crash the boot: keep the row, tell
+                # the operator, replay the rest
+                self.undecodable.append(seq)
+                logging.getLogger("corda_tpu_torch.notary").warning(
+                    "intent %d does not decode (%s: %s); kept in the "
+                    "WAL, skipped by replay", seq, type(e).__name__, e,
+                )
+                continue
+            out.append((seq, stx, who, deadline))
+        return out
+
+    @property
+    def unresolved_count(self) -> int:
+        with self._lock:
+            buffered = len(self._resolved_buf)
+        return (
+            self._db.query("SELECT COUNT(*) FROM notary_intents")[0][0]
+            - buffered
+        )
+
+
+class TxStoryIndex:
+    """Sqlite spill for the transaction lifecycle ledger
+    (utils/txstory.py): every recorded event also lands here, so a
+    story the bounded in-memory ring evicted stays answerable at
+    GET /tx/<id>.
+
+    Same WAL discipline as the intent journal above: the table lives
+    in the node's WAL-mode database (synchronous=NORMAL — no per-row
+    fsync), appends buffer IN MEMORY on the emitting thread (one lock,
+    no sqlite on the hot path) and group-commit once per pump tick via
+    `flush()` — a crash loses at most one tick's worth of forensic
+    events, never serving-path answers (the ledger is an observer
+    plane; the intent WAL owns exactly-once)."""
+
+    _SCHEMA = """
+    CREATE TABLE IF NOT EXISTS tx_story_events (
+        seq       INTEGER PRIMARY KEY AUTOINCREMENT,
+        tx_id     TEXT NOT NULL,
+        name      TEXT NOT NULL,
+        at_micros INTEGER NOT NULL,
+        mono_us   INTEGER NOT NULL,
+        attrs     TEXT
+    );
+    CREATE INDEX IF NOT EXISTS tx_story_events_tx
+        ON tx_story_events (tx_id, seq);
+    """
+
+    def __init__(self, db: NodeDatabase, max_rows: int = 200_000):
+        self._db = db
+        db.execute_script(self._SCHEMA)
+        self._lock = locks.make_lock("TxStoryIndex._lock")
+        self._buf: list[tuple] = []
+        self._max_rows = max(1_000, max_rows)
+        self.appended = 0
+        self.flushes = 0
+
+    def append(self, tx_id: str, name: str, at: int, mono: int, attrs) -> None:
+        """Buffer one event (called under the TxStory lock — memory
+        only, the sqlite write happens at flush())."""
+        with self._lock:
+            self._buf.append((tx_id, name, at, mono, attrs))
+
+    def flush(self) -> int:
+        """Group-commit the buffer in ONE transaction (the
+        flush_resolved discipline); returns rows written. Retention is
+        enforced here too: past `max_rows` the oldest rows fall off so
+        the spill stays bounded like everything else in the plane."""
+        with self._lock:
+            buf, self._buf = self._buf, []
+        if not buf:
+            return 0
+        rows = [
+            (
+                tx_id, name, at, mono,
+                json.dumps(attrs) if attrs else None,
+            )
+            for tx_id, name, at, mono, attrs in buf
+        ]
+        with self._db.transaction() as conn:
+            conn.executemany(
+                "INSERT INTO tx_story_events"
+                " (tx_id, name, at_micros, mono_us, attrs)"
+                " VALUES (?,?,?,?,?)",
+                rows,
+            )
+            conn.execute(
+                "DELETE FROM tx_story_events WHERE seq <= ("
+                "SELECT COALESCE(MAX(seq), 0) - ? FROM tx_story_events)",
+                (self._max_rows,),
+            )
+        self.appended += len(rows)
+        self.flushes += 1
+        return len(rows)
+
+    def events_for(self, tx_id: str) -> list[dict]:
+        """One transaction's journaled events, oldest first, decoded to
+        the same row shape the in-memory story exports."""
+        out = []
+        for name, at, mono, attrs in self._db.query(
+            "SELECT name, at_micros, mono_us, attrs FROM tx_story_events"
+            " WHERE tx_id=? ORDER BY seq",
+            (tx_id,),
+        ):
+            row = {"name": name, "at_micros": at, "mono_us": mono}
+            if attrs:
+                try:
+                    row.update(json.loads(attrs))
+                except ValueError:
+                    pass
+            out.append(row)
+        return out
+
+    @property
+    def row_count(self) -> int:
+        return self._db.query(
+            "SELECT COUNT(*) FROM tx_story_events"
+        )[0][0]
+
+
 class PersistentKeyManagementService(KeyManagementService):
     """PersistentKeyManagementService: fresh (anonymous) keys persist so
     confidential identities survive a node restart."""
@@ -828,14 +1070,12 @@ class PersistentServiceHub:
 
 
 _NOT_PORTED = {
-    "NotaryIntentJournal": "Queue 1 #6 (the notary intent journal)",
     "XShardCoordinatorJournal": (
         "Queue 1 #6 (distributed_uniqueness.py and its cross-shard journals)"
     ),
     "XShardReservationJournal": (
         "Queue 1 #6 (distributed_uniqueness.py and its cross-shard journals)"
     ),
-    "TxStoryIndex": "Queue 1 #6 (TxStoryIndex with utils/txstory.py)",
 }
 
 

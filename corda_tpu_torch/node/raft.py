@@ -7,9 +7,10 @@ replication, snapshots and chunked InstallSnapshot) and
 reference's bytes. Its Raft.Phase.* timers and `raft.<phase>` spans go
 through the port's utils/metrics.py and utils/tracing.py. Traced
 frames feed the tracer's `ClockSync`, the clock-offset evidence of
-cross-node trace assembly. Not ported: the tx-story hook (`txstory=`)
-and `partition_raft_groups` (the distributed uniqueness plane); ROADMAP
-Queue 1 #6 lists them.
+cross-node trace assembly. `txstory=` stamps each applied uniqueness
+commit on its transaction's lifecycle story (utils/txstory.py). Not
+ported: `partition_raft_groups` (the distributed uniqueness plane,
+ROADMAP Queue 1 #6).
 
 Reference: `RaftUniquenessProvider` (node/.../transactions/
 RaftUniquenessProvider.kt:41) — a Copycat-replicated
@@ -35,6 +36,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 from ..core import serialization as ser
+from ..crypto.hashes import SecureHash
 from ..utils import tracing
 from ..flows.api import FlowFuture
 from .messaging import Message, MessagingService
@@ -56,6 +58,31 @@ RAFT_PHASES = (
 # bound on the per-entry trace/timing tables: a trace context whose
 # entry never commits (deposed leader, lost quorum) must not leak
 _TRACE_TABLE_CAP = 4096
+
+
+def _story_consensus_commit(story, command, index, member, term) -> None:
+    """Stamp `consensus.commit` on a just-applied uniqueness command's
+    lifecycle story (utils/txstory.py). Only the notary's `["commit",
+    tx_id_bytes, refs]` command shape carries a tx id; anything else
+    (noops, foreign state machines) is silently skipped — the ledger
+    is an observer, never a failure source."""
+    try:
+        if not isinstance(command, (list, tuple)) or len(command) < 2:
+            return
+        if command[0] == "commit":
+            # notary cluster shape: tx id rides as raw hash bytes
+            story.consensus_commit(
+                str(SecureHash(bytes(command[1]))),
+                index=index, member=member, term=term,
+            )
+        elif command[0] == "xcommit":
+            # partition-group replication shape (distributed
+            # uniqueness): tx id rides as the SecureHash itself
+            story.consensus_commit(
+                str(command[1]), index=index, member=member, term=term,
+            )
+    except Exception:   # noqa: BLE001 - observer plane, never fatal
+        pass
 
 
 class RaftUnavailable(Exception):
@@ -237,6 +264,7 @@ class RaftNode:
         restore_fn: Optional[Callable[[Any], None]] = None,
         metrics=None,
         tracer=None,
+        txstory=None,
     ):
         """`metrics`: an optional MetricRegistry — Raft.Phase.* timers
         over every consensus phase plus quorum-lag gauges land on it
@@ -244,8 +272,12 @@ class RaftNode:
         optional utils/tracing.Tracer — commands submitted with a
         trace context get per-member `raft.<phase>` spans stamped into
         it, and traced protocol frames feed the tracer's ClockSync so
-        cross-node assembly can order spans honestly. Both default to
-        None: the bare protocol stays dependency- and overhead-free."""
+        cross-node assembly can order spans honestly. `txstory`: an
+        optional utils/txstory.TxStory — every applied uniqueness
+        commit command stamps a `consensus.commit` lifecycle event
+        (log index + member) on its transaction's story, on EVERY
+        member that applies it. All default to None: the bare protocol
+        stays dependency- and overhead-free."""
         import random as _random
 
         assert name in peers, "peers must include this member"
@@ -317,6 +349,7 @@ class RaftNode:
         # -- observability: phase timers, lag gauges, spans -----------
         self.metrics = metrics
         self.tracer = tracer
+        self.txstory = txstory
         self._phase_timers: dict[str, Any] = {}
         if metrics is not None:
             for phase in RAFT_PHASES:
@@ -1001,6 +1034,10 @@ class RaftNode:
             )
             if observing:
                 self._stamp("apply", hdr, t_apply)
+            if self.txstory is not None:
+                _story_consensus_commit(
+                    self.txstory, command, idx, self.name, term
+                )
             self.applied_count += 1
             entry = self._index_futures.pop(self.last_applied, None)
             if entry is not None:

@@ -36,8 +36,9 @@ worker process (`python -m corda_tpu_torch.node.verifier`), on a
 CudaBatchVerifier unless `--cpu` asks for CpuBatchVerifier, with a
 perf plane and, with `--profile-hz`, its sampling profiler.
 
-Not ported: the pool's `txstory` hook (its plane is ROADMAP Queue 1
-#6). A ring-fed worker's ring depth is `INGEST_WINDOW`.
+The pool's `txstory` stamps every dispatch, redispatch, hedge, answer
+and failure on the request's lifecycle story (utils/txstory.py). A
+ring-fed worker's ring depth is `INGEST_WINDOW`.
 """
 
 from __future__ import annotations
@@ -294,8 +295,17 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
         self.metrics.gauge("Verifier.InFlight", lambda: len(self._pending))
         self.metrics.gauge("Verifier.Buffered", lambda: len(self._buffer))
         self.metrics.gauge("Verifier.Workers", lambda: len(self._workers))
+        # transaction lifecycle ledger (utils/txstory.py): wired by
+        # node.py / rigs; every dispatch / redispatch / hedge / answer
+        # stamps a per-attempt event keyed by the transaction id
+        self.txstory = None
         messaging.add_handler(msglib.TOPIC_VERIFIER_RES, self._on_response)
         messaging.add_handler(TOPIC_READY, self._on_ready)
+
+    def _story_tx(self, entry: "_PendingVerify") -> Optional[str]:
+        ltx = getattr(entry.req, "ltx", None)
+        tid = getattr(ltx, "id", None)
+        return str(tid) if tid is not None else None
 
     def _now_micros(self) -> int:
         if self._clock is not None:
@@ -492,6 +502,14 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
         self._rr += 1
         entry.hedged_to = worker
         self._hedged_meter.mark()
+        if self.txstory is not None:
+            tid = self._story_tx(entry)
+            if tid is not None:
+                self.txstory.record(
+                    tid, "verify.hedge",
+                    attempt=entry.attempt, worker=worker,
+                    nonce=entry.req.nonce,
+                )
         return (msglib.TOPIC_VERIFIER_REQ, entry.req, worker)
 
     def _detach_worker_locked(self, worker: str, now: int) -> None:
@@ -533,6 +551,14 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
             )
         else:
             exc = VerificationTimeoutError(nonce, entry.worker, elapsed)
+        if self.txstory is not None:
+            tid = self._story_tx(entry)
+            if tid is not None:
+                self.txstory.record(
+                    tid, "verify.failed",
+                    attempt=entry.attempt, nonce=nonce,
+                    error=type(exc).__name__,
+                )
         return entry.fut, exc
 
     def watch_health(self, monitor) -> None:
@@ -583,7 +609,8 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
         ) or self._workers
         worker = candidates[self._rr % len(candidates)]
         self._rr += 1
-        if entry.dispatches:
+        redispatch = entry.dispatches > 0
+        if redispatch:
             # a RE-dispatch is a new incarnation of the nonce: bump the
             # attempt so the previous worker's late answer is rejected
             entry.attempt += 1
@@ -593,6 +620,24 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
         entry.dispatches += 1
         entry.dispatched_micros = self._now_micros()
         entry.retry_at_micros = None
+        if self.txstory is not None:
+            # per-attempt lifecycle events (memory-only append — safe
+            # under the service lock): the story shows every worker
+            # this nonce ever visited and why
+            tid = self._story_tx(entry)
+            if tid is not None:
+                if redispatch:
+                    self.txstory.record(
+                        tid, "verify.redispatch",
+                        attempt=entry.attempt, worker=worker,
+                        nonce=entry.req.nonce,
+                    )
+                else:
+                    self.txstory.record(
+                        tid, "verify.dispatch",
+                        attempt=entry.attempt, worker=worker,
+                        nonce=entry.req.nonce,
+                    )
         # the request REFERENCE is captured under the lock (the frozen
         # dataclass is only ever replaced, never mutated), so encoding
         # happens after release
@@ -662,6 +707,14 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
         # resolution outside the lock: set_result/set_exception run
         # done-callbacks
         self._duration.update(time.perf_counter() - entry.t0)
+        if self.txstory is not None:
+            tid = self._story_tx(entry)
+            if tid is not None:
+                self.txstory.record(
+                    tid, "verify.done",
+                    attempt=entry.attempt, worker=msg.sender,
+                    nonce=res.nonce, ok=res.error is None,
+                )
         if res.error is None:
             self._success.mark()
             entry.fut.set_result()

@@ -5,10 +5,10 @@ event log, alert rules with hysteresis (burn rate, shed ratio, ring),
 the canary probe and `HealthMonitor`, `ClusterHealth`,
 `IncidentRecorder` and the notary canary, which notarises through the
 real flush path (on the card, one CudaBatchVerifier dispatch).
-`watch_perf`, `watch_device` and `watch_wire` install the perf,
-device and wire planes' rules; `watch_qos`,
-`watch_distributed_uniqueness` and `watch_txstory` watch planes the
-port lacks and raise NotImplementedError naming their ROADMAP item.
+`watch_qos`, `watch_txstory`, `watch_perf`, `watch_device` and
+`watch_wire` install the QoS, tx-story, perf, device and wire planes'
+rules; `watch_distributed_uniqueness` watches a plane the port lacks
+and raises NotImplementedError naming its ROADMAP item.
 
 Every node has rich telemetry (/metrics, /traces, /qos), but
 nothing in-process WATCHES it without this plane: a wedged flush loop, a stalled
@@ -680,10 +680,22 @@ class HealthMonitor:
         return rule
 
     def watch_qos(self, qos) -> None:
-        """the QoS plane (node/qos.py NotaryQos): not ported (ROADMAP Queue 1 #6); raises."""
-        raise NotImplementedError(
-            "HealthMonitor.watch_qos: the QoS plane (node/qos.py NotaryQos) is not ported "
-            "(ROADMAP Queue 1 #6)"
+        """Install the SLO rules over a node/qos.NotaryQos: multi-window
+        burn rate on Qos.AdmittedLatencyMicros p99 vs the configured
+        target, and the shed-ratio rule over its Qos.Shed.* counters."""
+        self.add_rule(
+            BurnRateRule(
+                lambda: qos.admitted_latency.quantile(0.99),
+                qos.policy.target_p99_micros,
+                self.policy,
+            )
+        )
+        self.add_rule(
+            ShedRatioRule(
+                lambda: qos.shed_total,
+                lambda: qos.answered.count,
+                self.policy,
+            )
         )
 
     def watch_distributed_uniqueness(self, provider) -> None:
@@ -724,12 +736,15 @@ class HealthMonitor:
         monitor the alert walks + evidence."""
         plane.install_rules(self)
 
-    def watch_txstory(self, story, targets: dict, window_micros=None) -> None:
-        """the tx-story plane (utils/txstory.py): not ported (ROADMAP Queue 1 #6(4)); raises."""
-        raise NotImplementedError(
-            "HealthMonitor.watch_txstory: the tx-story plane (utils/txstory.py) is not ported "
-            "(ROADMAP Queue 1 #6(4))"
-        )
+    def watch_txstory(
+        self, story, targets: dict, window_micros=None
+    ) -> None:
+        """Install the `txstory.stage_slo` rule over a
+        utils/txstory.TxStory: fires while any serving stage's recent
+        p99 breaches its target ({stage: micros}), the detail citing
+        the offending stage AND the worst tx ids — per-transaction
+        attribution for what a bare p99 regression hides."""
+        story.install_rules(self, targets, window_micros=window_micros)
 
     def watch_ring(
         self,

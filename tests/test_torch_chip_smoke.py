@@ -2,8 +2,11 @@
 (`_ladder_ops`, the IMAD count a ladder needs for given scalars) and the
 dispatch order a streamed flush is checked against; and rehearsals of
 its notary phases (6: the flush with its codec check; 7: every scheme
-and attachment code, against the reference notary's answers) at a small
-size, with counted plain versions standing in for the kernels."""
+and attachment code, against the reference notary's answers; 8: the
+flows) at a small size, with counted plain versions standing in for
+the kernels. Phases 9, 10 and 11 are rehearsed in
+test_torch_chip_smoke_nodes.py, 12 and 13 in
+test_torch_chip_smoke_drives.py, 14 in test_torch_chip_smoke_planes.py."""
 
 from __future__ import annotations
 
@@ -258,55 +261,6 @@ def test_flow_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread):
     assert "flow drive (8c) over CpuBatchVerifier" in out
 
 
-def test_pool_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread):
-    """chip_smoke.phase_pool on the CPU at 32 spends: the pool with two
-    workers over the device path (9a), the same through the ingest
-    pipeline (9b) with the Merkle-id stage timed, a worker lost mid-batch
-    (9c) and the ring-fed notary flush (9d); the kernels' plain versions stand in for the kernels and
-    count a launch each, so every check of the phase runs — answers
-    against labels and against a CpuBatchVerifier worker, one dispatch
-    per drain, the launches, phase 6's notary checks."""
-    import torch
-
-    from corda_tpu_torch.testing.notary_fixture import build_fixture
-
-    _counted_plain_versions(monkeypatch)
-    monkeypatch.setenv("CORDA_TPU_NOTARY_PROFILE", "1")
-    monkeypatch.setattr(cs, "CHUNK", 16)
-    monkeypatch.setattr(cs, "POOL_WINDOW", 32)
-    monkeypatch.setattr(cs, "POOL_SAMPLE", 8)
-    monkeypatch.setattr(cs, "POOL_LOSS", 8)
-    monkeypatch.setattr(cs, "POOL_CHUNK", 8)
-    fx = build_fixture(32, **SMALL_FIXTURE)
-    launches = cs.phase_pool(torch.device("cpu"), "cpu rehearsal", fx)
-    for tag in ("9a", "9b", "9d"):
-        assert launches[tag]["ed_ladder"] and launches[tag]["wei_ladder_windowed"], tag
-    assert launches["9c"]["ed_ladder"]
-    out = capsys.readouterr().out
-    assert "pool (9a): 32 requests in" in out and "rows per dispatch [16, 16]" in out
-    assert "frame bytes per request; rows per dispatch [16, 16]" in out
-    assert "pool (9b, ingest shards=4): 32 requests in" in out
-    assert "request frames to the workers' rings" in out
-    assert "id stage: 32 transactions" in out and "gc seconds/gen-2 collections" in out
-    assert out.count(" collections (gen 0/1/2)") == 3     # 9a, 9b and 9d
-    assert "8 sampled answers equal a CpuBatchVerifier worker's" in out
-    assert "pool worker loss (9c): 8 requests answered exactly once by the survivor" in out
-    assert "workers lost 1, redispatched 4" in out
-    assert "ring-fed notary (9d): 32 spends fed and flushed" in out
-
-
-def test_pool_checks_raise_on_a_wrong_answer():
-    """Phase 9's answer check refuses a flipped signature answered ok, a
-    good spend refused, and an unanswered request."""
-    labels = ["ok", "invalid-signature", "conflict", "wrong-notary"]
-    bad = "VerificationFailedError: InvalidSignature: invalid signature(s) on X"
-    cs._check_pool_answers(["ok", bad, "ok", "ok"], labels, "t")
-    for answers in (["ok", "ok", "ok", "ok"], ["ok", bad, bad, "ok"],
-                    ["ok", bad, "ok", "unanswered"]):
-        with pytest.raises(RuntimeError, match="answered"):
-            cs._check_pool_answers(answers, labels, "t")
-
-
 class _RecordingCpu:
     """A CpuBatchVerifier with the recording verifier's `.calls` and a
     streamed handle: the rehearsal's stand-in for the card."""
@@ -327,410 +281,3 @@ class _RecordingCpu:
         pv = PendingVerification(out, [], host_rows=range(len(out)))
         self.calls.append((list(requests), pv))
         return pv
-
-
-def test_cluster_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
-    """chip_smoke.phase_clusters on the CPU over CPU verifiers, at 64
-    spends in 10a and 1,024 Raft entries in 10c: every check of 10a-10e
-    runs and passes, and the phase's last check — that ed_ladder,
-    wei_ladder_windowed and wei_ladder launched — refuses a run in which
-    no kernel did."""
-    import torch
-
-    from corda_tpu_torch.testing.notary_fixture import build_fixture
-
-    monkeypatch.setenv("CORDA_TPU_NOTARY_PROFILE", "1")
-    monkeypatch.setattr(cs, "_recording_verifier", _RecordingCpu)
-    monkeypatch.setattr(cs, "NOTARY_SAMPLE", 8)
-    monkeypatch.setattr(cs, "DURABLE_REOPEN", 16)
-    monkeypatch.setattr(cs, "RAFT_ENTRIES", 1024)
-    fx = build_fixture(64, **SMALL_FIXTURE)
-    with pytest.raises(RuntimeError, match="ed_ladder was not launched in the cluster phase"):
-        cs.phase_clusters(torch.device("cpu"), "cpu rehearsal", fx)
-    out = capsys.readouterr().out
-    for shards in (1, 4):
-        assert f"durable notary (10a) shards={shards}: 64 spends in" in out
-        assert (f"durable notary (10a) shards={shards} reopened: 48 committed inputs read back; "
-                "16 double spends answered conflict") in out
-    assert "raft drive (10b): 7 flows completed and 1 refused" in out
-    assert "raft drive (10b) over CpuBatchVerifier" in out
-    assert "raft transfer (10c): 1024 commits through the leader" in out
-    assert "1 snapshots (snap_index 1024)" in out and "maps equal at 1030 refs" in out
-    assert "bft drive (10d): 7 flows completed and 1 refused" in out
-    assert "caught up by state transfer (1 catch-up(s))" in out
-    assert "crash drive (10e)" in out and "refused a double spend (conflict)" in out
-
-
-def test_cluster_checks_raise_on_a_wrong_answer(monkeypatch, tmp_path):
-    """Each phase-10 check refuses a wrong answer: a double spend the
-    reopened notary signs (10a), a card ledger unlike the CPU run's
-    (10b), a rebuilt Raft member short of a ref (10c), live maps that
-    differ (10b, 10d), a replica that never catches up (10d), a vault
-    page unlike the in-memory network's and a restarted notary that
-    forgot its commits (10e)."""
-    import torch
-
-    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
-    from corda_tpu_torch.node import bft, raft
-    from corda_tpu_torch.node.notary import InMemoryUniquenessProvider
-    from corda_tpu_torch.testing import mock_network
-    from corda_tpu_torch.testing.notary_fixture import build_fixture, notary_hub
-    from corda_tpu_torch.core import serialization as ser
-
-    monkeypatch.setattr(cs, "NOTARY_SAMPLE", 8)
-    monkeypatch.setattr(cs, "DURABLE_REOPEN", 4)
-    # 10a: the "double spends" are the committed spends themselves, which
-    # the notary accepts again (the same transaction)
-    fx = build_fixture(16, **SMALL_FIXTURE)
-    verifier = _RecordingCpu()
-    wire = [ser.encode(s) for s in fx.spends]
-    monkeypatch.setattr(cs, "_double_spends", lambda fx, picks: [fx.spends[i] for i in picks])
-    with pytest.raises(RuntimeError, match="the reopened notary answered"):
-        cs.durable_flush(fx, notary_hub(fx, verifier), wire, verifier, 1,
-                         str(tmp_path / "n.db"), "cpu")
-    # 10b: ledgers and maps
-    ledger = {"ids": ["a"], "notary_sigs": [], "refused": [], "balances": {}, "leaders": []}
-    cs._same_ledger(ledger, dict(ledger), "t")
-    with pytest.raises(RuntimeError, match="the card's ids differ"):
-        cs._same_ledger(ledger, {**ledger, "ids": ["b"]}, "t")
-    with pytest.raises(RuntimeError, match="committed maps differ"):
-        cs._maps_equal([{1: 2}, {1: 2}, {1: 3}], "t")
-    # 10c: the rebuilt member's restore drops a ref
-    (tmp_path / "raft").mkdir()
-    drive = cs.raft_drive(CpuBatchVerifier(), str(tmp_path / "raft"))
-    restore = raft.RaftUniquenessProvider._restore
-
-    def lossy(self, state):
-        restore(self, state)
-        self.committed.pop(next(iter(self.committed)))
-
-    monkeypatch.setattr(raft.RaftUniquenessProvider, "_restore", lossy)
-    with pytest.raises(RuntimeError, match="the rebuilt member holds"):
-        cs.raft_transfer(drive, 1024, "cpu")
-    # 10d: a rebuilt replica that never asks to catch up
-    monkeypatch.setattr(bft.BftReplica, "_maybe_request_catchup", lambda self, now: 0)
-    with pytest.raises(RuntimeError, match="did not settle|did not catch up"):
-        cs.bft_drive(drive["net"], [], "cpu")
-    # 10e: a notary whose commits do not survive its restart
-    monkeypatch.setattr(mock_network, "PersistentUniquenessProvider",
-                        lambda db: InMemoryUniquenessProvider())
-    (tmp_path / "crash").mkdir()
-    with pytest.raises(RuntimeError, match="signed a double spend"):
-        cs.crash_drive(CpuBatchVerifier(), str(tmp_path / "crash"))
-
-
-def _pool_inputs(n: int):
-    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
-    from corda_tpu_torch.testing.notary_fixture import build_fixture, notary_hub
-
-    fx = build_fixture(n, **SMALL_FIXTURE)
-    hub = notary_hub(fx, CpuBatchVerifier())
-    return fx, [stx.to_ledger_transaction(hub) for stx in fx.spends]
-
-
-def _default_lease(monkeypatch):
-    """11d at a few dozen requests holds no heartbeat back: the pool's
-    default lease, so that worker 0 is detached in seconds."""
-    from corda_tpu_torch.node.verifier import RedispatchPolicy
-
-    monkeypatch.setattr(cs, "TCP_POOL_LEASE", RedispatchPolicy().lease_micros)
-
-
-def test_node_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
-    """chip_smoke's phase 11 on the CPU at small depth: (a) the trio over
-    verifier_backend "cpu" nodes twice, with one concurrent payment per
-    payer, leaving the equal ledgers phase 11 requires of the card's run
-    and the CPU's; (b) the Raft cluster (its leader stopped, a payment
-    under the new one) and the BFT cluster; (c) the two CLI node
-    processes over RPC; (d) 32 phase-6 spends through two `--cpu` worker
-    processes over TCP, worker 0 killed mid-batch. Every check of each
-    part runs and passes."""
-    monkeypatch.setattr(cs, "NODE_CONCURRENT", 1)
-    one = cs.node_trio_drive(str(tmp_path / "a1"), "cpu")
-    two = cs.node_trio_drive(str(tmp_path / "a2"), "cpu")
-    cs._same_node_ledger(one["ledger"], two["ledger"])
-    assert [r[2] for r in one["ledger"]["refused"]] == [None, "invalid-transaction", "conflict"]
-    assert one["ledger"]["balances"]["Carol"] == 140 and len(one["ledger"]["commits"]) >= 7
-    assert one["concurrent_flushes"] >= 1 and one["tls"]
-    raft = cs.node_cluster_drive(str(tmp_path / "raft"), "cpu", "raft")
-    assert len(set(raft["leaders"])) == 2 and raft["refused"][0][2] == "conflict"
-    bft = cs.node_cluster_drive(str(tmp_path / "bft"), "cpu", "bft")
-    assert bft["balances"] == {"Hub": 100, "Alice": 0}
-    cli = cs.cli_drive(str(tmp_path / "cli"), backend="cpu", check_contexts=False)
-    assert cli["balances"] == {"CliHub": 300, "CliBob": 700}
-    fx, ltxs = _pool_inputs(32)
-    _default_lease(monkeypatch)
-    pool = cs.pool_tcp_drive(str(tmp_path / "pool"), ltxs, fx.spends, cpu_workers=True,
-                             check_contexts=False)
-    cs._check_pool_answers(pool["answers"], fx.labels, "t")
-    assert pool["lost"] == 1 and pool["redispatched"] > 0 and pool["deliver_s"] is not None
-    assert 0 < pool["silence_s"] < pool["lease_s"]
-    assert pool["survivor"][0].startswith("verifier worker w1: ")
-
-
-def test_node_checks_raise_on_a_wrong_answer(monkeypatch, tmp_path):
-    """Each phase-11 check refuses a wrong answer: card and CPU ledgers
-    that differ, a "double spend" the notary signs (11a), a balance off
-    by one (11b), node processes that add no CUDA context (11c), and a
-    pool run in which no worker is killed (11d)."""
-    ledger = {"ids": ["a"], "refused": [], "balances": {}, "consumed": [], "commits": []}
-    cs._same_node_ledger(ledger, dict(ledger))
-    for key, wrong in (("ids", ["b"]), ("consumed", ["x"]), ("commits", [[1]])):
-        with pytest.raises(RuntimeError, match=f"the card nodes' {key} differ"):
-            cs._same_node_ledger(ledger, {**ledger, key: wrong})
-    # 11a: the double spend spends a fresh coin, which the notary signs
-    monkeypatch.setattr(cs, "NODE_CONCURRENT", 1)
-    spend, spends = cs._spend, []
-
-    def fresh_second(node, coin, notary, owner):
-        spends.append(coin)
-        if len(spends) == 2:
-            from corda_tpu_torch.finance import CashState
-
-            coin, = [s for s in node.vault.unconsumed_states(CashState) if s != coin][:1]
-        return spend(node, coin, notary, owner)
-
-    monkeypatch.setattr(cs, "_spend", fresh_second)
-    with pytest.raises(RuntimeError, match="double spend Alice -> Carol: was not refused"):
-        cs.node_trio_drive(str(tmp_path / "a"), "cpu")
-    monkeypatch.setattr(cs, "_spend", spend)
-    # 11b: a balance off by one
-    cash = cs._cash_of
-    monkeypatch.setattr(cs, "_cash_of", lambda node: cash(node) + (node.config.name == "Hub"))
-    with pytest.raises(RuntimeError, match="bft cluster .11b.: balances"):
-        cs.node_cluster_drive(str(tmp_path / "bft"), "cpu", "bft")
-    monkeypatch.setattr(cs, "_cash_of", cash)
-    # 11c: the node processes add no CUDA context
-    monkeypatch.setattr(cs, "_cuda_contexts", lambda: 1)
-    monkeypatch.setattr(cs, "_smi_apps", lambda: "1, 600 MiB")
-    with pytest.raises(RuntimeError, match="0 new CUDA contexts for 2 node processes"):
-        cs.cli_drive(str(tmp_path / "cli"), backend="cpu")
-    # 11d: worker 0 is never killed (its lease still expires)
-    monkeypatch.setattr(cs, "TCP_POOL_KILL_AT", 2.0)
-    _default_lease(monkeypatch)
-    fx, ltxs = _pool_inputs(16)
-    with pytest.raises(RuntimeError, match="killed at None, workers lost 1"):
-        cs.pool_tcp_drive(str(tmp_path / "pool"), ltxs, fx.spends, cpu_workers=True,
-                          check_contexts=False)
-
-
-def test_drives_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread):
-    """chip_smoke.phase_drives end to end on the CPU at small depth: (a)
-    the load test through four `verifier_backend = "cpu"` node processes,
-    8 commands with both restarts and 5 empty flows, no command failed and
-    the model the reference's for the seed; (b) the notary demo, batching
-    (2 payments) and single (1), and (d) the trader demo, on MockNetwork's
-    default verifier made CpuBatchVerifier; (c) the 30-tx corpus cut to 6
-    and a 20-tx ledger's mutation through the card's path on the CPU
-    (CudaBatchVerifier(device="cpu"), counted plain versions), every
-    verdict its label. Every check and print of the phase runs; the three
-    kernels of the path launch in (c)."""
-    import torch
-    from test_torch_loadtest import SOAK, command_stream
-
-    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
-    from corda_tpu_torch.testing import mock_network
-
-    monkeypatch.setattr(cs, "LOAD_COUNT", 8)
-    monkeypatch.setattr(cs, "LOAD_EMPTY", 5)
-    monkeypatch.setattr(cs, "DEMO_TXS", (("batching", 2), ("single", 1)))
-    monkeypatch.setattr(cs, "FUZZ_CORPUS", (13, 6))
-    monkeypatch.setattr(cs, "FUZZ_SCALE", (17, 20))
-    monkeypatch.setattr(cs, "FUZZ_SAMPLE", 8)
-    monkeypatch.setattr(mock_network, "CudaBatchVerifier", CpuBatchVerifier)
-    _counted_plain_versions(monkeypatch)
-    load, real = {}, cs.load_drive
-    monkeypatch.setattr(cs, "load_drive", lambda root: load.update(
-        real(root, "cpu", check_contexts=False)) or load)
-    launches = cs.phase_drives(torch.device("cpu"), "cpu rehearsal")
-    assert all(launches[k] > 0 for k in ("ed_ladder", "wei_ladder_windowed", "wei_ladder"))
-    r = load["result"]
-    assert (r.submitted, r.failed, r.reconciled) == (8, 0, True)
-    want = command_stream("corda_tpu", cs.LOAD_SEED, ("Alice", "Bob", "Carol"), 8, SOAK)
-    assert r.expected == load["totals"] == want["expected"]
-    assert [n for n, _ in load["restarts"]] == [want["victims"][0], "Hub"]
-    assert set(load["boot_s"]) == {"Hub", "Alice", "Bob", "Carol"}
-    assert all(v > 0 for v in load["p50_s"].values()) and load["max_s"] >= load["p50_s"]["all"]
-    assert load["empty"]["count"] == 5 and load["contexts"] == (0, None)
-    out = capsys.readouterr().out
-    for line in ("load test (12a): nodes booted", "notary demo batching (12b): 2 payments",
-                 "notary demo single (12b): 1 payments", "every verdict its label",
-                 "trader demo (12d): buyer 1 paper, seller 92000", "drives (ph. 12) launches"):
-        assert line in out, line
-
-
-def test_drive_checks_raise_on_a_wrong_answer(monkeypatch):
-    """Each phase-12 check refuses a wrong answer: a verifier that accepts
-    every row (12c), a notary demo whose transaction carries two notary
-    signatures or whose card run differs from the CPU run (12b), a
-    trader demo with no paper delivered (12d)."""
-    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
-    from corda_tpu_torch.samples import notary_demo, trader_demo
-
-    monkeypatch.setattr(cs, "FUZZ_CORPUS", (13, 4))
-    monkeypatch.setattr(cs, "FUZZ_SCALE", (17, 4))
-    monkeypatch.setattr(cs, "FUZZ_SAMPLE", 4)
-
-    class AcceptsAll:
-        def verify_batch(self, requests):
-            return [True] * len(requests)
-
-    with pytest.raises(RuntimeError, match="30-tx corpus against its labels"):
-        cs.fuzz_drive(AcceptsAll(), CpuBatchVerifier())
-    monkeypatch.setattr(cs, "DEMO_TXS", (("single", 1),))
-    run = notary_demo.run
-    monkeypatch.setattr(notary_demo, "run", lambda *a, **kw: (
-        lambda out: ([s * 2 for s in out[0]], out[1]))(run(*a, **kw)))
-    with pytest.raises(RuntimeError, match="notary signatures per transaction"):
-        cs.notary_demo_drive(CpuBatchVerifier())
-    calls = []
-
-    def seeded(*a, **kw):
-        calls.append(1)
-        return run(*a, **{**kw, "seed": kw["seed"] + len(calls)})
-
-    monkeypatch.setattr(notary_demo, "run", seeded)
-    with pytest.raises(RuntimeError, match="differ from the CpuBatchVerifier run"):
-        cs.notary_demo_drive(CpuBatchVerifier())
-    monkeypatch.setattr(trader_demo, "run", lambda **kw: ([], 92_000))
-    with pytest.raises(RuntimeError, match="buyer paper 0"):
-        cs.trader_drive(CpuBatchVerifier())
-
-
-def _fake_window(verifier, reqs, planes):
-    """13b's profiler window without a card: the chunk verified as on the
-    card, into ledgers of its own, with fixed figures in the keys the
-    phase prints."""
-    with cs._private_ledgers():
-        verdicts = verifier.verify_batch(reqs)
-    return {"rows": len(reqs), "verdicts": verdicts, "window_ms": 400.0,
-            "capture_s": 0.4, "stop_s": 0.1, "read_s": 0.1,
-            "kernels": 3, "kernel_ms": 2.0, "ladder_ms": 1.5, "ladder_share": 0.75,
-            "busy_share": 0.005, "plane_busy_fraction": 0.9}
-
-
-def test_telemetry_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread):
-    """chip_smoke.phase_telemetry at 16 spends on the CPU: the card's path
-    on the CPU (CudaBatchVerifier(device="cpu"), counted plain versions),
-    a device plane with no device (the CPU node's sampler), one on/off
-    pair, the profiler window stood in for (its verdicts still held to
-    the flush's), and the profiled worker process on `--cpu`. Every other
-    check and print of 13a-13d runs: one compile per key then executes
-    only with 0 retraces, the device-0 ledger's dispatches (the two
-    flushes and the window's chunk) and requests, the named constraint,
-    every answer its label, the worker's exit 0 and its folded stacks."""
-    import torch
-
-    from corda_tpu_torch.testing.notary_fixture import build_fixture
-    from corda_tpu_torch.utils import device_telemetry as dlib
-    from corda_tpu_torch.utils import perf as plib
-
-    _counted_plain_versions(monkeypatch)
-    monkeypatch.setattr(cs, "CHUNK", 16)
-    monkeypatch.setattr(cs, "NOTARY_SAMPLE", 8)
-    monkeypatch.setattr(cs, "TELEMETRY_PAIRS", 1)
-    monkeypatch.setattr(cs, "TELEMETRY_WORKER", 8)
-    monkeypatch.setattr(cs, "profile_window", _fake_window)
-    kernels, devices = plib.get_kernel_accounting(), dlib.get_device_accounting()
-    fx = build_fixture(16, **SMALL_FIXTURE)
-    out = cs.phase_telemetry(torch.device("cpu"), "cpu rehearsal", fx,
-                             sampler=dlib.DeviceSampler(lambda: []), cpu_worker=True)
-    # the phase put the process ledgers back
-    assert plib.get_kernel_accounting() is kernels and dlib.get_device_accounting() is devices
-    assert out["launches"]["ed_ladder"] > 0 and out["launches"]["wei_ladder_windowed"] > 0
-    assert out["capacity"] in ("host_pump", "device_compute", "transfer", "commit_plane")
-    assert out["worker"]["stacks"] > 0 and out["worker"]["samples"] > 0
-    printed = capsys.readouterr().out
-    for line in ("telemetry (13a) first pass: 16 spends in",
-                 "telemetry (13a) warm pass (13c's first planes-on flush): 16 spends",
-                 "retraces 0", '"executes": 1', "telemetry (13a) device ledger cuda:0",
-                 "telemetry (13a) capacity: binding", "telemetry (13a) wire (in-memory fabric, "
-                 'both endpoints): {"frames_in": 32, "frames_out": 32',
-                 "telemetry (13b) profiler window over one warm", "the device plane's busy "
-                 "fraction (launch wall) for the same window 0.9000",
-                 "telemetry (13c) planes on vs off, 1 interleaved pairs",
-                 "min-of-walls overhead", "telemetry (13d) profiled worker (--profile-hz 19)",
-                 "8 requests answered", "SIGINT exit 0", "telemetry (ph. 13) launches"):
-        assert line in printed, line
-
-
-def test_telemetry_checks_raise_on_a_wrong_reading(monkeypatch, one_thread):
-    """13a refuses a verifier whose keys recompile after mark_warm (a
-    retrace); 13b's window arithmetic: the busy share is the union of the
-    kernel intervals, and a capture without device time is refused."""
-    import torch
-
-    from corda_tpu_torch.crypto.batch_verifier import CudaBatchVerifier
-    from corda_tpu_torch.testing.notary_fixture import build_fixture
-    from corda_tpu_torch.utils import device_telemetry as dlib
-
-    _counted_plain_versions(monkeypatch)
-    monkeypatch.setattr(cs, "CHUNK", 16)
-    monkeypatch.setattr(cs, "NOTARY_SAMPLE", 8)
-    real = cs._recording_verifier
-
-    def forgetful(batch_sizes, device):
-        v = real(batch_sizes, device)
-        inner = v.verify_batch_async
-
-        def cold(requests):
-            v._warm_shapes.clear()      # every call a first call: retraces
-            return inner(requests)
-
-        v.verify_batch_async = cold
-        return v
-
-    monkeypatch.setattr(cs, "_recording_verifier", forgetful)
-    monkeypatch.setattr(cs, "profile_window", _fake_window)
-    fx = build_fixture(8, **SMALL_FIXTURE)
-    with pytest.raises(RuntimeError, match="after mark_warm the keys recompiled"):
-        cs.phase_telemetry(torch.device("cpu"), "cpu", fx,
-                           sampler=dlib.DeviceSampler(lambda: []), cpu_worker=True)
-    assert isinstance(cs._recording_verifier((4,), "cpu"), CudaBatchVerifier)
-
-    from torch.autograd import DeviceType
-
-    def evt(start, end, device_type, name="k", annotation=False):
-        """A raw profiler event (µs in, ns out, as kineto gives them)."""
-        return SimpleNamespace(start_ns=lambda: start * 1000, end_ns=lambda: end * 1000,
-                               device_type=lambda: device_type, name=lambda: name,
-                               is_user_annotation=lambda: annotation)
-
-    events = [evt(0, 100, DeviceType.CPU), evt(10, 30, DeviceType.CUDA, "ed_ladder_kernel"),
-              evt(20, 40, DeviceType.CUDA), evt(60, 70, DeviceType.CUDA),
-              evt(5, 95, DeviceType.CUDA, "corda_tpu.verify_dispatch.s4.b16", True)]
-    window, kernels = cs._kernel_intervals(events)
-    assert window == 100 and len(kernels) == 3     # the annotation is not device work
-    assert cs._union_us(kernels) == 40     # 10-40 and 60-70
-    assert cs._kernel_intervals([evt(0, 5, DeviceType.CPU)]) == (5, [])
-
-
-def test_profile_window_on_the_cpu(monkeypatch):
-    """13b's window on the CPU: the profiler records the CPU side only, so
-    the capture is refused for holding no device time; with device
-    activity stood in for, the window's own device plane reads the
-    chunk's launch wall as busy (its ledger anchored before the launch),
-    and the flushes' process ledgers are left as they were."""
-    import torch
-    from test_torch_perf import stub_kernels
-
-    from corda_tpu_torch.crypto import schemes
-    from corda_tpu_torch.crypto.batch_verifier import CudaBatchVerifier, VerificationRequest
-    from corda_tpu_torch.utils import device_telemetry as dlib
-
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
-    stub_kernels(monkeypatch)
-    kp = schemes.generate_keypair(schemes.EDDSA_ED25519_SHA512, seed=3)
-    reqs = [VerificationRequest(kp.public, kp.private.sign(b"m"), b"m")] * 3
-    verifier = CudaBatchVerifier(batch_sizes=(4,), device="cpu")
-    planes = SimpleNamespace(device=SimpleNamespace(sampler=dlib.DeviceSampler(lambda: [])))
-    before = dlib.get_device_accounting().snapshot()
-    with pytest.raises(RuntimeError, match="no device time in the capture"):
-        cs.profile_window(verifier, reqs, planes)
-    monkeypatch.setattr(cs, "_kernel_intervals", lambda events: (
-        1000.0, [(0.0, 10.0, "ed_ladder_kernel"), (5.0, 30.0, "k")]))
-    win = cs.profile_window(verifier, reqs, planes)
-    assert win["verdicts"] == [True] * 3 and win["kernels"] == 2
-    assert win["busy_share"] == pytest.approx(0.03) and win["ladder_share"] == pytest.approx(10 / 35)
-    assert 0 < win["plane_busy_fraction"] <= 1
-    assert dlib.get_device_accounting().snapshot() == before

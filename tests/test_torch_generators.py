@@ -32,6 +32,7 @@ pytest.importorskip("torch")
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from test_torch_chip_smoke import one_thread  # noqa: E402,F401 - a fixture
 from test_torch_persistence import port_module, reference_module  # noqa: E402
 
 SEEDS = (3, 7, 11)
@@ -118,7 +119,7 @@ def test_ledger_equals_the_reference(seed):
     assert all(CpuBatchVerifier().verify_batch(_port_requests(theirs)))
 
 
-def test_mutated_corpus_verdicts_equal_the_labels():
+def test_mutated_corpus_verdicts_equal_the_labels(one_thread):
     import chip_smoke as cs
     from corda_tpu.crypto.batch_verifier import CpuBatchVerifier as RefCpu
     from corda_tpu_torch.crypto import schemes

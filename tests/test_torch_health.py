@@ -15,9 +15,11 @@ the port, held against the reference.
   summaries.
 - Traced Raft and BFT frames feed the tracer's ClockSync in both
   packages.
-- The watchers of planes the port lacks (QoS, distributed uniqueness,
-  txstory) raise NotImplementedError naming their ROADMAP item; the
-  perf, device and wire watchers are held in
+- The QoS and txstory watchers install the reference's rules (the
+  burn-rate and shed-ratio cases above drive the QoS pair); the watcher
+  of the plane the port lacks (distributed uniqueness) raises
+  NotImplementedError naming its ROADMAP item; the perf, device and
+  wire watchers are held in
   tests/test_torch_{perf,device_telemetry,wire_telemetry}.py.
 """
 
@@ -40,12 +42,6 @@ PACKAGES = ("corda_tpu", "corda_tpu_torch")
 GATEWAY = "the web gateway, client/webserver.py (ROADMAP Queue 1 #3.4)"
 LEFT_OUT = {
     "test_wedged_flush_tick_flips_healthz_and_auto_resolves": f"serves /healthz: {GATEWAY}",
-    "test_wedged_ingest_feed_loop_trips_watchdog":
-        "IngestPipeline(frame_cache_size=) and feed(heartbeat=) (ROADMAP Queue 1 #6)",
-    "test_slo_burn_rate_fires_on_sustained_breach_only": "the QoS plane, NotaryQos "
-                                                         "(ROADMAP Queue 1 #6)",
-    "test_shed_ratio_rule_fires_under_sustained_shedding": "the QoS plane, NotaryQos "
-                                                           "(ROADMAP Queue 1 #6)",
     "test_webserver_index_content_types_and_json_404": GATEWAY,
     "test_health_summary_query_serves_condensed_form": GATEWAY,
     "test_cluster_rollup_two_nodes_with_stale_peer": GATEWAY,
@@ -92,7 +88,7 @@ def test_reference_case_on_the_port(name, case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_health", LEFT_OUT)) == 8
+    assert len(port_cases("test_health", LEFT_OUT)) == 11
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_health")))
 
 
@@ -183,8 +179,7 @@ def test_traced_consensus_frames_feed_clock_sync(kind):
         assert tracer.clock_sync.min_skew("C") is None
 
 
-WATCHERS = [("watch_qos", (None,), "#6)"), ("watch_distributed_uniqueness", (None,), "#6(1)"),
-            ("watch_txstory", (None, {}), "#6(4)")]
+WATCHERS = [("watch_distributed_uniqueness", (None,), "#6(1)")]
 
 
 @pytest.mark.parametrize("method,args,item", WATCHERS, ids=[w[0] for w in WATCHERS])
@@ -193,3 +188,32 @@ def test_unported_plane_watchers_raise(method, args, item):
 
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP Queue 1 {item}")):
         getattr(HealthMonitor(), method)(*args)
+
+
+def _watch(prefix: str, kind: str) -> list:
+    hlib, svc = _m(prefix, "utils.health"), _m(prefix, "node.services")
+    clock = svc.TestClock()
+    monitor = hlib.HealthMonitor(clock=clock)
+    if kind == "qos":
+        plane = _m(prefix, "node.qos").NotaryQos(clock=clock)
+        monitor.watch_qos(plane)
+    else:
+        plane = _m(prefix, "utils.txstory").TxStory(clock=clock)
+        monitor.watch_txstory(plane, {"queue": 10, "commit": 10})
+        for k in range(3):
+            plane.admit(f"t{k}")
+            clock.advance(50)
+            plane.close(f"t{k}", "committed")
+    for _ in range(4):
+        clock.advance(1_000_000)
+        monitor.tick()
+    return sorted(monitor.snapshot()["alerts"].items())
+
+
+@pytest.mark.parametrize("kind", ["qos", "txstory"])
+def test_plane_watchers_install_the_references_rules(kind):
+    """watch_qos and watch_txstory install the reference's rules, which
+    walk to the same states on one TestClock in both packages."""
+    got = {p: json.dumps(_watch(p, kind), sort_keys=True, default=str) for p in PACKAGES}
+    assert got["corda_tpu_torch"] == got["corda_tpu"]
+    assert ("qos.shed_ratio" if kind == "qos" else "txstory.stage_slo") in got["corda_tpu"]

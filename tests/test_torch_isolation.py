@@ -55,13 +55,14 @@ def test_ast_scan_finds_no_banned_import():
     cordform, the dev TLS identities) and of the driver slice (the
     multi-process Driver, the load test, the ledger fuzzer, the demos,
     the client plumbing) and of the telemetry slice (the perf, device
-    and wire planes) are scanned.
+    and wire planes) and of the serving-planes slice (QoS, the
+    transaction story, the commit-log state store) are scanned.
     The Cash contract's
     wire name, "corda_tpu.finance.Cash", the sandbox's platform module
     names and the flows' class tags are strings, not imports."""
     offenders = []
     files = _modules()
-    assert len(files) >= 84
+    assert len(files) >= 86
     for must in ("crypto/eddsa.py", "node/notary.py", "node/services.py",
                  "core/transactions.py", "finance/cash.py", "native/__init__.py",
                  "native/build.py", "crypto/sphincs.py", "core/sandbox.py",
@@ -77,7 +78,8 @@ def test_ast_scan_finds_no_banned_import():
                  "testing/generators.py", "samples/__init__.py", "samples/notary_demo.py",
                  "samples/trader_demo.py", "samples/bank_of_corda_demo.py",
                  "samples/attachment_demo.py", "client/__init__.py", "client/common.py",
-                 "utils/perf.py", "utils/device_telemetry.py", "utils/wire_telemetry.py"):
+                 "utils/perf.py", "utils/device_telemetry.py", "utils/wire_telemetry.py",
+                 "utils/txstory.py", "node/statestore.py", "node/persistence.py"):
         assert PKG / must in files
     assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
         "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh", "wei_ladder.cu"
@@ -182,6 +184,32 @@ for plane in (perf_plane, device_plane, wire_plane):
     plane.tick()
 assert wire_plane.fabric.totals()["frames_out"] == 1
 assert "kernels" in perf_plane.snapshot() and device_plane.capacity()["resources"]
+import tempfile
+from corda_tpu_torch.node.persistence import NodeDatabase, NotaryIntentJournal, TxStoryIndex
+from corda_tpu_torch.node.qos import NotaryQos
+from corda_tpu_torch.node.statestore import ShardedCommitLogUniquenessProvider
+from corda_tpu_torch.utils.txstory import TxStory
+with tempfile.TemporaryDirectory() as tmp:
+    db = NodeDatabase(tmp + "/n.db")
+    story = TxStory(index=TxStoryIndex(db))
+    qos = NotaryQos()
+    qos.txstory = story
+    qos.admit_tx(pay.id)
+    story.close(str(pay.id), "committed")
+    story.tick()
+    assert story.index.row_count == 2 and qos.snapshot()["admitted"] == 1
+    journal = NotaryIntentJournal(db)
+    seq = journal.append(pay, alice.party, None)
+    assert journal.unresolved()[0][1].id == pay.id
+    journal.mark_resolved(seq)
+    assert journal.flush_resolved() == 1
+    store = ShardedCommitLogUniquenessProvider(tmp + "/store", 2)
+    store.commit(list(pay.wtx.inputs), pay.id, alice.party)
+    store.close()
+    store = ShardedCommitLogUniquenessProvider(tmp + "/store", 2)
+    assert set(store.committed) == set(pay.wtx.inputs)
+    store.close()
+    db.close()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu")]
 assert not bad, bad
 print(len(names))

@@ -408,20 +408,21 @@ def test_default_backend_without_a_card_fails_with_the_device_error(tmp_path, mo
 
 
 def test_default_node_boots_without_the_unported_planes(tmp_path, caplog):
-    """A default node builds the perf, device and wire planes (as the
-    reference's does) and boots without the txstory plane alone (D6)."""
+    """A default node builds the perf, device, wire and txstory planes
+    (as the reference's does): no plane is left out (D6 is closed)."""
     from corda_tpu_torch.node.config import NodeConfig
     from corda_tpu_torch.node.node import Node
-    from corda_tpu_torch.utils import device_telemetry, perf, wire_telemetry
+    from corda_tpu_torch.utils import device_telemetry, perf, txstory, wire_telemetry
 
     caplog.set_level(logging.WARNING, logger="corda_tpu_torch.node")
     node = Node(NodeConfig(name="Solo", base_dir=str(tmp_path / "solo"))).start()
     try:
-        assert node.unported_planes == ("txstory",)
+        assert node.unported_planes == ()
         assert isinstance(node.perf, perf.PerfPlane)
         assert isinstance(node.device_plane, device_telemetry.DevicePlane)
         assert isinstance(node.wire_plane, wire_telemetry.WirePlane)
-        assert node.txstory is None
+        assert isinstance(node.txstory, txstory.TxStory)
+        assert node.services.txstory is node.txstory and node.txstory.index is None
         # the perf plane adopted the process kernel accounting, and the
         # wire plane is the fabric's telemetry seam
         assert node.perf.kernels is perf.get_kernel_accounting()
@@ -433,8 +434,7 @@ def test_default_node_boots_without_the_unported_planes(tmp_path, caplog):
                 "wire.journal_growth", "wire.backlog", "gateway.saturated"} <= set(alerts)
         warnings = [r for r in caplog.records if r.name == "corda_tpu_torch.node"
                     and r.levelno == logging.WARNING]
-        assert len(warnings) == 1
-        assert "txstory" in warnings[0].getMessage()
+        assert warnings == []
         assert node.health is not None and node.rpc_server is not None
     finally:
         node.stop()
@@ -442,19 +442,15 @@ def test_default_node_boots_without_the_unported_planes(tmp_path, caplog):
                             device_telemetry_enabled=False, wire_telemetry_enabled=False,
                             txstory_enabled=False))
     assert quiet.unported_planes == ()
-    assert (quiet.perf, quiet.device_plane, quiet.wire_plane) == (None,) * 3
+    assert (quiet.perf, quiet.device_plane, quiet.wire_plane, quiet.txstory) == (None,) * 4
     assert quiet.messaging.telemetry is None
     quiet.messaging.stop()
     quiet.db.close()
 
 
 REFUSED = [
-    ("qos_enabled", dict(notary="batching", qos_enabled=True), "#6 "),
     ("notary_cluster_shards", dict(notary="batching", notary_cluster_shards=2,
                                    cluster_peers=("X",)), "#6(1)"),
-    ("notary_state_store", dict(notary="batching", notary_state_store="commitlog"), "#6(3)"),
-    ("notary_intent_wal", dict(notary="batching", notary_intent_wal=True), "#6(2)"),
-    ("txstory_index", dict(txstory_index=True), "#6(4)"),
     ("web_port", dict(web_port=0, rpc_users=()), "#3.4"),
 ]
 
@@ -471,6 +467,65 @@ def test_answer_path_option_raises_before_the_node_binds(option, kw, item, tmp_p
                        .replace(")", r"\)")):
         Node(cfg)
     assert not os.path.exists(tmp_path / "x")
+
+
+def _qos_built(node):
+    from corda_tpu_torch.node.qos import NotaryQos
+
+    notary = node.services.notary_service
+    assert isinstance(node.qos, NotaryQos) and notary.qos is node.qos
+    assert node.qos.txstory is node.txstory is notary.txstory
+    assert {"slo.burn_rate", "qos.shed_ratio"} <= set(node.health.snapshot()["alerts"])
+    assert notary.effective_max_batch == node.qos.controller.batch
+
+
+def _statestore_built(node):
+    from corda_tpu_torch.node.statestore import ShardedCommitLogUniquenessProvider
+
+    store = node.services.notary_service.uniqueness
+    assert isinstance(store, ShardedCommitLogUniquenessProvider) and node.statestore is store
+    assert store.stats()["backend"] == "commitlog"
+    assert os.path.isdir(os.path.join(node.config.base_dir, "statestore"))
+
+
+def _intent_wal_built(node):
+    from corda_tpu_torch.node.persistence import NotaryIntentJournal
+
+    journal = node.services.notary_service.intent_journal
+    assert isinstance(journal, NotaryIntentJournal) and journal.unresolved_count == 0
+    assert "Notary.IntentUnresolved" in node.metrics.names()
+
+
+def _txstory_index_built(node):
+    from corda_tpu_torch.node.persistence import TxStoryIndex
+
+    assert isinstance(node.txstory.index, TxStoryIndex) and node.txstory.index.row_count == 0
+
+
+PLANES = [
+    ("qos_enabled", dict(notary="batching", qos_enabled=True), _qos_built),
+    ("notary_state_store", dict(notary="batching", notary_state_store="commitlog"),
+     _statestore_built),
+    ("notary_intent_wal", dict(notary="batching", notary_intent_wal=True), _intent_wal_built),
+    ("txstory_index", dict(txstory_index=True), _txstory_index_built),
+]
+
+
+@pytest.mark.parametrize("option,kw,built", PLANES, ids=[p[0] for p in PLANES])
+def test_plane_option_boots_with_its_plane(option, kw, built, tmp_path):
+    """Each serving-path plane option, once refused at boot, now builds
+    its plane (a CPU-verifier node, so nothing reaches for a card)."""
+    from corda_tpu_torch.node.config import NodeConfig
+    from corda_tpu_torch.node.node import Node
+
+    node = Node(NodeConfig(name="X", base_dir=str(tmp_path / "x"), verifier_backend="cpu",
+                           **kw)).start()
+    try:
+        assert node.unported_planes == ()
+        built(node)
+        node.pump()
+    finally:
+        node.stop()
 
 
 def test_initial_registration_raises(tmp_path):

@@ -270,17 +270,22 @@ def test_no_fallback_answers_verification_unavailable():
 
 
 def test_optional_planes_raise():
-    """The QoS plane, the intent journal and per-shard verifiers are
-    not ported: the notary takes no argument for them, so passing one
-    is refused rather than ignored. A request's `deadline` is accepted,
-    as the flows pass it, and ignored, as the reference ignores it
-    without a QoS plane: the answer is the one without it."""
+    """Per-shard verifiers are not ported (ROADMAP Queue 1 #7): the
+    notary takes no argument for them, so passing one is refused rather
+    than ignored. The QoS plane and the intent journal are (`qos=`,
+    `intent_journal=`). Without a QoS plane a request's `deadline` is
+    accepted, as the flows pass it, and ignored, as the reference
+    ignores it: the answer is the one without it."""
+    from corda_tpu_torch.node.persistence import NodeDatabase, NotaryIntentJournal
+    from corda_tpu_torch.node.qos import NotaryQos
+
     fx = fixture()
     hub = notary_hub(fx, pbv.CpuBatchVerifier())
-    for kw in ({"qos": object()}, {"intent_journal": object()},
-               {"shard_verifiers": [pbv.CpuBatchVerifier()]}):
-        with pytest.raises(TypeError):
-            pnot.BatchingNotaryService(hub, **kw)
+    with pytest.raises(TypeError):
+        pnot.BatchingNotaryService(hub, shard_verifiers=[pbv.CpuBatchVerifier()])
+    qos, journal = NotaryQos(), NotaryIntentJournal(NodeDatabase(":memory:"))
+    planes = pnot.BatchingNotaryService(hub, qos=qos, intent_journal=journal)
+    assert planes.qos is qos and planes.intent_journal is journal
     answers = []
     for deadline in ({}, {"deadline": 1}):
         svc = pnot.BatchingNotaryService(hub)

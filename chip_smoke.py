@@ -121,13 +121,13 @@ Phases (any failure raises and exits non-zero):
  10. persistence and the notary clusters (node/persistence.py,
      node/raft.py, node/bft.py, MockNetwork's db_dir, restart_node and
      cluster factories) over CudaBatchVerifier, the launch counters set
-     to 0 before 10a and read after 10e: (a) phase 6's 16,384-spend
-     flush through BatchingNotaryService over an on-disk uniqueness
+     to 0 before 10a and read after 10e: (a) the first 8,192 phase-6
+     spends in one flush through BatchingNotaryService over an on-disk uniqueness
      store (PersistentUniquenessProvider for 1 shard,
      ShardedPersistentUniquenessProvider for 4), one pass each on a
      fresh database and a fresh decode, held to phase 6's checks; the
      database closed and reopened under a new provider and notary, its
-     15,808 committed inputs read back, and 256 new spends of accepted
+     7,904 committed inputs read back, and 256 new spends of accepted
      spends' inputs answered "conflict", each naming the committed
      spend; prints notarisations/s, the flush wall, phase_seconds and
      the seconds in sqlite; (b) a validating Raft cluster of 3 persistent
@@ -138,9 +138,9 @@ Phases (any failure raises and exits non-zero):
      leader stopped and a payment under the new leader, the live maps
      equal, the ledger (ids, cluster signatures, refusals, leaders,
      balances) equal to the same drive over CpuBatchVerifier; prints
-     flows/s, card verify calls per flow and rows per call; (c) 16,384
+     flows/s, card verify calls per flow and rows per call; (c) 4,096
      distinct single-input commits through the new leader's
-     RaftUniquenessProvider, one per pump round (16 snapshots at the
+     RaftUniquenessProvider, one per pump round (4 snapshots at the
      interval of 1,024), then the stopped member rebuilt with
      rebuild_cluster_member: restored by InstallSnapshot chunks and a
      log replay, its map equal to the leader's; prints the seconds of
@@ -169,7 +169,7 @@ Phases (any failure raises and exits non-zero):
      batching notary of 1 shard over PersistentUniquenessProvider, a
      300 ms batch wait), Alice (ed25519), Bob (p256) and Carol
      (secp256k1): discovery through the map, an issue, payments across
-     the schemes (Carol resolving a backchain), 2 payments each from
+     the schemes (Carol resolving a backchain), a payment each from
      Alice and Bob started together (the notary flushes answering them
      printed), a flipped signature refused at finality and by the
      notary, a double spend refused "conflict", Bob stopped and booted
@@ -224,12 +224,12 @@ Phases (any failure raises and exits non-zero):
      latency and empty flows/s; the children's launches go uncounted.
      The launch counters set to 0 before 12b and read after 12d: (b)
      samples/notary_demo.run on its default verifier (the card),
-     "batching" with 4 payments (sharing flushes) and "single" with 3:
+     "batching" with 2 payments (sharing flushes) and "single" with 2:
      one notary signature per transaction, and the same transaction ids
      and signer keys as the same run over CpuBatchVerifier; prints tx/s;
      (c) the reference's fuzz corpus (GeneratedLedger(13).grow(30),
      mutated: flipped, tampered, truncated rows) and the same mutation
-     over GeneratedLedger(17).grow(2000), all three schemes, through
+     over GeneratedLedger(17).grow(1000), all three schemes, through
      CudaBatchVerifier(batch_sizes=(128, 1024, 4096)): every verdict must
      equal its label, and CpuBatchVerifier's on the small corpus and 256
      sampled rows of the large one; (d) samples/trader_demo.run on the
@@ -303,11 +303,51 @@ Phases (any failure raises and exits non-zero):
      WAL drained and the commit log holding the accepted spends'
      inputs. ed_ladder and wei_ladder_windowed must launch; prints each
      part's wall and the phase's;
- 15. print the kernel table as one JSON line (with each kernel's
+ 15. distributed uniqueness across notary cluster members
+     (node/distributed_uniqueness.py, its journals in
+     node/persistence.py, testing/sanitizer.py) over the phase-6 fixture
+     and one CudaBatchVerifier(batch_sizes=(4096,)), degraded_fallback=
+     False, the launch counters set to 0 before 15a and read after 15c:
+     (a) three BatchingNotaryService members over
+     DistributedUniquenessProviders (6 partitions, two per member) on
+     one in-memory fabric and TestClock, each member's committed rows,
+     coordinator WAL, reservation journal and intent WAL in its own
+     sqlite database, all three dispatching to the one verifier: the
+     first 4,096 spends round robin over the members (about two in three
+     coordinated away from their input's owner), one flush per member,
+     then fabric rounds to quiescence. Every answer must equal a single
+     batching notary's over PersistentUniquenessProvider on the same
+     spends (itself equal to the labels), but that either rival of a
+     double spend may win; each input committed at its owner only, to at
+     most one spend, every accepted spend's input to it; the shared
+     decision log replayed serially over one map makes every logged
+     decision and ends at the merged committed map; no reservation,
+     orphan, in-flight transaction or WAL row is left; the member
+     flushes make at least one card call each. Prints notarisations/s
+     (first `process` to last answer) and those card calls; the single
+     notary's launches are counted apart, before 15a-15c's; (b) faults: the third member partitioned away
+     past the reserve timeout (1 s of TestClock) while 96 later "ok"
+     spends are served round robin: exactly the spends across the
+     partition answer `shard-unavailable`, `shard.unreachable` fires on
+     the first member's HealthMonitor; after the heal the retries sign
+     and the alert resolves; then 64 "ok" spends at the first member
+     owned elsewhere, decided (the WAL's commit marks durable, every
+     answer signed), their ShardCommits lost with the kill (dropped on
+     the wire: no owner holds a row); the member built again over its
+     database, and `recover()` re-drives all 64 until every owner holds
+     the rows; (c) an armed
+     ConcurrencySanitizer over testing/sanitizer.standard_soak (a
+     4-shard batching notary with worker threads and a concurrent
+     reader) on the same verifier: no lock-order inversion and no
+     self-deadlock; prints the five most contended locks with their
+     hold times. ed_ladder and wei_ladder_windowed must launch; prints
+     each part's wall and the phase's;
+ 16. print the kernel table as one JSON line (with each kernel's
      launches in phase 10 as "clusters_launches", in 11a-11b as
      "nodes_launches", in 12b-12d as "drives_launches", in 13a-13c as
-     "telemetry_launches" and in 14a-14d as "planes_launches"), then the
-     result line {"ok": true, "device": {...}}.
+     "telemetry_launches", in 14a-14d as "planes_launches" and in
+     15a-15c as "xshard_launches"), then the result line {"ok": true,
+     "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
 """
@@ -315,6 +355,7 @@ Imports nothing of JAX or of the corda_tpu package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -1711,7 +1752,8 @@ CLUSTER_SEED = 13
 CLUSTER_BATCHES = (128, 4096)
 RAFT_MEMBERS = 3             # the notary demo's Raft cluster
 BFT_REPLICAS = 4             # the notary demo's BFT cluster: f = 1
-RAFT_ENTRIES = 16384         # phase 10c: 16 snapshots at the reference's interval of 1,024
+RAFT_ENTRIES = 4096          # phase 10c: 4 snapshots at the reference's interval of 1,024 (16,384 cut)
+DURABLE_FLUSH = 8192         # phase 10a: the first phase-6 spends per durable flush (16,384 cut)
 DURABLE_REOPEN = 256         # phase 10a: double spends sent to the reopened database
 
 
@@ -2211,10 +2253,13 @@ def phase_clusters(device, card: str, fx) -> dict:
     with tempfile.TemporaryDirectory(dir=scratch, prefix="clusters-") as tmp:
         verifier = _recording_verifier((CHUNK,), device)
         hub = notary_hub(fx, verifier)
-        wire = [ser.encode(stx) for stx in fx.spends]
+        n = min(DURABLE_FLUSH, len(fx.spends))
+        head = dataclasses.replace(fx, spends=fx.spends[:n], labels=fx.labels[:n],
+                                   owners=fx.owners[:n])
+        wire = [ser.encode(stx) for stx in head.spends]
         durable = {}
         for shards in (1, 4):
-            durable[shards] = durable_flush(fx, hub, wire, verifier, shards,
+            durable[shards] = durable_flush(head, hub, wire, verifier, shards,
                                             os.path.join(tmp, f"notary-s{shards}.db"), card)
 
         flows = _recording_verifier(CLUSTER_BATCHES, device)
@@ -2270,7 +2315,7 @@ def phase_clusters(device, card: str, fx) -> dict:
 
 NODE_SEED = 17               # every phase-11 node's dev key seed
 NODE_BATCH_WAIT = 300_000    # 11a: µs the hub's batching notary holds a flush open
-NODE_CONCURRENT = 2          # 11a: concurrent payments per payer (two payers; 4 cut)
+NODE_CONCURRENT = 1          # 11a: concurrent payments per payer (two payers; 4, 2 cut)
 NODE_TIMEOUT = 180.0         # s any one node-drive step may take before the phase fails
 TCP_POOL_WINDOW = 256        # 11d: a worker's --batch-window (requests per handler drain)
 TCP_POOL_KILL_AT = 0.25      # 11d: share of answers after which worker 0 gets SIGKILL
@@ -2949,9 +2994,9 @@ LOAD_COUNT = 12              # 12a: load-test commands (the soak's 24, then 16, 
 LOAD_BATCH_WAIT = 50_000     # 12a: µs the hub's batching notary holds a flush open (the soak's)
 LOAD_EMPTY = 50              # 12a: EmptyFlowLoadTest's round trips on Alice
 DEMO_SEED = 42               # 12b, 12d: the demos' default seed
-DEMO_TXS = (("batching", 4), ("single", 3))    # 12b: notary_demo flavours and their n_txs (16, 8 cut)
+DEMO_TXS = (("batching", 2), ("single", 2))    # 12b: notary_demo flavours and their n_txs (16, 8; 4, 3 cut)
 FUZZ_CORPUS = (13, 30)       # 12c: the reference's slow bit-exact test's corpus (seed, n_txs)
-FUZZ_SCALE = (17, 2000)      # 12c: the same mutation over a 2,000-transaction ledger
+FUZZ_SCALE = (17, 1000)      # 12c: the same mutation over a 1,000-transaction ledger (2,000 cut)
 FUZZ_BATCHES = (128, 1024, 4096)   # 12c: phase 5's buckets
 FUZZ_SAMPLE = 256            # 12c: rows of the scaled corpus held against CpuBatchVerifier
 
@@ -4232,6 +4277,411 @@ def phase_planes(device, card: str, fx, clock=None) -> dict:
     return {"launches": launches, "walls": walls, "wall_s": wall, "rate": qos["rate"]}
 
 
+XSHARD_MEMBERS = ("N0", "N1", "N2")   # 15: the cross-shard cluster's members
+XSHARD_PARTITIONS = 6        # 15: partitions of the state-ref space (two per member)
+XSHARD_SPENDS = 4096         # 15a: the first phase-6 spends, round robin over the members
+XSHARD_FAULT_SPENDS = 96     # 15b: "ok" spends after 15a's through the partition
+XSHARD_KILL_SPENDS = 64      # 15b: "ok" spends whose coordinator is killed after deciding
+XSHARD_POLICY = dict(timeout_micros=1_000_000, reservation_ttl_micros=1_000_000)
+XSHARD_STEP = 100_000        # µs the cluster's TestClock advances per fabric round
+XSHARD_ROUNDS = 400          # fabric rounds any one drive may take before the phase fails
+XSHARD_TOP_LOCKS = 5         # 15c: the most contended locks printed
+
+
+class _XShardCluster:
+    """Phase 15's cluster (module docstring): a BatchingNotaryService per
+    member over a DistributedUniquenessProvider, one in-memory fabric and
+    TestClock, and per member one sqlite database holding its committed
+    rows, coordinator WAL, reservation journal and intent WAL; every
+    member's notary dispatches to the one shared verifier."""
+
+    def __init__(self, fx, verifier, root: str):
+        from corda_tpu_torch.node.distributed_uniqueness import XShardPolicy
+        from corda_tpu_torch.node.messaging import FabricFaults, InMemoryMessagingNetwork
+        from corda_tpu_torch.node.notary import BatchingNotaryService
+        from corda_tpu_torch.node.persistence import NodeDatabase, NotaryIntentJournal
+        from corda_tpu_torch.node.services import TestClock
+        from corda_tpu_torch.testing.notary_fixture import notary_hub
+
+        self.fx, self.verifier = fx, verifier
+        self.clock = TestClock()
+        self.faults = FabricFaults(clock=self.clock)
+        self.net = InMemoryMessagingNetwork(clock=self.clock, faults=self.faults)
+        self.policy = XShardPolicy(**XSHARD_POLICY)
+        self.decisions: list = []
+        self.monitors: list = []
+        self.dbs = {m: NodeDatabase(os.path.join(root, f"{m}.db")) for m in XSHARD_MEMBERS}
+        self.provs = {m: self.provider(m) for m in XSHARD_MEMBERS}
+        self.shard_map = self.provs[XSHARD_MEMBERS[0]].shard_map
+        self.svcs = {m: BatchingNotaryService(notary_hub(fx, verifier), self.provs[m],
+                                              max_batch=10**6, degraded_fallback=False,
+                                              intent_journal=NotaryIntentJournal(self.dbs[m]))
+                     for m in XSHARD_MEMBERS}
+
+    def provider(self, member: str):
+        """`member`'s provider over its database (a restart builds it again)."""
+        from corda_tpu_torch.node.distributed_uniqueness import DistributedUniquenessProvider
+        from corda_tpu_torch.node.persistence import (
+            ShardedPersistentUniquenessProvider,
+            XShardCoordinatorJournal,
+            XShardReservationJournal,
+        )
+
+        db = self.dbs[member]
+        return DistributedUniquenessProvider(
+            member, XSHARD_MEMBERS, self.net.endpoint(member), self.clock,
+            n_partitions=XSHARD_PARTITIONS,
+            store=ShardedPersistentUniquenessProvider(db, XSHARD_PARTITIONS),
+            journal=XShardCoordinatorJournal(db), reservations=XShardReservationJournal(db),
+            policy=self.policy, seed=XSHARD_MEMBERS.index(member), decision_log=self.decisions)
+
+    def owner(self, stx) -> str:
+        return self.shard_map.owner_of(stx.wtx.inputs[0])
+
+    def quiescent(self) -> bool:
+        return self.net.deliverable == 0 and all(
+            p.in_flight_count() == 0 and p.reservation_count() == 0
+            for p in self.provs.values())
+
+    def drive(self, done, label: str) -> int:
+        """Fabric rounds (deliver, tick every provider and monitor, advance
+        the clock) until `done()`; returns the rounds taken."""
+        for rounds in range(XSHARD_ROUNDS):
+            if done():
+                return rounds
+            self.net.run()
+            for p in self.provs.values():
+                p.tick()
+            for monitor in self.monitors:
+                monitor.tick()
+            self.clock.advance(XSHARD_STEP)
+        raise RuntimeError(f"{label}: not settled in {XSHARD_ROUNDS} fabric rounds")
+
+    def serve(self, spends: list, coordinators: list, label: str) -> tuple:
+        """Each spend through its coordinator's `process`, one flush per
+        member, then fabric rounds until every answer is in and the
+        cluster is quiescent; returns (answers, kinds, card calls, wall)."""
+        from corda_tpu_torch.node.notary import finish_process, run_process
+        from corda_tpu_torch.testing.notary_fixture import answer_kind
+
+        calls0 = len(self.verifier.calls)
+        t0 = time.perf_counter()
+        started, order = {}, {}
+        for m in XSHARD_MEMBERS:
+            order[m] = [i for i, c in enumerate(coordinators) if c == m]
+            started[m] = run_process([self.svcs[m].process(spends[i], self.fx.requester)
+                                      for i in order[m]])
+        for m in XSHARD_MEMBERS:
+            if order[m]:
+                self.svcs[m].flush()
+
+        def answered():
+            return all(not isinstance(e, tuple) or e[1].done
+                       for entries in started.values() for e in entries)
+
+        self.drive(lambda: answered() and self.quiescent(), label)
+        answers = [None] * len(spends)
+        for m in XSHARD_MEMBERS:
+            for i, answer in zip(order[m], finish_process(started[m])):
+                answers[i] = answer
+        wall = time.perf_counter() - t0
+        calls = len(self.verifier.calls) - calls0
+        for svc in self.svcs.values():
+            svc.tick()   # the intent WAL's group-committed deletes
+        return answers, [answer_kind(a) for a in answers], calls, wall
+
+    def close(self) -> None:
+        for p in self.provs.values():
+            p.stop()
+        for db in self.dbs.values():
+            db.close()
+
+
+def _check_xshard_answers(kinds: list, single: list, spends: list, label: str) -> None:
+    """Every member's answer as the single notary's for the same spend,
+    but that either rival of a double spend may win."""
+    from corda_tpu_torch.testing.notary_fixture import rival_free_mismatches
+
+    bad = rival_free_mismatches(kinds, single, spends)
+    if bad:
+        i = bad[0]
+        raise RuntimeError(f"{label}: {len(bad)} answers differ from the single notary's; "
+                           f"spend {i} got {kinds[i]!r}, the single notary {single[i]!r}")
+
+
+def _check_consumed_once(committed: dict, shard_map, spends: list, kinds: list,
+                         label: str) -> dict:
+    """Each input committed at its owner only, to at most one spend, and
+    every accepted spend's input to that spend; returns the merged map."""
+    merged: dict = {}
+    for member, rows in committed.items():
+        for ref, tx in rows.items():
+            if shard_map.owner_of(ref) != member:
+                raise RuntimeError(f"{label}: {member} holds {ref}, owned by "
+                                   f"{shard_map.owner_of(ref)}")
+            if merged.setdefault(ref, tx) != tx:
+                raise RuntimeError(f"{label}: {ref} consumed twice")
+    for stx, kind in zip(spends, kinds):
+        got = merged.get(stx.wtx.inputs[0])
+        if (kind == "ok") != (got == stx.id):
+            raise RuntimeError(f"{label}: spend {stx.id} answered {kind!r} but its input is "
+                               f"committed to {got}")
+    return merged
+
+
+def _check_serial_replay(decisions: list, refs_of: dict, merged: dict, label: str) -> None:
+    """The decision log, replayed serially over one map, makes every
+    logged decision (accepts, and conflicts naming the serial winner) and
+    ends at the merged committed map."""
+    serial: dict = {}
+    for tx, conflict in decisions:
+        refs = refs_of.get(tx)
+        if refs is None:
+            raise RuntimeError(f"{label}: the decision log names an unknown transaction {tx}")
+        want = {r: serial[r] for r in refs if r in serial and serial[r] != tx}
+        if conflict is None:
+            if want:
+                raise RuntimeError(f"{label}: the log accepts {tx} where a serial replay "
+                                   f"conflicts on {sorted(map(str, want))}")
+            for r in refs:
+                serial[r] = tx
+        elif dict(conflict) != want:
+            raise RuntimeError(f"{label}: the log's conflict set for {tx} is not the serial "
+                               "replay's")
+    if serial != merged:
+        raise RuntimeError(f"{label}: the serial replay ({len(serial)} refs) is not the merged "
+                           f"committed map ({len(merged)} refs)")
+
+
+def _check_xshard_quiescent(cluster, label: str) -> None:
+    """No reservation, orphan, in-flight transaction or unresolved
+    coordinator, reservation or intent WAL row on any member."""
+    for m, p in cluster.provs.items():
+        left = {"reservations": p.reservation_count(), "orphans": p.orphan_count(),
+                "in flight": p.in_flight_count(), "WAL rows": p.journal.unresolved_count,
+                "journaled holds": p.reservations.held_count,
+                "intent rows": cluster.svcs[m].intent_journal.unresolved_count}
+        left = {k: v for k, v in left.items() if v}
+        if left:
+            raise RuntimeError(f"{label}: {m} is not quiescent: {left}")
+
+
+def xshard_single(fx, verifier, root: str) -> list:
+    """15a's reference: a single batching notary over a durable
+    PersistentUniquenessProvider on 15a's spends; returns its answer
+    kinds."""
+    from corda_tpu_torch.node.notary import finish_process, run_process
+    from corda_tpu_torch.node.persistence import NodeDatabase
+    from corda_tpu_torch.testing.notary_fixture import answer_kind, notary_hub
+
+    n = min(XSHARD_SPENDS, len(fx.spends))
+    single_db = NodeDatabase(os.path.join(root, "single.db"))
+    single = _durable_notary(notary_hub(fx, verifier), _durable_provider(single_db, 1), 1, n)
+    started = run_process([single.process(s, fx.requester) for s in fx.spends[:n]])
+    single.flush()
+    single_kinds = [answer_kind(a) for a in finish_process(started)]
+    single_db.close()
+    if single_kinds != fx.labels[:n]:
+        raise RuntimeError("xshard (15a): the single notary's answers differ from the labels")
+    return single_kinds
+
+
+def xshard_serve(fx, verifier, root: str, single_kinds: list, card: str) -> tuple:
+    """15a (module docstring), held to `single_kinds`; returns the
+    cluster, still up, for 15b."""
+    n = len(single_kinds)
+    spends = fx.spends[:n]
+    cluster = _XShardCluster(fx, verifier, root)
+    coordinators = [XSHARD_MEMBERS[i % len(XSHARD_MEMBERS)] for i in range(n)]
+    cross = sum(c != cluster.owner(s) for c, s in zip(coordinators, spends))
+    _, kinds, calls, wall = cluster.serve(spends, coordinators, "xshard (15a)")
+    if calls < len(XSHARD_MEMBERS):
+        raise RuntimeError(f"xshard (15a): the member flushes made {calls} card calls, fewer "
+                           f"than one per member ({len(XSHARD_MEMBERS)})")
+    _check_xshard_answers(kinds, single_kinds, spends, "xshard (15a)")
+    swapped = sum(k != s for k, s in zip(kinds, single_kinds))
+    committed = {m: dict(p.store.committed) for m, p in cluster.provs.items()}
+    merged = _check_consumed_once(committed, cluster.shard_map, spends, kinds, "xshard (15a)")
+    _check_serial_replay(cluster.decisions, {s.id: list(s.wtx.inputs) for s in spends},
+                         merged, "xshard (15a)")
+    _check_xshard_quiescent(cluster, "xshard (15a)")
+    rows = sum(len(reqs) for reqs, _ in verifier.calls[-calls:]) if calls else 0
+    print(f"xshard (15a): {n} spends over {len(XSHARD_MEMBERS)} members "
+          f"({XSHARD_PARTITIONS} partitions), {cross} cross-member; every answer the single "
+          f"notary's (double spends won by the other rival: {swapped // 2}); each input "
+          f"consumed at most once; the decision log ({len(cluster.decisions)} decisions) "
+          f"replays serially to the merged map ({len(merged)} refs); 0 reservations, 0 "
+          f"orphans, 0 WAL rows; {n / wall:.1f} notarisations/s ({wall:.3f} s); the member "
+          f"flushes' card calls {calls} ({rows} rows); {card}")
+    return cluster, {"rate": n / wall, "calls": calls, "cross": cross}
+
+
+def _spread(cluster, spends: list, n: int) -> list:
+    """`n` of `spends` ordered so that round robin over the members
+    coordinates each (coordinator, owner) pair equally often (a fixture's
+    spends of one issue share its partition)."""
+    k = len(XSHARD_MEMBERS)
+    by_owner = {m: iter([s for s in spends if cluster.owner(s) == m]) for m in XSHARD_MEMBERS}
+    out = [next(by_owner[XSHARD_MEMBERS[(i - i // k) % k]], None) for i in range(n)]
+    if None in out:
+        raise RuntimeError(f"xshard (15b): fewer than {n // k} spends per owner")
+    return out
+
+
+def xshard_partition(cluster, spends: list, card: str) -> dict:
+    """15b's partition: the last member cut off past the reserve timeout,
+    then healed and the unavailable spends retried."""
+    from corda_tpu_torch.utils.health import HealthMonitor
+
+    cut = XSHARD_MEMBERS[-1]
+    monitor = HealthMonitor(clock=cluster.clock)
+    cluster.provs[XSHARD_MEMBERS[0]].attach_health(monitor)
+    cluster.monitors.append(monitor)
+    coordinators = [XSHARD_MEMBERS[i % len(XSHARD_MEMBERS)] for i in range(len(spends))]
+    want = ["ok" if (c == cut) == (cluster.owner(s) == cut) else "shard-unavailable"
+            for c, s in zip(coordinators, spends)]
+    cluster.faults.partition(set(XSHARD_MEMBERS[:-1]), {cut})
+    _, kinds, _, wall = cluster.serve(spends, coordinators, "xshard (15b) partition")
+    if kinds != want:
+        raise RuntimeError(f"xshard (15b): {sum(k != w for k, w in zip(kinds, want))} answers "
+                           "under the partition are not shard-unavailable exactly for the "
+                           "spends across it")
+    alert = monitor.snapshot()["alerts"].get("shard.unreachable", {})
+    if alert.get("state") != "firing":
+        raise RuntimeError(f"xshard (15b): shard.unreachable is {alert.get('state')!r} under "
+                           "the partition")
+    cluster.faults.heal()
+    retry = [i for i, k in enumerate(kinds) if k == "shard-unavailable"]
+    _, again, _, wall2 = cluster.serve([spends[i] for i in retry],
+                                       [coordinators[i] for i in retry], "xshard (15b) retry")
+    cluster.drive(lambda: not any(p.unreachable_owners() for p in cluster.provs.values()),
+                  "xshard (15b) heal")
+    monitor.tick()
+    state = monitor.snapshot()["alerts"]["shard.unreachable"]["state"]
+    if set(again) != {"ok"} or state == "firing":
+        raise RuntimeError(f"xshard (15b): after the heal the retries answered "
+                           f"{sorted(set(again))} and shard.unreachable is {state!r}")
+    _check_xshard_quiescent(cluster, "xshard (15b) partition")
+    print(f"xshard (15b) partition: {cut} cut off for {wall:.3f} s: {len(retry)} of "
+          f"{len(spends)} spends shard-unavailable (exactly those across it), "
+          f"shard.unreachable fired; healed: the retries signed in {wall2:.3f} s and the alert "
+          f"is {state}; {card}")
+    return {"unavailable": len(retry)}
+
+
+def xshard_kill(cluster, spends: list, card: str) -> dict:
+    """15b's kill: a coordinator's spends decided (the WAL's commit marks
+    durable, every answer in), their ShardCommits lost with the kill
+    (dropped on the wire, so no owner holds a row); the coordinator built
+    again over its database, recover()."""
+    from corda_tpu_torch.node.notary import finish_process, run_process
+    from corda_tpu_torch.testing.notary_fixture import answer_kind
+
+    coord = XSHARD_MEMBERS[0]
+    picks = [s for s in spends if cluster.owner(s) != coord][:XSHARD_KILL_SPENDS]
+    svc = cluster.svcs[coord]
+    started = run_process([svc.process(s, cluster.fx.requester) for s in picks])
+    svc.flush()
+    cluster.net.pump(len(picks))   # every ShardReserve to its owner
+    cluster.net.pump(len(picks))   # every ack back: each decided, its ShardCommit queued
+    kinds = [answer_kind(a) for a in finish_process(started)]
+    journal = cluster.provs[coord].journal
+    if set(kinds) != {"ok"} or journal.unresolved_count != len(picks):
+        raise RuntimeError(f"xshard (15b) kill: before the kill {sorted(set(kinds))} answers "
+                           f"and {journal.unresolved_count} WAL rows for {len(picks)} spends")
+    others = [m for m in XSHARD_MEMBERS if m != coord]
+    for m in others:
+        cluster.faults.drop_link(coord, m, 1.0, symmetric=False)
+    lost = cluster.net.run()
+    for m in others:
+        cluster.faults.drop_link(coord, m, 0, symmetric=False)
+    held = [s.id for s in picks
+            if cluster.provs[cluster.owner(s)].store.committed.get(s.wtx.inputs[0]) == s.id]
+    if held:
+        raise RuntimeError(f"xshard (15b) kill: {len(held)} owners hold their rows before the "
+                           "recovery")
+    cluster.provs[coord].stop()
+    cluster.provs[coord] = cluster.provider(coord)
+    recovered = cluster.provs[coord].recover()
+    rounds = cluster.drive(
+        lambda: cluster.quiescent() and cluster.provs[coord].journal.unresolved_count == 0,
+        "xshard (15b) recovery")
+    missing = [s.id for s in picks
+               if cluster.provs[cluster.owner(s)].store.committed.get(s.wtx.inputs[0]) != s.id]
+    if recovered != len(picks) or missing:
+        raise RuntimeError(f"xshard (15b) kill: recover() re-drove {recovered} of {len(picks)} "
+                           f"and {len(missing)} owners lack their rows")
+    _check_xshard_quiescent(cluster, "xshard (15b) kill")
+    print(f"xshard (15b) kill: {coord} killed after deciding {len(picks)} cross-member spends "
+          f"(answered; {lost} frames lost with it, no owner holding a row); recover() re-drove {recovered} to "
+          f"completion in {rounds} fabric rounds, every owner holds the rows; {card}")
+    return {"recovered": recovered}
+
+
+def xshard_soak(verifier, card: str) -> dict:
+    """15c: testing/sanitizer.standard_soak armed, on `verifier`."""
+    from corda_tpu_torch.testing.sanitizer import ConcurrencySanitizer, standard_soak
+
+    san = ConcurrencySanitizer()
+    with san:
+        out = standard_soak(batch_verifier=verifier)
+    bad = san.findings(("sanitizer-lock-cycle", "sanitizer-self-deadlock"))
+    if bad or not out["signed"] or not out["rejected"]:
+        raise RuntimeError(f"xshard (15c): soak {out}, findings "
+                           f"{[f.detail for f in bad]}")
+    stats = san.lock_stats()
+    top = sorted(stats.items(), key=lambda kv: (-kv[1]["contended"], -kv[1]["hold_us_total"]))
+    print(f"xshard (15c): armed standard_soak on the phase's verifier: {out}, {len(stats)} locks, "
+          f"{len(san.graph())} order edges, 0 lock-order inversions, 0 self-deadlocks; {card}")
+    for name, st in top[:XSHARD_TOP_LOCKS]:
+        print(f"xshard (15c) lock {name}: {st['acquisitions']} acquisitions, "
+              f"{st['contended']} contended, hold mean {st['hold_us_mean']} µs, max "
+              f"{st['hold_us_max']} µs, total {st['hold_us_total']} µs")
+    return {"locks": len(stats), "top": [name for name, _ in top[:XSHARD_TOP_LOCKS]]}
+
+
+def phase_xshard(device, card: str, fx) -> dict:
+    """Phase 15 (module docstring); returns its walls and the launches of
+    15a-15c."""
+    import tempfile
+
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "corda_tpu_torch")
+    os.makedirs(scratch, exist_ok=True)
+    verifier = _recording_verifier((CHUNK,), device)
+    t_phase = time.perf_counter()
+    walls = {}
+    later = [fx.spends[i] for i in range(XSHARD_SPENDS, len(fx.spends)) if fx.labels[i] == "ok"]
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="xshard-") as tmp:
+        t0 = time.perf_counter()
+        _zero_counters()
+        single_kinds = xshard_single(fx, verifier, tmp)
+        single_launches = _read_counters()
+        _zero_counters()   # from here on, the cluster's and the soak's launches only
+        cluster, served = xshard_serve(fx, verifier, tmp, single_kinds, card)
+        walls["15a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            fault = _spread(cluster, later, XSHARD_FAULT_SPENDS)
+            xshard_partition(cluster, fault, card)
+            xshard_kill(cluster, [s for s in later if s not in fault], card)
+        finally:
+            cluster.close()
+        walls["15b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xshard_soak(verifier, card)
+    walls["15c"] = time.perf_counter() - t0
+    launches = _read_counters()
+    for kernel in ("ed_ladder", "wei_ladder_windowed"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} was not launched in the xshard phase")
+    wall = time.perf_counter() - t_phase
+    print(f"xshard (ph. 15) launches: {json.dumps(launches)} (15a's single reference "
+          f"notary, apart: {json.dumps(single_launches)}); walls "
+          f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}; wall {wall:.3f} s; "
+          f"{card}")
+    return {"launches": launches, "walls": walls, "wall_s": wall, "rate": served["rate"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the kernel table JSON here")
@@ -4280,16 +4730,19 @@ def main(argv=None) -> int:
     drives = phase_drives(device, card)
     telemetry = phase_telemetry(device, card, fx)["launches"]
     planes = phase_planes(device, card, fx)["launches"]
+    xshard = phase_xshard(device, card, fx)["launches"]
     for n, r in report.items():
         r["clusters_launches"] = clusters[n]
         r["nodes_launches"] = nodes[n]
         r["drives_launches"] = drives[n]
         r["telemetry_launches"] = telemetry[n]
         r["planes_launches"] = planes[n]
+        r["xshard_launches"] = xshard[n]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "clusters_launches",
-            "nodes_launches", "drives_launches", "telemetry_launches", "planes_launches")
+            "nodes_launches", "drives_launches", "telemetry_launches", "planes_launches",
+            "xshard_launches")
     table = {"kernels": [
         {k: ({"name": n, **r}[k]) for k in keys} for n, r in report.items()
     ]}

@@ -37,6 +37,11 @@ from ..utils import locks
 TOPIC_SESSION = "platform.session"
 TOPIC_VERIFIER_REQ = "verifier.requests"
 TOPIC_VERIFIER_RES = "verifier.responses"
+# distributed sharded uniqueness (node/distributed_uniqueness.py): the
+# cross-member two-phase reserve→commit protocol — ShardReserve /
+# ShardReserveAck / ShardCommit / ShardCommitAck / ShardAbort plus the
+# presumed-abort status queries — all ride this one topic
+TOPIC_XSHARD = "notary.xshard"
 
 # dedupe-table bound (the reference's TCP fabric shares it): the newest
 # DEDUPE_KEEP dispatched (sender, uid) keys are retained; older ones

@@ -23,9 +23,13 @@ device and wire planes (utils/perf.py, utils/device_telemetry.py,
 utils/wire_telemetry.py), ticked on the pump; the device plane samples
 the card on a node that verifies on it, and no device on a node that
 verifies on the CPU. `unported_planes` is `()`: the node builds every
-plane its config asks for. The options whose planes the port lacks
-(`notary_cluster_shards > 0`, `web_port >= 0`) raise
-NotImplementedError at boot naming their ROADMAP item.
+plane its config asks for. `notary_cluster_shards > 0` builds the
+batching notary over a DistributedUniquenessProvider
+(node/distributed_uniqueness.py): the state-ref space partitioned
+across `cluster_peers`, its coordinator and reservation journals on the
+node database, recovered at boot and ticked on the pump. `web_port >= 0`,
+whose plane the port lacks, raises NotImplementedError at boot naming
+its ROADMAP item.
 
 Reference: `AbstractNode.start()` boot ordering (node/.../internal/
 AbstractNode.kt:163-222 — database, services, messaging, notary, SMM,
@@ -79,18 +83,12 @@ from .services import (
 
 
 def _refuse_unported(config: NodeConfig) -> None:
-    """Refuse, before the node opens its database or binds a socket, the
-    config options that change answers or durability, or serve over
-    HTTP, whose planes the port lacks."""
-    for opt, on, item in (
-        ("notary_cluster_shards > 0", config.notary_cluster_shards > 0,
-         "#6(1) (distributed uniqueness)"),
-        ("web_port >= 0", config.web_port >= 0, "#3.4 (the web gateway)"),
-    ):
-        if on:
-            raise NotImplementedError(
-                f"{opt}: not ported (ROADMAP Queue 1 {item})"
-            )
+    """Refuse, before the node opens its database or binds a socket, a
+    web port: the port lacks the web gateway."""
+    if config.web_port >= 0:
+        raise NotImplementedError(
+            "web_port >= 0: not ported (ROADMAP Queue 1 #3.4 (the web gateway))"
+        )
 
 
 class Node:
@@ -715,12 +713,99 @@ class Node:
             lambda u=uniqueness: u.committed_count,
         )
 
+    def _install_distributed_uniqueness(self) -> None:
+        """The batching notary over a DistributedUniquenessProvider: the
+        state-ref space partitioned across the cluster members named in
+        cluster_peers (ShardMap), cross-member transactions taking the
+        fabric two-phase reserve→commit with the presumed-abort WAL on
+        this node's database. The member signs with the cluster service
+        identity, exactly like a raft member."""
+        from .distributed_uniqueness import (
+            DistributedUniquenessProvider,
+            XShardPolicy,
+        )
+        from .notary import _on_card
+        from .persistence import (
+            NotaryIntentJournal,
+            ShardedPersistentUniquenessProvider,
+            XShardCoordinatorJournal,
+            XShardReservationJournal,
+        )
+
+        cfg = self.config
+        self.services.key_management.register_keypair(self._cluster_keypair)
+        if cfg.qos_enabled:
+            self._build_qos()
+        if cfg.notary_state_store == "commitlog":
+            store = self._build_state_store(cfg.notary_cluster_shards)
+        else:
+            store = ShardedPersistentUniquenessProvider(
+                self.db, cfg.notary_cluster_shards
+            )
+        self._gauge_committed_states(store)
+        provider = DistributedUniquenessProvider(
+            cfg.name,
+            list(cfg.cluster_peers),
+            self.messaging,
+            self.services.clock,
+            n_partitions=cfg.notary_cluster_shards,
+            store=store,
+            journal=XShardCoordinatorJournal(self.db),
+            reservations=XShardReservationJournal(self.db),
+            metrics=self.metrics,
+            tracer=self.tracer,
+            qos=self.qos,
+            policy=XShardPolicy(
+                timeout_micros=cfg.notary_xshard_timeout_micros,
+                backoff_base_micros=cfg.notary_xshard_backoff,
+                backoff_cap_micros=20 * cfg.notary_xshard_backoff,
+            ),
+            seed=self._dev_seed("xshard") or 0,
+        )
+        provider.txstory = self.txstory
+        # boot recovery BEFORE serving: commit-marked WAL intents
+        # re-drive, unmarked ones presumed-abort, journaled
+        # reservations reload as immediate orphans
+        provider.recover()
+        self.xshard = provider
+        intent_journal = None
+        if cfg.notary_intent_wal:
+            intent_journal = NotaryIntentJournal(self.db)
+        self.services.notary_service = BatchingNotaryService(
+            self.services,
+            provider,
+            service_identity=self._cluster_identity,
+            max_wait_micros=cfg.notary_batch_wait_micros,
+            metrics=self.metrics,
+            qos=self.qos,
+            # D2: a card verifier takes no CPU fallback
+            degraded_fallback=(
+                cfg.notary_degraded_fallback and not _on_card(self.services)
+            ),
+            intent_journal=intent_journal,
+        )
+        self.services.notary_service.attach_txstory(self.txstory)
+        if intent_journal is not None:
+            self.services.notary_service.replay_intents()
+        self.services.notary_service.attach_health(self.health)
+        provider.attach_health(self.health)
+        if self.qos is not None:
+            self.health.watch_qos(self.qos)
+        self.health.attach_canary(self._launch_canary)
+        if self.perf is not None:
+            self.services.notary_service.attach_perf(self.perf)
+            self.health.watch_perf(self.perf)
+
     def _install_notary(self) -> None:
         kind = self.config.notary
         self.raft = None
         self.bft = None
+        self.xshard = None
         self.statestore = None
         if kind == "":
+            return
+        if kind == "batching" and self.config.notary_cluster_shards > 0:
+            self._install_distributed_uniqueness()
             return
         if kind in ("simple", "validating", "batching"):
             # sharded commit plane: >1 shard — or a node
@@ -966,6 +1051,11 @@ class Node:
             # pool self-healing: lease expiry, redispatch backoff and
             # hedging all walk on the pump cadence
             self.verifier_service.tick()
+        if self.xshard is not None:
+            # distributed uniqueness: resend schedules, reserve-phase
+            # timeouts, commit re-drives and orphan queries all walk
+            # on the pump cadence too
+            self.xshard.tick()
         if self.statestore is not None:
             # commit-log compaction walks on the pump cadence: fold
             # piled-up sealed segments into the next snapshot
@@ -1058,6 +1148,8 @@ class Node:
         notary = getattr(self.services, "notary_service", None)
         if isinstance(notary, BatchingNotaryService):
             notary.stop()   # shard worker threads, when running
+        if getattr(self, "xshard", None) is not None:
+            self.xshard.stop()
         if self.raft is not None:
             self.raft.stop()
         if self.bft is not None:

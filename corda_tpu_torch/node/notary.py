@@ -30,9 +30,10 @@ caller without flows drives it with `run_process`.
 RSA and SPHINCS rows, which no device path verifies in either package,
 ride the same dispatch: the verifier checks them on the host while the
 card runs their batchmates (batch_verifier.HOST_SCHEMES). A row of a
-scheme no path verifies (COMPOSITE as a signing key, an unknown id) is
-answered `unsupported-scheme` at intake, before the dispatch. The
-degraded mode's CPU fallback serves a CPU-device verifier only: with a
+scheme no path verifies (COMPOSITE as a signing key, an unknown id)
+makes the verifier raise at the dispatch, as in the reference: the
+flush answers `verification-unavailable`, or, with the degraded mode
+on, the bisection quarantines its transaction. The degraded mode's CPU fallback serves a CPU-device verifier only: with a
 verifier on the card the notary never moves a flush to the host.
 
 Reference: node/.../services/transactions/ (SURVEY §2.7) —
@@ -72,9 +73,8 @@ from ..core.transactions import (
     SignedTransaction,
     TransactionVerificationError,
 )
-from ..crypto.batch_verifier import HOST_SCHEMES, SCHEME_KERNELS, CpuBatchVerifier
+from ..crypto.batch_verifier import CpuBatchVerifier
 from ..crypto.hashes import SecureHash
-from ..crypto.schemes import CODE_NAMES
 from ..flows.api import FlowFuture, _WaitFuture, wait_future
 from ..utils import locks, tracing
 from ..utils.metrics import MetricRegistry
@@ -119,6 +119,23 @@ ser.register_custom(
     lambda e: e.conflict,
     lambda v: UniquenessConflict(dict(v)),
 )
+
+
+class ShardUnavailableError(Exception):
+    """A distributed cross-shard commit could not reach a partition
+    owner (partitioned away, dead past its phase timeout). Typed so the
+    serving paths answer a `shard-unavailable` NotaryError — a degraded
+    answer, never a hang and never a silent double-spend window: the
+    request neither reserved nor committed anything that outlives it."""
+
+    def __init__(self, owner: str, partitions, elapsed_micros: int = 0):
+        self.owner = owner
+        self.partitions = tuple(partitions)
+        self.elapsed_micros = elapsed_micros
+        super().__init__(
+            f"shard owner {owner} unreachable for partitions "
+            f"{sorted(self.partitions)} after {elapsed_micros} us"
+        )
 
 
 # -- uniqueness providers ----------------------------------------------------
@@ -740,6 +757,15 @@ class NotaryService:
                 str(e),
                 conflict={str(r): h for r, h in e.conflict.items()},
             )
+            if story is not None:
+                story.terminal_from(str(tx_id), err)
+            return err
+        except ShardUnavailableError as e:
+            # a partition owner is unreachable: a typed degraded answer
+            # the client can retry against a healed cluster — distinct
+            # from commit-unavailable so operators can tell a
+            # partitioned shard from a broken store
+            err = NotaryError("shard-unavailable", str(e))
             if story is not None:
                 story.terminal_from(str(tx_id), err)
             return err
@@ -1990,20 +2016,6 @@ class BatchingNotaryService(NotaryService):
                     NotaryError("invalid-transaction", str(e))
                 )
                 continue
-            missing = {r.key.scheme_id for r in rs} - SCHEME_KERNELS - HOST_SCHEMES
-            if missing:
-                # no path verifies these rows: answer the transaction
-                # here, before the dispatch, instead of failing its flush
-                names = ", ".join(
-                    sorted(CODE_NAMES.get(m, str(m)) for m in missing)
-                )
-                p.future.set_result(
-                    NotaryError(
-                        "unsupported-scheme",
-                        f"signature scheme {names} has no verification path",
-                    )
-                )
-                continue
             spans.append((len(reqs), len(rs)))
             reqs.extend(rs)
             live.append(p)
@@ -2346,6 +2358,11 @@ class BatchingNotaryService(NotaryService):
                 f.result()
             except UniquenessConflict as e:
                 p.future.set_result(conflict_error(e))
+            except ShardUnavailableError as e:
+                # distributed commit plane: the owning partition's
+                # member is unreachable — typed degraded answer, the
+                # request holds no reservations anywhere
+                p.future.set_result(NotaryError("shard-unavailable", str(e)))
             except Exception as e:
                 p.future.set_result(NotaryError("commit-unavailable", str(e)))
             else:
@@ -2357,6 +2374,9 @@ class BatchingNotaryService(NotaryService):
         for i, p in enumerate(eligible):
             fut = self.uniqueness.commit_async(
                 list(p.stx.wtx.inputs), p.stx.id, p.requester,
+                # the request's live root span rides into the provider:
+                # a distributed commit stamps its xshard.* phase spans
+                # into the requester's trace, cross-member hops included
                 trace=(
                     tuple(p.span.context)
                     if p.span and not p.span.ended else None

@@ -9,8 +9,9 @@ the key layout are the reference's, so a node database written by
 either package opens in the other. So are the batching notary's intent
 journal (`NotaryIntentJournal`) and the tx-story spill
 (`TxStoryIndex`): their tables and rows are byte-equal to the
-reference's. The cross-shard journals are not ported; asking for them
-raises NotImplementedError naming their ROADMAP item.
+reference's, and so are the distributed uniqueness plane's
+coordinator WAL (`XShardCoordinatorJournal`) and participant
+reservation journal (`XShardReservationJournal`).
 
 Reference: the node's JDBC/H2 storage layer — `DBTransactionStorage`,
 `NodeAttachmentService`, `DBCheckpointStorage` (node/.../services/
@@ -744,6 +745,192 @@ class NotaryIntentJournal:
         )
 
 
+class XShardCoordinatorJournal:
+    """Presumed-abort decision WAL for the distributed cross-shard
+    coordinator (node/distributed_uniqueness.py).
+
+    Every cross-MEMBER transaction appends one intent row BEFORE its
+    first ShardReserve leaves the coordinator; the commit decision is
+    marked durably BEFORE any ShardCommit is sent (the 2PC commit
+    point); the row is deleted once every owner acked its commit. The
+    recovery contract is classic presumed abort:
+
+      - row with the commit mark  -> the transaction COMMITTED: a
+        restarted coordinator re-drives ShardCommit until every owner
+        acks (participants apply idempotently);
+      - row without the mark      -> ABORT: recovery sends ShardAbort
+        to every involved owner and deletes the row — and a
+        participant status query against a coordinator with no row
+        gets "abort", which is what releases orphaned reservations.
+
+    Same WAL-mode/no-per-row-fsync sqlite discipline as the intent and
+    fabric journals (the node database is already in WAL mode)."""
+
+    _SCHEMA = """
+    CREATE TABLE IF NOT EXISTS xshard_intents (
+        xid       INTEGER PRIMARY KEY AUTOINCREMENT,
+        tx_id     BLOB NOT NULL,
+        refs      BLOB NOT NULL,
+        requester BLOB NOT NULL,
+        committed INTEGER NOT NULL DEFAULT 0
+    );
+    """
+
+    def __init__(self, db: NodeDatabase):
+        self._db = db
+        db.execute_script(self._SCHEMA)
+        self.begun = 0
+        self.decided = 0
+        self.finished = 0
+
+    def begin(self, tx_id, refs, requester: Party) -> int:
+        """Journal one cross-member intent; returns its xid. The row is
+        on the WAL before the first reserve leaves this process."""
+        cur = self._db.execute(
+            "INSERT INTO xshard_intents (tx_id, refs, requester, committed)"
+            " VALUES (?,?,?,0)",
+            (
+                tx_id.bytes_,
+                ser.encode(list(refs)),
+                ser.encode(requester),
+            ),
+        )
+        self.begun += 1
+        return cur.lastrowid
+
+    def decide_commit(self, xid: int) -> None:
+        """Mark the commit decision durably — THE 2PC commit point:
+        from here the transaction completes even across a coordinator
+        kill (recovery re-drives). Aborts are never marked — a missing
+        mark IS the abort decision (presumed abort)."""
+        self._db.execute(
+            "UPDATE xshard_intents SET committed=1 WHERE xid=?", (xid,)
+        )
+        self.decided += 1
+
+    def finish(self, xid: int) -> None:
+        """Every owner acked (commit) or the abort resolved: the row
+        has no further recovery value."""
+        self._db.execute("DELETE FROM xshard_intents WHERE xid=?", (xid,))
+        self.finished += 1
+
+    def is_committed(self, tx_id) -> bool:
+        """Durable decision lookup for a status query against a tx this
+        boot no longer holds in memory."""
+        rows = self._db.query(
+            "SELECT committed FROM xshard_intents WHERE tx_id=?",
+            (tx_id.bytes_,),
+        )
+        return any(bool(c) for (c,) in rows)
+
+    def unresolved(self) -> list:
+        """Every intent still journaled, oldest first:
+        [(xid, tx_id, refs, requester, committed)] — recovery's replay
+        input. Rows that no longer decode are kept and skipped (the
+        intent-journal stance: a cordapp change must not crash boot)."""
+        out = []
+        self.undecodable: list[int] = []
+        for xid, tx_id, refs, requester, committed in self._db.query(
+            "SELECT xid, tx_id, refs, requester, committed"
+            " FROM xshard_intents ORDER BY xid"
+        ):
+            try:
+                decoded_refs = [r for r in ser.decode(bytes(refs))]
+                who = ser.decode(bytes(requester))
+            except Exception as e:   # noqa: BLE001 - surfaced, not fatal
+                self.undecodable.append(xid)
+                logging.getLogger("corda_tpu_torch.notary").warning(
+                    "xshard intent %d does not decode (%s: %s); kept, "
+                    "skipped by recovery", xid, type(e).__name__, e,
+                )
+                continue
+            out.append(
+                (xid, SecureHash(bytes(tx_id)), decoded_refs, who,
+                 bool(committed))
+            )
+        return out
+
+    @property
+    def unresolved_count(self) -> int:
+        return self._db.query(
+            "SELECT COUNT(*) FROM xshard_intents"
+        )[0][0]
+
+
+class XShardReservationJournal:
+    """Durable participant-side reservations for the distributed
+    provider: a row lands BEFORE the ShardReserveAck leaves this
+    member and is deleted when the reservation resolves (commit or
+    abort). A participant killed -9 mid-reserve reloads its held rows
+    on boot and drives them to resolution through the normal orphan
+    machinery (status query -> coordinator WAL answer) — without this,
+    a restarted owner would forget a reservation whose coordinator
+    already decided commit, and a rival could consume the refs in the
+    gap: the silent double-spend window the design refuses."""
+
+    _SCHEMA = """
+    CREATE TABLE IF NOT EXISTS xshard_reservations (
+        tx_id       BLOB NOT NULL,
+        xid         INTEGER NOT NULL,
+        coordinator TEXT NOT NULL,
+        refs        BLOB NOT NULL,
+        requester   BLOB NOT NULL,
+        PRIMARY KEY (tx_id)
+    );
+    """
+
+    def __init__(self, db: NodeDatabase):
+        self._db = db
+        db.execute_script(self._SCHEMA)
+
+    def reserve(self, tx_id, xid: int, coordinator: str, refs, requester):
+        self._db.execute(
+            "INSERT OR REPLACE INTO xshard_reservations"
+            " (tx_id, xid, coordinator, refs, requester) VALUES (?,?,?,?,?)",
+            (
+                tx_id.bytes_, xid, coordinator,
+                ser.encode(list(refs)), ser.encode(requester),
+            ),
+        )
+
+    def release(self, tx_id) -> None:
+        self._db.execute(
+            "DELETE FROM xshard_reservations WHERE tx_id=?", (tx_id.bytes_,)
+        )
+
+    def held(self) -> list:
+        """[(tx_id, xid, coordinator, refs, requester)], the boot-time
+        reload input. Undecodable rows are dropped WITH their table row
+        — unlike an intent, a reservation that cannot be interpreted
+        cannot be resolved either, and holding it forever would wedge
+        its refs."""
+        out = []
+        for tx_id, xid, coordinator, refs, requester in self._db.query(
+            "SELECT tx_id, xid, coordinator, refs, requester"
+            " FROM xshard_reservations"
+        ):
+            tid = SecureHash(bytes(tx_id))
+            try:
+                out.append(
+                    (tid, xid, coordinator,
+                     [r for r in ser.decode(bytes(refs))],
+                     ser.decode(bytes(requester)))
+                )
+            except Exception as e:   # noqa: BLE001 - surfaced, not fatal
+                logging.getLogger("corda_tpu_torch.notary").warning(
+                    "xshard reservation %s does not decode (%s: %s); "
+                    "dropped", tid, type(e).__name__, e,
+                )
+                self.release(tid)
+        return out
+
+    @property
+    def held_count(self) -> int:
+        return self._db.query(
+            "SELECT COUNT(*) FROM xshard_reservations"
+        )[0][0]
+
+
 class TxStoryIndex:
     """Sqlite spill for the transaction lifecycle ledger
     (utils/txstory.py): every recorded event also lands here, so a
@@ -1068,22 +1255,3 @@ class PersistentServiceHub:
             vault_factory=PersistentVaultService,
         )
 
-
-_NOT_PORTED = {
-    "XShardCoordinatorJournal": (
-        "Queue 1 #6 (distributed_uniqueness.py and its cross-shard journals)"
-    ),
-    "XShardReservationJournal": (
-        "Queue 1 #6 (distributed_uniqueness.py and its cross-shard journals)"
-    ),
-}
-
-
-def __getattr__(name: str):
-    item = _NOT_PORTED.get(name)
-    if item is not None:
-        raise NotImplementedError(
-            f"corda_tpu_torch.node.persistence.{name} is not ported: "
-            f"ROADMAP {item}"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

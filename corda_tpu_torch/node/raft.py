@@ -8,9 +8,10 @@ reference's bytes. Its Raft.Phase.* timers and `raft.<phase>` spans go
 through the port's utils/metrics.py and utils/tracing.py. Traced
 frames feed the tracer's `ClockSync`, the clock-offset evidence of
 cross-node trace assembly. `txstory=` stamps each applied uniqueness
-commit on its transaction's lifecycle story (utils/txstory.py). Not
-ported: `partition_raft_groups` (the distributed uniqueness plane,
-ROADMAP Queue 1 #6).
+commit on its transaction's lifecycle story (utils/txstory.py).
+`partition_raft_groups` wires one group per partition of the distributed
+uniqueness plane (node/distributed_uniqueness.py), on
+`raft.<cluster>.p<k>`.
 
 Reference: `RaftUniquenessProvider` (node/.../transactions/
 RaftUniquenessProvider.kt:41) — a Copycat-replicated
@@ -1368,3 +1369,49 @@ class RaftUniquenessProvider:
             "Raft commits are asynchronous; use commit_async"
         )
 
+
+def partition_raft_groups(
+    name: str,
+    peers: list,
+    messaging: MessagingService,
+    clock,
+    apply_for: Callable[[int], Callable],
+    partitions,
+    cluster: str = "xshard",
+    db=None,
+    rng=None,
+    config: Optional[RaftConfig] = None,
+    metrics=None,
+    tracer=None,
+    txstory=None,
+) -> dict:
+    """One Raft group PER uniqueness partition (the distributed
+    sharded uniqueness plane): group k rides the
+    `raft.<cluster>.p<k>` topic namespace — the groups' protocol
+    frames stay disjoint on ONE fabric endpoint per member, and the
+    persistence tables are already cluster-keyed, so every group can
+    share the node database.
+
+    `apply_for(k)` supplies partition k's replicated state machine
+    (DistributedUniquenessProvider.partition_apply: idempotent
+    committed-row writes into the member's local store copy, so a
+    partition owner's rows gain a replica on every member and a
+    failover owner boots warm). Returns {partition: RaftNode} — the
+    caller ticks each group alongside the provider."""
+    groups: dict[int, RaftNode] = {}
+    for k in partitions:
+        groups[k] = RaftNode(
+            name,
+            list(peers),
+            messaging,
+            apply_for(k),
+            clock,
+            cluster=f"{cluster}.p{k}",
+            db=db,
+            rng=rng,
+            config=config or RaftConfig(),
+            metrics=metrics,
+            tracer=tracer,
+            txstory=txstory,
+        )
+    return groups

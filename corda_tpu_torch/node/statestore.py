@@ -6,9 +6,10 @@ open-addressing index, compaction behind an atomic manifest swap, the
 boot sweep), `ShardedCommitLogUniquenessProvider` and
 `migrate_sqlite_state`. The record, index, MANIFEST and LAYOUT formats
 are the reference's byte for byte, so a store directory written by
-either package opens in the other with the same committed map. The
-crash-schedule explorer that drives `set_boundary` is not ported
-(ROADMAP Queue 1 #6, the sanitizer).
+either package opens in the other with the same committed map.
+`set_boundary` hooks the crash-schedule explorer
+(testing/sanitizer.py `CrashScheduleExplorer(store_factory=)`) into
+every durability boundary of the store.
 
 The notary's committed-state registry rebuilt for large set sizes:
 per-shard sqlite tables pay a B-tree probe per ref and a full table scan

@@ -22,7 +22,9 @@ OpenSSL's random ECDSA nonces.
 
 `notary_hub(fixture, verifier)` is the notary's ServiceHub: its key,
 the parties, and every issue transaction recorded. `answer_kind` maps a
-notary answer to the label it must equal.
+notary answer to the label it must equal; `rival_free_mismatches`
+compares answers with labels where the commit order between members
+of a notary cluster may let the other rival of a double spend win.
 
 `build_scheme_fixture(fixture, rsa, sphincs)` adds, to the first
 `base` spends of a fixture, spends that need every path of the
@@ -305,3 +307,21 @@ def answer_kind(answer) -> str:
     if kind == "invalid-transaction" and "invalid signature" in answer.message:
         return "invalid-signature"
     return kind if kind is not None else repr(answer)
+
+
+def rival_free_mismatches(kinds: list, labels: list, spends: list) -> list:
+    """Indices whose answer kind disagrees with its label, where the two
+    rivals of a double spend ("ok" and "conflict" labels on one input)
+    may have swapped: per input, the "ok"/"conflict" answers must be the
+    labels' multiset, and every other label is held exactly."""
+    by_input: dict = {}
+    bad = []
+    for i, (kind, label) in enumerate(zip(kinds, labels)):
+        if label in ("ok", "conflict"):
+            by_input.setdefault(spends[i].wtx.inputs[0], []).append(i)
+        elif kind != label:
+            bad.append(i)
+    for rows in by_input.values():
+        if sorted(kinds[i] for i in rows) != sorted(labels[i] for i in rows):
+            bad.extend(rows)
+    return sorted(bad)

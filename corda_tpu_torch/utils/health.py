@@ -7,8 +7,9 @@ the canary probe and `HealthMonitor`, `ClusterHealth`,
 real flush path (on the card, one CudaBatchVerifier dispatch).
 `watch_qos`, `watch_txstory`, `watch_perf`, `watch_device` and
 `watch_wire` install the QoS, tx-story, perf, device and wire planes'
-rules; `watch_distributed_uniqueness` watches a plane the port lacks
-and raises NotImplementedError naming its ROADMAP item.
+rules; `watch_distributed_uniqueness` installs the cross-member
+uniqueness plane's `shard.unreachable` and `reservation.orphaned`
+(node/distributed_uniqueness.py).
 
 Every node has rich telemetry (/metrics, /traces, /qos), but
 nothing in-process WATCHES it without this plane: a wedged flush loop, a stalled
@@ -699,10 +700,45 @@ class HealthMonitor:
         )
 
     def watch_distributed_uniqueness(self, provider) -> None:
-        """the distributed uniqueness plane (node/distributed_uniqueness.py): not ported (ROADMAP Queue 1 #6(1)); raises."""
-        raise NotImplementedError(
-            "HealthMonitor.watch_distributed_uniqueness: the distributed uniqueness plane (node/distributed_uniqueness.py) is not ported "
-            "(ROADMAP Queue 1 #6(1))"
+        """Install the distributed-uniqueness rules over a node/
+        distributed_uniqueness.DistributedUniquenessProvider:
+
+        `shard.unreachable` — a partition owner stopped answering the
+        cross-shard protocol (reserve-phase timeout fired, or a
+        decided commit is being re-driven into silence). Critical with
+        zero hold on both edges: the provider's own timeout already
+        encodes the duration, and the mark clears the moment any frame
+        from the owner arrives — so the alert auto-resolves on heal.
+
+        `reservation.orphaned` — this member holds reservations whose
+        TTL expired (their coordinator went quiet); the orphan query
+        machinery is driving them to resolution. Uses the policy holds
+        so a hold that resolves within one walk never pages."""
+        self.add_rule(
+            AlertRule(
+                "shard.unreachable",
+                lambda now: (
+                    bool(provider.unreachable_owners()),
+                    {"owners": sorted(provider.unreachable_owners())},
+                ),
+                severity=SEV_CRITICAL,
+                for_micros=0,
+                clear_for_micros=0,
+                trace_filter="xshard",
+            )
+        )
+        self.add_rule(
+            AlertRule(
+                "reservation.orphaned",
+                lambda now: (
+                    provider.orphan_count() > 0,
+                    {
+                        "orphans": provider.orphan_count(),
+                        "reservations": provider.reservation_count(),
+                    },
+                ),
+                trace_filter="xshard",
+            )
         )
 
     def watch_perf(self, perf) -> None:

@@ -44,9 +44,16 @@ PACKAGES = ("corda_tpu", "corda_tpu_torch")
 
 def port_cases(name: str, left_out: dict) -> list:
     """(name, case) for every case of a reference module that is not in
-    `left_out` (case -> reason)."""
+    `left_out` (case -> reason), marked slow where the reference marks
+    it slow."""
     mod = importlib.import_module(f"tests.{name}")
-    return [pytest.param(name, case, id=case) for case, fn in vars(mod).items()
+
+    def marks(fn):
+        slow = any(m.name == "slow" for m in getattr(fn, "pytestmark", ()))
+        return (pytest.mark.slow,) if slow else ()
+
+    return [pytest.param(name, case, id=case, marks=marks(fn))
+            for case, fn in vars(mod).items()
             if case.startswith("test_") and callable(fn) and case not in left_out]
 
 

@@ -358,16 +358,15 @@ def test_default_network_verifies_on_the_card():
 
 
 def test_persistence_is_not_ported():
-    """The parts of node/persistence.py that stay out of the port (the
-    cross-shard journals) raise naming their ROADMAP item; the rest is
-    ported (the notary intent journal and the tx-story index since the
-    serving planes came), and `restart_node` on a network without a
-    database refuses as the reference's does."""
+    """node/persistence.py is ported whole (the notary intent journal
+    and the tx-story index since the serving planes came, the
+    cross-shard journals since distributed uniqueness came), a name it
+    lacks is an AttributeError, and `restart_node` on a network without
+    a database refuses as the reference's does."""
     from corda_tpu_torch.node import persistence
 
     for name in ("XShardCoordinatorJournal", "XShardReservationJournal"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #6"):
-            getattr(persistence, name)
+        assert isinstance(getattr(persistence, name), type)
     assert isinstance(persistence.NotaryIntentJournal, type)
     assert isinstance(persistence.TxStoryIndex, type)
     with pytest.raises(AttributeError):

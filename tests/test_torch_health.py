@@ -15,11 +15,11 @@ the port, held against the reference.
   summaries.
 - Traced Raft and BFT frames feed the tracer's ClockSync in both
   packages.
-- The QoS and txstory watchers install the reference's rules (the
-  burn-rate and shed-ratio cases above drive the QoS pair); the watcher
-  of the plane the port lacks (distributed uniqueness) raises
-  NotImplementedError naming its ROADMAP item; the perf, device and
-  wire watchers are held in
+- The QoS, txstory and distributed-uniqueness watchers install the
+  reference's rules (the burn-rate and shed-ratio cases above drive the
+  QoS pair; `shard.unreachable` and `reservation.orphaned` walk a
+  partitioned owner and an orphaned hold); the perf, device and wire
+  watchers are held in
   tests/test_torch_{perf,device_telemetry,wire_telemetry}.py.
 """
 
@@ -179,20 +179,12 @@ def test_traced_consensus_frames_feed_clock_sync(kind):
         assert tracer.clock_sync.min_skew("C") is None
 
 
-WATCHERS = [("watch_distributed_uniqueness", (None,), "#6(1)")]
-
-
-@pytest.mark.parametrize("method,args,item", WATCHERS, ids=[w[0] for w in WATCHERS])
-def test_unported_plane_watchers_raise(method, args, item):
-    from corda_tpu_torch.utils.health import HealthMonitor
-
-    with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP Queue 1 {item}")):
-        getattr(HealthMonitor(), method)(*args)
-
-
 def _watch(prefix: str, kind: str) -> list:
     hlib, svc = _m(prefix, "utils.health"), _m(prefix, "node.services")
     clock = svc.TestClock()
+    if kind == "xshard":
+        policy = hlib.HealthPolicy(alert_for_micros=200_000, alert_clear_for_micros=200_000)
+        return _watch_xshard(prefix, hlib.HealthMonitor(clock=clock, policy=policy), clock)
     monitor = hlib.HealthMonitor(clock=clock)
     if kind == "qos":
         plane = _m(prefix, "node.qos").NotaryQos(clock=clock)
@@ -210,10 +202,57 @@ def _watch(prefix: str, kind: str) -> list:
     return sorted(monitor.snapshot()["alerts"].items())
 
 
-@pytest.mark.parametrize("kind", ["qos", "txstory"])
+def _watch_xshard(prefix: str, monitor, clock) -> list:
+    """A partitioned owner past the reserve timeout, then a hold whose
+    coordinator went quiet, walked to their alerts and back."""
+    du, msg = _m(prefix, "node.distributed_uniqueness"), _m(prefix, "node.messaging")
+    c, h = _m(prefix, "core.contracts"), _m(prefix, "crypto.hashes")
+    faults = msg.FabricFaults(clock=clock)
+    net = msg.InMemoryMessagingNetwork(clock=clock, faults=faults)
+    policy = du.XShardPolicy(timeout_micros=300_000, reservation_ttl_micros=300_000)
+    provs = {n: du.DistributedUniquenessProvider(n, ("A", "B"), net.endpoint(n), clock,
+                                                 n_partitions=2, policy=policy, seed=k)
+             for k, n in enumerate("AB")}
+    provs["A"].attach_health(monitor)
+    refs = [c.StateRef(h.SecureHash(bytes([k + 1]) * 32), 0) for k in range(8)]
+    ra = next(r for r in refs if provs["A"].shard_map.owner_of(r) == "A")
+    rb = next(r for r in refs if provs["A"].shard_map.owner_of(r) == "B")
+    walk = []
+
+    def step(n):
+        for _ in range(n):
+            net.run()
+            for p in provs.values():
+                p.tick()
+            monitor.tick()
+            clock.advance(100_000)
+            walk.append(sorted((k, v["state"]) for k, v in monitor.snapshot()["alerts"].items()))
+
+    faults.partition({"A"}, {"B"})
+    provs["A"].commit_async([ra, rb], h.SecureHash(b"\x07" * 32), None)
+    step(6)
+    faults.heal()
+    provs["B"].commit_async([rb], h.SecureHash(b"\x08" * 32), None)
+    step(4)
+    provs["A"]._reserve_local(provs["A"].shard_map.partition_of(ra), [ra],
+                              h.SecureHash(b"\x09" * 32), 9, "B", None)
+    provs["B"].stop()
+    step(12)
+    return walk
+
+
+@pytest.mark.parametrize("kind", ["qos", "txstory", "xshard"])
 def test_plane_watchers_install_the_references_rules(kind):
-    """watch_qos and watch_txstory install the reference's rules, which
-    walk to the same states on one TestClock in both packages."""
+    """watch_qos, watch_txstory and watch_distributed_uniqueness install
+    the reference's rules, which walk to the same states on one
+    TestClock in both packages."""
     got = {p: json.dumps(_watch(p, kind), sort_keys=True, default=str) for p in PACKAGES}
     assert got["corda_tpu_torch"] == got["corda_tpu"]
-    assert ("qos.shed_ratio" if kind == "qos" else "txstory.stage_slo") in got["corda_tpu"]
+    want = {"qos": "qos.shed_ratio", "txstory": "txstory.stage_slo",
+            "xshard": "reservation.orphaned"}[kind]
+    assert want in got["corda_tpu"]
+    if kind == "xshard":
+        walk = json.loads(got["corda_tpu"])
+        assert ["shard.unreachable", "firing"] in walk[5]
+        assert ["shard.unreachable", "firing"] not in walk[-1]
+        assert ["reservation.orphaned", "firing"] in walk[-1]

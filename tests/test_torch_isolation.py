@@ -56,13 +56,15 @@ def test_ast_scan_finds_no_banned_import():
     multi-process Driver, the load test, the ledger fuzzer, the demos,
     the client plumbing) and of the telemetry slice (the perf, device
     and wire planes) and of the serving-planes slice (QoS, the
-    transaction story, the commit-log state store) are scanned.
+    transaction story, the commit-log state store) and of the
+    cross-member slice (distributed uniqueness, raft, the lock factory,
+    the sanitizer and its crash-schedule explorer) are scanned.
     The Cash contract's
     wire name, "corda_tpu.finance.Cash", the sandbox's platform module
     names and the flows' class tags are strings, not imports."""
     offenders = []
     files = _modules()
-    assert len(files) >= 86
+    assert len(files) >= 88
     for must in ("crypto/eddsa.py", "node/notary.py", "node/services.py",
                  "core/transactions.py", "finance/cash.py", "native/__init__.py",
                  "native/build.py", "crypto/sphincs.py", "core/sandbox.py",
@@ -79,7 +81,9 @@ def test_ast_scan_finds_no_banned_import():
                  "samples/trader_demo.py", "samples/bank_of_corda_demo.py",
                  "samples/attachment_demo.py", "client/__init__.py", "client/common.py",
                  "utils/perf.py", "utils/device_telemetry.py", "utils/wire_telemetry.py",
-                 "utils/txstory.py", "node/statestore.py", "node/persistence.py"):
+                 "utils/txstory.py", "node/statestore.py", "node/persistence.py",
+                 "node/distributed_uniqueness.py", "node/raft.py", "utils/locks.py",
+                 "testing/sanitizer.py"):
         assert PKG / must in files
     assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
         "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh", "wei_ladder.cu"
@@ -210,6 +214,19 @@ with tempfile.TemporaryDirectory() as tmp:
     assert set(store.committed) == set(pay.wtx.inputs)
     store.close()
     db.close()
+from corda_tpu_torch.node.distributed_uniqueness import DistributedUniquenessProvider
+from corda_tpu_torch.node.persistence import XShardCoordinatorJournal, XShardReservationJournal
+from corda_tpu_torch.testing.sanitizer import ConcurrencySanitizer, CrashScheduleExplorer
+from corda_tpu_torch.utils import locks
+assert DistributedUniquenessProvider and XShardCoordinatorJournal and XShardReservationJournal
+report = CrashScheduleExplorer().explore(reorder_seeds=1,
+                                         boundary_filter=lambda op: op == "coord.decide_commit")
+assert report.results and not report.violations
+with ConcurrencySanitizer() as san:
+    lk = locks.make_lock("Isolation.lock")
+    with lk:
+        pass
+assert san.lock_stats()["Isolation.lock"]["acquisitions"] == 1
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu")]
 assert not bad, bad
 print(len(names))

@@ -27,6 +27,9 @@ the reference.
   wire and txstory planes with one WARNING; every answer-path option
   whose plane is not ported raises NotImplementedError naming its
   ROADMAP item before the node opens its database or binds a port.
+- A node booted from a node.toml with `notary_cluster_shards = 6`
+  serves spends over its DistributedUniquenessProvider (`node.xshard`)
+  with the reference node's answers and `shards_snapshot()`.
 """
 
 from __future__ import annotations
@@ -449,8 +452,6 @@ def test_default_node_boots_without_the_unported_planes(tmp_path, caplog):
 
 
 REFUSED = [
-    ("notary_cluster_shards", dict(notary="batching", notary_cluster_shards=2,
-                                   cluster_peers=("X",)), "#6(1)"),
     ("web_port", dict(web_port=0, rpc_users=()), "#3.4"),
 ]
 
@@ -467,6 +468,97 @@ def test_answer_path_option_raises_before_the_node_binds(option, kw, item, tmp_p
                        .replace(")", r"\)")):
         Node(cfg)
     assert not os.path.exists(tmp_path / "x")
+
+
+def _cluster_spends(notary, n: int = 4):
+    """An issue of `n` Cash states under the cluster's notary, a spend of
+    each and a double spend of the first (port objects)."""
+    from corda_tpu_torch.core.contracts import Amount, Issued, StateAndRef, StateRef
+    from corda_tpu_torch.core.identity import Party, PartyAndReference
+    from corda_tpu_torch.core.transactions import TransactionBuilder
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.finance.cash import CASH_CONTRACT, CashIssue, CashMove, CashState
+
+    bank_kp, owner = (schemes.generate_keypair(schemes.EDDSA_ED25519_SHA512, seed=s)
+                      for s in (11, 12))
+    bank = Party("Bank", bank_kp.public)
+    token = Issued(PartyAndReference(bank, b"\x01"), "USD")
+    ib = TransactionBuilder(notary)
+    for i in range(n):
+        ib.add_output_state(CashState(Amount(100 + i, token), owner.public), CASH_CONTRACT)
+    ib.add_command(CashIssue(1), bank.owning_key)
+    issue = ib.sign_initial_transaction(bank_kp.private)
+    spends = []
+    for i in list(range(n)) + [0]:
+        sb = TransactionBuilder()
+        sb.add_input_state(StateAndRef(issue.wtx.outputs[i], StateRef(issue.id, i)))
+        payee = bank if len(spends) < n else Party("Rival", owner.public)
+        sb.add_output_state(CashState(Amount(100 + i, token), payee.owning_key), CASH_CONTRACT)
+        sb.add_command(CashMove(), owner.public)
+        spends.append(sb.sign_initial_transaction(owner.private))
+    return issue, spends, Party("Alice", owner.public)
+
+
+def _serve_sharded_node(prefix: str, cfg_path: str):
+    import corda_tpu_torch.core.serialization as pser
+
+    from corda_tpu_torch.testing.notary_fixture import answer_kind
+
+    ser = _m(prefix, "core.serialization")
+    node = _m(prefix, "node.node").Node(_m(prefix, "node.config").load_config(cfg_path)).start()
+    try:
+        assert node.xshard is not None
+        assert node.services.notary_service.uniqueness is node.xshard
+        assert (node.statestore is node.xshard.store) == (node.config.notary_state_store
+                                                            == "commitlog")
+        assert node.services.notary_service.qos is node.qos
+        notary = pser.decode(ser.encode(node._cluster_identity))
+        issue, spends, requester = (ser.decode(pser.encode(x))
+                                    for x in _cluster_spends(notary))
+        node.services.record_transactions([issue])
+        svc = node.services.notary_service
+        started = []
+        for stx in spends:
+            gen = svc.process(stx, requester)
+            started.append((gen, next(gen).future))
+        svc.flush()
+        for _ in range(5):
+            node.pump(0.02)
+        answers = []
+        for gen, fut in started:
+            with pytest.raises(StopIteration) as stop:
+                gen.send(fut.result())
+            answers.append(answer_kind(stop.value.value))
+        return answers, node.xshard.shards_snapshot(), "Notary.CrossShard.InFlight" in (
+            node.metrics.names())
+    finally:
+        node.stop()
+
+
+@pytest.mark.parametrize("planes", [{}, dict(notary_state_store="commitlog", qos_enabled=True)],
+                         ids=["sqlite", "commitlog-qos"])
+def test_sharded_cluster_node_boots_from_config_and_serves(planes, tmp_path):
+    """`notary_cluster_shards = 6` in node.toml boots a batching notary
+    over a DistributedUniquenessProvider (one member, every partition
+    local) with the intent WAL, over sqlite or the commit-log store with
+    QoS, in both packages: the spends are answered alike and
+    `shards_snapshot()` is the reference node's."""
+    got = {}
+    for prefix in PACKAGES:
+        cfgmod = _m(prefix, "node.config")
+        base = tmp_path / prefix
+        cfg = cfgmod.NodeConfig(name="X0", base_dir=str(base), notary="batching",
+                                notary_cluster_shards=6, cluster_peers=("X0",),
+                                verifier_backend="cpu", use_tls=False, notary_intent_wal=True,
+                                **planes)
+        base.mkdir()
+        cfgmod.write_config(cfg, str(base / "node.toml"))
+        got[prefix] = _serve_sharded_node(prefix, str(base / "node.toml"))
+    assert got["corda_tpu_torch"] == got["corda_tpu"]
+    answers, snap, gauged = got["corda_tpu"]
+    assert answers == ["ok"] * 4 + ["conflict"] and gauged
+    assert snap["n_partitions"] == 6 and snap["member"] == "X0"
+    assert sum(row.get("committed_depth", 0) for row in snap["partitions"]) == 4
 
 
 def _qos_built(node):

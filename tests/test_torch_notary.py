@@ -374,13 +374,16 @@ def test_rsa_row_is_verified_on_the_host_with_its_batchmates_in_one_dispatch(str
     assert (spends[1].wtx.inputs[0] in svc.uniqueness.committed) == signed
 
 
-def test_row_of_a_scheme_no_path_verifies_is_answered_at_intake():
+@pytest.mark.parametrize("degraded", [False, True], ids=["no-fallback", "degraded"])
+def test_row_of_a_scheme_no_path_verifies_is_answered_at_intake(degraded):
     """A signature row under a COMPOSITE key, which no path verifies in
-    either package: the port answers that transaction `unsupported-scheme`
-    at intake and signs its batchmates in one dispatch. The reference's
-    verifier raises for the whole batch instead, and its degraded mode
-    (on by default) quarantines the transaction as poison (ROADMAP
-    Queue 3, D4)."""
+    either package: the verifier raises at the dispatch in both, and the
+    answers equal the reference's for the same `degraded_fallback`.
+    Without the fallback the whole flush answers
+    `verification-unavailable`; with it (a CPU-device verifier only) the
+    bisection quarantines that transaction and signs its batchmates.
+    The name is the one this test had while the port still answered such
+    a row at intake (D4, now fixed): no answer comes at intake any more."""
     from corda_tpu_torch.crypto import schemes
     from corda_tpu_torch.crypto.tx_signature import SignatureMetadata, TransactionSignature
 
@@ -388,17 +391,21 @@ def test_row_of_a_scheme_no_path_verifies_is_answered_at_intake():
     comp = TransactionSignature(b"\x01", schemes.PublicKey(schemes.COMPOSITE_KEY, b"c"),
                                 SignatureMetadata(1, schemes.COMPOSITE_KEY))
     spends = _with_extra_signature([fx.spends[i] for i in SMALL], 1, comp)
-    svc = pnot.BatchingNotaryService(notary_hub(fx, port_device(True)))
+    svc = pnot.BatchingNotaryService(notary_hub(fx, port_device(True)),
+                                     degraded_fallback=degraded)
     started = pnot.run_process([svc.process(s, fx.requester) for s in spends])
     svc.flush()
     answers = pnot.finish_process(started)
-    assert [answer_kind(a) for a in answers] == ["ok", "unsupported-scheme", "ok", "ok"]
-    assert "COMPOSITE" in answers[1].message
-    assert svc.batches_dispatched == 1 and not svc.degraded and not svc.quarantined
     hub, _, requester = _reference_hub(fx, StreamedCpu())
-    r_svc = rnot.BatchingNotaryService(hub, rnot.InMemoryUniquenessProvider())
+    r_svc = rnot.BatchingNotaryService(hub, rnot.InMemoryUniquenessProvider(),
+                                       degraded_fallback=degraded)
     r_answers = _drive(r_svc, [rser.decode(pser.encode(s)) for s in spends], requester)
-    assert [answer_kind(a) for a in r_answers] == ["ok", "poison-quarantined", "ok", "ok"]
+    want = (["ok", "poison-quarantined", "ok", "ok"] if degraded
+            else ["verification-unavailable"] * 4)
+    assert [answer_kind(a) for a in r_answers] == want
+    assert [answer_kind(a) for a in answers] == want
+    assert svc.degraded == r_svc.degraded
+    assert len(svc.quarantined) == len(r_svc.quarantined) == int(degraded)
 
 
 class PoisonCpu(pbv.BatchSignatureVerifier):

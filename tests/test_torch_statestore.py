@@ -4,9 +4,10 @@ reference.
 
 - Every case of the reference's tests/test_statestore.py but those in
   LEFT_OUT runs on the port with its imports read as corda_tpu_torch
-  (test_torch_health.port_test_module): append, probe, count and
-  reopen; the torn tail; the doctored sealed segment; the boot sweep;
-  the snapshot file-set transfer; accept/reject bit-exact against
+  (test_torch_health.port_test_module; the reference's slow case stays
+  slow): append, probe, count and reopen; the torn tail; the doctored
+  sealed segment; the boot sweep; the snapshot file-set transfer; the
+  crash-schedule explorer over every store boundary; accept/reject bit-exact against
   sqlite (commit_many and a serial replay); the partition primitives;
   the one-way sqlite migration; the re-shard migration; the sqlite
   provider's one-query probes and O(1) counts; the config knob; a node
@@ -42,19 +43,15 @@ from test_torch_health import port_test_module  # noqa: E402
 from test_torch_persistence import _dump_sqlite  # noqa: E402
 
 PACKAGES = ("corda_tpu", "corda_tpu_torch")
-SANITIZER = "CrashScheduleExplorer, testing/sanitizer.py (ROADMAP Queue 1 #6, next slice)"
 LEFT_OUT = {
-    "test_explorer_covers_every_store_boundary": SANITIZER,
-    "test_explorer_100_schedules_zero_violations_commitlog": SANITIZER,
-    "test_explorer_store_boundary_kills_smoke": SANITIZER,
     "test_webserver_serves_statestore_and_404_when_sqlite":
         "GET /statestore: the web gateway, client/webserver.py (ROADMAP Queue 1 #3.4)",
     "test_bench_quick_statestore_gates_the_scale_story":
         "the reference's bench.py (the port's benchmark is ROADMAP Queue 1 #1)",
     "test_fleet_distributed_commitlog_soak_reconciles_through_kill":
-        "the fleet rig and distributed uniqueness (ROADMAP Queue 1 #11, #6(1))",
+        "the fleet rig, testing/fleet.py (ROADMAP Queue 1 #11)",
     "test_fleet_commitlog_kill_during_compaction_and_snapshot_join":
-        "the fleet rig and distributed uniqueness (ROADMAP Queue 1 #11, #6(1))",
+        "the fleet rig, testing/fleet.py (ROADMAP Queue 1 #11)",
 }
 INTENT_CASES = (
     "test_intent_wal_appends_resolves_and_drains",
@@ -76,7 +73,7 @@ def test_reference_intent_wal_case_on_the_port(case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_statestore", LEFT_OUT)) == 15
+    assert len(port_cases("test_statestore", LEFT_OUT)) == 18
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_statestore")))
     assert set(INTENT_CASES) <= set(vars(importlib.import_module("tests.test_fault_tolerance")))
 

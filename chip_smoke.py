@@ -17,7 +17,9 @@ Phases (any failure raises and exits non-zero):
      ladders on p256 and secp256k1, the Edwards ladders on ed25519,
      each at B=256 and at the ragged B=130 and B=1 (partial groups and
      warps; edge rows u1=0, u2=0, Q=G and u2=n-u1 with Q=G; s=0, k=0,
-     A=identity, s=L, s+L, all-264-bit scalars, A of order 2 and 4):
+     A=identity, s=L, s+L, all-264-bit scalars, A of order 2 and 4;
+     one plain call at B=256 per kernel and curve, the smaller batches
+     held against its first rows, as the plain version is row by row):
      equal normalised points, X*Y == Z*T for the Edwards outputs, and
      the first 8 rows equal to refmath; time each kernel and its plain
      version at the main path's chunk (4096, main-path scalars) and
@@ -91,10 +93,10 @@ Phases (any failure raises and exits non-zero):
   9. the out-of-process verifier pool and the pipelined wire ingest
      (node/verifier.py, node/ingest.py) on the phase-6 fixture, over
      one CudaBatchVerifier(batch_sizes=(4096,)) that two VerifierWorkers
-     share (batch_window 8,192): (a) all 16,384 spends sent with
+     share (batch_window 8,192): (a) the first 8,192 spends sent with
      `verify(ltx, stx)` from a node endpoint of an
      InMemoryMessagingNetwork, each ltx resolved on the fixture's hub;
-     each worker answers its 8,192 in one drain and one verify_batch
+     each worker answers its 4,096 in one drain and one verify_batch
      dispatch (Verifier.BatchSize); every answer must be its label (an
      InvalidSignature failure exactly for the flipped signatures,
      success for the rest: the worker checks no uniqueness or notary),
@@ -121,13 +123,13 @@ Phases (any failure raises and exits non-zero):
  10. persistence and the notary clusters (node/persistence.py,
      node/raft.py, node/bft.py, MockNetwork's db_dir, restart_node and
      cluster factories) over CudaBatchVerifier, the launch counters set
-     to 0 before 10a and read after 10e: (a) the first 8,192 phase-6
+     to 0 before 10a and read after 10e: (a) the first 4,096 phase-6
      spends in one flush through BatchingNotaryService over an on-disk uniqueness
      store (PersistentUniquenessProvider for 1 shard,
      ShardedPersistentUniquenessProvider for 4), one pass each on a
      fresh database and a fresh decode, held to phase 6's checks; the
      database closed and reopened under a new provider and notary, its
-     7,904 committed inputs read back, and 256 new spends of accepted
+     committed inputs read back, and 256 new spends of accepted
      spends' inputs answered "conflict", each naming the committed
      spend; prints notarisations/s, the flush wall, phase_seconds and
      the seconds in sqlite; (b) a validating Raft cluster of 3 persistent
@@ -229,7 +231,7 @@ Phases (any failure raises and exits non-zero):
      and signer keys as the same run over CpuBatchVerifier; prints tx/s;
      (c) the reference's fuzz corpus (GeneratedLedger(13).grow(30),
      mutated: flipped, tampered, truncated rows) and the same mutation
-     over GeneratedLedger(17).grow(1000), all three schemes, through
+     over GeneratedLedger(17).grow(500), all three schemes, through
      CudaBatchVerifier(batch_sizes=(128, 1024, 4096)): every verdict must
      equal its label, and CpuBatchVerifier's on the small corpus and 256
      sampled rows of the large one; (d) samples/trader_demo.run on the
@@ -264,7 +266,7 @@ Phases (any failure raises and exits non-zero):
      node/statestore.py) over the phase-6 fixture and
      CudaBatchVerifier(batch_sizes=(4096,)), degraded_fallback=False,
      the launch counters set to 0 before 14a and read after 14d: (a)
-     the first 8,192 spends through `process` into a 1-shard batching
+     the first 4,096 spends through `process` into a 1-shard batching
      notary with NotaryQos (a p99 target of 10 s, batch up to 4,096, a
      wait up to 300 ms, a 64-token bucket refilled at 50/s per
      requester) and a TxStory: 1 spend in 32 arrives with its deadline
@@ -284,7 +286,7 @@ Phases (any failure raises and exits non-zero):
      arrival rounds, the same readings after each flush and the same
      reconciliation; (c) a NodeDatabase, a
      ShardedCommitLogUniquenessProvider of 4 partitions and a
-     NotaryIntentJournal under a 4-shard notary: 4,096 spends admitted,
+     NotaryIntentJournal under a 4-shard notary: 2,048 spends admitted,
      the notary killed before its flush (the database closed without
      the buffered deletes), the database and store reopened and
      `replay_intents` flushed once on the card, every journaled spend
@@ -313,7 +315,7 @@ Phases (any failure raises and exits non-zero):
      one in-memory fabric and TestClock, each member's committed rows,
      coordinator WAL, reservation journal and intent WAL in its own
      sqlite database, all three dispatching to the one verifier: the
-     first 4,096 spends round robin over the members (about two in three
+     first 2,048 spends round robin over the members (about two in three
      coordinated away from their input's owner), one flush per member,
      then fabric rounds to quiescence. Every answer must equal a single
      batching notary's over PersistentUniquenessProvider on the same
@@ -342,12 +344,58 @@ Phases (any failure raises and exits non-zero):
      self-deadlock; prints the five most contended locks with their
      hold times. ed_ladder and wei_ladder_windowed must launch; prints
      each part's wall and the phase's;
- 16. print the kernel table as one JSON line (with each kernel's
+ 16. the web gateway, the remote shell, the replacement flows and the
+     doorman (client/webserver.py, finance/web.py, tools/web_explorer.py,
+     client/shell.py, flows/replacement.py, node/registration.py) over
+     one recording CudaBatchVerifier(batch_sizes=(128, 4096)), the
+     in-process nodes' default verifier, the launch counters set to 0
+     before 16a and read after 16c: (a) Hub (map host; a batching notary
+     over distributed uniqueness with one member, 6 partitions, the
+     commit-log store and QoS), Alice (ed25519), Bob (p256) and Carol
+     (secp256k1) as port nodes over TCP and TLS, each booted with
+     web_port = 0 and the finance web API; through the gateways only:
+     each payer issues to itself (POST /api/cash/issue), 8 payments to Hub
+     round robin over the payers (POST /api/cash/pay; a payee that does
+     not pay on keeps each backchain one payer long), one POST
+     /api/flows/CashPaymentFlow from Bob to Carol and
+     a double spend (POST /api/flows/FinalityFlow) answered 400 with the
+     notary's conflict. Every balance over GET /api/cash/balances equal
+     to the model; each node's /api/explorer/transactions lists what it
+     recorded; every GET route of the node surface, the explorer and the
+     planes (/perf, /device, /capacity, /wire, /qos, /tx/slowest,
+     /statestore, /shards, /health, /healthz, /traces, /incidents)
+     answers JSON on every node, 200, or the reference's 404 for the
+     notary's planes on a payer, /metrics Prometheus text and /profile
+     folded stacks; each node's /wire counts every request the phase
+     made to it; Hub's /cluster sees the three peers fresh and GET
+     /tx/<id> assembles a notarised payment's story. The same drive over
+     verifier_backend = "cpu" gives the same transaction ids, refusal,
+     balances, consumed refs and notary commits. Prints REST payments/s
+     and card calls per REST payment; (b) `connect_remote` to Bob over
+     the TLS fabric: a wrong password refused; `flow start
+     CashPaymentFlow` to Hub completes, `flow watch` renders its steps
+     and completes, `run vault_query_by` and `vault` list Bob's states;
+     prints each command's seconds; (c) on MockNetwork over the same
+     verifier, NotaryOne (validating) and NotaryTwo: a coin moved to
+     NotaryTwo by NotaryChangeFlow (NotaryOne signs), spent under
+     NotaryTwo, the old state's double spend refused by NotaryOne, an
+     upgrade to a contract with no registered path refused and a
+     registered ContractUpgradeFlow replacing a second coin; the ids,
+     refusals and vaults equal to a CpuBatchVerifier run's; (d) an
+     in-process PermissioningServer (auto-approve): `python -m
+     corda_tpu_torch.node --initial-registration` exits 0 with its TLS
+     chain stored; the node boots in process on it, serves its
+     registered leaf and through its gateway issues and pays Alice once
+     through Hub's notary; a second key for the same name exits 1 with
+     the doorman's "legal name already in use", a rule-violating name
+     exits non-zero before it asks. ed_ladder, wei_ladder_windowed and
+     wei_ladder must launch; prints each part's seconds and the phase's;
+ 17. print the kernel table as one JSON line (with each kernel's
      launches in phase 10 as "clusters_launches", in 11a-11b as
      "nodes_launches", in 12b-12d as "drives_launches", in 13a-13c as
-     "telemetry_launches", in 14a-14d as "planes_launches" and in
-     15a-15c as "xshard_launches"), then the result line {"ok": true,
-     "device": {...}}.
+     "telemetry_launches", in 14a-14d as "planes_launches", in 15a-15c
+     as "xshard_launches" and in 16a-16d as "web_launches"), then the
+     result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
 """
@@ -617,14 +665,19 @@ def phase_parity(device, report: dict) -> None:
         "wei_ladder_windowed": (cuda_ec.wei_ladder_windowed_cuda, cuda_ec.wei_ladder_windowed_plain),
         "wei_ladder": (cuda_ec.wei_ladder_cuda, cuda_ec.wei_ladder_plain),
     }
+    big = max(PARITY_SIZES)
     for name, (kern, plain) in kernels.items():
         err = 0
         for curve in (SECP256R1, SECP256K1):
+            # one plain call (torch-op bound whatever its rows); the kernel
+            # at each size against that call's first rows
+            full, (u1s, u2s, qs) = _ladder_inputs(curve, big, 7, device)
+            want = plain(curve, *full)
             for batch in PARITY_SIZES:
-                args, (u1s, u2s, qs) = _ladder_inputs(curve, batch, 7, device)
+                args = [a[:, :batch].contiguous() for a in full]
                 out = kern(curve, *args)
                 label = f"{name} {curve.name} B={batch}"
-                err = max(err, _max_err(curve, out, plain(curve, *args), label))
+                err = max(err, _max_err(curve, out, [w[:, :batch] for w in want], label))
                 got = _affine(curve, *out)
                 G = (curve.gx, curve.gy)
                 for i in range(min(8, batch)):   # and the plain version against refmath
@@ -645,10 +698,12 @@ def phase_parity(device, report: dict) -> None:
     }
     for name, (kern, plain) in ed_kernels.items():
         err = 0
+        full, (ss, ks, As) = _ed_inputs(big, 7, device)
+        want = plain(c, *full)
         for batch in PARITY_SIZES:
-            args, (ss, ks, As) = _ed_inputs(batch, 7, device)
+            args = [a[:, :batch].contiguous() for a in full]
             out = kern(c, *args)
-            err = max(err, _max_err(c, out, plain(c, *args), f"{name} B={batch}"))
+            err = max(err, _max_err(c, out, [w[:, :batch] for w in want], f"{name} B={batch}"))
             got = _ed_affine(c, *out)
             B = (c.gx, c.gy)
             for i in range(min(8, batch)):   # and against refmath
@@ -1384,6 +1439,7 @@ def phase_flows(device, card: str) -> dict:
 
 
 POOL_WORKERS = 2
+POOL_REQUESTS = 8192         # phase 9a/9b: the first phase-6 spends as requests (16,384 cut)
 POOL_WINDOW = 8192           # VerifierWorker's default ingest_window
 POOL_INGEST_SHARDS = 4       # phase 9b's decode shards
 POOL_SAMPLE = 256            # phase 9a: answers held against a CpuBatchVerifier worker
@@ -1660,7 +1716,8 @@ def phase_pool(device, card: str, fx) -> dict:
     verifier = _recording_verifier((CHUNK,), device)
     hub = notary_hub(fx, verifier)
     t0 = time.perf_counter()
-    ltxs = [stx.to_ledger_transaction(hub) for stx in fx.spends]
+    spends, labels = fx.spends[:POOL_REQUESTS], fx.labels[:POOL_REQUESTS]
+    ltxs = [stx.to_ledger_transaction(hub) for stx in spends]
     print(f"pool: {len(ltxs)} ledger transactions resolved in {time.perf_counter() - t0:.3f} s")
     launches = {}
     results = {}
@@ -1668,8 +1725,8 @@ def phase_pool(device, card: str, fx) -> dict:
         label = f"pool ({tag}" + (f", ingest shards={shards})" if shards else ")")
         verifier.calls = []
         with _GcClock() as gc_clock:
-            r = pool_pass(verifier, ltxs, fx.spends, shards)
-        _check_pool_answers(r["answers"], fx.labels, label)
+            r = pool_pass(verifier, ltxs, spends, shards)
+        _check_pool_answers(r["answers"], labels, label)
         for kernel in ("ed_ladder", "wei_ladder_windowed"):
             if r["launches"][kernel] == 0:
                 raise RuntimeError(f"{kernel} was not launched in the {label} drains")
@@ -1707,16 +1764,16 @@ def phase_pool(device, card: str, fx) -> dict:
     sample = sorted(_random.Random(POOL_SAMPLE).sample(range(len(ltxs)),
                                                        min(POOL_SAMPLE, len(ltxs))))
     cpu = pool_pass(CpuBatchVerifier(), [ltxs[i] for i in sample],
-                    [fx.spends[i] for i in sample])
+                    [spends[i] for i in sample])
     if cpu["answers"] != [results["9a"]["answers"][i] for i in sample]:
         raise RuntimeError("pool (9a): the card's answers differ from a CpuBatchVerifier worker's")
     print(f"pool (9a): {len(sample)} sampled answers equal a CpuBatchVerifier worker's")
 
     k = min(POOL_LOSS, len(ltxs))
     _zero_counters()
-    loss = pool_loss(verifier, ltxs[:k], fx.spends[:k])
+    loss = pool_loss(verifier, ltxs[:k], spends[:k])
     launches["9c"] = _read_counters()
-    _check_pool_answers(loss["answers"], fx.labels[:k], "pool worker loss (9c)")
+    _check_pool_answers(loss["answers"], labels[:k], "pool worker loss (9c)")
     if launches["9c"]["ed_ladder"] == 0:
         raise RuntimeError("ed_ladder was not launched by the surviving worker (9c)")
     print(f"pool worker loss (9c): {k} requests answered exactly once by the survivor in "
@@ -1753,7 +1810,7 @@ CLUSTER_BATCHES = (128, 4096)
 RAFT_MEMBERS = 3             # the notary demo's Raft cluster
 BFT_REPLICAS = 4             # the notary demo's BFT cluster: f = 1
 RAFT_ENTRIES = 4096          # phase 10c: 4 snapshots at the reference's interval of 1,024 (16,384 cut)
-DURABLE_FLUSH = 8192         # phase 10a: the first phase-6 spends per durable flush (16,384 cut)
+DURABLE_FLUSH = 4096         # phase 10a: the first phase-6 spends per durable flush (16,384, 8,192 cut)
 DURABLE_REOPEN = 256         # phase 10a: double spends sent to the reopened database
 
 
@@ -2430,10 +2487,10 @@ def _node_ledger(nodes, hub) -> dict:
     }
 
 
-def _same_node_ledger(card: dict, cpu: dict) -> None:
+def _same_node_ledger(card: dict, cpu: dict, label: str = "trio (11a)") -> None:
     for key in ("ids", "refused", "balances", "consumed", "commits"):
         if card[key] != cpu[key]:
-            raise RuntimeError(f"trio (11a): the card nodes' {key} differ from the "
+            raise RuntimeError(f"{label}: the card nodes' {key} differ from the "
                                f"CpuBatchVerifier nodes'")
 
 
@@ -2996,7 +3053,7 @@ LOAD_EMPTY = 50              # 12a: EmptyFlowLoadTest's round trips on Alice
 DEMO_SEED = 42               # 12b, 12d: the demos' default seed
 DEMO_TXS = (("batching", 2), ("single", 2))    # 12b: notary_demo flavours and their n_txs (16, 8; 4, 3 cut)
 FUZZ_CORPUS = (13, 30)       # 12c: the reference's slow bit-exact test's corpus (seed, n_txs)
-FUZZ_SCALE = (17, 1000)      # 12c: the same mutation over a 1,000-transaction ledger (2,000 cut)
+FUZZ_SCALE = (17, 500)       # 12c: the same mutation over a 500-transaction ledger (2,000, 1,000 cut)
 FUZZ_BATCHES = (128, 1024, 4096)   # 12c: phase 5's buckets
 FUZZ_SAMPLE = 256            # 12c: rows of the scaled corpus held against CpuBatchVerifier
 
@@ -3728,16 +3785,16 @@ def phase_telemetry(device, card: str, fx, sampler=None, cpu_worker: bool = Fals
 
 # -- phase 14: the notary's serving-path planes ---------------------------------
 
-PLANES_SPENDS = 8192         # 14a: the first phase-6 spends through QoS and the story
+PLANES_SPENDS = 4096         # 14a: the first phase-6 spends through QoS and the story (8,192 cut)
 PLANES_EXPIRED_EVERY = 32    # 14a: 1 spend in 32 arrives with its deadline already past
 PLANES_FLOOD_EVERY = 16      # 14a: 1 spend in 16 from the requester over its bucket
-PLANES_CLIENTS = 240         # 14a: the other requesters (~31 spends each: inside the burst)
+PLANES_CLIENTS = 240         # 14a: the other requesters (~15 spends each: inside the burst)
 PLANES_POLICY = dict(target_p99_micros=10_000_000, max_batch=4096, max_wait_micros=300_000,
                      admission_rate_per_sec=50, admission_burst=64)   # 14a: sized for this card
 PLANES_TIMED = 4096          # 14a: spends in the planes-on and the planes-off flush
 DEFAULT_SPENDS = 256         # 14b: spends under QosPolicy()
 DEFAULT_WAVES = 4            # 14b: arrival rounds, a tick after each
-DURABLE_SPENDS = 4096        # 14c: spends admitted before the kill
+DURABLE_SPENDS = 2048        # 14c: spends admitted before the kill (4,096 cut)
 DURABLE_SHARDS = 4           # 14c: the notary's shards and the commit log's partitions
 NODE_PLANE_SPENDS = 256      # 14d: spends through the node's notary
 PLANES_TIMEOUT = 120.0       # s any one drain may take before the phase fails
@@ -4279,7 +4336,7 @@ def phase_planes(device, card: str, fx, clock=None) -> dict:
 
 XSHARD_MEMBERS = ("N0", "N1", "N2")   # 15: the cross-shard cluster's members
 XSHARD_PARTITIONS = 6        # 15: partitions of the state-ref space (two per member)
-XSHARD_SPENDS = 4096         # 15a: the first phase-6 spends, round robin over the members
+XSHARD_SPENDS = 2048         # 15a: the first phase-6 spends, round robin over the members (4,096 cut)
 XSHARD_FAULT_SPENDS = 96     # 15b: "ok" spends after 15a's through the partition
 XSHARD_KILL_SPENDS = 64      # 15b: "ok" spends whose coordinator is killed after deciding
 XSHARD_POLICY = dict(timeout_micros=1_000_000, reservation_ttl_micros=1_000_000)
@@ -4682,6 +4739,614 @@ def phase_xshard(device, card: str, fx) -> dict:
     return {"launches": launches, "walls": walls, "wall_s": wall, "rate": served["rate"]}
 
 
+# -- phase 16: the web gateway, the shell, the replacement flows, the doorman --
+
+WEB_PAYMENTS = 8             # 16a: POST /api/cash/pay payments to Hub, round robin over the payers
+WEB_BATCH_WAIT = 50_000      # 16a: µs the hub's batching notary holds a flush open
+WEB_TIMEOUT = 180.0          # s any one request or drive step may take before the phase fails
+WEB_SETTLE = 10.0            # s the gateway accounting or the /cluster rollup may take to settle
+WEB_CORDAPPS = ("corda_tpu.finance", "corda_tpu.finance.web")
+# GET routes every gateway serves as JSON; a payer answers the notary's
+# planes (QoS, the state store, the shard map) with the reference's 404
+WEB_PLANES = ("/", "/perf", "/device", "/capacity", "/wire", "/qos", "/tx/slowest",
+              "/statestore", "/shards", "/health", "/healthz", "/traces", "/incidents",
+              "/api/status", "/api/network", "/api/notaries", "/api/vault", "/api/flows",
+              "/api/plugins", "/api/explorer/dashboard", "/api/explorer/states",
+              "/api/explorer/network", "/api/explorer/vault", "/api/explorer/machines")
+NOTARY_PLANES = ("/qos", "/statestore", "/shards")
+REPLACE_SEED = 23            # 16c: MockNetwork's seed
+# 16a over verifier_backend = "cpu" in a child process; argv[1] is its root
+WEB_CPU_DRIVE = (
+    "import json, os, sys; sys.path.insert(0, os.getcwd()); import chip_smoke as cs; "
+    "r = cs.web_drive(sys.argv[1], 'cpu'); "
+    "print('WEB_CPU ' + json.dumps({k: r[k] for k in ('ledger', 'boot_s', 'flows_s')}))")
+REPLACE_CONTRACT = "chip_smoke.CashV2"   # 16c: the upgrade's target contract
+
+
+class _WebRig(_NodeRig):
+    """Phase-11's rig with a web gateway on every node (web_port = 0,
+    the finance web API mounted). Requests go from a thread while this
+    thread pumps every node, as in phase 11: the gateway's handler
+    threads wait on RPC futures that the pumps resolve."""
+
+    def __init__(self, root: str, backend: str):
+        super().__init__(root, backend)
+        self.requests: dict = {}   # node name -> gateway requests made
+
+    def boot(self, name: str, hub=None, **kw):
+        return super().boot(name, hub, web_port=0, cordapps=WEB_CORDAPPS, **kw)
+
+    def pump_all(self) -> None:
+        for n in self.nodes:
+            n.pump()
+
+    def http(self, node, method: str, path: str, body=None) -> tuple:
+        """(status, content type, body text) of one request to `node`'s
+        gateway, the nodes pumped meanwhile."""
+        import urllib.error
+        import urllib.request
+
+        def call():
+            data = None if body is None else json.dumps(body).encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{node.web.port}{path}", data=data, method=method,
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=WEB_TIMEOUT) as r:
+                    return r.status, r.headers["Content-Type"], r.read().decode()
+            except urllib.error.HTTPError as e:
+                return e.code, e.headers["Content-Type"], e.read().decode()
+
+        name = node.config.name
+        self.requests[name] = self.requests.get(name, 0) + 1
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(call)
+            self.pump_until(fut.done, f"web {method} {name}{path}", WEB_TIMEOUT)
+            return fut.result()
+
+    def json(self, node, method: str, path: str, body=None, want: int = 200):
+        status, ctype, text = self.http(node, method, path, body)
+        if status != want or not ctype.startswith("application/json"):
+            raise RuntimeError(f"web {method} {node.config.name}{path}: {status} {ctype} "
+                               f"{text[:300]!r}, expected {want} JSON")
+        return json.loads(text)
+
+
+def _web_balances(rig, nodes) -> dict:
+    return {n.config.name: rig.json(n, "GET", "/api/cash/balances").get("USD", 0)
+            for n in nodes}
+
+
+def _check_planes(rig, nodes, hub, label: str) -> int:
+    """Every route of WEB_PLANES answers well-formed JSON on every node:
+    200, or 404 for the notary's planes on a payer; /metrics is
+    Prometheus text and /profile folded stacks. Returns the requests."""
+    n = 0
+    for node in nodes:
+        for path in WEB_PLANES:
+            want = 404 if node is not hub and path in NOTARY_PLANES else 200
+            rig.json(node, "GET", path, want=want)
+            n += 1
+        for path, kind in (("/metrics", "text/plain; version=0.0.4"), ("/profile", "text/plain")):
+            status, ctype, text = rig.http(node, "GET", path)
+            if status != 200 or ctype != kind or not text:
+                raise RuntimeError(f"{label}: GET {node.config.name}{path} answered {status} "
+                                   f"{ctype}")
+            n += 1
+        if "# TYPE" not in rig.http(node, "GET", "/metrics")[2]:
+            raise RuntimeError(f"{label}: {node.config.name}/metrics holds no metric")
+        n += 1
+    return n
+
+
+def _check_gateway_accounting(rig, nodes, label: str) -> dict:
+    """Each node's /wire counts every request the phase made to that
+    gateway before it (a request is recorded just after its answer is
+    sent, so the read is repeated until the last one lands)."""
+    seen = {}
+    for node in nodes:
+        name = node.config.name
+        deadline = time.monotonic() + WEB_SETTLE
+        while True:
+            made = rig.requests.get(name, 0)
+            eps = rig.json(node, "GET", "/wire")["gateway"]["endpoints"]
+            counted = sum(e["requests"] for e in eps.values())
+            if counted == made:
+                break
+            if counted > made or time.monotonic() > deadline:
+                raise RuntimeError(f"{label}: {name}'s /wire counts {counted} gateway "
+                                   f"requests, the phase made {made}")
+            time.sleep(0.05)
+        seen[name] = counted
+    return seen
+
+
+def _check_explorer(rig, nodes, ids: list, label: str) -> None:
+    """Each node's /api/explorer/transactions lists exactly what it
+    recorded, and every id the gateways answered is recorded."""
+    recorded_any = set()
+    for node in nodes:
+        listed = {t["full_id"] for t in rig.json(
+            node, "GET", "/api/explorer/transactions?limit=1000")["transactions"]}
+        recorded = {stx.id.bytes_.hex() for stx in node.services.validated_transactions.all()}
+        if listed != recorded or not recorded:
+            raise RuntimeError(f"{label}: {node.config.name}'s explorer lists {len(listed)} "
+                               f"transactions, it recorded {len(recorded)}")
+        recorded_any |= recorded
+    if not set(ids) <= recorded_any:
+        raise RuntimeError(f"{label}: a transaction the gateways answered is recorded by no node")
+
+
+def _check_peers(rig, hub, peers, tx_id: str, label: str) -> None:
+    """What the hub's gateway pulls from its peers' gateways: the
+    /cluster rollup sees every peer fresh, and GET /tx/<id> assembles
+    the story of a transaction the hub notarised."""
+    want = sorted(p.config.name for p in peers)
+    deadline = time.monotonic() + WEB_SETTLE
+    while True:
+        cluster = rig.json(hub, "GET", "/cluster")
+        fresh = sorted(name for name, e in cluster["nodes"].items()
+                       if name != hub.config.name and not e["stale"])
+        if fresh == want:
+            break
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{label}: {hub.config.name}'s /cluster sees {fresh} of the peers "
+                               f"{want} fresh")
+        time.sleep(0.1)
+    story = rig.json(hub, "GET", f"/tx/{tx_id.upper()}")
+    if not story.get("found") or not story.get("events"):
+        raise RuntimeError(f"{label}: GET /tx/<id> on {hub.config.name} holds no events: "
+                           f"{str(story)[:300]}")
+
+
+def web_drive(root: str, backend: str, calls=None, extras=None) -> dict:
+    """Phase 16a: Hub (map host; a batching notary over distributed
+    uniqueness with one member, the commit-log store and QoS), Alice
+    (ed25519), Bob (p256) and Carol (secp256k1) as port nodes over TCP
+    and TLS, each with its web gateway. Through the gateways only: each
+    payer issues to itself (POST /api/cash/issue), WEB_PAYMENTS payments
+    to Hub round robin over the payers (POST /api/cash/pay), one POST
+    /api/flows/CashPaymentFlow from Bob to Carol,
+    and a double spend (POST /api/flows/FinalityFlow of a spend of a
+    consumed coin) answered 400 with the notary's conflict. Then every
+    balance over GET /api/cash/balances against the model, every plane
+    of WEB_PLANES, the gateway accounting, the explorer's transaction
+    list, the Hub's /cluster rollup of its three peers and a story over
+    GET /tx/<id>. `extras(rig, nodes)` runs after the checks, before the
+    rig closes (16b and 16d). Raises unless every outcome is the
+    expected one; returns the ledger and the figures."""
+    from corda_tpu_torch.client import json_support as js
+    from corda_tpu_torch.finance import CashState
+
+    calls = calls if calls is not None else []
+    rig = _WebRig(root, backend)
+    try:
+        t_boot = time.perf_counter()
+        hub = rig.boot("Hub", notary="batching", notary_batch_wait_micros=WEB_BATCH_WAIT,
+                       notary_cluster_shards=6, cluster_peers=("Hub",),
+                       notary_state_store="commitlog", qos_enabled=True)
+        alice = rig.boot("Alice", hub)
+        bob = rig.boot("Bob", hub, scheme="secp256r1")
+        carol = rig.boot("Carol", hub, scheme="secp256k1")
+        payers = (alice, bob, carol)
+        nodes = (hub, *payers)
+        rig.discover("web (16a)")
+        boot_s = time.perf_counter() - t_boot
+        notary, = [p["name"] for p in rig.json(alice, "GET", "/api/notaries")]
+        ledger = {"ids": [], "refused": []}
+        model = {n.config.name: 0 for n in nodes}
+        t0, n0 = time.perf_counter(), len(calls)
+        for k, payer in enumerate(payers):
+            q = 1000 + k   # distinct amounts: distinct transactions
+            ledger["ids"].append(rig.json(payer, "POST", "/api/cash/issue", {
+                "quantity": q, "currency": "USD", "recipient": payer.config.name,
+                "notary": notary})["tx_id"])
+            model[payer.config.name] += q
+        t_pay, n_pay = time.perf_counter(), len(calls)
+        for k in range(WEB_PAYMENTS):
+            payer, payee = payers[k % 3], hub
+            q = 100 + 10 * k
+            ledger["ids"].append(rig.json(payer, "POST", "/api/cash/pay", {
+                "quantity": q, "currency": "USD", "recipient": payee.config.name})["tx_id"])
+            model[payer.config.name] -= q
+            model[payee.config.name] += q
+        pay_s = time.perf_counter() - t_pay
+        pay_calls = len(calls) - n_pay
+        carol_json = next(i["legal_identity"] for i in rig.json(bob, "GET", "/api/network")
+                          if i["legal_identity"]["name"] == "Carol")
+        res = rig.json(bob, "POST", "/api/flows/CashPaymentFlow",
+                       {"quantity": 50, "currency": "USD", "recipient": carol_json})["result"]
+        ledger["ids"].append(js.from_jsonable(res).id.bytes_.hex())
+        model["Bob"] -= 50
+        model["Carol"] += 50
+        # the double spend: Alice's issued coin, consumed by her first payment
+        coin = next(s for s in alice.vault.consumed_states(CashState)
+                    if s.state.data.amount.quantity == 1000)
+        stx = _spend(alice, coin, hub.services.network_map_cache.notary_identities()[0],
+                     carol.party)
+        err = rig.json(alice, "POST", "/api/flows/FinalityFlow",
+                       {"stx": js.to_jsonable(stx)}, want=400)["error"]
+        if "conflict" not in err:
+            raise RuntimeError(f"web (16a): the double spend was answered {err!r}, not the "
+                               f"notary's conflict")
+        ledger["refused"].append(err.split(":")[0])
+        flows_s = time.perf_counter() - t0
+        n_calls = len(calls) - n0
+
+        balances = _web_balances(rig, nodes)
+        if balances != model:
+            raise RuntimeError(f"web (16a): balances over the gateways {balances}, "
+                               f"expected {model}")
+        _check_explorer(rig, nodes, ledger["ids"], "web (16a)")
+        t_planes = time.perf_counter()
+        planes = _check_planes(rig, nodes, hub, "web (16a)")
+        planes_s = time.perf_counter() - t_planes
+        accounted = _check_gateway_accounting(rig, nodes, "web (16a)")
+        _check_peers(rig, hub, payers, ledger["ids"][3], "web (16a)")
+        out = {
+            "balances": balances,
+            "consumed": sorted({str(s.ref) for n in nodes
+                                for s in n.vault.consumed_states(CashState)}),
+            "commits": sorted((str(r), str(t)) for r, t in hub.statestore.committed.items()),
+            **ledger,
+        }
+        if len(out["commits"]) < WEB_PAYMENTS + 1:
+            raise RuntimeError(f"web (16a): the hub's notary committed {len(out['commits'])} "
+                               "inputs")
+        rows = [len(r) for r, _ in calls[n0:n0 + n_calls]]
+        result = {"ledger": out, "boot_s": boot_s, "flows": len(ledger["ids"]) + 1,
+                  "flows_s": flows_s, "pay_s": pay_s, "pay_calls": pay_calls,
+                  "calls": n_calls, "rows": rows, "planes": planes, "planes_s": planes_s,
+                  "accounted": accounted, "tls": rig.tls_source}
+        if extras is not None:
+            result.update(extras(rig, nodes))
+        return result
+    finally:
+        rig.close()
+
+
+def shell_drive(rig, nodes) -> dict:
+    """Phase 16b: `connect_remote` to Bob over the TLS fabric. A wrong
+    password is refused; with the right login `flow start
+    CashPaymentFlow` to Hub completes, `flow watch` renders its
+    progress steps and completes, `run vault_query_by` and `vault` list
+    Bob's states."""
+    from corda_tpu_torch.client import json_support as js
+    from corda_tpu_torch.client.shell import connect_remote
+    from corda_tpu_torch.finance import CashState
+    from corda_tpu_torch.node.vault_query import VaultQueryCriteria
+
+    hub, alice, bob, _ = nodes
+
+    def login(password: str):
+        shell, close = connect_remote("127.0.0.1", bob.messaging.listen_port, "Bob",
+                                      bob.tls.fingerprint, "admin", password,
+                                      timeout=WEB_TIMEOUT)
+        pump = shell.pump
+        shell.pump = lambda: (pump(), rig.pump_all())
+        return shell, close
+
+    bad, close = login("WRONG")
+    try:
+        out = bad.run_command("peers")
+    finally:
+        close()
+    if not out.startswith("error"):
+        raise RuntimeError(f"shell (16b): a wrong password was answered {out[:200]!r}")
+    shell, close = login("pw")
+    try:
+        t0 = time.perf_counter()
+        start = shell.run_command(
+            'flow start CashPaymentFlow quantity: 20, currency: "USD", recipient: Hub')
+        start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        watch = shell.run_command(
+            'flow watch CashPaymentFlow quantity: 5, currency: "USD", recipient: Hub')
+        watch_s = time.perf_counter() - t0
+        query = shell.run_command(
+            f"run vault_query_by {js.dumps(VaultQueryCriteria())}")
+        vault = shell.run_command("vault CashState")
+    finally:
+        close()
+    refs = [str(s.ref) for s in bob.vault.unconsumed_states(CashState)]
+    if "flow completed" not in start:
+        raise RuntimeError(f"shell (16b): flow start answered {start[:300]!r}")
+    if "flow completed" not in watch or "✓ verifying" not in watch:
+        raise RuntimeError(f"shell (16b): flow watch answered {watch[:300]!r}")
+    listed = sorted(str(s.ref) for s in js.loads(query).states)
+    if listed != sorted(refs):
+        raise RuntimeError(f"shell (16b): run vault_query_by listed {listed}, Bob holds {refs}")
+    if f"total: {len(refs)}" not in vault or not all(f"  {r}: CashState(" in vault for r in refs):
+        raise RuntimeError(f"shell (16b): vault answered {vault[-300:]!r}, Bob holds {refs}")
+    return {"shell": {"start_s": start_s, "watch_s": watch_s, "states": len(refs),
+                      "steps": watch.count("\n✓ ") + watch.startswith("✓ ")}}
+
+
+def _v2_types():
+    """The upgraded Cash state and its contract (16c), defined and
+    registered once."""
+    global _V2
+    if "_V2" not in globals():
+        from corda_tpu_torch.core import serialization as ser
+        from corda_tpu_torch.core.contracts import register_contract, require_that
+
+        @ser.serializable(tag="chip_smoke.CashStateV2")
+        @dataclasses.dataclass(frozen=True)
+        class CashStateV2:
+            amount: object
+            owner: object
+            version: int = 2
+
+            @property
+            def participants(self):
+                return (self.owner,)
+
+        class CashV2:
+            def verify(self, ltx) -> None:
+                require_that("v2 states carry version 2",
+                             all(s.version == 2 for s in ltx.outputs_of_type(CashStateV2)))
+
+        register_contract(REPLACE_CONTRACT, CashV2())
+        _V2 = CashStateV2
+    return _V2
+
+
+def replacement_drive(verifier) -> dict:
+    """Phase 16c on MockNetwork over `verifier`: NotaryOne (validating)
+    and NotaryTwo, Alice (ed25519) and Bob (p256). A coin issued under
+    NotaryOne is moved to NotaryTwo by NotaryChangeFlow (notarised by
+    NotaryOne) and spent under NotaryTwo; a double spend of the old
+    state is refused by NotaryOne ("conflict"); a second coin upgraded
+    by a registered ContractUpgradeFlow, and an upgrade to a contract
+    with no registered path refused. Raises unless every outcome is the
+    expected one; returns the ledger."""
+    from corda_tpu_torch.core.replacement import register_upgrade
+    from corda_tpu_torch.core.transactions import TransactionBuilder
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.finance.cash import (
+        CASH_CONTRACT, CashIssueFlow, CashMove, CashPaymentFlow, CashState)
+    from corda_tpu_torch.flows.core_flows import FinalityFlow
+    from corda_tpu_torch.flows.replacement import ContractUpgradeFlow, NotaryChangeFlow
+    from corda_tpu_torch.testing import MockNetwork
+
+    v2 = _v2_types()
+    register_upgrade(CASH_CONTRACT, REPLACE_CONTRACT, lambda old: v2(old.amount, old.owner))
+    net = MockNetwork(seed=REPLACE_SEED, batch_verifier=verifier)
+    n1 = net.create_notary("NotaryOne", validating=True)
+    n2 = net.create_notary("NotaryTwo")
+    alice = net.create_node("Alice")
+    bob = net.create_node("Bob", scheme_id=schemes.ECDSA_SECP256R1_SHA256)
+    ids, refused = [], []
+
+    def run(label, flow, refuse=None):
+        fsm = alice.start_flow(flow)
+        net.run()
+        try:
+            stx = fsm.result_or_throw()
+        except Exception as e:
+            if refuse is None or refuse not in str(e):
+                raise RuntimeError(f"replacement (16c) {label}: {type(e).__name__}: {e}") from e
+            refused.append([label, type(e).__name__])
+            return None
+        if refuse is not None:
+            raise RuntimeError(f"replacement (16c) {label}: was not refused")
+        ids.append(str(stx.id))
+        return stx
+
+    t0 = time.perf_counter()
+    ids.append(str(alice.run_flow(CashIssueFlow(1_000, "USD", alice.party, n1.party)).id))
+    coin = alice.vault.unconsumed_states(CashState)[0]
+    change = run("notary change", NotaryChangeFlow(coin, n2.party))
+    if not any(s.by == n1.party.owning_key for s in change.sigs):
+        raise RuntimeError("replacement (16c): NotaryOne did not notarise the change")
+    moved = alice.vault.unconsumed_states(CashState)[0]
+    if moved.state.notary != n2.party or moved.state.data != coin.state.data:
+        raise RuntimeError("replacement (16c): the state did not move to NotaryTwo unchanged")
+    pay = run("payment under NotaryTwo", CashPaymentFlow(400, "USD", bob.party))
+    if not any(s.by == n2.party.owning_key for s in pay.sigs):
+        raise RuntimeError("replacement (16c): NotaryTwo did not notarise the payment")
+    b = TransactionBuilder()
+    b.add_input_state(coin)
+    b.add_output_state(coin.state.data.with_owner(bob.party.owning_key), CASH_CONTRACT)
+    b.add_command(CashMove(), alice.party.owning_key)
+    run("double spend of the old state", FinalityFlow(alice.services.sign_initial_transaction(b)),
+        refuse="conflict")
+    ids.append(str(alice.run_flow(CashIssueFlow(500, "USD", alice.party, n1.party)).id))
+    coin = next(s for s in alice.vault.unconsumed_states(CashState)
+                if s.state.data.amount.quantity == 500)
+    run("unauthorised upgrade", ContractUpgradeFlow(coin, "chip_smoke.Unregistered"),
+        refuse="not authorised")
+    run("registered upgrade", ContractUpgradeFlow(coin, REPLACE_CONTRACT))
+    upgraded = alice.vault.unconsumed_states(v2)
+    if [s.state.contract for s in upgraded] != [REPLACE_CONTRACT] or any(
+            s.state.data.amount.quantity == 500 for s in alice.vault.unconsumed_states(CashState)):
+        raise RuntimeError("replacement (16c): the upgrade did not replace the coin")
+    vaults = {n.party.name: sorted((str(s.ref), s.state.notary.name, s.state.contract)
+                                   for cls in (CashState, v2)
+                                   for s in n.vault.unconsumed_states(cls))
+              for n in (alice, bob)}
+    return {"ids": ids, "refused": refused, "vaults": vaults,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _same_replacement(card: dict, cpu: dict) -> None:
+    for key in ("ids", "refused", "vaults"):
+        if card[key] != cpu[key]:
+            raise RuntimeError(f"replacement (16c): the card's {key} differ from the "
+                               f"CpuBatchVerifier run's")
+
+
+def _register(root: str, name: str, url: str, hub) -> tuple:
+    """node.toml for `name` under root (web gateway, map host Hub,
+    registration_server url) and a `python -m corda_tpu_torch.node
+    --config ... --initial-registration` process for it."""
+    from corda_tpu_torch.node.config import NodeConfig, RpcUserConfig, write_config
+
+    base = os.path.join(root, name)
+    os.makedirs(base, exist_ok=True)
+    toml = os.path.join(base, "node.toml")
+    write_config(NodeConfig(
+        name=name, base_dir=base, key_seed=NODE_SEED, registration_server=url, web_port=0,
+        cordapps=WEB_CORDAPPS, rpc_users=(RpcUserConfig("admin", "pw", ("ALL",)),),
+        network_map_peer=hub.config.name, network_map_host="127.0.0.1",
+        network_map_port=hub.messaging.listen_port,
+        network_map_fingerprint=hub.tls.fingerprint), toml)
+    proc = subprocess.Popen([sys.executable, "-m", "corda_tpu_torch.node", "--config", toml,
+                             "--initial-registration"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return toml, proc
+
+
+def doorman_drive(rig, nodes) -> dict:
+    """Phase 16d: an in-process PermissioningServer (auto-approve) over
+    a Doorman with its ledger under the rig's root. RegBank's node
+    process registers (`--initial-registration`, exit 0,
+    certificates/tls.pem stored); RegBank then boots in process from the
+    same node.toml on that TLS chain, joins the map and, through its
+    gateway, issues to itself and pays Alice once through the hub's
+    batching notary. A second RegBank (another key) is refused with the
+    doorman's "already in use"; a rule-violating name exits non-zero
+    before it asks."""
+    from corda_tpu_torch.node.config import load_config
+    from corda_tpu_torch.node.node import Node
+    from corda_tpu_torch.node.registration import Doorman, PermissioningServer
+    from corda_tpu_torch.utils import x509 as xu
+
+    hub, alice = nodes[0], nodes[1]
+    root = os.path.join(rig.root, "doorman")
+    server = PermissioningServer(Doorman.create(auto_approve=True,
+                                                data_dir=os.path.join(root, "dm"))).start()
+    try:
+        t0 = time.perf_counter()
+        toml, proc = _register(root, "RegBank", server.url, hub)
+        out, err = proc.communicate(timeout=WEB_TIMEOUT)
+        register_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"doorman (16d): --initial-registration exited "
+                               f"{proc.returncode}: {err[-500:]}")
+        _, dup = _register(os.path.join(root, "again"), "RegBank", server.url, hub)
+        _, bad = _register(root, "evil node corp", server.url, hub)
+        refusals = {}
+        for label, p in (("duplicate", dup), ("bad name", bad)):
+            _, perr = p.communicate(timeout=WEB_TIMEOUT)
+            refusals[label] = (p.returncode, perr.strip().splitlines()[-3:])
+    finally:
+        server.stop()
+    if refusals["duplicate"][0] == 0 or not any(
+            "legal name already in use: RegBank" in line for line in refusals["duplicate"][1]):
+        raise RuntimeError(f"doorman (16d): a second RegBank was answered {refusals['duplicate']}")
+    if refusals["bad name"][0] == 0 or not any(
+            "not allowed" in line for line in refusals["bad name"][1]):
+        raise RuntimeError(f"doorman (16d): a rule-violating name was answered "
+                           f"{refusals['bad name']}")
+    cfg = load_config(toml)
+    pem = open(os.path.join(cfg.base_dir, "certificates", "tls.pem"), "rb").read()
+    chain = [xu.load_cert(b"-----BEGIN CERTIFICATE" + c)
+             for c in pem.split(b"-----BEGIN CERTIFICATE")[1:]]
+    if len(chain) < 3 or not xu.validate_chain(*chain[1:]):
+        raise RuntimeError("doorman (16d): the stored TLS chain does not validate")
+    bank = Node(dataclasses.replace(cfg, verifier_backend=rig.backend)).start()
+    rig.nodes.append(bank)
+    served = xu.load_cert(bank.tls.cert_pem)
+    if served.serial_number != chain[0].serial_number:
+        raise RuntimeError("doorman (16d): RegBank does not serve its registered TLS leaf")
+    rig.discover("doorman (16d)")
+    notary, = [p["name"] for p in rig.json(bank, "GET", "/api/notaries")]
+    t0 = time.perf_counter()
+    ids = [rig.json(bank, "POST", "/api/cash/issue", {
+        "quantity": 77, "currency": "USD", "recipient": "RegBank", "notary": notary})["tx_id"]]
+    ids.append(rig.json(bank, "POST", "/api/cash/pay", {
+        "quantity": 7, "currency": "USD", "recipient": "Alice"})["tx_id"])
+    bank_s = time.perf_counter() - t0
+    got = _web_balances(rig, (bank,))["RegBank"]
+    if got != 70:
+        raise RuntimeError(f"doorman (16d): RegBank holds {got}, expected 70")
+    return {"doorman": {"register_s": register_s, "ids": ids, "pay_s": bank_s,
+                        "refusals": refusals, "chain": len(chain)}}
+
+
+def phase_web(device, card: str) -> dict:
+    """Phase 16 (module docstring); returns the in-process launches of
+    16a-16d."""
+    import tempfile
+
+    from corda_tpu_torch.crypto import batch_verifier as bv
+
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "corda_tpu_torch")
+    os.makedirs(scratch, exist_ok=True)
+    t_phase = time.perf_counter()
+    verifier = _recording_verifier(CLUSTER_BATCHES, device)
+
+    def extras(rig, nodes):
+        return {**shell_drive(rig, nodes), **doorman_drive(rig, nodes)}
+
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="web-") as tmp:
+        # 16a again over verifier_backend = "cpu", in a process of its own
+        # beside the card's drive: the CPU's nodes launch nothing
+        cpu_proc = subprocess.Popen(
+            [sys.executable, "-c", WEB_CPU_DRIVE, os.path.join(tmp, "web-cpu")],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        # the in-process nodes' backend "tpu" is default_verifier(): this
+        # recording CudaBatchVerifier on the card
+        bv.set_default_verifier(verifier)
+        try:
+            _zero_counters()
+            web = web_drive(os.path.join(tmp, "web"), "tpu", verifier.calls, extras)
+            n0 = len(verifier.calls)
+            t0 = time.perf_counter()
+            card_replace = replacement_drive(verifier)
+            replace_calls = len(verifier.calls) - n0
+            launches = _read_counters()
+        finally:
+            bv.set_default_verifier(None)
+        out, err = cpu_proc.communicate(timeout=WEB_TIMEOUT)
+    lines = [line for line in out.splitlines() if line.startswith("WEB_CPU ")]
+    if cpu_proc.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"web (16a): the CPU drive's process exited {cpu_proc.returncode}: "
+                           f"{err[-800:]}")
+    cpu = json.loads(lines[0][len("WEB_CPU "):])
+    cpu_s = cpu["flows_s"] + cpu["boot_s"]
+    # the card's ledger as JSON carries it (tuples as lists)
+    _same_node_ledger(json.loads(json.dumps(web["ledger"])), cpu["ledger"], "web (16a)")
+    _same_replacement(card_replace, replacement_drive(bv.CpuBatchVerifier()))
+    rows = web["rows"]
+    print(f"web (16a): TLS from {web['tls']}; 4 nodes with gateways booted and discovered in "
+          f"{web['boot_s']:.3f} s; {web['flows']} flows over REST in {web['flows_s']:.3f} s; "
+          f"{WEB_PAYMENTS} POST /api/cash/pay in {web['pay_s']:.3f} s = "
+          f"{WEB_PAYMENTS / web['pay_s']:.3f} REST payments/s, "
+          f"{web['pay_calls'] / WEB_PAYMENTS:.2f} card calls per REST payment; "
+          f"{web['calls']} card calls, rows per call {min(rows)}-{max(rows)}; the double spend "
+          f"refused {web['ledger']['refused']}; balances over the gateways "
+          f"{web['ledger']['balances']}; {web['planes']} plane requests answered in "
+          f"{web['planes_s']:.3f} s; /wire accounts {json.dumps(web['accounted'])}; {card}")
+    print(f"web (16a) over verifier_backend = \"cpu\" (boot and flows {cpu_s:.3f} s, its "
+          f"own process): the same "
+          f"{len(cpu['ledger']['ids'])} transaction ids, refusal, balances, "
+          f"{len(cpu['ledger']['consumed'])} consumed refs and {len(cpu['ledger']['commits'])} "
+          f"notary commits")
+    sh = web["shell"]
+    print(f"shell (16b): remote login to Bob over TLS, a wrong password refused; flow start "
+          f"CashPaymentFlow {sh['start_s']:.3f} s, flow watch {sh['watch_s']:.3f} s "
+          f"({sh['steps']} steps rendered done), run vault_query_by and vault list Bob's "
+          f"{sh['states']} states; {card}")
+    print(f"replacement (16c): ids {len(card_replace['ids'])}, refused "
+          f"{card_replace['refused']}, {replace_calls} card calls, "
+          f"{card_replace['wall_s']:.3f} s; the CpuBatchVerifier run's ids, refusals and "
+          f"vaults equal; {card}")
+    dm = web["doorman"]
+    print(f"doorman (16d): --initial-registration exit 0 in {dm['register_s']:.3f} s (a "
+          f"{dm['chain']}-certificate TLS chain); RegBank booted on it, issued and paid Alice "
+          f"in {dm['pay_s']:.3f} s; refused: {json.dumps(dm['refusals'])}; {card}")
+    for kernel in ("ed_ladder", "wei_ladder_windowed", "wei_ladder"):
+        if launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} was not launched in the web phase")
+    print(f"web (ph. 16) launches: {json.dumps(launches)}; wall "
+          f"{time.perf_counter() - t_phase:.3f} s; {card}")
+    return {"launches": launches, "web": web, "replacement": card_replace}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the kernel table JSON here")
@@ -4717,20 +5382,30 @@ def main(argv=None) -> int:
 
     print_resources()
     report: dict = {}
-    phase_parity(device, report)
-    phase_timing(device, report)
-    phase_prologue(device)
-    phase_main(device, report)
-    _, fx = phase_notary(device, card)
-    phase_schemes(device, card, fx)
-    phase_flows(device, card)
-    phase_pool(device, card, fx)
-    clusters = phase_clusters(device, card, fx)
-    nodes = phase_nodes(device, card, fx)
-    drives = phase_drives(device, card)
-    telemetry = phase_telemetry(device, card, fx)["launches"]
-    planes = phase_planes(device, card, fx)["launches"]
-    xshard = phase_xshard(device, card, fx)["launches"]
+    walls = {"build": round(time.perf_counter() - t0, 1)}
+
+    def timed(phase: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[phase] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed("3 parity", phase_parity, device, report)
+    timed("3 timing", phase_timing, device, report)
+    timed("4", phase_prologue, device)
+    timed("5", phase_main, device, report)
+    _, fx = timed("6", phase_notary, device, card)
+    timed("7", phase_schemes, device, card, fx)
+    timed("8", phase_flows, device, card)
+    timed("9", phase_pool, device, card, fx)
+    clusters = timed("10", phase_clusters, device, card, fx)
+    nodes = timed("11", phase_nodes, device, card, fx)
+    drives = timed("12", phase_drives, device, card)
+    telemetry = timed("13", phase_telemetry, device, card, fx)["launches"]
+    planes = timed("14", phase_planes, device, card, fx)["launches"]
+    xshard = timed("15", phase_xshard, device, card, fx)["launches"]
+    web = timed("16", phase_web, device, card)["launches"]
+    print(f"phase walls (s): {json.dumps(walls)}; total {time.perf_counter() - t0:.1f} s; {card}")
     for n, r in report.items():
         r["clusters_launches"] = clusters[n]
         r["nodes_launches"] = nodes[n]
@@ -4738,11 +5413,12 @@ def main(argv=None) -> int:
         r["telemetry_launches"] = telemetry[n]
         r["planes_launches"] = planes[n]
         r["xshard_launches"] = xshard[n]
+        r["web_launches"] = web[n]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "clusters_launches",
             "nodes_launches", "drives_launches", "telemetry_launches", "planes_launches",
-            "xshard_launches")
+            "xshard_launches", "web_launches")
     table = {"kernels": [
         {k: ({"name": n, **r}[k]) for k in keys} for n, r in report.items()
     ]}

@@ -1,7 +1,7 @@
 """Flow framework of the port (port of corda_tpu/flows): durable,
 resumable multi-party protocols as generators driven by a
-StateMachineManager, with event-sourced checkpoints. The reference's
-notary-change and upgrade flows (flows/replacement.py) are not ported.
+StateMachineManager, with event-sourced checkpoints, and the
+notary-change and contract-upgrade flows (flows/replacement.py).
 """
 
 from .api import (

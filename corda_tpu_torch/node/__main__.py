@@ -1,10 +1,12 @@
 """CLI entry point: `python -m corda_tpu_torch.node --config node.toml`.
 
 Port of corda_tpu/node/__main__.py: `python -m corda_tpu_torch.node
---config node.toml [--log-level L] [--print-port]`. The node verifies
-on the card unless its config sets `verifier_backend = "cpu"`.
-`--initial-registration` (node/registration.py) is not ported: it
-raises NotImplementedError naming ROADMAP Queue 1 #3.6.
+--config node.toml [--log-level L] [--print-port]
+[--initial-registration]`. The node verifies on the card unless its
+config sets `verifier_backend = "cpu"`. `--initial-registration`
+registers with the doorman named by `registration_server`
+(node/registration.py), stores the certificates under `base_dir` and
+exits; the node boots on them next time.
 
 Reference: NodeStartup.main (node/.../internal/NodeStartup.kt:44-99) —
 banner, config load, logging init, node.start() + run().
@@ -36,14 +38,11 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--initial-registration", action="store_true",
-        help="not ported (node/registration.py, ROADMAP Queue 1 #3.6)",
+        help="register with the permissioning server named by "
+        "registration_server in the config, store certificates, and exit "
+        "(NodeStartup's --initial-registration)",
     )
     args = parser.parse_args(argv)
-    if args.initial_registration:
-        raise NotImplementedError(
-            "--initial-registration: node/registration.py is not ported "
-            "(ROADMAP Queue 1 #3.6)"
-        )
 
     logging.basicConfig(
         level=args.log_level,
@@ -54,6 +53,44 @@ def main(argv=None) -> int:
     except (ConfigError, OSError) as e:
         print(f"bad config: {e}", file=sys.stderr)
         return 1
+
+    if args.initial_registration:
+        from .registration import (
+            CertificateRequestException,
+            HttpRegistrationService,
+            NetworkRegistrationHelper,
+        )
+
+        if not config.registration_server:
+            print(
+                "bad config: --initial-registration needs "
+                "registration_server", file=sys.stderr,
+            )
+            return 1
+        root_pem = None
+        if config.network_root_file:
+            try:
+                with open(config.network_root_file, "rb") as f:
+                    root_pem = f.read()
+            except OSError as e:
+                print(f"bad network_root_file: {e}", file=sys.stderr)
+                return 1
+        helper = NetworkRegistrationHelper(
+            config.base_dir, config.name,
+            HttpRegistrationService(config.registration_server),
+            email=config.email,
+            network_root_pem=root_pem,
+        )
+        try:
+            helper.build_keystore()
+        except CertificateRequestException as e:
+            print(str(e), file=sys.stderr)
+            print(
+                "Please make sure the details in the configuration file "
+                "are correct and try again.", file=sys.stderr,
+            )
+            return 1
+        return 0
 
     print(banner(config))
     node = Node(config).start()
@@ -67,6 +104,8 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, shutdown)
     if args.print_port:
         print(f"P2P_PORT={node.messaging.listen_port}", flush=True)
+    if node.web is not None:
+        print(f"WEB_PORT={node.web.port} (/web/explorer/)", flush=True)
     try:
         node.run()
     finally:

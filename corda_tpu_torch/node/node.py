@@ -27,9 +27,10 @@ plane its config asks for. `notary_cluster_shards > 0` builds the
 batching notary over a DistributedUniquenessProvider
 (node/distributed_uniqueness.py): the state-ref space partitioned
 across `cluster_peers`, its coordinator and reservation journals on the
-node database, recovered at boot and ticked on the pump. `web_port >= 0`,
-whose plane the port lacks, raises NotImplementedError at boot naming
-its ROADMAP item.
+node database, recovered at boot and ticked on the pump. `web_port >= 0`
+binds the web gateway (client/webserver.py, with the ledger explorer of
+tools/web_explorer.py mounted) before the NodeInfo freezes, advertises
+its port through the network map and serves once boot is done.
 
 Reference: `AbstractNode.start()` boot ordering (node/.../internal/
 AbstractNode.kt:163-222 — database, services, messaging, notary, SMM,
@@ -82,15 +83,6 @@ from .services import (
 )
 
 
-def _refuse_unported(config: NodeConfig) -> None:
-    """Refuse, before the node opens its database or binds a socket, a
-    web port: the port lacks the web gateway."""
-    if config.web_port >= 0:
-        raise NotImplementedError(
-            "web_port >= 0: not ported (ROADMAP Queue 1 #3.4 (the web gateway))"
-        )
-
-
 class Node:
     """One production node process (reference: Node.kt).
 
@@ -106,7 +98,6 @@ class Node:
         clock: Optional[Clock] = None,
         batch_verifier: Optional[BatchSignatureVerifier] = None,
     ):
-        _refuse_unported(config)
         self.config = config
         # CorDapps first: their import registers states/commands with
         # the canonical codec (decoding a peer's transaction needs the
@@ -398,17 +389,18 @@ class Node:
         self.device_plane = None
         self._device_plane_error = None
         if config.device_telemetry_enabled:
-            from ..utils.device_telemetry import DevicePlane, DeviceSampler
+            from ..utils.device_telemetry import DevicePlane, DeviceSampler, host_devices
             from .notary import _on_card
 
             self.device_plane = DevicePlane(
                 clock=self.services.clock,
                 metrics=self.metrics,
                 perf=self.perf,
-                # a node that verifies on the CPU has no device to read;
-                # one on the card samples the card (and raises without it)
+                # a node that verifies on the CPU samples the host as one
+                # cpu device; one on the card samples the card (and
+                # raises without it)
                 sampler=(DeviceSampler() if _on_card(self.services)
-                         else DeviceSampler(lambda: [])),
+                         else DeviceSampler(host_devices)),
             )
             notary = getattr(self.services, "notary_service", None)
             if isinstance(notary, BatchingNotaryService):
@@ -996,10 +988,28 @@ class Node:
         import dataclasses
 
         self.messaging.start()
-        # the fabric bound its listen port; advertise the real one (no
-        # web port: the gateway is not ported, web_port >= 0 raises)
+        # web gateway bound BEFORE the NodeInfo freezes (its port is
+        # advertised through the network map so peers can pull
+        # GET /health for the /cluster rollup) but not yet SERVING:
+        # answering /healthz during a slow boot (checkpoint restore,
+        # map registration) would feed an orchestrator 503s and
+        # restart-loop exactly the slow-starting nodes. A bind failure
+        # (port taken) must not strand a half-started node.
+        self.web = None
+        if self.config.web_port >= 0:
+            u = self.config.rpc_users[0]
+            try:
+                self.web = self._build_webserver(
+                    u.username, u.password, port=self.config.web_port
+                )
+            except Exception:
+                self.stop()
+                raise
+        # the fabric bound its listen port; advertise the real one
         self.info = dataclasses.replace(
-            self.info, port=self.messaging.listen_port
+            self.info,
+            port=self.messaging.listen_port,
+            web_port=self.web.port if self.web is not None else None,
         )
         self.services.my_info = self.info
         self.services.network_map_cache.add_node(self.info)
@@ -1029,6 +1039,8 @@ class Node:
                 "restored %d checkpointed flows", restored
             )
         self.running = True
+        if self.web is not None:
+            self.web.start()
         if self.perf is not None and self.config.perf_profile_hz > 0:
             # continuous profiling over this node's long-lived threads,
             # started after boot so first launches don't dominate
@@ -1143,6 +1155,9 @@ class Node:
             and run_thread is not threading.current_thread()
         ):
             run_thread.join(timeout=5)
+        web = getattr(self, "web", None)
+        if web is not None:
+            web.stop()
         self.scheduler.stop()
         self.smm.stop()
         notary = getattr(self.services, "notary_service", None)
@@ -1175,12 +1190,46 @@ class Node:
         )
 
     def webserver(self, username: str, password: str, port: int = 0):
-        """The embedded web gateway (client/webserver.py) is not ported
-        (ROADMAP Queue 1 #3.4)."""
-        raise NotImplementedError(
-            "the web gateway (client/webserver.py) is not ported "
-            "(ROADMAP Queue 1 #3.4)"
+        """Embedded web gateway over the node's own RPC surface, with
+        this node's MetricRegistry at /metrics, the flight recorder at
+        /traces, the QoS plane (when enabled) at /qos, the health
+        plane at /healthz + /health, the fleet rollup at /cluster,
+        the perf plane at /perf (+ folded profiler stacks at
+        /profile), the device plane at /device + the capacity model at
+        /capacity, the ledger explorer UI at /web/explorer/, and the
+        wire and gateway plane at /wire. The node's pump loop (run())
+        drives message delivery, so the gateway itself only polls
+        futures (pass a real pump when embedding without run())."""
+        return self._build_webserver(username, password, port).start()
+
+    def _build_webserver(self, username: str, password: str, port: int = 0):
+        """Bind the gateway without serving yet — start() begins the
+        accept loop once the node is fully booted (the bound port is
+        what NodeInfo.web_port advertises)."""
+        from ..client.webserver import NodeWebServer
+        from ..tools import web_explorer  # noqa: F401 - /api/explorer
+
+        return NodeWebServer(
+            self.rpc_client(username, password),
+            pump=lambda: None,
+            port=port,
+            metrics=self.metrics,
+            tracer=self.tracer,
+            qos=self.qos,
+            health=self.health,
+            cluster=self.cluster_health,
+            perf=self.perf,
+            cluster_traces=self.cluster_traces,
+            incidents=self.incidents,
+            shards=self.xshard,
+            txstory=self.txstory,
+            cluster_tx=self.cluster_tx,
+            device=self.device_plane,
+            wire=self.wire_plane,
+            statestore=self.statestore,
+            slow_request_micros=self.config.web_slow_request_micros,
         )
+
 
 def banner(config: NodeConfig) -> str:
     return (

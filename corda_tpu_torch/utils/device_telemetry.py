@@ -214,6 +214,20 @@ class CudaDevice:
         }
 
 
+class HostDevice:
+    """The host CPU as the sampler reads it, for a node that verifies on
+    the CPU: one device, platform "cpu", no memory stats (its row's hbm
+    is null), as the reference samples its CPU backend."""
+
+    id = 0
+    platform = "cpu"
+    device_kind = "cpu"
+
+
+def host_devices() -> list:
+    return [HostDevice()]
+
+
 def cuda_devices() -> list:
     """Every visible torch CUDA device; raises where torch.cuda cannot
     be queried (no card, no driver, a CPU build of torch)."""
@@ -232,7 +246,7 @@ class DeviceSampler:
 
     `devices_fn` is injectable (fake devices with scripted
     `memory_stats()` drive the hbm_pressure tests and rigs; a node that
-    verifies on the CPU passes `lambda: []`), and an injected function
+    verifies on the CPU passes `host_devices`), and an injected function
     that fails samples as no devices, as in the reference. The default
     is `cuda_devices()`, which raises where torch.cuda cannot be
     queried: a sampler meant to see the card never reads an empty list

@@ -17,7 +17,10 @@ ticked on the pump):
 
   GatewayAccounting  - request accounting at the web gateway's dispatch
       table: per-endpoint request count, handler wall, bytes served,
-      slow-handler count. Only a recorder until the gateway is ported.
+      slow-handler count, recorded by client/webserver.py's dispatch
+      wrapper. The plane windows these into requests/s and the share of
+      wall time spent in handlers (they share the interpreter lock with
+      the pump).
 
   WirePlane          - the facade: `tick()` on the pump cadence pulls
       journal/backlog/dedupe depths from the attached fabric and

@@ -8,8 +8,10 @@ the reference.
   Among them: the capacity model naming host_pump with headroom, the
   what_if substitutions, unmeasured resources unbounded, the knob
   parser's errors, the staging copy timed into both ledgers, the
-  hbm-pressure, utilization-collapse and fallback-bridge alerts, and
-  the config knob.
+  hbm-pressure, utilization-collapse and fallback-bridge alerts, the
+  config knob, and /device and /capacity served by a booted node's
+  gateway (a node that verifies on the CPU samples the host as one cpu
+  device, as the reference samples its CPU backend).
 - Two cases read the device itself and get port-side versions: the
   default sampler lists the card through torch.cuda (and raises where
   there is none, instead of the reference's empty CPU-backend list),
@@ -31,16 +33,13 @@ import pytest
 pytest.importorskip("torch")
 
 from test_torch_fabric import port_cases, run_port_case  # noqa: E402
-from test_torch_perf import BENCH, GATEWAY, verifier_port_module  # noqa: E402
+from test_torch_perf import BENCH, verifier_port_module  # noqa: E402
 
 LEFT_OUT = {
     "test_multi_device_dispatch_attribution":
         "verifiers pinned to several cards (ROADMAP Queue 1 #7)",
     "test_fleet_device_fault_tells_the_telemetry_story":
         "the fleet rig, testing/fleet.py (ROADMAP Queue 1 #11)",
-    "test_node_boots_device_plane_and_serves_endpoints": f"serves /device and /capacity: {GATEWAY}",
-    "test_webserver_device_404_when_not_wired": GATEWAY,
-    "test_disabled_plane_serves_404_on_a_booted_node": f"web_port: {GATEWAY}",
     "test_bench_quick_device_bounds_overhead_and_names_host_pump": BENCH,
 }
 
@@ -119,7 +118,7 @@ def test_reference_case_on_the_port(name, case, tmp_path, monkeypatch):
 
 
 def test_case_count():
-    assert len(port_cases("test_device_telemetry", LEFT_OUT)) == 11
+    assert len(port_cases("test_device_telemetry", LEFT_OUT)) == 14
     ref = vars(importlib.import_module("tests.test_device_telemetry"))
     assert set(LEFT_OUT) <= set(ref) and set(PORT_CASES) <= set(ref)
 

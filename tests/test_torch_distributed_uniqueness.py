@@ -10,8 +10,8 @@ raft.partition_raft_groups in the port, held against the reference.
   typed answer and alert, the three kill arcs, the same-tx re-commit,
   the unreachable mark, the orphan against an empty journal, the
   xshard spans, the QoS lane, the per-partition raft groups, the config
-  knobs and the three-process TCP kill -9 (its child processes run the
-  port).
+  knobs, GET /shards through the port's gateway and the three-process
+  TCP kill -9 (its child processes run the port).
 - Cross-package:
   - the same seeded rig in both packages gives equal decision logs,
     equal committed maps, byte-equal `TOPIC_XSHARD` frames, and equal
@@ -43,7 +43,6 @@ from test_torch_persistence import _dump_sqlite  # noqa: E402
 PACKAGES = ("corda_tpu", "corda_tpu_torch")
 MEMBERS = ("A", "B", "C")
 FLEET = "the fleet rig, testing/fleet.py (ROADMAP Queue 1 #11)"
-GATEWAY = "GET /shards: the web gateway, client/webserver.py (ROADMAP Queue 1 #3.4)"
 BENCH = "the reference's bench.py (the port's benchmark is ROADMAP Queue 1 #1)"
 LEFT_OUT = {
     "test_batching_members_serve_cross_member_spends":
@@ -52,8 +51,6 @@ LEFT_OUT = {
     "test_fleet_chaos_during_reserve_window_zero_orphans_zero_lost": FLEET,
     "test_fleet_acceptance_10k_identities_chaos_bit_exact": FLEET,
     "test_fleet_small_acceptance_chaos_bit_exact": FLEET,
-    "test_booted_node_serves_shards_endpoint": GATEWAY,
-    "test_shards_endpoint_404_when_unwired": GATEWAY,
     "test_bench_quick_distributed_smoke": BENCH,
     "test_bench_history_gates_xshard_verdicts": f"tools/bench_history over {BENCH}",
 }
@@ -69,7 +66,7 @@ def test_reference_case_on_the_port(name, case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_distributed_uniqueness", LEFT_OUT)) == 17
+    assert len(port_cases("test_distributed_uniqueness", LEFT_OUT)) == 19
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_distributed_uniqueness")))
 
 

@@ -59,31 +59,31 @@ def port_cases(name: str, left_out: dict) -> list:
 
 def run_port_case(mod, case: str, tmp_path, **given) -> None:
     """One reference case, from the port module `mod`, with its fixtures
-    (plain or generator) built the way pytest builds them; `given`
-    supplies pytest's own fixtures (e.g. monkeypatch) by name."""
+    (plain or generator, and the fixtures they take) built once each the
+    way pytest builds them; `given` supplies pytest's own fixtures (e.g.
+    monkeypatch) by name."""
     fn = getattr(mod, case)
-    teardown, kwargs, counter = [], {}, iter(range(100))
+    teardown, built, counter = [], dict(given), iter(range(100))
 
     def tmp():
         d = tmp_path / f"tmp{next(counter)}"
         d.mkdir()
         return d
 
-    try:
-        for arg in inspect.signature(fn).parameters:
-            if arg in given:
-                kwargs[arg] = given[arg]
-                continue
-            if arg == "tmp_path":
-                kwargs[arg] = tmp()
-                continue
+    def build(arg):
+        if arg == "tmp_path":
+            return tmp()
+        if arg not in built:
             fixture = getattr(mod, arg).__wrapped__
-            value = fixture(**{a: tmp() for a in inspect.signature(fixture).parameters})
+            value = fixture(**{a: build(a) for a in inspect.signature(fixture).parameters})
             if inspect.isgenerator(value):
                 teardown.append(value)
                 value = next(value)
-            kwargs[arg] = value
-        fn(**kwargs)
+            built[arg] = value
+        return built[arg]
+
+    try:
+        fn(**{arg: build(arg) for arg in inspect.signature(fn).parameters})
     finally:
         for gen in reversed(teardown):
             for _ in gen:

@@ -2,14 +2,14 @@
 the port, held against the reference.
 
 - Every case of the reference's tests/test_health.py but those in
-  LEFT_OUT runs with its imports read as corda_tpu_torch on the port
-  (its module-level import of the web gateway, which no ported case
-  uses, is dropped); the reference side is the reference's own module.
-  Among them: a wedged verifier drain thread (the worker's `health=`),
-  the watchdog's stall and livelock detection, alert hysteresis, the
-  ring rule, the event log, the canary riding a real batching-notary
-  flush (`attach_health`), its deadman, and the cluster rollup's stale
-  peer.
+  LEFT_OUT runs with its imports read as corda_tpu_torch on the port;
+  the reference side is the reference's own module. Among them: a
+  wedged verifier drain thread (the worker's `health=`), the watchdog's
+  stall and livelock detection, alert hysteresis, the ring rule, the
+  event log, the canary riding a real batching-notary flush
+  (`attach_health`), its deadman, the cluster rollup's stale peer over
+  two gateways, and /healthz, /health and the gateway's index served by
+  the port's gateway and by booted nodes.
 - The same health drive in both packages leaves equal snapshots and
   event logs; the same spans give equal Chrome exports, stage and phase
   summaries.
@@ -39,28 +39,19 @@ from test_torch_fabric import port_cases, run_port_case  # noqa: E402
 from test_torch_persistence import TESTS  # noqa: E402
 
 PACKAGES = ("corda_tpu", "corda_tpu_torch")
-GATEWAY = "the web gateway, client/webserver.py (ROADMAP Queue 1 #3.4)"
 LEFT_OUT = {
-    "test_wedged_flush_tick_flips_healthz_and_auto_resolves": f"serves /healthz: {GATEWAY}",
-    "test_webserver_index_content_types_and_json_404": GATEWAY,
-    "test_health_summary_query_serves_condensed_form": GATEWAY,
-    "test_cluster_rollup_two_nodes_with_stale_peer": GATEWAY,
-    "test_node_boots_health_plane_and_serves_endpoints": f"web_port: {GATEWAY}",
-    "test_node_health_peer_urls_follow_the_network_map": f"web_port: {GATEWAY}",
     "test_bench_quick_health_emits_wellformed_record":
         "the reference's bench.py (the port's benchmark is ROADMAP Queue 1 #1)",
 }
 
 
 def port_test_module(name: str, subs=(), **overrides) -> types.ModuleType:
-    """tests/<name>.py on the port: its module-level import of the web
-    gateway dropped, `subs` ((old, new) source pairs) applied,
-    `corda_tpu.` read as `corda_tpu_torch.`, and `overrides` set on the
-    module (port-side versions of its helpers and cases)."""
+    """tests/<name>.py on the port: `subs` ((old, new) source pairs)
+    applied, `corda_tpu.` read as `corda_tpu_torch.`, and `overrides`
+    set on the module (port-side versions of its helpers and cases)."""
     key = f"_torch_port_{name}"
     if key not in sys.modules:
         src = (TESTS / f"{name}.py").read_text()
-        src = src.replace("from corda_tpu.client.webserver import NodeWebServer\n", "")
         for a, b in subs:
             assert a in src, a
             src = src.replace(a, b)
@@ -74,7 +65,7 @@ def port_test_module(name: str, subs=(), **overrides) -> types.ModuleType:
 
 
 def health_port_module() -> types.ModuleType:
-    """tests/test_health.py on the port, without its web-gateway import."""
+    """tests/test_health.py on the port."""
     return port_test_module("test_health")
 
 
@@ -88,7 +79,7 @@ def test_reference_case_on_the_port(name, case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_health", LEFT_OUT)) == 11
+    assert len(port_cases("test_health", LEFT_OUT)) == 17
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_health")))
 
 

@@ -14,7 +14,12 @@ the node CLI (`python -m corda_tpu_torch.node`) and the verifier
 worker process (`python -m corda_tpu_torch.node.verifier --cpu`) with
 the same block, and reads their `sys.modules` once they serve; the
 worker runs once more with `--profile-hz`, its sampling profiler on,
-and must write its folded stacks.
+and must write its folded stacks. A fourth check runs the three CLIs of
+the gateway slice with the same block: the doorman (`python -m
+corda_tpu_torch.node.registration`), a node registering with it
+(`python -m corda_tpu_torch.node --initial-registration`) and the
+remote shell (`python -m corda_tpu_torch.client.shell`, its input at an
+end), and reads their `sys.modules` as they exit.
 """
 
 import ast
@@ -58,13 +63,16 @@ def test_ast_scan_finds_no_banned_import():
     and wire planes) and of the serving-planes slice (QoS, the
     transaction story, the commit-log state store) and of the
     cross-member slice (distributed uniqueness, raft, the lock factory,
-    the sanitizer and its crash-schedule explorer) are scanned.
+    the sanitizer and its crash-schedule explorer) and of the gateway
+    slice (the JSON mapping, the shell, the web gateway, the progress
+    renderer, the cash web API, the web explorer, the replacement flows,
+    the doorman) are scanned.
     The Cash contract's
     wire name, "corda_tpu.finance.Cash", the sandbox's platform module
     names and the flows' class tags are strings, not imports."""
     offenders = []
     files = _modules()
-    assert len(files) >= 88
+    assert len(files) >= 97
     for must in ("crypto/eddsa.py", "node/notary.py", "node/services.py",
                  "core/transactions.py", "finance/cash.py", "native/__init__.py",
                  "native/build.py", "crypto/sphincs.py", "core/sandbox.py",
@@ -83,7 +91,10 @@ def test_ast_scan_finds_no_banned_import():
                  "utils/perf.py", "utils/device_telemetry.py", "utils/wire_telemetry.py",
                  "utils/txstory.py", "node/statestore.py", "node/persistence.py",
                  "node/distributed_uniqueness.py", "node/raft.py", "utils/locks.py",
-                 "testing/sanitizer.py"):
+                 "testing/sanitizer.py", "client/json_support.py", "client/shell.py",
+                 "client/webserver.py", "utils/progress_render.py", "finance/web.py",
+                 "tools/__init__.py", "tools/web_explorer.py", "flows/replacement.py",
+                 "node/registration.py"):
         assert PKG / must in files
     assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
         "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh", "wei_ladder.cu"
@@ -320,3 +331,69 @@ def test_profiled_worker_process_loads_neither_jax_nor_the_reference(tmp_path):
     assert serving == "SERVING True []"
     stacks = folded.read_text().splitlines()
     assert stacks and all(line.rsplit(" ", 1)[1].isdigit() for line in stacks)
+
+
+_CLI_PROCESS = r"""
+import importlib, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "corda_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+module, argv = sys.argv[1], sys.argv[2:]
+try:
+    rc = importlib.import_module(module).main(argv)
+finally:
+    banned = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu"))
+    print("LOADED", banned, flush=True)
+sys.exit(rc)
+"""
+
+
+def _cli(module: str, *argv: str, **kw):
+    return subprocess.Popen([sys.executable, "-c", _CLI_PROCESS, module, *argv], cwd=ROOT,
+                            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, **kw)
+
+
+def _loaded(out: str) -> str:
+    line, = [x for x in out.splitlines() if x.startswith("LOADED")]
+    return line
+
+
+def test_doorman_registration_and_shell_clis_load_neither_jax_nor_the_reference(tmp_path):
+    """The doorman CLI serving, a node CLI registering with it over HTTP
+    (`--initial-registration`, which stores certificates/tls.pem and
+    exits 0) and the remote shell CLI (its input at an end, so it exits
+    0 at once), each with importing jax or corda_tpu blocked: neither
+    is in its sys.modules."""
+    import signal
+
+    from corda_tpu_torch.node.config import NodeConfig, write_config
+
+    doorman = _cli("corda_tpu_torch.node.registration", "--port", "0",
+                   "--data-dir", str(tmp_path / "dm"))
+    try:
+        url = doorman.stdout.readline().strip()
+        assert url.startswith("DOORMAN_URL=http://"), doorman.stderr.read()
+        toml = tmp_path / "node.toml"
+        write_config(NodeConfig(name="Solo", base_dir=str(tmp_path / "solo"),
+                                registration_server=url.split("=", 1)[1]), str(toml))
+        node = _cli("corda_tpu_torch.node.__main__", "--config", str(toml),
+                    "--initial-registration")
+        out, err = node.communicate(timeout=120)
+        assert node.returncode == 0, err
+        assert _loaded(out) == "LOADED []"
+        assert (tmp_path / "solo" / "certificates" / "tls.pem").exists()
+    finally:
+        doorman.send_signal(signal.SIGINT)
+        out, err = doorman.communicate(timeout=60)
+    assert doorman.returncode == 0, err
+    assert _loaded(out) == "LOADED []"
+    shell = _cli("corda_tpu_torch.client.shell", "--host", "127.0.0.1", "--port", "1",
+                 "--node", "Solo", "--fingerprint", "00" * 32, "--user", "u",
+                 "--password", "p")
+    out, err = shell.communicate(timeout=120)
+    assert shell.returncode == 0, err
+    assert "corda_tpu_torch shell" in out and _loaded(out) == "LOADED []"

@@ -1,8 +1,8 @@
 """Node boot, config, the network map and RPC in the port, held against
 the reference.
 
-- Every case of the reference's tests/test_node.py but those in
-  LEFT_OUT runs with its imports read as corda_tpu_torch on the port,
+- Every case of the reference's tests/test_node.py (LEFT_OUT is empty
+  since the gateway and the shell came in) runs with its imports read as corda_tpu_torch on the port,
   over real sockets (test_torch_fabric.run_port_case); the reference
   side is the reference's own module.
 - Byte equality: `write_config` output (each file loads in the other
@@ -23,10 +23,10 @@ the reference.
   without one; its first signature check raises the device error and
   a notary on the default backend answers no flush `ok`; nothing
   answers on the CPU in its place.
-- D6 and the refusals: a default node boots without the perf, device,
-  wire and txstory planes with one WARNING; every answer-path option
-  whose plane is not ported raises NotImplementedError naming its
-  ROADMAP item before the node opens its database or binds a port.
+- D6: a node builds every plane its config asks for
+  (`unported_planes == ()`), and none when the config turns them off.
+- `web_port = 0` boots the gateway and serves /healthz; the node CLI's
+  `--initial-registration` stores the doorman's TLS chain.
 - A node booted from a node.toml with `notary_cluster_shards = 6`
   serves spends over its DistributedUniquenessProvider (`node.xshard`)
   with the reference node's answers and `shards_snapshot()`.
@@ -49,10 +49,7 @@ from test_torch_fabric import port_cases, run_port_case  # noqa: E402
 from test_torch_persistence import port_module  # noqa: E402
 
 PACKAGES = ("corda_tpu", "corda_tpu_torch")
-LEFT_OUT = {
-    "test_web_gateway_from_config": "the web gateway, client/webserver.py (ROADMAP Queue 1 #3.4)",
-    "test_remote_shell_login": "the shell, client/shell.py (ROADMAP Queue 1 #3.4)",
-}
+LEFT_OUT: dict = {}
 
 
 def _m(prefix: str, name: str):
@@ -65,7 +62,7 @@ def test_reference_case_on_the_port(name, case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_node", LEFT_OUT)) == 9
+    assert len(port_cases("test_node", LEFT_OUT)) == 11
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_node")))
 
 
@@ -451,23 +448,28 @@ def test_default_node_boots_without_the_unported_planes(tmp_path, caplog):
     quiet.db.close()
 
 
-REFUSED = [
-    ("web_port", dict(web_port=0, rpc_users=()), "#3.4"),
-]
+def test_node_with_web_port_zero_serves_healthz(tmp_path):
+    """`web_port = 0` binds the gateway on a free port before the NodeInfo
+    freezes, advertises that port and serves GET /healthz once booted;
+    stop() closes it."""
+    import json
+    import urllib.request
 
-
-@pytest.mark.parametrize("option,kw,item", REFUSED, ids=[r[0] for r in REFUSED])
-def test_answer_path_option_raises_before_the_node_binds(option, kw, item, tmp_path):
     from corda_tpu_torch.node.config import NodeConfig, RpcUserConfig
     from corda_tpu_torch.node.node import Node
 
-    if option == "web_port":
-        kw = dict(kw, rpc_users=(RpcUserConfig("u", "p", ("ALL",)),))
-    cfg = NodeConfig(name="X", base_dir=str(tmp_path / "x"), **kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}".replace("(", r"\(")
-                       .replace(")", r"\)")):
-        Node(cfg)
-    assert not os.path.exists(tmp_path / "x")
+    node = Node(NodeConfig(name="Web", base_dir=str(tmp_path / "web"), web_port=0,
+                           verifier_backend="cpu",
+                           rpc_users=(RpcUserConfig("u", "p", ("ALL",)),))).start()
+    try:
+        assert node.web is not None and node.info.web_port == node.web.port > 0
+        with urllib.request.urlopen(f"http://127.0.0.1:{node.web.port}/healthz",
+                                    timeout=30) as r:
+            assert r.status == 200 and json.loads(r.read())["status"] in ("ok", "degraded")
+    finally:
+        node.stop()
+    with pytest.raises(OSError):
+        urllib.request.urlopen(f"http://127.0.0.1:{node.web.port}/healthz", timeout=5)
 
 
 def _cluster_spends(notary, n: int = 4):
@@ -620,11 +622,26 @@ def test_plane_option_boots_with_its_plane(option, kw, built, tmp_path):
         node.stop()
 
 
-def test_initial_registration_raises(tmp_path):
+def test_initial_registration_stores_the_tls_chain(tmp_path):
+    """`--initial-registration` against an in-process doorman over HTTP
+    exits 0 with certificates/tls.pem stored; without registration_server
+    it exits 1."""
     from corda_tpu_torch.node.__main__ import main
+    from corda_tpu_torch.node.config import NodeConfig, write_config
+    from corda_tpu_torch.node.registration import Doorman, PermissioningServer
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #3\.6"):
-        main(["--config", str(tmp_path / "none.toml"), "--initial-registration"])
+    server = PermissioningServer(Doorman.create(auto_approve=True)).start()
+    try:
+        base = tmp_path / "reg"
+        toml = tmp_path / "node.toml"
+        write_config(NodeConfig(name="RegBank", base_dir=str(base),
+                                registration_server=server.url), str(toml))
+        assert main(["--config", str(toml), "--initial-registration"]) == 0
+        assert b"BEGIN CERTIFICATE" in (base / "certificates" / "tls.pem").read_bytes()
+        write_config(NodeConfig(name="Lone", base_dir=str(tmp_path / "lone")), str(toml))
+        assert main(["--config", str(toml), "--initial-registration"]) == 1
+    finally:
+        server.stop()
 
 
 def test_worker_process_without_cpu_exits_with_the_device_error(tmp_path):

@@ -3,8 +3,8 @@ the reference.
 
 - Every case of the reference's tests/test_perf.py but those in
   LEFT_OUT runs on the port with its imports read as corda_tpu_torch
-  (test_torch_health.port_test_module: its module-level import of the
-  web gateway, which no ported case uses, is dropped). The reference's
+  (test_torch_health.port_test_module), GET /perf and /profile through
+  the port's gateway among them. The reference's
   TpuBatchVerifier is the port's CudaBatchVerifier on device="cpu",
   and its `_stub_kernels` (an
   accept-all `TpuBatchVerifier._kernel`) becomes a stub of the
@@ -35,11 +35,8 @@ pytest.importorskip("torch")
 from test_torch_fabric import port_cases, run_port_case  # noqa: E402
 from test_torch_health import port_test_module  # noqa: E402
 
-GATEWAY = "the web gateway, client/webserver.py (ROADMAP Queue 1 #3.4)"
 BENCH = "the reference's bench.py (the port's benchmark is ROADMAP Queue 1 #1)"
 LEFT_OUT = {
-    "test_node_boots_perf_plane_and_serves_attribution": f"serves /perf and /profile: {GATEWAY}",
-    "test_webserver_perf_404_when_not_wired": GATEWAY,
     "test_bench_quick_perf_bounds_overhead_and_counts_retrace": BENCH,
 }
 
@@ -99,7 +96,7 @@ def test_reference_case_on_the_port(name, case, tmp_path, monkeypatch):
 
 
 def test_case_count():
-    assert len(port_cases("test_perf", LEFT_OUT)) == 15
+    assert len(port_cases("test_perf", LEFT_OUT)) == 17
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_perf")))
 
 

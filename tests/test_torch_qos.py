@@ -9,9 +9,8 @@ port, held against the reference.
   answers and span events, the flow-carried deadline, the admission
   gate, the verifier worker's shed, the config knobs and the 2x
   overload soak on a TestClock, each over CpuBatchVerifier as the
-  reference's cases are. The soak's closing read of GET /qos is cut:
-  the gateway is ROADMAP Queue 1 #3.4; the snapshot it served is the
-  one compared below.
+  reference's cases are, the soak ending with its read of GET /qos
+  through the port's gateway, and GET /qos served by a booted node.
 - One TestClock drive through both packages' NotaryQos (admission,
   lanes, brownout, per-shard controllers, admitted latencies) leaves
   equal `snapshot()`s and equal controller trajectories after every
@@ -36,23 +35,14 @@ from test_torch_health import port_test_module  # noqa: E402
 from test_torch_persistence import TESTS  # noqa: E402
 
 PACKAGES = ("corda_tpu", "corda_tpu_torch")
-GATEWAY = "the web gateway, client/webserver.py (ROADMAP Queue 1 #3.4)"
 LEFT_OUT = {
-    "test_node_boots_qos_plane_and_serves_get_qos": f"serves GET /qos: {GATEWAY} "
-                                                    "(the boot alone: test_torch_node.py)",
-    "test_qos_endpoint_serves_control_plane_state": GATEWAY,
     "test_bench_quick_qos_emits_wellformed_overload_record":
         "the reference's bench.py (the port's benchmark is ROADMAP Queue 1 #1)",
 }
-# the soak's closing GET /qos read: the rest of the reference module (as
-# port_test_module sees it, its gateway imports already dropped)
-_QOS_SRC = (TESTS / "test_qos.py").read_text().replace(
-    "from corda_tpu.client.webserver import NodeWebServer\n", "")
-SOAK_GATEWAY = _QOS_SRC[_QOS_SRC.index("    # -- visible at GET /qos"):]
 
 
 def qos_port_module():
-    return port_test_module("test_qos", subs=((SOAK_GATEWAY, ""),))
+    return port_test_module("test_qos")
 
 
 @pytest.mark.parametrize("name,case", port_cases("test_qos", LEFT_OUT))
@@ -61,7 +51,7 @@ def test_reference_case_on_the_port(name, case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_qos", LEFT_OUT)) == 15
+    assert len(port_cases("test_qos", LEFT_OUT)) == 17
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_qos")))
 
 

@@ -9,8 +9,9 @@ bank_of_corda_demo and attachment_demo. Required equal: every
 transaction id any node recorded (chip_smoke.recorded_networks), the
 notary signer keys per transaction and the demo's result. `find_flow_class`
 gives the reference's tags for the flows of every ported search package,
-refuses a class that is not a flow, and skips the packages the port does
-not hold (flows/replacement.py, samples/irs_demo.py).
+refuses a class that is not a flow, resolves the replacement flows
+(flows/replacement.py) to the reference's tags, and skips the package
+the port does not hold (samples/irs_demo.py).
 """
 
 from __future__ import annotations
@@ -110,10 +111,11 @@ def test_find_flow_class_gives_the_reference_tags():
             port.find_flow_class(name)
         with pytest.raises(ref.FlowLookupError):
             ref.find_flow_class(name)
-    # the search packages the port does not hold are skipped
-    assert ref.find_flow_class("NotaryChangeFlow") == "corda_tpu.flows.replacement.NotaryChangeFlow"
-    with pytest.raises(port.FlowLookupError):
-        port.find_flow_class("NotaryChangeFlow")
+    # the replacement flows resolve to the reference's tags
+    for name in ("NotaryChangeFlow", "ContractUpgradeFlow"):
+        tag = f"corda_tpu.flows.replacement.{name}"
+        assert port.find_flow_class(name) == ref.find_flow_class(name) == tag
+        assert class_from_tag(tag).__module__ == "corda_tpu_torch.flows.replacement"
 
 
 def test_wait_rpc_pumps_until_resolved():

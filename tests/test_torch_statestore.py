@@ -11,7 +11,8 @@ reference.
   sqlite (commit_many and a serial replay); the partition primitives;
   the one-way sqlite migration; the re-shard migration; the sqlite
   provider's one-query probes and O(1) counts; the config knob; a node
-  booting the store; a node's boot migration.
+  booting the store; a node's boot migration; GET /statestore through
+  the port's gateway.
 - The intent-WAL cases of the reference's tests/test_fault_tolerance.py
   (INTENT_CASES: appends and resolutions, replay after a kill, a node's
   boot replay) run on the port the same way; its module-level import of
@@ -44,8 +45,6 @@ from test_torch_persistence import _dump_sqlite  # noqa: E402
 
 PACKAGES = ("corda_tpu", "corda_tpu_torch")
 LEFT_OUT = {
-    "test_webserver_serves_statestore_and_404_when_sqlite":
-        "GET /statestore: the web gateway, client/webserver.py (ROADMAP Queue 1 #3.4)",
     "test_bench_quick_statestore_gates_the_scale_story":
         "the reference's bench.py (the port's benchmark is ROADMAP Queue 1 #1)",
     "test_fleet_distributed_commitlog_soak_reconciles_through_kill":
@@ -73,7 +72,7 @@ def test_reference_intent_wal_case_on_the_port(case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_statestore", LEFT_OUT)) == 18
+    assert len(port_cases("test_statestore", LEFT_OUT)) == 19
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_statestore")))
     assert set(INTENT_CASES) <= set(vars(importlib.import_module("tests.test_fault_tolerance")))
 

@@ -11,11 +11,12 @@ reference.
   attribution, the batching notary's complete stories, the intent WAL's
   journal and replay events across a kill, the degraded flush's
   outcome, the parallel peer fan-out and the cross-member merge, and
-  the config knobs. Two source changes, both named in SUBS: the
-  reference's module-level import of the fleet rig (ROADMAP Queue 1
-  #11, used only by left-out cases) is dropped, and its MockNetwork,
-  which builds the default device verifier, gets CpuBatchVerifier (the
-  port's default is the card); the degraded-flush case turns the
+  the config knobs, and GET /tx/<id> and /tx/slowest served by the
+  gateway, one timeline assembled across two processes. Source changes,
+  all named in SUBS: the reference's module-level import of the fleet
+  rig (ROADMAP Queue 1 #11, used only by left-out cases) is dropped,
+  and its MockNetworks, which build the default device verifier, get
+  CpuBatchVerifier (the port's default is the card); the degraded-flush case turns the
   notary's `degraded_fallback` on, which the port leaves off by default
   (divergence D2; the verifier here is on the CPU, where the port
   allows it).
@@ -42,26 +43,24 @@ from test_torch_health import port_test_module  # noqa: E402
 from test_torch_persistence import _dump_sqlite  # noqa: E402
 
 PACKAGES = ("corda_tpu", "corda_tpu_torch")
-GATEWAY = "the web gateway, client/webserver.py (ROADMAP Queue 1 #3.4)"
 FLEET = "the fleet rig, testing/fleet.py (ROADMAP Queue 1 #11)"
 LEFT_OUT = {
-    "test_node_boots_provenance_plane_and_serves_tx_timeline": f"serves GET /tx: {GATEWAY}",
-    "test_tx_endpoints_404_when_unwired": GATEWAY,
     "test_fleet_chaos_passes_lifecycle_reconciliation": FLEET,
     "test_lifecycle_checker_rejects_doctored_ledger": FLEET,
     "test_lifecycle_checker_requires_stories_for_submissions": FLEET,
-    "test_two_process_tx_timeline_assembles_across_members": f"serves GET /tx: {GATEWAY}",
     "test_bench_quick_txstory_smoke":
         "the reference's bench.py (the port's benchmark is ROADMAP Queue 1 #1)",
 }
 SUBS = (
     ("from corda_tpu.testing import fleet as fl\n", ""),
-    # the indent the dropped gateway import leaves on the next line
-    ("        from corda_tpu.core import serialization as ser\n",
-     "    from corda_tpu.core import serialization as ser\n"),
     ("    net = MockNetwork(seed=3)\n",
      "    from corda_tpu.crypto.batch_verifier import CpuBatchVerifier\n\n"
      "    net = MockNetwork(seed=3, batch_verifier=CpuBatchVerifier())\n"),
+    # the two-process case's MockNetworks, in this process and the child
+    ("    net = MockNetwork(seed=11)\n",
+     "    from corda_tpu.crypto.batch_verifier import CpuBatchVerifier\n\n"
+     "    net = MockNetwork(seed=11, batch_verifier=CpuBatchVerifier())\n"),
+    ("\nnet = MockNetwork(seed=11)\n", "\nnet = MockNetwork(seed=11, batch_verifier=CpuBatchVerifier())\n"),
     ("    svc.attach_txstory(story)\n    injector = DispatchFaultInjector(",
      "    svc.attach_txstory(story)\n    svc.degraded_fallback = True\n"
      "    injector = DispatchFaultInjector("),
@@ -78,7 +77,7 @@ def test_reference_case_on_the_port(name, case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_txstory", LEFT_OUT)) == 17
+    assert len(port_cases("test_txstory", LEFT_OUT)) == 20
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_txstory")))
 
 

@@ -9,7 +9,8 @@ seams in the port, held against the reference.
   windows and depths, the in-memory fabric's seam and its bounded dedupe
   table, the journal-growth, backlog and gateway-saturation alerts, the
   capacity model naming `wire`, the what_if wire knob, the device
-  plane's wire feed and the config knobs.
+  plane's wire feed, the config knobs, and GET /wire through the port's
+  gateway accounting every request it served.
 - Every case of tests/test_wire_link_accounting.py runs on the port the
   same way: two real processes over TCP, a redelivery cycle under
   injected faults reconciled in both planes' books, the durable dedupe
@@ -34,14 +35,9 @@ pytest.importorskip("torch")
 
 from test_torch_fabric import port_cases, run_port_case  # noqa: E402
 from test_torch_health import port_test_module  # noqa: E402
-from test_torch_perf import BENCH, GATEWAY  # noqa: E402
+from test_torch_perf import BENCH  # noqa: E402
 
 LEFT_OUT = {
-    "test_webserver_serves_wire_and_accounts_every_request": GATEWAY,
-    "test_webserver_wire_404_when_not_wired": GATEWAY,
-    "test_slow_request_micros_zero_disables_the_log": GATEWAY,
-    "test_booted_node_serves_wire_with_nonzero_accounting": f"serves /wire: {GATEWAY}",
-    "test_disabled_plane_serves_404_on_a_booted_node": f"web_port: {GATEWAY}",
     "test_bench_quick_wire_bounds_overhead_and_accounts_gateway": BENCH,
 }
 
@@ -51,9 +47,9 @@ def _m(prefix: str, name: str):
 
 
 @pytest.mark.parametrize("name,case", port_cases("test_wire_telemetry", LEFT_OUT))
-def test_reference_case_on_the_port(name, case, tmp_path, monkeypatch):
+def test_reference_case_on_the_port(name, case, tmp_path, monkeypatch, caplog):
     run_port_case(port_test_module("test_wire_telemetry"), case, tmp_path,
-                  monkeypatch=monkeypatch)
+                  monkeypatch=monkeypatch, caplog=caplog)
 
 
 @pytest.mark.parametrize("name,case", port_cases("test_wire_link_accounting", {}))
@@ -62,7 +58,7 @@ def test_link_accounting_case_on_the_port(name, case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_wire_telemetry", LEFT_OUT)) == 18
+    assert len(port_cases("test_wire_telemetry", LEFT_OUT)) == 23
     assert len(port_cases("test_wire_link_accounting", {})) == 3
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_wire_telemetry")))
 

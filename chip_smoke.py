@@ -1,9 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of corda_tpu_torch's verification paths on one CUDA card.
 
-    python3 chip_smoke.py [--out PATH]
+    python3 chip_smoke.py [--out PATH] [--lane-dir DIR]
 
-Phases (any failure raises and exits non-zero):
+Phases (any failure raises and exits non-zero). Phases 1, 2, 3's
+timing and 4 run first, in this process alone. Then the phases run in
+four processes at once on the one card (QUIET, HOME and LANES below
+main): here 3's parity, 5, 6, 8 and 14; in three lanes (this script with
+`--lane`, each printing what it prints into a file, relayed after this
+process's own lines) 11, 13, 15 and 7; 16 and 10; 12, 17 and 9. A lane
+without phase 6 builds the same fixture itself. The parts that count
+the card's CUDA contexts (11c, 11d, 12a) hold a lock that no other part
+starting or stopping a card process holds meanwhile, and every lane
+keeps its context until all have finished. Walls and rates of phases
+3's parity and 5-17 are taken beside the other processes:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from corda_tpu_torch/csrc with nvcc (one
      process per source, all started together) and, beside them, the
@@ -80,7 +90,7 @@ Phases (any failure raises and exits non-zero):
      signature byte is refused by FinalityFlow (InvalidSignature) and by
      the notary ("invalid-transaction"); a double spend raises
      NotaryException "conflict"; every balance exact; (b) a batching
-     notary for shards 1 and 4: 4 payments from 4 payers (issuance
+     notary for shards 1 and 4: 2 payments from 2 payers (issuance
      recorded straight into the vaults) started before one pump round
      and notarised in one flush (one dispatch per shard holding
      requests), every payment completed and every balance exact, no
@@ -93,10 +103,10 @@ Phases (any failure raises and exits non-zero):
   9. the out-of-process verifier pool and the pipelined wire ingest
      (node/verifier.py, node/ingest.py) on the phase-6 fixture, over
      one CudaBatchVerifier(batch_sizes=(4096,)) that two VerifierWorkers
-     share (batch_window 8,192): (a) the first 8,192 spends sent with
+     share (batch_window 8,192): (a) the first 4,096 spends sent with
      `verify(ltx, stx)` from a node endpoint of an
      InMemoryMessagingNetwork, each ltx resolved on the fixture's hub;
-     each worker answers its 4,096 in one drain and one verify_batch
+     each worker answers its 2,048 in one drain and one verify_batch
      dispatch (Verifier.BatchSize); every answer must be its label (an
      InvalidSignature failure exactly for the flipped signatures,
      success for the rest: the worker checks no uniqueness or notary),
@@ -134,7 +144,7 @@ Phases (any failure raises and exits non-zero):
      spend; prints notarisations/s, the flush wall, phase_seconds and
      the seconds in sqlite; (b) a validating Raft cluster of 3 persistent
      members on MockNetwork(db_dir=) over CudaBatchVerifier(batch_sizes=
-     (128, 4096)): an issue, four payments (two resolving a backchain)
+     (128, 4096)): an issue, three payments (two resolving a backchain)
      from ed25519, p256 and secp256k1 nodes, a double spend refused
      "conflict" with every member's map holding the first spend, the
      leader stopped and a payment under the new leader, the live maps
@@ -176,9 +186,10 @@ Phases (any failure raises and exits non-zero):
      printed), a flipped signature refused at finality and by the
      notary, a double spend refused "conflict", Bob stopped and booted
      again from his base_dir (his vault page equal, a payment to him
-     settled); the same drive over verifier_backend = "cpu" nodes must
-     leave the same transaction ids, refusals, balances, consumed refs
-     and notary commits; prints flows/s, card calls per flow, rows per
+     settled); the same drive over verifier_backend = "cpu" nodes (in a
+     process of its own, beside the card's drive) must leave the same
+     transaction ids, refusals, balances, consumed refs and notary
+     commits; prints flows/s, card calls per flow, rows per
      call and each node's fabric frames, bytes and journal depths; (b)
      a raft-validating cluster of 3 and a bft cluster of 4 (f = 1), each
      with a map host and Alice: an issue, a spend, a double spend
@@ -226,7 +237,7 @@ Phases (any failure raises and exits non-zero):
      latency and empty flows/s; the children's launches go uncounted.
      The launch counters set to 0 before 12b and read after 12d: (b)
      samples/notary_demo.run on its default verifier (the card),
-     "batching" with 2 payments (sharing flushes) and "single" with 2:
+     "batching" with 2 payments (sharing flushes) and "single" with 1:
      one notary signature per transaction, and the same transaction ids
      and signer keys as the same run over CpuBatchVerifier; prints tx/s;
      (c) the reference's fuzz corpus (GeneratedLedger(13).grow(30),
@@ -255,7 +266,7 @@ Phases (any failure raises and exits non-zero):
      time, the ladder kernel's share of it and the card's busy share of
      the window, beside the device plane's busy fraction (the launch
      wall) for the same window; (c) the flush with the planes on and
-     off, 3 interleaved pairs, the min-of-walls overhead (not gated);
+     off, 2 interleaved pairs, the min-of-walls overhead (not gated);
      (d) a `python -m corda_tpu_torch.node.verifier --profile-hz 19
      --profile-out <file>` process draining 256 requests for a node's
      pool, every answer its label, SIGINT exit 0 and a non-empty
@@ -354,8 +365,8 @@ Phases (any failure raises and exits non-zero):
      commit-log store and QoS), Alice (ed25519), Bob (p256) and Carol
      (secp256k1) as port nodes over TCP and TLS, each booted with
      web_port = 0 and the finance web API; through the gateways only:
-     each payer issues to itself (POST /api/cash/issue), 8 payments to Hub
-     round robin over the payers (POST /api/cash/pay; a payee that does
+     each payer issues to itself (POST /api/cash/issue), 3 payments to Hub,
+     one per payer (POST /api/cash/pay; a payee that does
      not pay on keeps each backchain one payer long), one POST
      /api/flows/CashPaymentFlow from Bob to Carol and
      a double spend (POST /api/flows/FinalityFlow) answered 400 with the
@@ -390,12 +401,38 @@ Phases (any failure raises and exits non-zero):
      the doorman's "legal name already in use", a rule-violating name
      exits non-zero before it asks. ed_ladder, wei_ladder_windowed and
      wei_ladder must launch; prints each part's seconds and the phase's;
- 17. print the kernel table as one JSON line (with each kernel's
+ 17. the samples (samples/irs_demo.py, simulation.py, simm_demo.py,
+     simm_web.py, simm.py, pricing.py; finance/commodity.py under the
+     SIMM book) over one recording CudaBatchVerifier(batch_sizes=(128,
+     4096)), the launch counters set to 0 before 17a and read after
+     17d's demos; each demo again over CpuBatchVerifier in this process,
+     and every recorded transaction id, final state, trace and answer
+     equal to the card's: (a) irs_demo.run(seed=42, n_fixings=3): the
+     scheduler fires the fixings at 500, 507 and 514 bp, the rate
+     oracle signing each Fix-only tear-off, and no date is left; the
+     oracle refuses a wrong rate and a tear-off revealing every
+     component (tests/test_samples.py's shape); prints the seconds and
+     the card calls per fixing; (b) run_irs_simulation(seed=42): the
+     trace, with FixingFlow and OracleSignHandler lines and flow-added
+     and flow-removed events; (c) simm_demo.run at one trade per family
+     (a swap, a swaption, an FX forward, a CDS, an equity option and a
+     commodity forward: every risk class, psi aggregation): the recorded
+     valuation equal to the CPU run's to the bit, and simm_im on the host
+     over each party's recorded book equal to its margin; (d) the
+     /api/simm API on an in-process gateway over MockNetwork (a
+     swaption, GET portfolio/margin, the calculate POST, GET
+     portfolio/valuations), the JSON equal to the CPU run's; then
+     estimate_margins_batch on the card (float32, TF32 off) over 65,536
+     seeded portfolios x 12 tenors against float64 bucket_margins, the
+     max relative error held to 1e-4. ed_ladder must launch; prints
+     each part's seconds and card calls and the phase's wall;
+ 18. print the kernel table as one JSON line (with each kernel's
      launches in phase 10 as "clusters_launches", in 11a-11b as
      "nodes_launches", in 12b-12d as "drives_launches", in 13a-13c as
      "telemetry_launches", in 14a-14d as "planes_launches", in 15a-15c
-     as "xshard_launches" and in 16a-16d as "web_launches"), then the
-     result line {"ok": true, "device": {...}}.
+     as "xshard_launches", in 16a-16d as "web_launches" and in 17a-17d
+     as "samples_launches"), then the result line {"ok": true,
+     "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
 """
@@ -689,7 +726,7 @@ def phase_parity(device, report: dict) -> None:
                 if batch > 3 and got[3] is not None:
                     raise RuntimeError(f"{label}: u2 = n - u1, Q = G must give infinity")
                 print(f"parity {label}: {batch} rows equal")
-        report[name] = {"max_abs_err": float(err)}
+        _note_err(report, name, err)
 
     c = ED25519
     ed_kernels = {
@@ -711,7 +748,14 @@ def phase_parity(device, report: dict) -> None:
                 if ref != got[i]:
                     raise RuntimeError(f"{name} row {i}: {got[i]} != refmath {ref}")
             print(f"parity {name} ed25519 B={batch}: {batch} rows equal")
-        report[name] = {"max_abs_err": float(err)}
+        _note_err(report, name, err)
+
+
+def _note_err(report: dict, name: str, err) -> None:
+    """The largest error of `name` seen so far (parity and timing run in
+    either order)."""
+    row = report.setdefault(name, {"max_abs_err": 0.0})
+    row["max_abs_err"] = max(row["max_abs_err"], float(err))
 
 
 def print_resources() -> None:
@@ -742,7 +786,7 @@ def _time_kernel(report: dict, name: str, curve, kern, plain, args, ops: int,
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = _max_err(curve, kern(curve, *args), want, f"{name} {curve.name} B={CHUNK}")
-    report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+    _note_err(report, name, err)
     ops_ms, bytes_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     report[name].update(
         route="cuda", source=source, replaces=replaces,
@@ -1050,6 +1094,19 @@ def _check_notary(fx, svc, answers, calls, label: str, sample_rows: int | None =
             "device_s": sum(pv.device_seconds() for _, pv in calls), "rows": len(reqs)}
 
 
+def notary_fixture():
+    """The phase-6 fixture (NOTARY_SPENDS spends), built and described;
+    a process that runs no phase 6 builds its own, the same."""
+    from corda_tpu_torch.testing.notary_fixture import build_fixture
+
+    fx = build_fixture(NOTARY_SPENDS, **NOTARY_FIXTURE)
+    counts = {k: fx.labels.count(k) for k in sorted(set(fx.labels))}
+    print(f"notary fixture: {NOTARY_SPENDS} spends {counts}, {len(fx.issues)} issue "
+          f"transactions, built in {fx.build_seconds:.1f} s, signing by "
+          + ("OpenSSL" if fx.openssl else f"pure Python over {os.cpu_count()} processes"))
+    return fx
+
+
 def phase_notary(device, card: str) -> tuple:
     """The batching notary's flush over the card (phase 6); returns
     ({shards: notarisations/s of the last pass}, the fixture)."""
@@ -1064,14 +1121,10 @@ def phase_notary(device, card: str) -> tuple:
         finish_process,
         run_process,
     )
-    from corda_tpu_torch.testing.notary_fixture import build_fixture, notary_hub
+    from corda_tpu_torch.testing.notary_fixture import notary_hub
 
     spends = NOTARY_SPENDS
-    fx = build_fixture(spends, **NOTARY_FIXTURE)
-    counts = {k: fx.labels.count(k) for k in sorted(set(fx.labels))}
-    print(f"notary fixture: {spends} spends {counts}, {len(fx.issues)} issue transactions, "
-          f"built in {fx.build_seconds:.1f} s, signing by "
-          + ("OpenSSL" if fx.openssl else f"pure Python over {os.cpu_count()} processes"))
+    fx = notary_fixture()
 
     # the spends as a notary receives them: each pass decodes its own
     # copy, so no transaction id or Merkle root is cached from the last
@@ -1189,7 +1242,7 @@ def phase_schemes(device, card: str, fx) -> dict:
 
 FLOW_SEED = 11
 FLOW_BATCHES = (128, 4096)
-FLOW_PAYERS = 4              # phase 8b: payer nodes (1 in 4 p256, 1 in 4 secp256k1; 8 cut)
+FLOW_PAYERS = 2              # phase 8b: payer nodes, ed25519 and p256 (8, 4 cut)
 FLOW_COINS = 1               # phase 8b: issued coins per payer, one payment each (2 cut)
 FLOW_SHARDS = (1, 4)         # phase 8b: the batching notary's shards
 
@@ -1439,7 +1492,7 @@ def phase_flows(device, card: str) -> dict:
 
 
 POOL_WORKERS = 2
-POOL_REQUESTS = 8192         # phase 9a/9b: the first phase-6 spends as requests (16,384 cut)
+POOL_REQUESTS = 4096         # phase 9a/9b: the first phase-6 spends as requests (16,384, 8,192 cut)
 POOL_WINDOW = 8192           # VerifierWorker's default ingest_window
 POOL_INGEST_SHARDS = 4       # phase 9b's decode shards
 POOL_SAMPLE = 256            # phase 9a: answers held against a CpuBatchVerifier worker
@@ -2038,7 +2091,7 @@ def raft_drive(verifier, db_dir: str, seed: int = CLUSTER_SEED) -> dict:
     """Phase 10b: a validating Raft notary cluster of RAFT_MEMBERS
     persistent members, elected; Bank (ed25519) issues to Alice (p256);
     Alice pays Bob (secp256k1), Bob pays Carol (ed25519; a backchain),
-    Alice pays Carol, Carol pays Bank (a backchain); a double spend is
+    Carol pays Bank (a backchain); a double spend is
     refused "conflict" with every member's map holding the first spend;
     the leader is stopped, the survivors elect, and Carol pays Bob under
     the new leader. Raises unless every outcome, balance and live map
@@ -2063,7 +2116,6 @@ def raft_drive(verifier, db_dir: str, seed: int = CLUSTER_SEED) -> dict:
     run("issue Bank -> Alice", bank, CashIssueFlow(1000, "USD", alice.party, service))
     run("pay Alice -> Bob", alice, CashPaymentFlow(400, "USD", bob.party))
     run("pay Bob -> Carol", bob, CashPaymentFlow(150, "USD", carol.party))
-    run("pay Alice -> Carol", alice, CashPaymentFlow(100, "USD", carol.party))
     run("pay Carol -> Bank", carol, CashPaymentFlow(50, "USD", bank.party))
     coin, = alice.vault.unconsumed_states(CashState)
     good = run("spend Alice -> Carol", alice, FinalityFlow(_spend(alice, coin, service, carol.party)))
@@ -2657,6 +2709,30 @@ def node_cluster_drive(root: str, backend: str, kind: str) -> dict:
         rig.close()
 
 
+CARD_LOCK_ENV = "CHIP_SMOKE_CARD_LOCK"   # the lanes' lock file (main sets it)
+
+
+@contextmanager
+def card_processes(exclusive: bool):
+    """Held while a part starts and stops processes that hold a CUDA
+    context. The parts that count the card's contexts (11c, 11d, 12a)
+    hold it exclusively, so that no process of another lane ends
+    between their counts; 13d's worker holds it shared. A no-op unless
+    CARD_LOCK_ENV names the lock file, as it does in main's lanes."""
+    path = os.environ.get(CARD_LOCK_ENV)
+    if not path:
+        yield
+        return
+    import fcntl
+
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX if exclusive else fcntl.LOCK_SH)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _cuda_contexts() -> int:
     """CUDA contexts on the card: one line per process in nvidia-smi's
     compute apps. In a container the pids it prints are not the
@@ -2968,6 +3044,33 @@ def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
         node.stop()
 
 
+# 11a over verifier_backend = "cpu" in a child process; argv[1] is its root
+TRIO_CPU_DRIVE = (
+    "import json, os, sys; sys.path.insert(0, os.getcwd()); import chip_smoke as cs; "
+    "r = cs.node_trio_drive(sys.argv[1], 'cpu'); "
+    "print('CPU_DRIVE ' + json.dumps({'ledger': r['ledger']}, default=bytes.hex))")
+
+
+def _cpu_drive(code: str, root: str):
+    """A child process running `code` (a CPU-verifier rerun of a drive)
+    in `root`, beside the card's drive in this process: the CPU's nodes
+    launch nothing. Read it with `_cpu_drive_result`."""
+    return subprocess.Popen([sys.executable, "-c", code, root],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _cpu_drive_result(proc, timeout: float, label: str) -> dict:
+    """The JSON the child printed on its CPU_DRIVE line; raises unless it
+    exited 0 with exactly one."""
+    out, err = proc.communicate(timeout=timeout)
+    lines = [line for line in out.splitlines() if line.startswith("CPU_DRIVE ")]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"{label}: the CPU drive's process exited {proc.returncode}: "
+                           f"{err[-800:]}")
+    return json.loads(lines[0][len("CPU_DRIVE "):])
+
+
 def phase_nodes(device, card: str, fx) -> dict:
     """Phase 11 (module docstring); returns the in-process launches of
     11a and 11b."""
@@ -2985,6 +3088,7 @@ def phase_nodes(device, card: str, fx) -> dict:
         # the in-process nodes' backend "tpu" is default_verifier(): this
         # recording CudaBatchVerifier on the card
         bv.set_default_verifier(verifier)
+        cpu_proc = _cpu_drive(TRIO_CPU_DRIVE, os.path.join(tmp, "trio-cpu"))
         _zero_counters()
         trio = node_trio_drive(os.path.join(tmp, "trio"), "tpu", verifier.calls)
         clusters = {kind: node_cluster_drive(os.path.join(tmp, kind), "tpu", kind)
@@ -3001,9 +3105,12 @@ def phase_nodes(device, card: str, fx) -> dict:
               f"{trio['concurrent_flushes']} notary flush(es); refused "
               f"{trio['ledger']['refused']}; balances {trio['ledger']['balances']}; {card}")
         print(f"trio (11a) fabric: {json.dumps(trio['wire'])}")
-        cpu = node_trio_drive(os.path.join(tmp, "trio-cpu"), "cpu")
-        _same_node_ledger(trio["ledger"], cpu["ledger"])
-        print(f"trio (11a) over verifier_backend = \"cpu\": the same {len(cpu['ledger']['ids'])} "
+        cpu = _cpu_drive_result(cpu_proc, NODE_TIMEOUT, "trio (11a)")
+        # the card's ledger as JSON carries it (tuples as lists, bytes as hex)
+        _same_node_ledger(json.loads(json.dumps(trio["ledger"], default=bytes.hex)),
+                          cpu["ledger"])
+        print(f"trio (11a) over verifier_backend = \"cpu\" (its own process): the same "
+              f"{len(cpu['ledger']['ids'])} "
               f"transaction ids, refusals, balances, {len(cpu['ledger']['consumed'])} consumed "
               f"refs and {len(cpu['ledger']['commits'])} notary commits")
         for kind, c in clusters.items():
@@ -3013,7 +3120,8 @@ def phase_nodes(device, card: str, fx) -> dict:
             if launches[kernel] == 0:
                 raise RuntimeError(f"{kernel} was not launched by the phase-11 nodes")
 
-        cli = cli_drive(os.path.join(tmp, "cli"))
+        with card_processes(exclusive=True):
+            cli = cli_drive(os.path.join(tmp, "cli"))
         print(f"cli (11c): TLS from {cli['tls']}; issue and payment over RPCClient in "
               f"{cli['wall_s']:.3f} s, ids {cli['ids']}, vaults over RPC {cli['balances']}; "
               f"CUDA contexts on the card {cli['contexts'][0]} before the node processes, "
@@ -3024,7 +3132,8 @@ def phase_nodes(device, card: str, fx) -> dict:
         hub = notary_hub(fx, bv.CpuBatchVerifier())
         picks = fx.spends[:TCP_POOL_REQUESTS]
         ltxs = [stx.to_ledger_transaction(hub) for stx in picks]
-        pool = pool_tcp_drive(os.path.join(tmp, "pool"), ltxs, picks)
+        with card_processes(exclusive=True):
+            pool = pool_tcp_drive(os.path.join(tmp, "pool"), ltxs, picks)
     _check_pool_answers(pool["answers"], fx.labels, "pool over TCP (11d)")
     n = len(ltxs)
     print(f"pool over TCP (11d): {n} requests in {pool['wall_s']:.3f} s = "
@@ -3051,7 +3160,7 @@ LOAD_COUNT = 12              # 12a: load-test commands (the soak's 24, then 16, 
 LOAD_BATCH_WAIT = 50_000     # 12a: µs the hub's batching notary holds a flush open (the soak's)
 LOAD_EMPTY = 50              # 12a: EmptyFlowLoadTest's round trips on Alice
 DEMO_SEED = 42               # 12b, 12d: the demos' default seed
-DEMO_TXS = (("batching", 2), ("single", 2))    # 12b: notary_demo flavours and their n_txs (16, 8; 4, 3 cut)
+DEMO_TXS = (("batching", 2), ("single", 1))    # 12b: notary_demo flavours and their n_txs (16, 8; 4, 3, 2 cut)
 FUZZ_CORPUS = (13, 30)       # 12c: the reference's slow bit-exact test's corpus (seed, n_txs)
 FUZZ_SCALE = (17, 500)       # 12c: the same mutation over a 500-transaction ledger (2,000, 1,000 cut)
 FUZZ_BATCHES = (128, 1024, 4096)   # 12c: phase 5's buckets
@@ -3299,7 +3408,8 @@ def phase_drives(device, card: str) -> dict:
     os.makedirs(scratch, exist_ok=True)
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=scratch, prefix="drives-") as tmp:
-        load = load_drive(os.path.join(tmp, "load"))
+        with card_processes(exclusive=True):
+            load = load_drive(os.path.join(tmp, "load"))
     r = load["result"]
     print(f"load test (12a): nodes booted in "
           f"{json.dumps({k: round(v, 3) for k, v in load['boot_s'].items()})} s; {r.submitted} "
@@ -3343,7 +3453,7 @@ def phase_drives(device, card: str) -> dict:
 
 TELEMETRY_SPENDS = 4096      # 13a-13c: the first phase-6 spends, one chunk per scheme
 TELEMETRY_SAMPLE = 16        # 13a: the first pass's card verdicts held against the CPU
-TELEMETRY_PAIRS = 3          # 13c: interleaved on/off pairs of the flush
+TELEMETRY_PAIRS = 2          # 13c: interleaved on/off pairs of the flush (3 cut)
 TELEMETRY_WORKER = 256       # 13d: requests drained by the profiled worker process
 TELEMETRY_PROFILE_HZ = 19    # 13d: the worker's --profile-hz
 TOPIC_SUBMIT = "telemetry.submit"
@@ -3660,7 +3770,7 @@ def phase_telemetry(device, card: str, fx, sampler=None, cpu_worker: bool = Fals
         return kern, rows
 
     with tempfile.TemporaryDirectory(dir=scratch, prefix="telemetry-") as tmp, \
-            _private_ledgers():
+            _private_ledgers(), card_processes(exclusive=False):
         worker = ProfiledWorker(tmp, cpu_worker=cpu_worker)
         planes = _Planes(svc, ep, client, sampler or dlib.DeviceSampler())
         rig = {"client": client, "net": net, "received": received, "planes": planes}
@@ -4741,7 +4851,7 @@ def phase_xshard(device, card: str, fx) -> dict:
 
 # -- phase 16: the web gateway, the shell, the replacement flows, the doorman --
 
-WEB_PAYMENTS = 8             # 16a: POST /api/cash/pay payments to Hub, round robin over the payers
+WEB_PAYMENTS = 3             # 16a: POST /api/cash/pay payments to Hub, one per payer (8 cut)
 WEB_BATCH_WAIT = 50_000      # 16a: µs the hub's batching notary holds a flush open
 WEB_TIMEOUT = 180.0          # s any one request or drive step may take before the phase fails
 WEB_SETTLE = 10.0            # s the gateway accounting or the /cluster rollup may take to settle
@@ -4759,7 +4869,7 @@ REPLACE_SEED = 23            # 16c: MockNetwork's seed
 WEB_CPU_DRIVE = (
     "import json, os, sys; sys.path.insert(0, os.getcwd()); import chip_smoke as cs; "
     "r = cs.web_drive(sys.argv[1], 'cpu'); "
-    "print('WEB_CPU ' + json.dumps({k: r[k] for k in ('ledger', 'boot_s', 'flows_s')}))")
+    "print('CPU_DRIVE ' + json.dumps({k: r[k] for k in ('ledger', 'boot_s', 'flows_s')}))")
 REPLACE_CONTRACT = "chip_smoke.CashV2"   # 16c: the upgrade's target contract
 
 
@@ -5284,10 +5394,7 @@ def phase_web(device, card: str) -> dict:
     with tempfile.TemporaryDirectory(dir=scratch, prefix="web-") as tmp:
         # 16a again over verifier_backend = "cpu", in a process of its own
         # beside the card's drive: the CPU's nodes launch nothing
-        cpu_proc = subprocess.Popen(
-            [sys.executable, "-c", WEB_CPU_DRIVE, os.path.join(tmp, "web-cpu")],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cpu_proc = _cpu_drive(WEB_CPU_DRIVE, os.path.join(tmp, "web-cpu"))
         # the in-process nodes' backend "tpu" is default_verifier(): this
         # recording CudaBatchVerifier on the card
         bv.set_default_verifier(verifier)
@@ -5301,12 +5408,7 @@ def phase_web(device, card: str) -> dict:
             launches = _read_counters()
         finally:
             bv.set_default_verifier(None)
-        out, err = cpu_proc.communicate(timeout=WEB_TIMEOUT)
-    lines = [line for line in out.splitlines() if line.startswith("WEB_CPU ")]
-    if cpu_proc.returncode != 0 or len(lines) != 1:
-        raise RuntimeError(f"web (16a): the CPU drive's process exited {cpu_proc.returncode}: "
-                           f"{err[-800:]}")
-    cpu = json.loads(lines[0][len("WEB_CPU "):])
+        cpu = _cpu_drive_result(cpu_proc, WEB_TIMEOUT, "web (16a)")
     cpu_s = cpu["flows_s"] + cpu["boot_s"]
     # the card's ledger as JSON carries it (tuples as lists)
     _same_node_ledger(json.loads(json.dumps(web["ledger"])), cpu["ledger"], "web (16a)")
@@ -5347,9 +5449,489 @@ def phase_web(device, card: str) -> dict:
     return {"launches": launches, "web": web, "replacement": card_replace}
 
 
+# -- phase 17: the samples on the card ------------------------------------------
+
+SAMPLES_SEED = 42            # 17a-17c: the demos' seed (their default)
+IRS_FIXINGS = 3              # 17a: fixings the scheduler fires
+IRS_RATES = [500, 507, 514]  # 17a: the oracle's rate for each fixing, in bp
+ORACLE_SEED = 50             # 17a: the refusals' MockNetwork (the reference test's seed)
+# 17c: every trade family at one trade each (the demo's default is 3 swaps and 2 of each other)
+SIMM_DEPTH = dict(n_swaps=1, n_swaptions=1, n_fx_forwards=1, n_cds=1, n_equity_options=1,
+                  n_commodity_forwards=1)
+SIMM_WEB_SEED = 66           # 17d: the gateway's MockNetwork (tests/test_client.py's seed)
+SIMM_PORTFOLIOS = 65_536     # 17d: seeded portfolios through estimate_margins_batch
+SIMM_TRADES = 4              # 17d: swaps per seeded portfolio
+SIMM_RTOL = 1e-4             # 17d: max relative error of the card's float32 against float64
+
+
+def _calls(verifier) -> list:
+    """The recording verifier's dispatches (a plain verifier records none)."""
+    return getattr(verifier, "calls", [])
+
+
+def irs_drive(verifier) -> dict:
+    """17a: samples/irs_demo.run over `verifier`. Raises unless the
+    scheduler fired every fixing at the oracle's rate and no date is left.
+    Returns the ledger (every recorded transaction id, the final swap's
+    encoding), the wall, the verifier's calls in the run and those of the
+    fixings: the calls that verify no signature over the agreement."""
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.samples import irs_demo
+    from corda_tpu_torch.testing import mock_network
+
+    n0 = len(_calls(verifier))
+    t0 = time.perf_counter()
+    with recorded_networks(mock_network) as rec:
+        final = irs_demo.run(seed=SAMPLES_SEED, n_fixings=IRS_FIXINGS, batch_verifier=verifier)
+    wall = time.perf_counter() - t0
+    rates = [f.rate_bps for f in final.fixings]
+    if rates != IRS_RATES or final.next_fixing_date() is not None:
+        raise RuntimeError(f"irs (17a): fixings {rates}, next date {final.next_fixing_date()}; "
+                           f"expected {IRS_RATES} and none")
+    agreed = {stx.id.bytes_ for net in rec.nets for node in net.nodes
+              for stx in node.services.validated_transactions.all() if not stx.wtx.inputs}
+    calls = _calls(verifier)[n0:]
+    fixing_calls = sum(1 for reqs, _ in calls
+                       if not any(a in r.message for r in reqs for a in agreed))
+    return {"ledger": {"irs ids": rec.ids(), "irs final swap": ser.encode(final).hex()},
+            "wall_s": wall, "calls": len(calls), "fixing_calls": fixing_calls}
+
+
+def oracle_refusals(verifier) -> dict:
+    """17a: the rate oracle's sign check, built as tests/test_samples.py's
+    test_oracle_refuses_wrong_rate_and_extra_reveals builds it, on
+    MockNetwork(seed=ORACLE_SEED) over `verifier`: a tear-off revealing
+    only the Fix command at the table's rate is signed (the signature
+    verifies over the transaction id); one at a wrong rate and one
+    revealing every component are refused. Raises otherwise; returns each
+    refusal's message."""
+    from corda_tpu_torch.core.transactions import TransactionBuilder
+    from corda_tpu_torch.samples.irs_demo import (
+        IRS_CONTRACT, FixOf, InterestRateSwapState, IRSFix, RateFix, RateOracleService)
+    from corda_tpu_torch.testing import MockNetwork
+
+    net = MockNetwork(seed=ORACLE_SEED, batch_verifier=verifier)
+    notary = net.create_notary("Notary")
+    a, b, oracle_node = (net.create_node(n) for n in ("A", "B", "Oracle"))
+    fix_of = FixOf("LIBOR-3M", 1_000)
+    oracle = oracle_node.services.cordapp_service(RateOracleService)
+    oracle.configure({("LIBOR-3M", 1_000): 500})
+    swap = InterestRateSwapState(a.party, b.party, oracle_node.party, 1_000_000, 450,
+                                 "LIBOR-3M", (1_000,))
+
+    def build(rate_bps):
+        builder = TransactionBuilder(notary.party)
+        builder.add_output_state(swap.with_fixing(RateFix(fix_of, rate_bps)), IRS_CONTRACT)
+        builder.add_command(IRSFix(RateFix(fix_of, rate_bps)), oracle_node.party.owning_key)
+        return a.services.sign_initial_transaction(builder)
+
+    def fix_only(c):
+        return hasattr(c, "value") and isinstance(c.value, IRSFix)
+
+    stx = build(500)
+    oracle.sign(stx.wtx.build_filtered_transaction(fix_only)).verify(stx.id)
+    refused = {}
+    for label, ftx, word in (
+            ("wrong rate", build(9_999).wtx.build_filtered_transaction(fix_only), "rate"),
+            ("every component revealed", stx.wtx.build_filtered_transaction(lambda c: True),
+             "command")):
+        try:
+            oracle.sign(ftx)
+        except ValueError as e:
+            if word not in str(e):
+                raise RuntimeError(f"irs (17a): the oracle refused a tear-off with a {label} "
+                                   f"for another reason: {e}") from e
+            refused[label] = str(e)
+            continue
+        raise RuntimeError(f"irs (17a): the oracle signed a tear-off with a {label}")
+    return refused
+
+
+def simulation_drive(verifier) -> dict:
+    """17b: samples/simulation.run_irs_simulation over `verifier`. Raises
+    unless the trace holds FixingFlow and OracleSignHandler lines and
+    flow-added and flow-removed events. Returns the ledger (the trace,
+    every recorded transaction id), the wall, the events and the
+    verifier's calls."""
+    from corda_tpu_torch.samples.simulation import run_irs_simulation
+    from corda_tpu_torch.testing import mock_network
+
+    n0 = len(_calls(verifier))
+    t0 = time.perf_counter()
+    with recorded_networks(mock_network) as rec:
+        sim = run_irs_simulation(seed=SAMPLES_SEED, batch_verifier=verifier)
+    wall = time.perf_counter() - t0
+    trace = sim.trace()
+    kinds = {e.kind for e in sim.events}
+    for word in ("FixingFlow", "OracleSignHandler"):
+        if not any(word in line for line in trace):
+            raise RuntimeError(f"simulation (17b): no {word} line in the trace")
+    if not {"flow-added", "flow-removed"} <= kinds:
+        raise RuntimeError(f"simulation (17b): event kinds {sorted(kinds)}")
+    return {"ledger": {"simulation trace": trace, "simulation ids": rec.ids()},
+            "wall_s": wall, "events": len(sim.events), "calls": len(_calls(verifier)) - n0}
+
+
+def simm_drive(verifier) -> dict:
+    """17c: samples/simm_demo.run over `verifier` at SIMM_DEPTH (every
+    trade family, every risk class, psi aggregation). Raises unless the
+    recorded valuation holds every trade and a positive margin, and
+    simm.simm_im on the host, from the ladders of each party's recorded
+    book, gives that margin again. Returns the ledger (every recorded
+    transaction id, the valuation's encoding), the wall, the margin's
+    breakdown and the verifier's calls."""
+    from corda_tpu_torch.core import serialization as ser
+    from corda_tpu_torch.samples import simm, simm_demo
+    from corda_tpu_torch.testing import mock_network
+
+    n0 = len(_calls(verifier))
+    t0 = time.perf_counter()
+    with recorded_networks(mock_network) as rec:
+        v = simm_demo.run(seed=SAMPLES_SEED, batch_verifier=verifier, **SIMM_DEPTH)
+    wall = time.perf_counter() - t0
+    trades = sum(SIMM_DEPTH.values())
+    if v.portfolio_size != trades or v.margin <= 0:
+        raise RuntimeError(f"simm (17c): {v.portfolio_size} trades valued at {v.margin}; "
+                           f"expected {trades} at a positive margin")
+    nodes = {node.name: node for net in rec.nets for node in net.nodes}
+    for name in ("PartyA", "PartyB"):
+        book = {family: [s.state.data for s in nodes[name].vault.unconsumed_states(cls)]
+                for family, cls in simm_demo.TRADE_FAMILIES.items()}
+        s = simm_demo.portfolio_ladders_book(book, v.valuation_micros)
+        classes = dict(equity=s.equity, commodity=s.commodity, credit_q=s.credit_q,
+                       equity_vega=s.equity_vega, equity_cvr=s.equity_cvr)
+        im = simm.simm_im(s.delta, s.vega, s.fx, **classes)
+        if im != v.margin:
+            raise RuntimeError(f"simm (17c): simm_im over {name}'s book is {im}, the recorded "
+                               f"margin {v.margin}")
+    parts = simm.simm_breakdown(s.delta, s.vega, s.fx, **classes)
+    return {"ledger": {"simm ids": rec.ids(), "simm valuation": ser.encode(v).hex()},
+            "wall_s": wall, "margin": v.margin, "trades": trades,
+            "parts": {k: round(float(x), 2) for k, x in parts.items()},
+            "calls": len(_calls(verifier)) - n0}
+
+
+def simm_web_drive(verifier) -> dict:
+    """17d: the /api/simm API as tests/test_client.py's `web` fixture and
+    test_simm_web_api build it, on MockNetwork(seed=SIMM_WEB_SEED) over
+    `verifier`: Notary, Alice (an RPC server, and an in-process
+    NodeWebServer over an RPC client of it) and Bob; one swaption agreed
+    by DealInstigatorFlow, then GET portfolio/margin, the calculate POST
+    with Bob and GET portfolio/valuations. Raises unless each answers
+    200, the POST's margin is the GET's and one valuation of one trade is
+    recorded at it. Returns the ledger (the three answers' JSON, every
+    recorded transaction id), the wall and the verifier's calls."""
+    import urllib.request
+
+    import corda_tpu_torch.samples.simm_web  # noqa: F401 - registers /api/simm
+    from corda_tpu_torch.client.webserver import NodeWebServer
+    from corda_tpu_torch.finance.trade_flows import DealInstigatorFlow
+    from corda_tpu_torch.node import rpc as rpclib
+    from corda_tpu_torch.samples.simm_demo import SWAPTION_CONTRACT, SwaptionState
+    from corda_tpu_torch.testing import mock_network
+
+    n0 = len(_calls(verifier))
+    t0 = time.perf_counter()
+    with recorded_networks(mock_network) as rec:
+        net = mock_network.MockNetwork(seed=SIMM_WEB_SEED, batch_verifier=verifier)
+    notary = net.create_notary("Notary")
+    alice = net.create_node("Alice")
+    bob = net.create_node("Bob")
+    users = rpclib.RPCUserService(rpclib.RpcUser("sh", "pw", ("ALL",)))
+    rpclib.RPCServer(rpclib.CordaRPCOpsImpl(alice.services, alice.smm), alice.messaging, users)
+    client = rpclib.RPCClient(net.fabric.endpoint("web-console"), "Alice", "sh", "pw")
+    server = NodeWebServer(client, pump=lambda: net.run(), rpc_timeout=WEB_TIMEOUT).start()
+    answers = {}
+    try:
+        swaption = SwaptionState(buyer=alice.party, seller=bob.party, notional=5_000_000,
+                                 strike_bps=350, expiry_micros=2 * 31_557_600 * 10**6,
+                                 tenor_years=5, index_name="LIBOR-3M")
+        fsm = alice.start_flow(DealInstigatorFlow(bob.party, swaption, SWAPTION_CONTRACT,
+                                                  notary.party))
+        net.run()
+        fsm.result_or_throw()
+        for method, path, body in (
+                ("GET", "portfolio/margin", None),
+                ("POST", "portfolio/valuations/calculate", {"counterparty": "Bob"}),
+                ("GET", "portfolio/valuations", None)):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/api/simm/{path}", method=method,
+                data=None if body is None else json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=WEB_TIMEOUT) as r:
+                answers[f"{method} {path}"] = (r.status, json.loads(r.read()))
+    finally:
+        server.stop()
+    wall = time.perf_counter() - t0
+    (s1, margin), (s2, post), (s3, vals) = answers.values()
+    recorded = vals.get("valuations", [])
+    if (s1, s2, s3) != (200, 200, 200) or post.get("margin") != margin.get("margin") or [
+            (v["margin"], v["portfolio_size"]) for v in recorded] != [(margin["margin"], 1)]:
+        raise RuntimeError(f"simm web (17d): answers {json.dumps(answers)}")
+    return {"ledger": {"simm web answers": answers, "simm web ids": rec.ids()},
+            "wall_s": wall, "margin": margin["margin"], "calls": len(_calls(verifier)) - n0}
+
+
+def samples_drive(verifier) -> dict:
+    """17a-17d's demos over `verifier`: {part: its result}, with every
+    part's ledger merged under "ledger"."""
+    out = {"irs": irs_drive(verifier), "oracle": oracle_refusals(verifier),
+           "simulation": simulation_drive(verifier), "simm": simm_drive(verifier),
+           "simm web": simm_web_drive(verifier)}
+    out["ledger"] = {k: v for part in out.values() for k, v in part.get("ledger", {}).items()}
+    return out
+
+
+def seeded_ladders(n: int, seed: int):
+    """[n, K] float64 IR delta ladders, each of SIMM_TRADES seeded swaps
+    (notionals 1e6-1e8, each paid or received, maturities across the SIMM
+    vertices, each swap's PV01 split between its framing vertices as
+    simm.bucket_pv01 splits it)."""
+    import numpy as np
+
+    from corda_tpu_torch.samples import simm
+
+    rng = np.random.default_rng(seed)
+    tenors = np.asarray(simm.TENORS_Y)
+    notional = rng.uniform(1e6, 1e8, size=(n, SIMM_TRADES))
+    sign = rng.choice([-1.0, 1.0], size=(n, SIMM_TRADES))
+    t = rng.uniform(tenors[0], tenors[-1], size=(n, SIMM_TRADES))
+    hi = np.clip(np.searchsorted(tenors, t), 1, len(tenors) - 1)
+    frac = (t - tenors[hi - 1]) / (tenors[hi] - tenors[hi - 1])
+    pv01 = sign * notional * t / 10_000.0
+    rows = np.repeat(np.arange(n), SIMM_TRADES)
+    out = np.zeros((n, len(tenors)))
+    np.add.at(out, (rows, (hi - 1).ravel()), (pv01 * (1.0 - frac)).ravel())
+    np.add.at(out, (rows, hi.ravel()), (pv01 * frac).ravel())
+    return out
+
+
+def margins_batch_drive(device) -> dict:
+    """17d: samples/simm.estimate_margins_batch on `device` over
+    SIMM_PORTFOLIOS seeded portfolios, held against float64
+    bucket_margins on the host. Raises unless the estimates are finite
+    float32 of shape [P] within SIMM_RTOL of it. Returns the max and
+    median relative error and the seconds of each path."""
+    import numpy as np
+
+    from corda_tpu_torch.samples import simm
+
+    lad = seeded_ladders(SIMM_PORTFOLIOS, SAMPLES_SEED)
+    simm.estimate_margins_batch(lad[:256], device=device)    # warm-up
+    t0 = time.perf_counter()
+    est = simm.estimate_margins_batch(lad, device=device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k, _ = simm.bucket_margins(lad)
+    host_s = time.perf_counter() - t0
+    if est.shape != (SIMM_PORTFOLIOS,) or est.dtype != np.float32 or not np.isfinite(est).all():
+        raise RuntimeError(f"simm analytics (17d): estimates of shape {est.shape}, {est.dtype}, "
+                           f"finite {bool(np.isfinite(est).all())}")
+    rel = np.abs(est.astype(np.float64) - k) / k
+    if rel.max() > SIMM_RTOL:
+        raise RuntimeError(f"simm analytics (17d): max relative error {rel.max():.3e} > "
+                           f"{SIMM_RTOL}")
+    return {"max_rel": float(rel.max()), "median_rel": float(np.median(rel)),
+            "card_s": card_s, "host_s": host_s}
+
+
+def phase_samples(device, card: str) -> dict:
+    """Phase 17 (module docstring); returns the launches of 17a-17d."""
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
+
+    t_phase = time.perf_counter()
+    verifier = _recording_verifier(CLUSTER_BATCHES, device)
+    _zero_counters()
+    got = samples_drive(verifier)
+    launches = _read_counters()
+    cpu = samples_drive(CpuBatchVerifier())
+    for key, value in got["ledger"].items():
+        if value != cpu["ledger"][key]:
+            raise RuntimeError(f"samples (17): the card's {key} differ from the "
+                               f"CpuBatchVerifier run's")
+    irs, sim, sm, web = got["irs"], got["simulation"], got["simm"], got["simm web"]
+    print(f"irs (17a): fixings {IRS_RATES} bp by the scheduler in {irs['wall_s']:.3f} s "
+          f"(CpuBatchVerifier {cpu['irs']['wall_s']:.3f} s), {irs['calls']} card calls, "
+          f"{irs['fixing_calls'] / IRS_FIXINGS:.2f} per fixing; "
+          f"{len(irs['ledger']['irs ids'])} transaction ids and the final swap equal to "
+          f"CpuBatchVerifier's; the oracle refused {json.dumps(got['oracle'])}; {card}")
+    print(f"simulation (17b): {sim['events']} events, {len(sim['ledger']['simulation trace'])} "
+          f"trace lines equal to CpuBatchVerifier's in {sim['wall_s']:.3f} s "
+          f"({cpu['simulation']['wall_s']:.3f} s), {sim['calls']} card calls; {card}")
+    print(f"simm (17c): {sm['trades']} trades (one per family) agreed and valued at margin "
+          f"{sm['margin']} in {sm['wall_s']:.3f} s ({cpu['simm']['wall_s']:.3f} s), "
+          f"{sm['calls']} card calls, {sm['calls'] / (sm['trades'] + 1):.2f} per recorded "
+          f"agreement; simm_im on the host over both books equal; breakdown "
+          f"{json.dumps(sm['parts'])}; the valuation equal to CpuBatchVerifier's to the bit; "
+          f"{card}")
+    print(f"simm web (17d): a swaption, GET margin, the calculate POST and GET valuations "
+          f"in {web['wall_s']:.3f} s ({cpu['simm web']['wall_s']:.3f} s), {web['calls']} card "
+          f"calls, margin {web['margin']}; the answers equal to CpuBatchVerifier's; {card}")
+    m = margins_batch_drive(device)
+    print(f"simm analytics (17d): estimate_margins_batch of {SIMM_PORTFOLIOS} seeded "
+          f"{SIMM_TRADES}-swap portfolios (P x K = {SIMM_PORTFOLIOS} x 12) on the card in "
+          f"{m['card_s']:.4f} s, float64 bucket_margins on the host in {m['host_s']:.4f} s; "
+          f"relative error max {m['max_rel']:.3e} (held to {SIMM_RTOL}), median "
+          f"{m['median_rel']:.3e}; {card}")
+    if launches["ed_ladder"] == 0:
+        raise RuntimeError("ed_ladder was not launched in the samples phase")
+    print(f"samples (ph. 17) launches: {json.dumps(launches)}; wall "
+          f"{time.perf_counter() - t_phase:.3f} s; {card}")
+    return {"launches": launches, "samples": got, "margins": m}
+
+
+# Where each phase runs. The card is idle most of a phase's wall (its
+# time goes to torch-op launches on the host, node processes and
+# timeouts: PERF.md section 5), so after QUIET, which runs alone (the
+# kernel table's times, the host's torch-op rate), the phases run in
+# four processes at once on the one card: this one (HOME) and three
+# lanes, each this script with `--lane`.
+QUIET = ("3 timing", "4")
+HOME = ("3 parity", "5", "6", "8", "14")
+LANES = (("11", "13", "15", "7"), ("16", "10"), ("12", "17", "9"))
+LANE_TIMEOUT = 1100.0        # s a lane may take before the run fails
+COLUMNS = ("clusters_launches", "nodes_launches", "drives_launches", "telemetry_launches",
+           "planes_launches", "xshard_launches", "web_launches", "samples_launches")
+
+
+def run_phases(ids, device, card: str, report: dict) -> tuple:
+    """The phases `ids` in this process, in order: ({phase: wall s},
+    {kernel-table column: launches by kernel}). Without phase 6 the
+    process builds the fixture when a phase first needs it."""
+    fx = None
+
+    def fixture():
+        nonlocal fx
+        if fx is None:
+            fx = notary_fixture()
+        return fx
+
+    walls, columns = {}, {}
+    for pid in ids:
+        t = time.perf_counter()
+        if pid == "3 parity":
+            phase_parity(device, report)
+        elif pid == "3 timing":
+            phase_timing(device, report)
+        elif pid == "4":
+            phase_prologue(device)
+        elif pid == "5":
+            phase_main(device, report)
+        elif pid == "6":
+            fx = phase_notary(device, card)[1]
+        elif pid == "7":
+            phase_schemes(device, card, fixture())
+        elif pid == "8":
+            phase_flows(device, card)
+        elif pid == "9":
+            phase_pool(device, card, fixture())
+        elif pid == "10":
+            columns["clusters_launches"] = phase_clusters(device, card, fixture())
+        elif pid == "11":
+            columns["nodes_launches"] = phase_nodes(device, card, fixture())
+        elif pid == "12":
+            columns["drives_launches"] = phase_drives(device, card)
+        elif pid == "13":
+            columns["telemetry_launches"] = phase_telemetry(device, card, fixture())["launches"]
+        elif pid == "14":
+            columns["planes_launches"] = phase_planes(device, card, fixture())["launches"]
+        elif pid == "15":
+            columns["xshard_launches"] = phase_xshard(device, card, fixture())["launches"]
+        elif pid == "16":
+            columns["web_launches"] = phase_web(device, card)["launches"]
+        elif pid == "17":
+            columns["samples_launches"] = phase_samples(device, card)["launches"]
+        else:
+            raise ValueError(f"no phase {pid!r}")
+        walls[pid] = round(time.perf_counter() - t, 1)
+    return walls, columns
+
+
+class Lane:
+    """A process of this script running the phases `ids` (`--lane`) on
+    the card, its output in <root>/lane<k>.out and .err. It writes its
+    walls and launch columns to <root>/lane<k>.json, then holds its CUDA
+    context until `finish` closes its stdin: the parts that count the
+    card's contexts see no lane end under them."""
+
+    def __init__(self, ids, root: str, k: int):
+        self.ids, self.log = tuple(ids), os.path.join(root, f"lane{k}")
+        self.result = self.log + ".json"
+        self.t0, self.wall = time.perf_counter(), None
+        with open(self.log + ".out", "w") as out, open(self.log + ".err", "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-u", os.path.abspath(__file__), "--lane", ",".join(ids),
+                 "--lane-out", self.result], stdin=subprocess.PIPE, stdout=out, stderr=err,
+                cwd=os.path.dirname(os.path.abspath(__file__)), start_new_session=True)
+
+    def output(self, which: str) -> str:
+        with open(f"{self.log}.{which}") as f:
+            return f.read()
+
+    def done(self) -> bool:
+        """True once the result is written; raises if the lane ended
+        without one."""
+        if os.path.exists(self.result):
+            if self.wall is None:
+                self.wall = round(time.perf_counter() - self.t0, 1)
+            return True
+        if self.proc.poll() is not None:
+            raise RuntimeError(f"lane {', '.join(self.ids)} exited {self.proc.returncode} "
+                               f"before its result:\n{self.output('out')[-3000:]}\n"
+                               f"{self.output('err')[-6000:]}")
+        return False
+
+    def finish(self) -> dict:
+        self.proc.stdin.close()
+        rc = self.proc.wait(timeout=120)
+        if rc != 0:
+            raise RuntimeError(f"lane {', '.join(self.ids)} exited {rc}: "
+                               f"{self.output('err')[-3000:]}")
+        with open(self.result) as f:
+            return json.load(f)
+
+    def kill(self) -> None:
+        """The lane and every process it started (its session)."""
+        import signal
+
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        self.proc.wait()
+
+
+def wait_lanes(lanes, timeout: float) -> None:
+    deadline = time.monotonic() + timeout
+    while not all([lane.done() for lane in lanes]):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"lanes not done within {timeout:.0f} s: "
+                               f"{[lane.ids for lane in lanes if lane.wall is None]}")
+        time.sleep(0.5)
+
+
+def lane_main(ids, out_path: str, device, card: str) -> int:
+    """`--lane`: run `ids`, write the result, hold the CUDA context until
+    stdin closes (see Lane)."""
+    import torch
+
+    torch.zeros(1, device=device)
+    walls, columns = run_phases(ids, device, card, {})
+    with open(out_path + ".tmp", "w") as f:
+        json.dump({"walls": walls, "columns": columns}, f)
+    os.replace(out_path + ".tmp", out_path)
+    sys.stdin.read()
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the kernel table JSON here")
+    parser.add_argument("--lane-dir", help="the lanes' logs and results (default: a new "
+                        "directory under build/corda_tpu_torch)")
+    parser.add_argument("--lane", help=argparse.SUPPRESS)
+    parser.add_argument("--lane-out", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     import torch
@@ -5361,8 +5943,12 @@ def main(argv=None) -> int:
     from corda_tpu_torch.crypto import build
 
     card = _smi("name,power.limit")
-    print(card)
     device = torch.device("cuda", 0)
+    if args.lane:
+        build.build_all()           # the parent's libraries, reused
+        native.build_info()
+        return lane_main(args.lane.split(","), args.lane_out, device, card)
+    print(card)
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -5383,42 +5969,54 @@ def main(argv=None) -> int:
     print_resources()
     report: dict = {}
     walls = {"build": round(time.perf_counter() - t0, 1)}
+    quiet, _ = run_phases(QUIET, device, card, report)
+    walls.update(quiet)
 
-    def timed(phase: str, fn, *args):
-        t = time.perf_counter()
-        out = fn(*args)
-        walls[phase] = round(time.perf_counter() - t, 1)
-        return out
+    import tempfile
 
-    timed("3 parity", phase_parity, device, report)
-    timed("3 timing", phase_timing, device, report)
-    timed("4", phase_prologue, device)
-    timed("5", phase_main, device, report)
-    _, fx = timed("6", phase_notary, device, card)
-    timed("7", phase_schemes, device, card, fx)
-    timed("8", phase_flows, device, card)
-    timed("9", phase_pool, device, card, fx)
-    clusters = timed("10", phase_clusters, device, card, fx)
-    nodes = timed("11", phase_nodes, device, card, fx)
-    drives = timed("12", phase_drives, device, card)
-    telemetry = timed("13", phase_telemetry, device, card, fx)["launches"]
-    planes = timed("14", phase_planes, device, card, fx)["launches"]
-    xshard = timed("15", phase_xshard, device, card, fx)["launches"]
-    web = timed("16", phase_web, device, card)["launches"]
-    print(f"phase walls (s): {json.dumps(walls)}; total {time.perf_counter() - t0:.1f} s; {card}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = args.lane_dir or os.path.join(here, "build", "corda_tpu_torch")
+    os.makedirs(root, exist_ok=True)
+    root = tempfile.mkdtemp(dir=root, prefix="lanes-")
+    os.environ[CARD_LOCK_ENV] = os.path.join(root, "card.lock")
+    os.environ["CORDA_TPU_NOTARY_PROFILE"] = "1"    # the notary's phase_seconds, in every lane
+    lanes = [Lane(ids, root, k) for k, ids in enumerate(LANES, 1)]
+    finished = []
+    try:
+        home, columns = run_phases(HOME, device, card, report)
+        wait_lanes(lanes, LANE_TIMEOUT - (time.perf_counter() - lanes[0].t0))
+        finished = [lane.finish() for lane in lanes]
+    finally:
+        if len(finished) < len(lanes):
+            for lane in lanes:
+                lane.kill()
+    walls.update(home)
+    for lane, result in zip(lanes, finished):
+        print(f"--- lane {', '.join(lane.ids)} (its own process, beside phases "
+              f"{', '.join(HOME)} here) ---")
+        sys.stdout.write(lane.output("out"))
+        sys.stderr.write(lane.output("err"))
+        walls.update(result["walls"])
+        columns.update(result["columns"])
+    if set(columns) != set(COLUMNS):
+        raise RuntimeError(f"launch columns {sorted(columns)} are not {sorted(COLUMNS)}")
+    if not args.lane_dir:
+        import shutil
+
+        shutil.rmtree(root)     # relayed above; kept only when a run fails
+    order = ["build", *QUIET, *sorted((p for p in walls if p not in QUIET and p != "build"),
+                                      key=lambda p: (int(p.split()[0]), p))]
+    lane_walls = {"here": round(sum(home.values()), 1),
+                  **{", ".join(lane.ids): lane.wall for lane in lanes}}
+    print(f"phase walls (s): {json.dumps({p: walls[p] for p in order})}; processes after "
+          f"phase 4 {json.dumps(lane_walls)}; total "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
     for n, r in report.items():
-        r["clusters_launches"] = clusters[n]
-        r["nodes_launches"] = nodes[n]
-        r["drives_launches"] = drives[n]
-        r["telemetry_launches"] = telemetry[n]
-        r["planes_launches"] = planes[n]
-        r["xshard_launches"] = xshard[n]
-        r["web_launches"] = web[n]
+        for col in COLUMNS:
+            r[col] = columns[col][n]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "clusters_launches",
-            "nodes_launches", "drives_launches", "telemetry_launches", "planes_launches",
-            "xshard_launches", "web_launches")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", *COLUMNS)
     table = {"kernels": [
         {k: ({"name": n, **r}[k]) for k in keys} for n, r in report.items()
     ]}

@@ -15,7 +15,7 @@ from typing import Callable
 
 # flow classes may be referred to by their short name; search these
 # packages for a match (InteractiveShell does classpath search). The
-# names are tags: a package not in the port is skipped as missing
+# names are tags, each imported as the port's module of the same path
 FLOW_SEARCH_PACKAGES = (
     "corda_tpu.finance.cash",
     "corda_tpu.finance.trade_flows",

@@ -22,7 +22,9 @@ objects encode as (tag, {field: value}) with fields in declaration
 order; integers are minimal-length varints; no floats.
 
 Objects register with @serializable (dataclasses) or register_custom();
-decoding is whitelist-only: unknown tags raise.
+decoding is whitelist-only: unknown tags raise, except on a thread inside
+a class-carpenter context (core/carpenter.py), where they decode to
+synthesized classes and known classes decode field-tolerantly.
 
 `encode` and `decode` run the port's native codec (native/cts_hash.cpp),
 as the reference's main path does; a failed build of it raises
@@ -33,6 +35,7 @@ the differential reference the tests hold the native one against.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, Optional
 
 _REGISTRY_BY_TAG: dict[str, type] = {}
@@ -48,6 +51,26 @@ MAX_DEPTH = 500
 
 class SerializationError(Exception):
     pass
+
+
+# When set, unknown object tags are handed to this callable
+# (tag, field_dict) -> object instead of raising, and reconstruction of
+# known classes is field-tolerant. Installed only by the carpenter
+# (core/carpenter.py) in contexts that opt in. Thread-local on purpose:
+# the fabric decodes P2P frames on its own loop thread, and a tooling
+# thread inside a carpenter context must not make that consensus path
+# tolerant: it stays whitelist-only.
+_HANDLER_SLOT = threading.local()
+
+
+def _unknown_tag_handler() -> Optional[Callable[[str, dict], Any]]:
+    """The calling thread's handler for unknown object tags (the Python
+    and the native decoder both read it), or None: whitelist-only."""
+    return getattr(_HANDLER_SLOT, "fn", None)
+
+
+def set_unknown_tag_handler(fn: Optional[Callable[[str, dict], Any]]) -> None:
+    _HANDLER_SLOT.fn = fn
 
 
 def serializable(cls=None, *, tag: Optional[str] = None):
@@ -135,12 +158,6 @@ def _native_codec():
         )
         _NATIVE_CODEC = mod
     return _NATIVE_CODEC
-
-
-def _unknown_tag_handler():
-    """The codec's hook for unknown object tags: the port has no class
-    carpenter, so decoding stays whitelist-only and this is always None."""
-    return None
 
 
 def _varint_abs(n: int) -> bytes:
@@ -233,7 +250,9 @@ def _class_enc_info(cls):
     it is cached (the encode walk is the id-preimage hot path)."""
     info = _CLASS_ENC_CACHE.get(cls)
     if info is None:
-        tag = _REGISTRY_BY_TYPE.get(cls)
+        # a carpenter-synthesized class encodes under its wire tag, so an
+        # unknown object round-trips bit-identically
+        tag = _REGISTRY_BY_TYPE.get(cls) or getattr(cls, "__cts_tag__", None)
         if tag is None:
             return None   # not cached: the class may register later
         tb = tag.encode("utf-8")
@@ -330,6 +349,15 @@ def _dec(buf: bytes, i: int, depth: int = 0) -> tuple[Any, int]:
         i += n
         cls = _REGISTRY_BY_TAG.get(tname)
         if cls is None:
+            handler = _unknown_tag_handler()
+            if handler is not None and tname not in _CUSTOM_DEC:
+                nf, i = _read_varint(buf, i)
+                kwargs = {}
+                for _ in range(nf):
+                    name, i = _dec(buf, i, depth + 1)
+                    value, i = _dec(buf, i, depth + 1)
+                    kwargs[name] = value
+                return handler(tname, kwargs), i
             raise SerializationError(f"unknown object tag {tname!r}")
         if tname in _CUSTOM_DEC:
             payload, i = _dec(buf, i, depth + 1)
@@ -362,4 +390,14 @@ def _construct_pretuplified(cls, kwargs):
     try:
         return cls(**kwargs)
     except TypeError as e:
+        if _unknown_tag_handler() is not None and dataclasses.is_dataclass(cls):
+            # evolution tolerance (carpenter contexts only): drop fields
+            # this version doesn't know; removed-then-defaulted fields
+            # fill from dataclass defaults
+            known = {f.name for f in dataclasses.fields(cls)}
+            trimmed = {k: v for k, v in kwargs.items() if k in known}
+            try:
+                return cls(**trimmed)
+            except TypeError:
+                pass
         raise SerializationError(f"cannot reconstruct {cls.__name__}: {e}")

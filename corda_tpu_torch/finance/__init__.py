@@ -1,8 +1,8 @@
 """Financial contracts and flows of the port (port of corda_tpu/finance):
 the OnLedgerAsset base, Cash with its issue, payment and exit flows,
-CommercialPaper, Obligation, the trading flows and the Cash and
-CommercialPaper MappedSchemas (registered on import, as the reference
-registers them). The reference's Commodity is not ported."""
+Commodity, CommercialPaper, Obligation, the trading flows and the Cash
+and CommercialPaper MappedSchemas (registered on import, as the
+reference registers them)."""
 
 from .asset import OnLedgerAsset
 from .cash import (
@@ -11,6 +11,10 @@ from .cash import (
     CashIssueFlow,
     CashPaymentFlow,
     CashState,
+)
+from .commodity import (
+    Commodity,
+    CommodityState,
 )
 from .commercial_paper import (
     CommercialPaper,
@@ -31,6 +35,8 @@ from .trade_flows import (
 
 __all__ = [
     "OnLedgerAsset",
+    "Commodity",
+    "CommodityState",
     "Cash",
     "CashExitFlow",
     "CashIssueFlow",

@@ -90,10 +90,10 @@ def test_cluster_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
         assert f"durable notary (10a) shards={shards}: 64 spends in" in out
         assert (f"durable notary (10a) shards={shards} reopened: 48 committed inputs read back; "
                 "16 double spends answered conflict") in out
-    assert "raft drive (10b): 7 flows completed and 1 refused" in out
+    assert "raft drive (10b): 6 flows completed and 1 refused" in out
     assert "raft drive (10b) over CpuBatchVerifier" in out
     assert "raft transfer (10c): 1024 commits through the leader" in out
-    assert "1 snapshots (snap_index 1024)" in out and "maps equal at 1030 refs" in out
+    assert "1 snapshots (snap_index 1024)" in out and "maps equal at 1029 refs" in out
     assert "bft drive (10d): 7 flows completed and 1 refused" in out
     assert "caught up by state transfer (1 catch-up(s))" in out
     assert "crash drive (10e)" in out and "refused a double spend (conflict)" in out

@@ -41,10 +41,10 @@ def test_web_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="ed_ladder was not launched in the web phase"):
         cs.phase_web(torch.device("cpu"), "cpu rehearsal")
     out = capsys.readouterr().out
-    for line in ("web (16a): TLS from", "13 flows over REST", "REST payments/s",
+    for line in ("web (16a): TLS from", "8 flows over REST", "REST payments/s",
                  "card calls per REST payment", "the double spend refused ['NotaryException']",
-                 "{'Hub': 1080, 'Alice': 610, 'Bob': 531, 'Carol': 782}",
-                 "108 plane requests answered", "the same 12 transaction ids",
+                 "{'Hub': 330, 'Alice': 900, 'Bob': 841, 'Carol': 932}",
+                 "108 plane requests answered", "the same 7 transaction ids",
                  "shell (16b): remote login to Bob over TLS, a wrong password refused",
                  "(3 steps rendered done)", "list Bob's 1 states",
                  "replacement (16c): ids 5", "'unauthorised upgrade', 'FlowException'",

@@ -2,15 +2,15 @@
 client/webserver.py, utils/progress_render.py, finance/web.py,
 tools/web_explorer.py), held against the reference.
 
-- Every case of the reference's tests/test_client.py but those in
-  LEFT_OUT runs on the port with its imports read as corda_tpu_torch
+- Every case of the reference's tests/test_client.py runs on the port with its imports read as corda_tpu_torch
   (test_torch_health.port_test_module); its MockNetwork, which builds
   the default device verifier, gets CpuBatchVerifier (the port's
   default is the card). Among them: the JSON round trip and its tag
   whitelist, the flow-argument parser, the shell's commands, its
   `flow watch` progress render and its error messages, the gateway's
   GET and POST routes and errors, /metrics, a CorDapp web API mounted
-  at /api/cash, and the ledger explorer's routes and page.
+  at /api/cash, the SIMM demo's API at /api/simm (samples/simm_web.py),
+  and the ledger explorer's routes and page.
 - `json_support.dumps` of the same core objects, and `parse_flow_args`
   of the same texts, give equal strings and equal errors in both
   packages.
@@ -20,9 +20,9 @@ tools/web_explorer.py), held against the reference.
   and the explorer, a 404) gives equal statuses, content types and
   bodies; and one shell command script gives equal output.
 
-The reference process may hold the IRS demo's responder flows, which
-the port has not ported (ROADMAP Queue 1 #10): lists of registered
-flows are compared without them.
+Both drives import the IRS demo and the SIMM web API in their package
+first, so that the lists of registered flows and web plugins hold the
+same entries whatever else the process imported.
 """
 
 from __future__ import annotations
@@ -40,13 +40,10 @@ from test_torch_fabric import port_cases, run_port_case  # noqa: E402
 from test_torch_health import port_test_module  # noqa: E402
 
 PACKAGES = ("corda_tpu", "corda_tpu_torch")
-LEFT_OUT = {
-    "test_simm_web_api": "the SIMM web API, samples/simm_web.py (ROADMAP Queue 1 #9)",
-}
+LEFT_OUT: dict = {}
 CPU_NET = ("MockNetwork(seed=66)",
            "MockNetwork(seed=66, batch_verifier=__import__("
            "'corda_tpu.crypto.batch_verifier', fromlist=['_']).CpuBatchVerifier())")
-IRS = "corda_tpu.samples.irs_demo."
 
 
 def client_port_module():
@@ -59,8 +56,7 @@ def test_reference_case_on_the_port(name, case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_client", LEFT_OUT)) == 20
-    assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_client")))
+    assert len(port_cases("test_client", LEFT_OUT)) == 21
 
 
 def _m(prefix: str, name: str):
@@ -124,7 +120,9 @@ def test_parse_flow_args_equal_the_references():
 
 def _mock_rig(prefix: str):
     """A seeded MockNetwork (Notary, Alice, Bob) with an RPC server on
-    Alice and a client of it on its own fabric endpoint."""
+    Alice and a client of it on its own fabric endpoint; the package's
+    IRS flows and SIMM web API registered."""
+    _m(prefix, "samples.simm_web")
     rpclib = _m(prefix, "node.rpc")
     net = _m(prefix, "testing.mock_network").MockNetwork(
         seed=66, batch_verifier=_m(prefix, "crypto.batch_verifier").CpuBatchVerifier())
@@ -146,10 +144,6 @@ def _http(port: int, method: str, path: str, body=None) -> tuple:
             return r.status, r.headers["Content-Type"], r.read().decode()
     except urllib.error.HTTPError as e:
         return e.code, e.headers["Content-Type"], e.read().decode()
-
-
-def _without_irs(body: str) -> str:
-    return "\n".join(line for line in body.splitlines() if IRS not in line)
 
 
 def _gateway_drive(prefix: str) -> list:
@@ -180,7 +174,7 @@ def _gateway_drive(prefix: str) -> list:
     try:
         for method, path, body in calls:
             status, ctype, text = _http(server.port, method, path, body)
-            out.append((method, path, status, ctype, _without_irs(text)))
+            out.append((method, path, status, ctype, text))
         tid = json.loads(out[1][4])["tx_id"]
         out.append(("GET", "tx", *_http(server.port, "GET", f"/api/explorer/tx?id={tid}")))
     finally:
@@ -215,7 +209,7 @@ SHELL_SCRIPT = (
 def _shell_drive(prefix: str) -> list:
     net, client, _ = _mock_rig(prefix)
     shell = _m(prefix, "client.shell").Shell(client, pump=lambda: net.run(), timeout=30)
-    return [_without_irs(shell.run_command(line)) for line in SHELL_SCRIPT]
+    return [shell.run_command(line) for line in SHELL_SCRIPT]
 
 
 def test_shell_output_equals_the_references():

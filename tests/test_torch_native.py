@@ -31,6 +31,7 @@ import corda_tpu.crypto.hashes as rhashes  # noqa: E402
 import corda_tpu.crypto.merkle as rmerkle  # noqa: E402
 import corda_tpu.finance.asset as rasset  # noqa: E402
 import corda_tpu.finance.cash  # noqa: E402,F401  (wire classes)
+import corda_tpu_torch.core.contracts as pcontracts  # noqa: E402
 import corda_tpu_torch.core.serialization as pser  # noqa: E402
 import corda_tpu_torch.crypto.encodings as penc  # noqa: E402
 import corda_tpu_torch.crypto.hashes as phashes  # noqa: E402
@@ -405,12 +406,66 @@ EDGE_VECTORS = [
 
 def test_codec_edge_vectors_four_ways(ref_lib):
     """Every decode error branch of test_native.py, and an unknown object
-    tag (the port has no class carpenter: whitelist-only), raise
-    SerializationError in all four decoders."""
+    tag (outside a class-carpenter context decoding is whitelist-only),
+    raise SerializationError in all four decoders."""
     for v in EDGE_VECTORS:
         outs = [_outcome(lambda d=d: d(v)) for d in (
             pser.decode, pser.decode_py, rser.decode_py, ref_lib.cts_decode)]
         assert outs == [("err", "SerializationError")] * 4, f"vector {v[:20]!r}: {outs}"
+
+
+def _object(tag: str, fields: list) -> bytes:
+    """The CTS bytes of an object of `tag` with (name, encoded value)
+    fields, whether or not a class of that tag is registered."""
+    tb = tag.encode()
+    out = bytearray(b"\x09") + pser._varint(len(tb)) + tb + pser._varint(len(fields))
+    for name, value in fields:
+        out += pser.encode_py(name) + value
+    return bytes(out)
+
+
+def _carpented(obj, carpenter, ser):
+    """(tag, ((field, value), ...)) of a synthesized object, recursively;
+    any other value as its package's encoding."""
+    if carpenter.is_synthesized(obj):
+        return (type(obj).__cts_tag__, tuple(
+            (f, _carpented(getattr(obj, f), carpenter, ser)) for f in obj.__dataclass_fields__))
+    if isinstance(obj, tuple):
+        return tuple(_carpented(v, carpenter, ser) for v in obj)
+    return ser.encode_py(obj)
+
+
+def test_carpenter_context_decodes_alike_four_ways(ref_lib):
+    """Inside each package's carpenter context, unknown tags (nested, in
+    lists and maps, beside a known class) decode to the same synthesized
+    fields in all four decoders, and a known class with a field it does
+    not know decodes field-tolerantly; every result re-encodes to the
+    input bytes in its package, except the trimmed known class."""
+    import corda_tpu.core.carpenter as rcarp
+    import corda_tpu_torch.core.carpenter as pcarp
+
+    txhash = phashes.SecureHash.sha256(b"x")
+    ref = pser.encode_py(pcontracts.StateRef(txhash, 3))
+    inner = _object("InnerThing", [("v", pser.encode_py(7)), ("blob", pser.encode_py(b"\x01"))])
+    vectors = [
+        inner,
+        _object("OuterThing", [("inner", inner), ("ref", ref), ("n", pser.encode_py(-5)),
+                               ("items", pser.encode_py([1, "two", None]))]),
+        pser.encode_py([1, {"k": 2}]).replace(b"\x03\x01", inner, 1),
+        _object("StateRef", [("txhash", pser.encode_py(txhash)), ("index", pser.encode_py(3)),
+                             ("added_later", pser.encode_py("x"))]),
+    ]
+    for k, v in enumerate(vectors):
+        with pcarp.carpenter_context():
+            port = [pser.decode(v), pser.decode_py(v)]
+        with rcarp.carpenter_context():
+            refs = [rser.decode_py(v), ref_lib.cts_decode(v)]
+        got = [_carpented(o, pcarp, pser) for o in port] + [
+            _carpented(o, rcarp, rser) for o in refs]
+        assert got[1:] == got[:1] * 3, f"vector {k}: {got}"
+        want = ref if k == 3 else v
+        assert [pser.encode(o) for o in port] == [rser.encode_py(o) for o in refs] == [want] * 2
+        assert _outcome(lambda: pser.decode(v))[0] == "err"
 
 
 def test_codec_int_boundaries_and_floats(ref_lib):

@@ -8,10 +8,11 @@ flavours (3 transactions each), trader_demo's `run` and `run_via_rpc`,
 bank_of_corda_demo and attachment_demo. Required equal: every
 transaction id any node recorded (chip_smoke.recorded_networks), the
 notary signer keys per transaction and the demo's result. `find_flow_class`
-gives the reference's tags for the flows of every ported search package,
-refuses a class that is not a flow, resolves the replacement flows
-(flows/replacement.py) to the reference's tags, and skips the package
-the port does not hold (samples/irs_demo.py).
+gives the reference's tags for the flows of every search package,
+refuses a class that is not a flow and resolves the replacement flows
+(flows/replacement.py) to the reference's tags. The IRS, simulation and
+SIMM demos are held in tests/test_torch_samples_irs.py and
+tests/test_torch_simm.py.
 """
 
 from __future__ import annotations

@@ -5,15 +5,15 @@
 
 Phases (any failure raises and exits non-zero). Phases 1, 2, 3's
 timing and 4 run first, in this process alone. Then the phases run in
-four processes at once on the one card (QUIET, HOME and LANES below
-main): here 3's parity, 5, 6, 8 and 14; in three lanes (this script with
+five processes at once on the one card (QUIET, HOME and LANES below
+main): here 3's parity, 5, 6, 8 and 14; in four lanes (this script with
 `--lane`, each printing what it prints into a file, relayed after this
-process's own lines) 11, 13, 15 and 7; 16 and 10; 12, 17 and 9. A lane
+process's own lines) 11, 13, 15 and 7; 16 and 10; 12, 17 and 9; 18. A lane
 without phase 6 builds the same fixture itself. The parts that count
-the card's CUDA contexts (11c, 11d, 12a) hold a lock that no other part
+the card's CUDA contexts (11c, 11d, 12a, 18c) hold a lock that no other part
 starting or stopping a card process holds meanwhile, and every lane
 keeps its context until all have finished. Walls and rates of phases
-3's parity and 5-17 are taken beside the other processes:
+3's parity and 5-18 are taken beside the other processes:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from corda_tpu_torch/csrc with nvcc (one
      process per source, all started together) and, beside them, the
@@ -426,13 +426,46 @@ keeps its context until all have finished. Walls and rates of phases
      seeded portfolios x 12 tenors against float64 bucket_margins, the
      max relative error held to 1e-4. ed_ladder must launch; prints
      each part's seconds and card calls and the phase's wall;
- 18. print the kernel table as one JSON line (with each kernel's
+ 18. the test kits and the tools (testing/fleet.py, testing/expect.py,
+     tools/demobench.py, web_demobench.py, explorer.py, models.py,
+     graphs.py) on the card, the launch counters set to 0 before 18a
+     and read after 18b: (a) the fleet soak at tests/test_fleet.py's
+     batching shape (1,024 client identities, key pool 8, seed 11;
+     ramp 3 rounds x 4, steady 14 x 8, a spike of 8 x 24 with 34% bulk,
+     steady2 8 x 6; 6% injected double spends, a 6-round deadline, 60
+     drain rounds; a frozen pump from 12% to 22% of the stream; the
+     fixed 8-spend QoS policy) over one recording
+     CudaBatchVerifier(batch_sizes=(128, 4096)): every p256 notary
+     flush on the card; the checker reconciles the ledger, the SLO
+     (p99 inside 5 rounds), the brownout and the health story, and
+     every record's outcome, answer time and shed reason equal the same
+     soak's over CpuBatchVerifier, run in a child process beside it;
+     prints the seconds, the card calls, the rows per call and the
+     launches; (b) the fault arc: 16 clients, 6 rounds x 4, 20%
+     conflicts, seed 13, the intent WAL and a verifier pool of 2 whose
+     workers verify on the card (divergence D10), worker 0 killed at
+     30% of the stream: the checker's reconciliation and exact
+     accounting, no intent left unresolved, every pool request
+     resolved; a device_fault soak over the card (the default verifier
+     and the recording one) is refused with ValueError naming D2;
+     (c) web_demobench served on port 0: the validating notary Hub (the
+     map host), then Alice and Bob added through /api/bench/add as
+     node processes on the card (verifier_backend "tpu"); over Alice's
+     RPC, ExplorerSimulation(currencies=("USD",), seed=5) runs 6 steps,
+     each flow awaited; a NodeMonitorModel's transaction feed, recorded
+     through the steps, matches an expect sequence built from the step
+     log, in order and strictly; its balances equal a vault query's;
+     Explorer renders and graphs draws the dot digraph of Alice's
+     verified transactions; one CUDA context per node process; SIGTERM
+     ends each with exit code 0. wei_ladder_windowed must launch in
+     18a-18b; prints each part's seconds and the phase's wall;
+ 19. print the kernel table as one JSON line (with each kernel's
      launches in phase 10 as "clusters_launches", in 11a-11b as
      "nodes_launches", in 12b-12d as "drives_launches", in 13a-13c as
      "telemetry_launches", in 14a-14d as "planes_launches", in 15a-15c
-     as "xshard_launches", in 16a-16d as "web_launches" and in 17a-17d
-     as "samples_launches"), then the result line {"ok": true,
-     "device": {...}}.
+     as "xshard_launches", in 16a-16d as "web_launches", in 17a-17d as
+     "samples_launches" and in 18a-18b as "fleet_launches"), then the
+     result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
 """
@@ -5780,18 +5813,377 @@ def phase_samples(device, card: str) -> dict:
     return {"launches": launches, "samples": got, "margins": m}
 
 
+# -- phase 18: the test kits and the tools ------------------------------------
+
+FLEET_SEED = 11              # 18a: tests/test_fleet.py's batching fixture (198-224)
+FLEET_CLIENTS = 1024         # 18a: client identities
+FLEET_KEY_POOL = 8           # 18a: signing keys the identities share (FleetScenario's default)
+FLEET_CAP = 8                # 18a: the QoS policy's batch, spends per flush
+FLEET_ROUND = 20_000         # 18a-18b: simulated µs per delivery round
+FLEET_BATCHES = (128, 4096)  # 18a-18b: the recording verifier's buckets
+ARC_SEED = 13                # 18b: test_exact_accounting_replaces_loss_allowance_with_wal
+ARC_WORKERS = 2              # 18b: the verifier pool's workers
+EXPLORER_SEED = 5            # 18c: ExplorerSimulation's seed (tests/test_tools.py)
+EXPLORER_STEPS = 6           # 18c: simulation steps against Alice
+BENCH_NODES = ({"name": "Hub", "notary": "validating"}, {"name": "Alice"}, {"name": "Bob"})
+BENCH_TIMEOUT = 180.0        # s any one 18c launch or flow may take before the phase fails
+FLEET_CPU_DRIVE = (
+    "import json, os, sys; sys.path.insert(0, os.getcwd()); import chip_smoke as cs; "
+    "from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier; "
+    "r = cs.fleet_soak(CpuBatchVerifier()); "
+    "print('CPU_DRIVE ' + json.dumps({'records': r['records']}))")
+
+
+def _fleet_policy(cap: int):
+    from corda_tpu_torch.node import qos
+
+    return qos.QosPolicy(target_p99_micros=5 * FLEET_ROUND, min_batch=cap, max_batch=cap,
+                         max_wait_micros=0, brownout_after_flushes=3)
+
+
+def _fleet_records(rep) -> list:
+    return [[r.rid, r.client, str(r.tx_id), r.kind, r.phase, r.outcome, r.shed_reason,
+             r.submitted_at, r.answered_at] for r in rep.records]
+
+
+def fleet_soak(verifier) -> dict:
+    """18a: the reference's batching soak (tests/test_fleet.py:198-224) over
+    `verifier`, reconciled as test_batching_soak_reconciles_with_slo_and_
+    brownout and its health-story twin reconcile it. Raises on any
+    failed check. Returns the records (JSON), the outcomes, the verdict
+    and the wall."""
+    from corda_tpu_torch.node import qos as qoslib
+    from corda_tpu_torch.testing import fleet as fl
+
+    R, cap = FLEET_ROUND, FLEET_CAP
+    mix = fl.TrafficMix(deadline_micros=6 * R, conflict_fraction=0.06)
+    scenario = fl.FleetScenario(
+        clients=FLEET_CLIENTS,
+        phases=(fl.Phase("ramp", 3, cap // 2, mix), fl.Phase("steady", 14, cap, mix),
+                fl.Phase("spike", 8, 3 * cap, fl.TrafficMix(
+                    deadline_micros=6 * R, bulk_fraction=0.34, conflict_fraction=0.06)),
+                fl.Phase("steady2", 8, cap - 2, mix)),
+        round_micros=R, drain_rounds=60, seed=FLEET_SEED)
+    if scenario.key_pool != FLEET_KEY_POOL:
+        raise RuntimeError(f"fleet (18a): key pool {scenario.key_pool}, the reference's is "
+                           f"{FLEET_KEY_POOL}")
+    t0 = time.perf_counter()
+    sim = fl.FleetSim(scenario, "batching", chaos=(fl.freeze(0, at=0.12, until=0.22),),
+                      qos_policy=_fleet_policy(cap), batch_verifier=verifier)
+    rep = sim.run()
+    wall = time.perf_counter() - t0
+    checker = fl.InvariantChecker(rep)
+    verdict = checker.check_all(slo_p99_micros=5 * R, expect_conflicts=True,
+                                expect_brownout=True)
+    checker.check_health_story()
+    out = rep.outcomes()
+    shed = rep.qos.snapshot()["shed"]
+    if not (verdict["reconciled"] is True and rep.distinct_clients >= 300
+            and out.get(fl.OUT_SIGNED, 0) > 0 and out.get(fl.OUT_SHED, 0) > 0
+            and 0 < rep.bulk_shed_brownout == shed.get(qoslib.SHED_BROWNOUT_BULK, 0)
+            and shed.get(qoslib.SHED_EXPIRED_FLUSH, 0) >= out.get(fl.OUT_SHED, 0)
+            and sum(1 for e in rep.chaos_log if e["kind"] == "freeze") == 1):
+        raise RuntimeError(f"fleet (18a): outcomes {out}, {rep.distinct_clients} clients, "
+                           f"bulk shed {rep.bulk_shed_brownout}, QoS shed {shed}")
+    return {"records": _fleet_records(rep), "outcomes": out, "verdict": verdict,
+            "wall_s": wall, "clients": rep.distinct_clients, "bulk": (rep.bulk_offered,
+                                                                      rep.bulk_shed_brownout)}
+
+
+def fault_arc(verifier) -> dict:
+    """18b: test_exact_accounting_replaces_loss_allowance_with_wal's soak
+    with a verifier pool of ARC_WORKERS over `verifier` and worker 0
+    killed mid-stream; then a device_fault soak over the card refused.
+    Raises on any failed check."""
+    from corda_tpu_torch.testing import fleet as fl
+
+    R = FLEET_ROUND
+    scenario = fl.FleetScenario(
+        clients=16, phases=(fl.Phase("steady", 6, 4, fl.TrafficMix(
+            deadline_micros=20 * R, conflict_fraction=0.2)),),
+        round_micros=R, seed=ARC_SEED)
+    t0 = time.perf_counter()
+    sim = fl.FleetSim(scenario, "batching", qos_policy=_fleet_policy(8), intent_wal=True,
+                      verifier_pool=ARC_WORKERS, chaos=(fl.kill_verifier(0, at=0.3),),
+                      batch_verifier=verifier)
+    workers = [w._verifier for w in sim._verify_workers]
+    if len(workers) != ARC_WORKERS or any(w is not verifier for w in workers):
+        raise RuntimeError("fault arc (18b): the pool's workers do not verify on the fleet's "
+                           "verifier (D10)")
+    rep = sim.run()
+    wall = time.perf_counter() - t0
+    checker = fl.InvariantChecker(rep)
+    checker.check_all(expect_conflicts=True)
+    checker.check_exact_accounting()
+    if not (rep.intent_wal and rep.intent_unresolved == 0 and rep.verify_workers_lost == 1
+            and rep.verify_offered > 0 and rep.verify_resolved == rep.verify_offered
+            and rep.verify_failed == 0):
+        raise RuntimeError(f"fault arc (18b): unresolved intents {rep.intent_unresolved}, "
+                           f"pool {rep.verify_resolved}/{rep.verify_offered} resolved, "
+                           f"{rep.verify_failed} failed, {rep.verify_workers_lost} lost")
+    refused = []
+    for label, v in (("default", None), ("recording", verifier)):
+        try:
+            fl.FleetSim(scenario, "batching", chaos=(fl.device_fault(at=0.2, heal_at=0.6),),
+                        batch_verifier=v)
+        except ValueError as e:
+            if "D2" not in str(e):
+                raise
+            refused.append(label)
+        else:
+            raise RuntimeError(f"fault arc (18b): a device_fault soak over the {label} card "
+                               "verifier was not refused (D10)")
+    return {"outcomes": rep.outcomes(), "wall_s": wall, "refused": refused,
+            "pool": (rep.verify_offered, rep.verify_resolved, rep.verify_redispatched),
+            "replayed": rep.intent_replayed}
+
+
+def _free_base(n: int) -> int:
+    """A port p with p .. p + n - 1 free now (DemoBench numbers its nodes'
+    ports from a base)."""
+    import socket
+
+    for _ in range(100):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n > 65535:
+            continue
+        held = []
+        try:
+            for k in range(n):
+                held.append(socket.socket())
+                held[-1].bind(("127.0.0.1", base + k))
+            return base
+        except OSError:
+            continue
+        finally:
+            for h in held:
+                h.close()
+    raise RuntimeError("no free port range")
+
+
+def _bench_call(port: int, path: str, body=None) -> tuple:
+    """(status, JSON) of one request to the launcher's API."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="POST" if body is not None else "GET",
+        data=json.dumps(body).encode() if body is not None else None,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _bench_up(port: int, name: str) -> dict:
+    deadline = time.monotonic() + BENCH_TIMEOUT
+    while time.monotonic() < deadline:
+        _, st = _bench_call(port, "/api/bench/status")
+        node = next((n for n in st["nodes"] if n["name"] == name), {})
+        state = node.get("state") or ""
+        if state == "up":
+            return node
+        if state.startswith("failed"):
+            raise RuntimeError(f"demobench (18c): {name} failed to start: {state}")
+        time.sleep(0.2)
+    raise RuntimeError(f"demobench (18c): {name} not up within {BENCH_TIMEOUT:.0f} s")
+
+
+def _step_expectation(line: str):
+    """The transaction one ExplorerSimulation step leaves in the
+    initiator's feed: an issue of the logged amount, or a payment that
+    spends inputs and pays the logged amount."""
+    from corda_tpu_torch.core.transactions import SignedTransaction
+    from corda_tpu_torch.testing.expect import expect
+
+    kind = line.split()[0]
+    if kind not in ("issue", "pay"):
+        raise RuntimeError(f"demobench (18c): the simulation idled: {line!r}")
+    amount = int(line.split()[1])
+
+    def amounts(stx):
+        return [getattr(o.data, "amount", None) and o.data.amount.quantity
+                for o in stx.wtx.outputs]
+
+    if kind == "issue":
+        return expect(SignedTransaction, lambda stx: not stx.wtx.inputs
+                      and amounts(stx) == [amount])
+    return expect(SignedTransaction, lambda stx: len(stx.wtx.inputs) > 0
+                  and amount in amounts(stx))
+
+
+def demobench_drive(root: str, backend: str = "tpu", check_contexts: bool = True) -> dict:
+    """18c: web_demobench on port 0, Hub (map host, validating notary),
+    Alice and Bob launched through its API as node processes on
+    `backend`; ExplorerSimulation against Alice over RPC, its flows
+    awaited, a NodeMonitorModel's transaction feed held to an expect
+    sequence built from the step log; balances against a vault query;
+    the explorer and the graph rendered; CUDA contexts counted; SIGTERM
+    exits 0. Raises on any failed check."""
+    from corda_tpu_torch.node.vault_query import VaultQueryCriteria
+    from corda_tpu_torch.testing.expect import expect_events, record, sequence
+    from corda_tpu_torch.tools.explorer import Explorer, ExplorerSimulation
+    from corda_tpu_torch.tools.graphs import transactions_to_dot
+    from corda_tpu_torch.tools.models import NodeMonitorModel, PumpedOps
+    from corda_tpu_torch.tools.web_demobench import serve
+
+    ctx0 = _cuda_contexts() if check_contexts else 0
+    server, launcher = serve(os.path.join(root, "bench"), port=0,
+                             base_port=_free_base(len(BENCH_NODES)))
+    port, procs, model = server.server_port, {}, None
+    t0 = time.perf_counter()
+    try:
+        for node in BENCH_NODES:
+            body = dict(node, **({} if backend == "tpu" else {"verifier_backend": backend}))
+            status, answer = _bench_call(port, "/api/bench/add", body)
+            if status != 202:
+                raise RuntimeError(f"demobench (18c): adding {node['name']}: {status} {answer}")
+            up = _bench_up(port, node["name"])
+            if up["map_host"] is not (node["name"] == "Hub"):
+                raise RuntimeError(f"demobench (18c): {node['name']}'s map host flag {up}")
+        boot_s = time.perf_counter() - t0
+        bench = launcher.bench
+        procs = {name: n.process for name, n in bench.nodes.items()}
+        ops = PumpedOps(bench.rpc("Alice"), bench.pump, timeout=BENCH_TIMEOUT)
+        deadline = time.monotonic() + BENCH_TIMEOUT
+        while len(ops.network_map_snapshot()) < len(BENCH_NODES):
+            if time.monotonic() > deadline:
+                raise RuntimeError("demobench (18c): Alice's map never listed every node")
+            time.sleep(0.2)
+        model = NodeMonitorModel(ops)
+        sim = ExplorerSimulation(ops, currencies=("USD",), seed=EXPLORER_SEED)
+        log = []
+
+        def steps():
+            for _ in range(EXPLORER_STEPS):
+                log.append(sim.step())
+                bench.wait(sim.handles[-1].result, BENCH_TIMEOUT)   # raises if the flow failed
+            ops.current_node_time()     # a round trip drains the feeds' last updates
+
+        t1 = time.perf_counter()
+        events = record(model.transactions.changes, steps)
+        flows_s = time.perf_counter() - t1
+        sim.close()
+        expect_events(events, sequence(*(_step_expectation(line) for line in log)))
+        page = ops.vault_query_by(VaultQueryCriteria())
+        queried: dict = {}
+        for sar in page.states:
+            amount = sar.state.data.amount
+            product = str(getattr(amount.token, "product", amount.token))
+            queried[product] = queried.get(product, 0) + amount.quantity
+        if model.vault.balances() != queried:
+            raise RuntimeError(f"demobench (18c): the model's balances "
+                               f"{model.vault.balances()} differ from the vault query's "
+                               f"{queried}")
+        explorer = Explorer(ops)
+        try:
+            panes = explorer.render()
+        finally:
+            explorer.close()
+        stxs = ops.verified_transactions_snapshot()
+        dot = transactions_to_dot(stxs)
+        if not ("Alice — ledger explorer" in panes and f"transactions: {len(stxs)}" in panes
+                and dot.startswith("digraph") and len(stxs) == len(events) == len(log)):
+            raise RuntimeError(f"demobench (18c): {len(stxs)} transactions, {len(events)} feed "
+                               f"events for {len(log)} steps; explorer:\n{panes}")
+        apps = _smi_apps() if check_contexts else ""
+        contexts = _cuda_contexts() if check_contexts else None
+        if check_contexts and contexts - ctx0 < len(procs):
+            raise RuntimeError(f"demobench (18c): {contexts - ctx0} new CUDA contexts for "
+                               f"{len(procs)} node processes (nvidia-smi compute apps: "
+                               f"{apps.strip()!r})")
+        model.close()
+        model = None
+        t2 = time.perf_counter()
+        server.shutdown()
+        launcher.shutdown()
+        stop_s = time.perf_counter() - t2
+        codes = {name: p.returncode for name, p in procs.items()}
+        if codes != {name: 0 for name in procs}:
+            raise RuntimeError(f"demobench (18c): exit codes after SIGTERM {codes}")
+        return {"log": log, "balances": queried, "boot_s": boot_s, "flows_s": flows_s,
+                "stop_s": stop_s, "transactions": len(stxs), "edges": dot.count("->"),
+                "contexts": (ctx0, contexts), "apps": apps.strip(),
+                "wall_s": time.perf_counter() - t0}
+    finally:
+        if model is not None:
+            model.close()
+        server.shutdown()
+        launcher.shutdown()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_tools(device, card: str) -> dict:
+    """Phase 18 (module docstring); returns the launches of 18a-18b."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        cpu_proc = _cpu_drive(FLEET_CPU_DRIVE, tmp)
+        verifier = _recording_verifier(FLEET_BATCHES, device)
+        _zero_counters()
+        soak = fleet_soak(verifier)
+        soak_calls = list(_calls(verifier))
+        arc = fault_arc(verifier)
+        launches = _read_counters()
+        cpu = _cpu_drive_result(cpu_proc, BENCH_TIMEOUT, "fleet (18a)")
+        if soak["records"] != cpu["records"]:
+            diff = next(k for k, (a, b) in enumerate(zip(soak["records"], cpu["records"]))
+                        if a != b) if len(soak["records"]) == len(cpu["records"]) else None
+            raise RuntimeError(f"fleet (18a): the card's records differ from the "
+                               f"CpuBatchVerifier soak's (first at {diff}: "
+                               f"{soak['records'][diff] if diff is not None else 'lengths'} vs "
+                               f"{cpu['records'][diff] if diff is not None else ''})")
+        rows = [len(reqs) for reqs, _ in soak_calls] or [0]
+        print(f"fleet (18a): {FLEET_CLIENTS} clients ({soak['clients']} reached), outcomes "
+              f"{json.dumps(soak['outcomes'])}, bulk offered/browned out "
+              f"{soak['bulk'][0]}/{soak['bulk'][1]}, reconciled with the SLO, the brownout "
+              f"and the health story in {soak['wall_s']:.3f} s; {len(soak_calls)} card calls, "
+              f"rows per call {min(rows)}-{max(rows)} (mean {sum(rows) / len(rows):.2f}); "
+              f"{len(soak['records'])} records equal to the CpuBatchVerifier soak's (its own "
+              f"process); {card}")
+        print(f"fault arc (18b): outcomes {json.dumps(arc['outcomes'])}, pool requests "
+              f"offered/resolved/redispatched {'/'.join(map(str, arc['pool']))} on the card "
+              f"(D10), worker 0 lost, {arc['replayed']} intents replayed, none unresolved, "
+              f"exact accounting in {arc['wall_s']:.3f} s; device_fault over the card refused "
+              f"(D2) for the {' and '.join(arc['refused'])} verifier; {card}")
+        with card_processes(exclusive=True):
+            bench = demobench_drive(tmp)
+    print(f"demobench (18c): Hub, Alice and Bob up through /api/bench/add in "
+          f"{bench['boot_s']:.3f} s; {EXPLORER_STEPS} simulation steps {json.dumps(bench['log'])} "
+          f"in {bench['flows_s']:.3f} s, the feed matching their expect sequence; balances "
+          f"{json.dumps(bench['balances'])} equal to a vault query; the explorer and a graph "
+          f"of {bench['transactions']} transactions, {bench['edges']} edges; CUDA contexts "
+          f"{bench['contexts'][0]} before the nodes, {bench['contexts'][1]} while they ran "
+          f"(nvidia-smi: {bench['apps']!r}); SIGTERM exits 0 in {bench['stop_s']:.3f} s; "
+          f"{card}")
+    if launches["wei_ladder_windowed"] == 0:
+        raise RuntimeError("wei_ladder_windowed was not launched in the tools phase")
+    print(f"tools (ph. 18) launches: {json.dumps(launches)}; wall "
+          f"{time.perf_counter() - t_phase:.3f} s; {card}")
+    return {"launches": launches, "soak": soak, "arc": arc, "bench": bench}
+
+
 # Where each phase runs. The card is idle most of a phase's wall (its
 # time goes to torch-op launches on the host, node processes and
 # timeouts: PERF.md section 5), so after QUIET, which runs alone (the
 # kernel table's times, the host's torch-op rate), the phases run in
-# four processes at once on the one card: this one (HOME) and three
+# five processes at once on the one card: this one (HOME) and four
 # lanes, each this script with `--lane`.
 QUIET = ("3 timing", "4")
 HOME = ("3 parity", "5", "6", "8", "14")
-LANES = (("11", "13", "15", "7"), ("16", "10"), ("12", "17", "9"))
+LANES = (("11", "13", "15", "7"), ("16", "10"), ("12", "17", "9"), ("18",))
 LANE_TIMEOUT = 1100.0        # s a lane may take before the run fails
 COLUMNS = ("clusters_launches", "nodes_launches", "drives_launches", "telemetry_launches",
-           "planes_launches", "xshard_launches", "web_launches", "samples_launches")
+           "planes_launches", "xshard_launches", "web_launches", "samples_launches",
+           "fleet_launches")
 
 
 def run_phases(ids, device, card: str, report: dict) -> tuple:
@@ -5841,6 +6233,8 @@ def run_phases(ids, device, card: str, report: dict) -> tuple:
             columns["web_launches"] = phase_web(device, card)["launches"]
         elif pid == "17":
             columns["samples_launches"] = phase_samples(device, card)["launches"]
+        elif pid == "18":
+            columns["fleet_launches"] = phase_tools(device, card)["launches"]
         else:
             raise ValueError(f"no phase {pid!r}")
         walls[pid] = round(time.perf_counter() - t, 1)

@@ -58,6 +58,18 @@ def nvcc_path() -> str:
 
 
 def sources() -> list[Path]:
+    """The CUDA sources; KernelBuildError where csrc/ is no directory on
+    the file system (a package run from a zip archive, tools/package.py),
+    since nvcc reads only from the file system."""
+    if not CSRC_DIR.is_dir():
+        archive = next((p for p in CSRC_DIR.parents if p.is_file()), None)
+        where = (f"inside the archive {archive}" if archive is not None
+                 else "missing")
+        raise KernelBuildError(
+            f"the CUDA sources {CSRC_DIR} are {where}: nvcc reads only from "
+            "the file system, so corda_tpu_torch builds its kernels only "
+            "from an unpacked tree"
+        )
     return sorted(CSRC_DIR.glob("*.cu"))
 
 

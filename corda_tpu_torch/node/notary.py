@@ -917,11 +917,9 @@ class _NotaryShard:
         return len(self.pending)
 
 
-def _on_card(services: ServiceHub) -> bool:
-    """True where the hub's batch verifier (or the one it wraps) runs on
-    a CUDA device; a hub without one uses default_verifier(), which
-    does."""
-    verifier = services._batch_verifier
+def verifier_on_card(verifier) -> bool:
+    """True where `verifier` (or the one it wraps) runs on a CUDA device;
+    None stands for default_verifier(), which does."""
     if verifier is None:
         return True
     while verifier is not None:
@@ -929,6 +927,11 @@ def _on_card(services: ServiceHub) -> bool:
             return True
         verifier = getattr(verifier, "inner", None)
     return False
+
+
+def _on_card(services: ServiceHub) -> bool:
+    """True where the hub's batch verifier runs on the card."""
+    return verifier_on_card(services._batch_verifier)
 
 
 class BatchingNotaryService(NotaryService):

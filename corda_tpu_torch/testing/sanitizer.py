@@ -32,11 +32,15 @@ Port of corda_tpu/testing/sanitizer.py, its dynamic half:
    coordinator whose first ``ShardCommit`` leaves before the durable
    commit mark — the explorer must catch it.
 
-The static half — :func:`static_lock_view`, :class:`StaticLockView`,
-:class:`SanitizerDiff`, ``ConcurrencySanitizer.diff_static`` /
-``split_report`` and :func:`render_split_report` — reads ``tools/lint``'s
-fact core over the reference tree; the port has no lint over its own
-tree, so these raise NotImplementedError naming ROADMAP Queue 1 #12.
+3. **The static half** — :func:`static_lock_view` builds a
+   :class:`StaticLockView` from ``tools/lint``'s fact core run over the
+   port's own tree (``extract_repo(root, subdirs=("corda_tpu_torch",))``,
+   imported lazily, as the reference does);
+   ``ConcurrencySanitizer.diff_static`` reconciles the observed graph
+   against it into a :class:`SanitizerDiff`, and ``split_report`` /
+   :func:`render_split_report` give the process-split feasibility
+   report. The port's committed-tree gate reads
+   ``SANITIZER_BASELINE_TORCH.json``.
 """
 
 from __future__ import annotations
@@ -550,43 +554,240 @@ class ConcurrencySanitizer:
 
     # -- static <-> dynamic --------------------------------------------------
 
-    def diff_static(self, view) -> "SanitizerDiff":
-        """Reconcile the observed graph against the lint fact core."""
-        _static_half("ConcurrencySanitizer.diff_static")
+    def diff_static(self, view: "StaticLockView") -> "SanitizerDiff":
+        """Reconcile the observed graph against the lockcheck fact
+        core. Runtime edges the static pass missed become findings
+        (they strengthen facts.py or get baselined with a written
+        justification); static edges never exercised become the
+        coverage report; runtime locks with no static identity are
+        listed (factory names that drifted from the tree)."""
+        def variants(name: str) -> tuple:
+            # runtime factory names are exact (`_NotaryShard.cond`);
+            # the static walk spells an acquisition `?.attr` when
+            # several classes define the attribute and the receiver's
+            # class cannot be inferred — an observed edge matches a
+            # static one under either spelling of either endpoint
+            fb = "?." + name.rsplit(".", 1)[-1]
+            return (name,) if fb == name else (name, fb)
 
-    def split_report(self, view) -> dict:
-        """The process-split feasibility report."""
-        _static_half("ConcurrencySanitizer.split_report")
+        def static_matches(a: str, b: str) -> set:
+            return {
+                (x, y)
+                for x in variants(a)
+                for y in variants(b)
+                if (x, y) in view.edges
+            }
+
+        observed = self.graph()
+        exercised: set = set()
+        unseen: list = []
+        for (a, b), ev in sorted(observed.items()):
+            # a runtime (a, a) edge — two instances of one static id
+            # nested — matches the static instance-order pairs, which
+            # the view's edge set carries as (a, a)
+            hits = static_matches(a, b)
+            if hits:
+                exercised |= hits
+                continue
+            site_file = "<runtime>"
+            site_line = 0
+            if ev:
+                head = ev[0].split(" ", 1)[0]
+                if ":" in head:
+                    site_file, _, ln = head.rpartition(":")
+                    site_line = int(ln) if ln.isdigit() else 0
+            unseen.append(
+                Finding(
+                    "sanitizer-edge-unseen",
+                    P1,
+                    site_file,
+                    site_line,
+                    "",
+                    f"{a}->{b}",
+                    f"runtime lock-order edge {a} -> {b} is absent "
+                    "from the static lockcheck graph (dynamic "
+                    "dispatch or callback the AST walk cannot "
+                    "resolve) — teach facts.py or baseline with the "
+                    "reason",
+                    ev[:3],
+                )
+            )
+        unexercised = sorted(view.edges - exercised)
+        unknown = sorted(
+            name for name in self.lock_stats() if name not in view.locks
+        )
+        return SanitizerDiff(
+            unseen_edges=unseen,
+            unexercised_edges=unexercised,
+            unknown_locks=unknown,
+            observed_edge_count=len(observed),
+            static_edge_count=len(view.edges),
+        )
+
+    def split_report(self, view: "StaticLockView") -> dict:
+        """The process-split feasibility report: every lock that
+        mediates cross-thread-group state — statically reachable from
+        more than one entry group (the lockcheck sharing map), or
+        observed held by more than one thread at runtime — with its
+        measured contention and hold profile. The `pump_hot` section
+        names the locks a GIL-escape split must either keep on the
+        pump side, shard, or replace with a queue; `hold_us_*` is the
+        evidence the planning argues from."""
+        stats = self.lock_stats()
+        rows = []
+        for name, st in sorted(stats.items()):
+            groups = set(view.groups.get(name, ()))
+            if not groups:
+                # the static sharing map may know this lock under its
+                # ambiguous `?.attr` spelling
+                groups = set(
+                    view.groups.get(
+                        "?." + name.rsplit(".", 1)[-1], ()
+                    )
+                )
+            rgroups = {_thread_group(t) for t in st["threads"]}
+            combined = groups | rgroups
+            if len(combined) < 2 and len(st["threads"]) < 2:
+                continue
+            rows.append(
+                {
+                    "lock": name,
+                    "kind": view.kinds.get(name, "Lock"),
+                    "pump_hot": name in view.hot_locks,
+                    "static_groups": sorted(groups),
+                    "runtime_groups": sorted(rgroups),
+                    **st,
+                }
+            )
+        rows.sort(key=lambda r: -r["hold_us_total"])
+        pump_hot = [
+            r for r in rows if r["pump_hot"] and r["acquisitions"] > 0
+        ]
+        return {
+            "shared_locks": rows,
+            "pump_hot": pump_hot,
+            "observed_locks": len(stats),
+            "static_locks": len(view.locks),
+        }
 
 
-def _static_half(name: str):
-    raise NotImplementedError(
-        f"corda_tpu_torch.testing.sanitizer.{name}: the sanitizer's static "
-        "half reads tools/lint's fact core, and the port has no lint over "
-        "its own tree (ROADMAP Queue 1 #12)"
-    )
+def _thread_group(thread_name: str) -> str:
+    if thread_name == "MainThread":
+        return "pump"
+    if thread_name.startswith("notary-shard"):
+        return "shard-flush"
+    if thread_name.startswith("notary-collect"):
+        return "shard-flush"
+    if thread_name.startswith("cts-ingest"):
+        return "ingest"
+    if thread_name.startswith(("web", "http")):
+        return "web"
+    return thread_name
 
 
 def render_split_report(report: dict) -> str:
-    _static_half("render_split_report")
+    lines = [
+        "process-split feasibility (static sharing map x measured "
+        "contention/hold)",
+        f"  observed locks: {report['observed_locks']} of "
+        f"{report['static_locks']} statically known",
+        "",
+        "  pump-hot locks (measured hold times — the split's critical "
+        "path):",
+    ]
+    for r in report["pump_hot"] or ():
+        lines.append(
+            f"    {r['lock']:<44} acq={r['acquisitions']:<6} "
+            f"contended={r['contended']:<4} "
+            f"hold mean={r['hold_us_mean']}us max={r['hold_us_max']}us "
+            f"total={r['hold_us_total']}us"
+        )
+    if not report["pump_hot"]:
+        lines.append("    (none observed)")
+    lines.append("")
+    lines.append("  cross-group shared state:")
+    for r in report["shared_locks"]:
+        groups = ",".join(
+            sorted(set(r["static_groups"]) | set(r["runtime_groups"]))
+        ) or "-"
+        lines.append(
+            f"    {r['lock']:<44} [{r['kind']}] groups={groups} "
+            f"contention={r['contention_ratio']} "
+            f"hold_total={r['hold_us_total']}us"
+            + ("  PUMP-HOT" if r["pump_hot"] else "")
+        )
+    return "\n".join(lines)
 
 
+# ---------------------------------------------------------------------------
+# static view (lazy tools/lint import — tests run from the repo root,
+# where `tools` is importable); the fact core walks corda_tpu_torch/
+
+
+@dataclass
 class StaticLockView:
-    """The lint fact core's lock graph (static half, not ported)."""
+    edges: set
+    locks: set
+    hot_locks: set
+    groups: dict
+    kinds: dict
 
-    def __init__(self, *args, **kwargs):
-        _static_half("StaticLockView")
 
-
+@dataclass
 class SanitizerDiff:
-    """The static<->dynamic reconciliation (static half, not ported)."""
+    """The static<->dynamic reconciliation: `unseen_edges` are
+    findings (runtime truths the AST walk missed), `unexercised_edges`
+    is the coverage report (statically proven orderings this run never
+    drove), `unknown_locks` are factory names with no static identity
+    (drift between a make_lock string and the tree)."""
 
-    def __init__(self, *args, **kwargs):
-        _static_half("SanitizerDiff")
+    unseen_edges: list
+    unexercised_edges: list
+    unknown_locks: list
+    observed_edge_count: int
+    static_edge_count: int
+
+    @property
+    def coverage(self) -> float:
+        if not self.static_edge_count:
+            return 1.0
+        exercised = self.static_edge_count - len(self.unexercised_edges)
+        return exercised / self.static_edge_count
+
+    def findings(self) -> list:
+        return list(self.unseen_edges)
 
 
-def static_lock_view(root: Optional[str] = None):
-    _static_half("static_lock_view")
+def static_lock_view(root: Optional[str] = None) -> StaticLockView:
+    if root is None:
+        root = os.path.dirname(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        )
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from tools.lint import lockcheck
+    from tools.lint.facts import extract_repo
+
+    repo = extract_repo(root, subdirs=("corda_tpu_torch",))
+    g = lockcheck.build_lock_graph(repo)
+    edges = set(g.edges)
+    for lock_id in list(g.self_same_recv) + list(g.self_diff_recv):
+        edges.add((lock_id, lock_id))
+    groups: dict = {}
+    for key, fn in repo.functions.items():
+        fn_groups = repo.reachable_groups.get(key, set())
+        if not fn_groups:
+            continue
+        for acq in fn.acquires:
+            groups.setdefault(acq.lock_id, set()).update(fn_groups)
+    kinds = {name: meta[0] for name, meta in repo.locks.items()}
+    return StaticLockView(
+        edges=edges,
+        locks=set(repo.locks),
+        hot_locks=set(repo.hot_locks),
+        groups=groups,
+        kinds=kinds,
+    )
 
 
 # ---------------------------------------------------------------------------

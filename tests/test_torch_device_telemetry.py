@@ -11,7 +11,10 @@ the reference.
   hbm-pressure, utilization-collapse and fallback-bridge alerts, the
   config knob, and /device and /capacity served by a booted node's
   gateway (a node that verifies on the CPU samples the host as one cpu
-  device, as the reference samples its CPU backend).
+  device, as the reference samples its CPU backend), and the fleet's
+  device_fault arc telling the telemetry story (testing/fleet.py over a
+  CpuBatchVerifier: test_torch_fleet.FLEET_SUBS; the degraded fallback
+  it needs runs only off the card, divergence D10).
 - Two cases read the device itself and get port-side versions: the
   default sampler lists the card through torch.cuda (and raises where
   there is none, instead of the reference's empty CPU-backend list),
@@ -33,13 +36,12 @@ import pytest
 pytest.importorskip("torch")
 
 from test_torch_fabric import port_cases, run_port_case  # noqa: E402
+from test_torch_fleet import FLEET_SUBS, cpu_fleet_sim  # noqa: E402
 from test_torch_perf import BENCH, verifier_port_module  # noqa: E402
 
 LEFT_OUT = {
     "test_multi_device_dispatch_attribution":
         "verifiers pinned to several cards (ROADMAP Queue 1 #7)",
-    "test_fleet_device_fault_tells_the_telemetry_story":
-        "the fleet rig, testing/fleet.py (ROADMAP Queue 1 #11)",
     "test_bench_quick_device_bounds_overhead_and_names_host_pump": BENCH,
 }
 
@@ -105,7 +107,8 @@ PORT_CASES = {
 
 
 def device_port_module():
-    return verifier_port_module("test_device_telemetry", **PORT_CASES)
+    return verifier_port_module("test_device_telemetry", subs=FLEET_SUBS,
+                                _fleet_sim=cpu_fleet_sim, **PORT_CASES)
 
 
 def _m(prefix: str, name: str):
@@ -118,7 +121,7 @@ def test_reference_case_on_the_port(name, case, tmp_path, monkeypatch):
 
 
 def test_case_count():
-    assert len(port_cases("test_device_telemetry", LEFT_OUT)) == 14
+    assert len(port_cases("test_device_telemetry", LEFT_OUT)) == 15
     ref = vars(importlib.import_module("tests.test_device_telemetry"))
     assert set(LEFT_OUT) <= set(ref) and set(PORT_CASES) <= set(ref)
 

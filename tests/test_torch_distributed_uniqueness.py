@@ -10,8 +10,12 @@ raft.partition_raft_groups in the port, held against the reference.
   typed answer and alert, the three kill arcs, the same-tx re-commit,
   the unreachable mark, the orphan against an empty journal, the
   xshard spans, the QoS lane, the per-partition raft groups, the config
-  knobs, GET /shards through the port's gateway and the three-process
-  TCP kill -9 (its child processes run the port).
+  knobs, GET /shards through the port's gateway, the three-process
+  TCP kill -9 (its child processes run the port), and the four
+  fleet-driven cases (testing/fleet.py, every FleetSim on a
+  CpuBatchVerifier: test_torch_fleet.FLEET_SUBS): the batching members'
+  cross-member spends, chaos in the reserve window, the 10k-identity
+  acceptance arc (slow, as in the reference) and its small twin.
 - Cross-package:
   - the same seeded rig in both packages gives equal decision logs,
     equal committed maps, byte-equal `TOPIC_XSHARD` frames, and equal
@@ -23,8 +27,7 @@ raft.partition_raft_groups in the port, held against the reference.
     `CudaBatchVerifier(device="cpu")` with the answers, signatures,
     decision logs and committed maps of the reference's members on
     `CpuBatchVerifier`; with the other owner partitioned away the
-    answer is `shard-unavailable` in both. This takes the place of the
-    reference's fleet-driven batching-member case.
+    answer is `shard-unavailable` in both.
 """
 
 from __future__ import annotations
@@ -37,27 +40,22 @@ import pytest
 pytest.importorskip("torch")
 
 from test_torch_fabric import port_cases, run_port_case  # noqa: E402
+from test_torch_fleet import FLEET_SUBS, cpu_fleet_sim  # noqa: E402
 from test_torch_health import port_test_module  # noqa: E402
 from test_torch_persistence import _dump_sqlite  # noqa: E402
 
 PACKAGES = ("corda_tpu", "corda_tpu_torch")
 MEMBERS = ("A", "B", "C")
-FLEET = "the fleet rig, testing/fleet.py (ROADMAP Queue 1 #11)"
 BENCH = "the reference's bench.py (the port's benchmark is ROADMAP Queue 1 #1)"
 LEFT_OUT = {
-    "test_batching_members_serve_cross_member_spends":
-        f"{FLEET}; test_batching_members_on_the_kernel_path_equal_the_references "
-        "holds the same path",
-    "test_fleet_chaos_during_reserve_window_zero_orphans_zero_lost": FLEET,
-    "test_fleet_acceptance_10k_identities_chaos_bit_exact": FLEET,
-    "test_fleet_small_acceptance_chaos_bit_exact": FLEET,
     "test_bench_quick_distributed_smoke": BENCH,
     "test_bench_history_gates_xshard_verdicts": f"tools/bench_history over {BENCH}",
 }
 
 
 def du_port_module():
-    return port_test_module("test_distributed_uniqueness")
+    return port_test_module("test_distributed_uniqueness", subs=FLEET_SUBS,
+                            _fleet_sim=cpu_fleet_sim)
 
 
 @pytest.mark.parametrize("name,case", port_cases("test_distributed_uniqueness", LEFT_OUT))
@@ -66,7 +64,7 @@ def test_reference_case_on_the_port(name, case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_distributed_uniqueness", LEFT_OUT)) == 19
+    assert len(port_cases("test_distributed_uniqueness", LEFT_OUT)) == 23
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_distributed_uniqueness")))
 
 

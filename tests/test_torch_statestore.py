@@ -13,10 +13,14 @@ reference.
   provider's one-query probes and O(1) counts; the config knob; a node
   booting the store; a node's boot migration; GET /statestore through
   the port's gateway.
+- The two fleet-driven cases (testing/fleet.py: the distributed
+  commit-log soak through a kill, and the kill during compaction with a
+  snapshot join) run with every FleetSim on a CpuBatchVerifier
+  (test_torch_fleet.FLEET_SUBS).
 - The intent-WAL cases of the reference's tests/test_fault_tolerance.py
   (INTENT_CASES: appends and resolutions, replay after a kill, a node's
-  boot replay) run on the port the same way; its module-level import of
-  the fleet rig (ROADMAP Queue 1 #11, used by none of them) is dropped.
+  boot replay) run on the port the same way, its FleetSims read the
+  same way.
 - Cross-package:
   - the same operations leave byte-equal store directories (every file
     name and byte: segments, MANIFEST, snapshots, index, LAYOUT), and a
@@ -40,6 +44,7 @@ import pytest
 pytest.importorskip("torch")
 
 from test_torch_fabric import port_cases, run_port_case  # noqa: E402
+from test_torch_fleet import FLEET_SUBS, cpu_fleet_sim  # noqa: E402
 from test_torch_health import port_test_module  # noqa: E402
 from test_torch_persistence import _dump_sqlite  # noqa: E402
 
@@ -47,10 +52,6 @@ PACKAGES = ("corda_tpu", "corda_tpu_torch")
 LEFT_OUT = {
     "test_bench_quick_statestore_gates_the_scale_story":
         "the reference's bench.py (the port's benchmark is ROADMAP Queue 1 #1)",
-    "test_fleet_distributed_commitlog_soak_reconciles_through_kill":
-        "the fleet rig, testing/fleet.py (ROADMAP Queue 1 #11)",
-    "test_fleet_commitlog_kill_during_compaction_and_snapshot_join":
-        "the fleet rig, testing/fleet.py (ROADMAP Queue 1 #11)",
 }
 INTENT_CASES = (
     "test_intent_wal_appends_resolves_and_drains",
@@ -59,20 +60,24 @@ INTENT_CASES = (
 )
 
 
+def fault_tolerance_port_module():
+    return port_test_module("test_fault_tolerance", subs=FLEET_SUBS,
+                            _fleet_sim=cpu_fleet_sim)
+
+
 @pytest.mark.parametrize("name,case", port_cases("test_statestore", LEFT_OUT))
 def test_reference_case_on_the_port(name, case, tmp_path):
-    run_port_case(port_test_module("test_statestore"), case, tmp_path)
+    run_port_case(port_test_module("test_statestore", subs=FLEET_SUBS,
+                                   _fleet_sim=cpu_fleet_sim), case, tmp_path)
 
 
 @pytest.mark.parametrize("case", INTENT_CASES)
 def test_reference_intent_wal_case_on_the_port(case, tmp_path):
-    mod = port_test_module("test_fault_tolerance",
-                           subs=(("from corda_tpu.testing import fleet as fl\n", ""),))
-    run_port_case(mod, case, tmp_path)
+    run_port_case(fault_tolerance_port_module(), case, tmp_path)
 
 
 def test_case_count():
-    assert len(port_cases("test_statestore", LEFT_OUT)) == 19
+    assert len(port_cases("test_statestore", LEFT_OUT)) == 21
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_statestore")))
     assert set(INTENT_CASES) <= set(vars(importlib.import_module("tests.test_fault_tolerance")))
 
@@ -180,8 +185,7 @@ def _journal_rows(prefix: str, path: Path) -> list:
     """Appends, resolutions, a lost resolution buffer and a replay read
     on one package's intent journal; the table's DDL and rows after."""
     mod = importlib.import_module("tests.test_fault_tolerance") if prefix == "corda_tpu" else \
-        port_test_module("test_fault_tolerance",
-                         subs=(("from corda_tpu.testing import fleet as fl\n", ""),))
+        fault_tolerance_port_module()
     per = _m(prefix, "node.persistence")
     db = per.NodeDatabase(str(path))
     journal = per.NotaryIntentJournal(db)

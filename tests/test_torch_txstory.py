@@ -12,10 +12,12 @@ reference.
   journal and replay events across a kill, the degraded flush's
   outcome, the parallel peer fan-out and the cross-member merge, and
   the config knobs, and GET /tx/<id> and /tx/slowest served by the
-  gateway, one timeline assembled across two processes. Source changes,
-  all named in SUBS: the reference's module-level import of the fleet
-  rig (ROADMAP Queue 1 #11, used only by left-out cases) is dropped,
-  and its MockNetworks, which build the default device verifier, get
+  gateway, one timeline assembled across two processes, and the three
+  fleet cases (testing/fleet.py: the chaos soak's lifecycle
+  reconciliation, the doctored ledger caught, the stories required).
+  Source changes, all named in SUBS: every FleetSim gets a
+  CpuBatchVerifier (test_torch_fleet.FLEET_SUBS), and the reference's
+  MockNetworks, which build the default device verifier, get
   CpuBatchVerifier (the port's default is the card); the degraded-flush case turns the
   notary's `degraded_fallback` on, which the port leaves off by default
   (divergence D2; the verifier here is on the CPU, where the port
@@ -39,20 +41,16 @@ import pytest
 pytest.importorskip("torch")
 
 from test_torch_fabric import port_cases, run_port_case  # noqa: E402
+from test_torch_fleet import FLEET_SUBS, cpu_fleet_sim  # noqa: E402
 from test_torch_health import port_test_module  # noqa: E402
 from test_torch_persistence import _dump_sqlite  # noqa: E402
 
 PACKAGES = ("corda_tpu", "corda_tpu_torch")
-FLEET = "the fleet rig, testing/fleet.py (ROADMAP Queue 1 #11)"
 LEFT_OUT = {
-    "test_fleet_chaos_passes_lifecycle_reconciliation": FLEET,
-    "test_lifecycle_checker_rejects_doctored_ledger": FLEET,
-    "test_lifecycle_checker_requires_stories_for_submissions": FLEET,
     "test_bench_quick_txstory_smoke":
         "the reference's bench.py (the port's benchmark is ROADMAP Queue 1 #1)",
 }
-SUBS = (
-    ("from corda_tpu.testing import fleet as fl\n", ""),
+SUBS = FLEET_SUBS + (
     ("    net = MockNetwork(seed=3)\n",
      "    from corda_tpu.crypto.batch_verifier import CpuBatchVerifier\n\n"
      "    net = MockNetwork(seed=3, batch_verifier=CpuBatchVerifier())\n"),
@@ -68,7 +66,7 @@ SUBS = (
 
 
 def txstory_port_module():
-    return port_test_module("test_txstory", subs=SUBS)
+    return port_test_module("test_txstory", subs=SUBS, _fleet_sim=cpu_fleet_sim)
 
 
 @pytest.mark.parametrize("name,case", port_cases("test_txstory", LEFT_OUT))
@@ -77,7 +75,7 @@ def test_reference_case_on_the_port(name, case, tmp_path):
 
 
 def test_case_count():
-    assert len(port_cases("test_txstory", LEFT_OUT)) == 20
+    assert len(port_cases("test_txstory", LEFT_OUT)) == 23
     assert set(LEFT_OUT) <= set(vars(importlib.import_module("tests.test_txstory")))
 
 

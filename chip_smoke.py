@@ -8,12 +8,12 @@ timing and 4 run first, in this process alone. Then the phases run in
 five processes at once on the one card (QUIET, HOME and LANES below
 main): here 3's parity, 5, 6, 8 and 14; in four lanes (this script with
 `--lane`, each printing what it prints into a file, relayed after this
-process's own lines) 11, 13, 15 and 7; 16 and 10; 12, 17 and 9; 18. A lane
+process's own lines) 11, 13, 15 and 7; 16 and 10; 12, 17 and 9; 18 and 19. A lane
 without phase 6 builds the same fixture itself. The parts that count
 the card's CUDA contexts (11c, 11d, 12a, 18c) hold a lock that no other part
 starting or stopping a card process holds meanwhile, and every lane
 keeps its context until all have finished. Walls and rates of phases
-3's parity and 5-18 are taken beside the other processes:
+3's parity and 5-19 are taken beside the other processes:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from corda_tpu_torch/csrc with nvcc (one
      process per source, all started together) and, beside them, the
@@ -459,13 +459,32 @@ keeps its context until all have finished. Walls and rates of phases
      verified transactions; one CUDA context per node process; SIGTERM
      ends each with exit code 0. wei_ladder_windowed must launch in
      18a-18b; prints each part's seconds and the phase's wall;
- 19. print the kernel table as one JSON line (with each kernel's
+ 19. several cards and the kernel store on the one card, the launch
+     counters set to 0 before 19a and read after 19b: (a) phase 5's
+     corpus as a 4,096-row mixed call (even thirds ed25519 / secp256k1 /
+     p256) through CudaBatchVerifier(mesh=make_mesh([cuda:0] * 4)), so
+     each padded chunk splits into four slices on the one card (in each
+     scheme's 4,096-row chunk one full slice, one partial, two of
+     padding only, which are not launched), the answers gathered back
+     into request order, every row equal to the CPU reference of its
+     distinct request; (b) the
+     phase-6 fixture's first 4,096 spends through a 4-shard
+     BatchingNotaryService whose shards verify on
+     per_shard_verifiers(4, devices=[cuda:0]) (one device: four unpinned
+     verifiers), held as phase 6 holds its passes, each of the four
+     verifiers dispatched; (c) CudaBatchVerifier(mesh=..., device=...)
+     refused with ValueError; (d) crypto/aot_store.prewarm on the
+     libraries phase 2 built, which it must reuse, one valid and one
+     tampered row per scheme. The three kernels of 19a and the two of
+     19b must launch; prints each part's seconds and the phase's wall;
+ 20. print the kernel table as one JSON line (with each kernel's
      launches in phase 10 as "clusters_launches", in 11a-11b as
      "nodes_launches", in 12b-12d as "drives_launches", in 13a-13c as
      "telemetry_launches", in 14a-14d as "planes_launches", in 15a-15c
      as "xshard_launches", in 16a-16d as "web_launches", in 17a-17d as
-     "samples_launches" and in 18a-18b as "fleet_launches"), then the
-     result line {"ok": true, "device": {...}}.
+     "samples_launches", in 18a-18b as "fleet_launches" and in 19a-19b
+     as "shards_launches"), then the result line {"ok": true, "device":
+     {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
 """
@@ -955,9 +974,13 @@ COUNTERS = {
 }
 
 
-def phase_main(device, report: dict) -> None:
-    from corda_tpu_torch.crypto import cuda_ec, schemes
-    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier, CudaBatchVerifier
+def spi_corpus():
+    """Phase 5's corpus: DISTINCT seeded requests per scheme with tampered
+    rows (and the ed25519 edge rows), each held by the CPU reference to
+    its construction label; returns tiled(sids, rows) -> (requests, the
+    CPU reference's decision per row)."""
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier
     from corda_tpu_torch.testing.selfcheck import (
         TAMPERED_KINDS,
         build_requests,
@@ -981,6 +1004,16 @@ def phase_main(device, report: dict) -> None:
         picks = [(sids[i % len(sids)], (i // len(sids)) % DISTINCT) for i in range(rows)]
         return [distinct[s][j] for s, j in picks], [ok[s][j] for s, j in picks]
 
+    return tiled
+
+
+def phase_main(device, report: dict) -> None:
+    from corda_tpu_torch.crypto import cuda_ec, schemes
+    from corda_tpu_torch.crypto.batch_verifier import CudaBatchVerifier
+
+    p256, k1, ed = (schemes.ECDSA_SECP256R1_SHA256, schemes.ECDSA_SECP256K1_SHA256,
+                    schemes.EDDSA_ED25519_SHA512)
+    tiled = spi_corpus()
     plain = CudaBatchVerifier(batch_sizes=(128, 1024, 4096), device=device)
     windowed = CudaBatchVerifier(batch_sizes=(128, 1024, 4096), device=device, windowed=True)
     # (label, verifier, schemes, rows, kernels that must launch)
@@ -6171,6 +6204,91 @@ def phase_tools(device, card: str) -> dict:
     return {"launches": launches, "soak": soak, "arc": arc, "bench": bench}
 
 
+SHARDS_MESH_ROWS = 4096      # 19a: phase 5's corpus, mixed, over the mesh on the one card
+SHARDS_MESH_SLICES = 4       # 19a: the mesh's entries, each the one card
+SHARDS_SPENDS = 4096         # 19b: the phase-6 fixture's first spends
+SHARDS_SHARDS = 4            # 19b: the notary's shards, one per-shard verifier each
+SHARDS_SAMPLE = 64           # 19b: rows of the card's verdicts held against CpuBatchVerifier
+
+
+def _recorded(verifier):
+    """`verifier` keeping each dispatch's requests and handle in `.calls`."""
+    calls, inner = [], verifier.verify_batch_async
+
+    def verify_batch_async(requests):
+        pv = inner(requests)
+        calls.append((list(requests), pv))
+        return pv
+
+    verifier.verify_batch_async = verify_batch_async
+    verifier.calls = calls
+    return verifier
+
+
+def phase_shards(device, card: str) -> dict:
+    """Phase 19 (module docstring); returns the launches of 19a-19b."""
+    from corda_tpu_torch.crypto import aot_store, schemes
+    from corda_tpu_torch.crypto.batch_verifier import CudaBatchVerifier, per_shard_verifiers
+    from corda_tpu_torch.parallel import dryrun
+    from corda_tpu_torch.parallel import mesh as meshlib
+    from corda_tpu_torch.testing.notary_fixture import build_fixture
+
+    t_phase = time.perf_counter()
+    tiled = spi_corpus()
+    fx = build_fixture(SHARDS_SPENDS, **NOTARY_FIXTURE)
+    mesh = meshlib.make_mesh([device] * SHARDS_MESH_SLICES)
+    mixed = (schemes.EDDSA_ED25519_SHA512, schemes.ECDSA_SECP256K1_SHA256,
+             schemes.ECDSA_SECP256R1_SHA256)
+    reqs, expect = tiled(mixed, SHARDS_MESH_ROWS)
+    verifiers = [_recorded(v) for v in per_shard_verifiers(SHARDS_SHARDS, devices=[device])]
+    _zero_counters()
+    t = time.perf_counter()
+    _flush(CudaBatchVerifier(batch_sizes=(128, 1024, 4096), mesh=mesh), reqs, expect,
+           f"mesh over {[str(d) for d in mesh.device_list()]} (19a)")
+    mesh_s = time.perf_counter() - t
+    mesh_launches = _read_counters()
+    out = dryrun.notary_pass(fx, verifiers, SHARDS_SHARDS)
+    launches = _read_counters()
+    calls = [c for v in verifiers for c in v.calls]
+    disp = _check_notary(fx, out["service"], out["answers"], calls,
+                         "per-shard notary (19b)", SHARDS_SAMPLE)
+    idle = [k for k, v in enumerate(verifiers) if not v.calls]
+    if idle:
+        raise RuntimeError(f"per-shard notary (19b): the verifiers of shards {idle} never "
+                           "dispatched")
+    print(f"mesh (19a): {SHARDS_MESH_ROWS} mixed rows over {mesh} in {mesh_s:.3f} s, every row "
+          f"the CPU reference's; launches {json.dumps(mesh_launches)}; {card}")
+    print(f"per-shard notary (19b): {SHARDS_SPENDS} spends over {SHARDS_SHARDS} shards, "
+          f"per_shard_verifiers(devices=[{device}]) ({'/'.join(str(v.device) for v in verifiers)}), "
+          f"in {out['wall_s']:.3f} s = {SHARDS_SPENDS / out['wall_s']:.1f} notarisations/s; "
+          f"{len(calls)} card calls ({'/'.join(str(len(v.calls)) for v in verifiers)} by shard), "
+          f"{disp['rows']} rows, device (chunk events, summed) {disp['device_s']:.3f} s; every "
+          f"answer its label; {card}")
+    try:
+        CudaBatchVerifier(mesh=mesh, device=device)
+    except ValueError as e:
+        print(f"refusal (19c): CudaBatchVerifier(mesh=..., device=...) raised ValueError: {e}")
+    else:
+        raise RuntimeError("refusal (19c): CudaBatchVerifier took mesh= with device=")
+    t = time.perf_counter()
+    warm = aot_store.prewarm(CHUNK, device=device)
+    built = [stem for stem, how in warm["libraries"].items() if how != "reused"]
+    if built:
+        raise RuntimeError(f"prewarm (19d) rebuilt {built} instead of reusing phase 2's build")
+    print(f"prewarm (19d): {json.dumps(warm['libraries'])} from {warm['store']}, verify "
+          f"seconds {json.dumps({k: round(v, 3) for k, v in warm['seconds'].items()})}, "
+          f"{time.perf_counter() - t:.3f} s; {card}")
+    for kernel in ("ed_ladder", "wei_ladder", "wei_ladder_windowed"):
+        if mesh_launches[kernel] == 0:
+            raise RuntimeError(f"{kernel} was not launched over the mesh (19a)")
+    for kernel in ("ed_ladder", "wei_ladder_windowed"):
+        if launches[kernel] == mesh_launches[kernel]:
+            raise RuntimeError(f"{kernel} was not launched by the per-shard notary (19b)")
+    print(f"shards (ph. 19) launches: {json.dumps(launches)}; wall "
+          f"{time.perf_counter() - t_phase:.3f} s; {card}")
+    return {"launches": launches, "notary": out, "prewarm": warm}
+
+
 # Where each phase runs. The card is idle most of a phase's wall (its
 # time goes to torch-op launches on the host, node processes and
 # timeouts: PERF.md section 5), so after QUIET, which runs alone (the
@@ -6179,11 +6297,11 @@ def phase_tools(device, card: str) -> dict:
 # lanes, each this script with `--lane`.
 QUIET = ("3 timing", "4")
 HOME = ("3 parity", "5", "6", "8", "14")
-LANES = (("11", "13", "15", "7"), ("16", "10"), ("12", "17", "9"), ("18",))
+LANES = (("11", "13", "15", "7"), ("16", "10"), ("12", "17", "9"), ("18", "19"))
 LANE_TIMEOUT = 1100.0        # s a lane may take before the run fails
 COLUMNS = ("clusters_launches", "nodes_launches", "drives_launches", "telemetry_launches",
            "planes_launches", "xshard_launches", "web_launches", "samples_launches",
-           "fleet_launches")
+           "fleet_launches", "shards_launches")
 
 
 def run_phases(ids, device, card: str, report: dict) -> tuple:
@@ -6235,6 +6353,8 @@ def run_phases(ids, device, card: str, report: dict) -> tuple:
             columns["samples_launches"] = phase_samples(device, card)["launches"]
         elif pid == "18":
             columns["fleet_launches"] = phase_tools(device, card)["launches"]
+        elif pid == "19":
+            columns["shards_launches"] = phase_shards(device, card)["launches"]
         else:
             raise ValueError(f"no phase {pid!r}")
         walls[pid] = round(time.perf_counter() - t, 1)

@@ -14,7 +14,12 @@ Implementations:
     the torch prologue and the CUDA ladder kernel on the card, and a
     non-blocking copy of each chunk's result back to the host behind a
     CUDA event, so PendingVerification.chunks() streams: it waits for
-    compute only.
+    compute only. With `mesh=` (parallel/mesh.py) each padded chunk
+    splits into one contiguous slice of rows per mesh device, each slice
+    verified on its own card, on that card's current stream.
+
+per_shard_verifiers builds one verifier per commit-plane shard, pinned
+to `devices[k % len(devices)]`: the sharded notary's per-card dispatch.
 
 Rows of a scheme that has no kernel in either package (RSA_SHA256 and
 SPHINCS256_SHA256: HOST_SCHEMES) are verified on the host by the CPU
@@ -32,7 +37,9 @@ the launch wall (`KernelAccounting.record_call`: the first call of a
 build and module load land) and `DeviceAccounting.record_dispatch`
 (busy = the launch wall, with the queue wait since the bucket's entry),
 and each launch is named by `tracing.annotate` in a torch.profiler
-capture.
+capture. The device ledger's key is the pinned device's index, the
+current card's for an unpinned verifier, 0 on the plain CPU, and -1 for
+a mesh dispatch (one chunk over every mesh device), as in the reference.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import mesh as meshlib
 from ..utils import device_telemetry as devlib
 from ..utils import perf as perflib
 from ..utils import tracing
@@ -134,44 +142,75 @@ class _Chunk:
     keep: tuple = ()            # pinned staging buffers, alive until `done`
 
 
-class CudaBatchVerifier(BatchSignatureVerifier):
-    """Batched verification on one CUDA device with per-scheme bucketing.
+def _check_device(device: torch.device) -> None:
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: CudaBatchVerifier runs on the "
+                "card (pass device='cpu' to run the plain torch versions)"
+            )
+        if device.index is not None and device.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"{device} is not a visible card ({torch.cuda.device_count()} visible)"
+            )
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
 
-    `device` defaults to "cuda" and construction raises where CUDA is
-    not available; `device="cpu"` runs the same path with the kernels'
-    plain torch versions (the tests do). `windowed` forces the windowed
-    (True) or plain (False) ladder for every curve; None keeps each
-    curve's default (cuda_ec.use_windowed_ladder).
+
+class CudaBatchVerifier(BatchSignatureVerifier):
+    """Batched verification on CUDA devices with per-scheme bucketing.
+
+    `device` (None: "cuda", the current card) pins every dispatch to one
+    device; construction raises where CUDA is not available;
+    `device="cpu"` runs the same path with the kernels' plain torch
+    versions (the tests do). `windowed` forces the windowed (True) or
+    plain (False) ladder for every curve; None keeps each curve's
+    default (cuda_ec.use_windowed_ladder).
+
+    `mesh` (parallel/mesh.Mesh; mutually exclusive with `device`): each
+    chunk, padded to its batch size, splits into one contiguous slice
+    of rows per mesh device in mesh order, every slice staged through
+    its own pinned buffers and verified on its own device, and the
+    answers gathered back into request order only after every slice
+    was issued; a slice that holds only padding rows is not launched.
+    A mesh of CPU devices runs the same split on the plain versions.
+    Every batch size must split evenly over the mesh. A fault
+    on any card raises DeviceFaultError naming it; nothing is re-run
+    elsewhere.
 
     `perf`: a utils/perf.KernelAccounting this verifier records its
     per-(scheme, batch) first-call-vs-execute timings, retraces and
     transfer bytes into; None records into the process default
     (perf.get_kernel_accounting()), which the node's PerfPlane adopts.
     The device ledger is always the process default
-    (device_telemetry.get_device_accounting()), keyed by the torch
-    device index (0 on the CPU).
+    (device_telemetry.get_device_accounting()).
     """
 
     def __init__(
         self,
         batch_sizes: tuple[int, ...] = (128, 1024, 4096),
-        device="cuda",
+        device=None,
         windowed: Optional[bool] = None,
         perf=None,
+        mesh: Optional[meshlib.Mesh] = None,
     ):
+        if device is not None and mesh is not None:
+            raise ValueError("device= and mesh= are mutually exclusive")
         self._cpu = CpuBatchVerifier()
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "CUDA is not available: CudaBatchVerifier runs on the "
-                    "card (pass device='cpu' to run the plain torch versions)"
-                )
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}")
+        self.mesh = mesh
+        if mesh is None:
+            self.device = torch.device("cuda" if device is None else device)
+            _check_device(self.device)
+        else:
+            self.device = None
+            for dev in mesh.device_list():
+                _check_device(dev)
         if not batch_sizes or min(batch_sizes) <= 0:
             raise ValueError(f"bad batch_sizes {batch_sizes!r}")
         self.batch_sizes = tuple(sorted(batch_sizes))
+        if mesh is not None:
+            for b in self.batch_sizes:
+                meshlib.batch_sharding(mesh, 1).rows_per_device(b)
         self.windowed = windowed
         self.perf = perf
         # first-call-per-key is judged per instance, as in the reference:
@@ -188,59 +227,84 @@ class CudaBatchVerifier(BatchSignatureVerifier):
 
     def _dispatch_device_id(self) -> int:
         if self._device_id is None:
-            if self.device.type == "cpu":
-                self._device_id = 0
+            if self.mesh is not None:
+                self._device_id = -1
             elif self.device.index is not None:
                 self._device_id = self.device.index
+            elif self.device.type == "cpu":
+                self._device_id = 0
             else:
                 self._device_id = torch.cuda.current_device()
         return self._device_id
 
-    def _run_chunk(self, scheme_id: int, batch: int, verify, arrays: tuple, idxs, n,
-                   t_entry: float):
-        """Run verify(*tensors) on one chunk's staged numpy arrays: as
-        torch tensors on the CPU path; on the card through pinned
-        buffers and non-blocking copies, with the result copied back
-        behind the chunk's event. The copy in (bytes and host seconds)
-        and the launch wall go to the kernel and device ledgers."""
-        acct = self.perf if self.perf is not None else perflib.get_kernel_accounting()
-        devacct = devlib.get_device_accounting()
-        dev_id = self._dispatch_device_id()
-        nbytes = sum(int(a.nbytes) for a in arrays)
-        first = (scheme_id, batch) not in self._warm_shapes
-        span = f"corda_tpu.verify_dispatch.s{scheme_id}.b{batch}"
-        started = done = None
-        hosts: tuple = ()
-        if self.device.type == "cpu":
+    @staticmethod
+    def _launch_on(device: torch.device, verify, arrays: tuple, span: str) -> tuple:
+        """verify(*tensors) on `device` from staged numpy arrays: as torch
+        tensors on a CPU device; on a card through pinned buffers and
+        non-blocking copies on its current stream, with the result
+        copied back behind the slice's event. A CUDA error raises
+        DeviceFaultError naming the device. Returns (_Chunk fields: host
+        result, started, done, pinned buffers; then put seconds, launch
+        seconds and the launch's start)."""
+        if device.type == "cpu":
             t_put = time.perf_counter()
             staged = tuple(torch.from_numpy(a.copy()) for a in arrays)
             put_s = time.perf_counter() - t_put
             t_call = time.perf_counter()
-            with tracing.annotate(span):
+            with _device_faults(f"verify dispatch on {device}"), tracing.annotate(span):
                 out = verify(*staged)
+            return out, None, None, (), put_s, time.perf_counter() - t_call, t_call
+        with _device_faults(f"verify dispatch on {device}"), torch.cuda.device(device):
+            t_put = time.perf_counter()
+            hosts = tuple(_pinned(a) for a in arrays)
+            started = torch.cuda.Event(enable_timing=True)
+            done = torch.cuda.Event(enable_timing=True)
+            started.record()
+            staged = tuple(h.to(device, non_blocking=True) for h in hosts)
+            put_s = time.perf_counter() - t_put
+            t_call = time.perf_counter()
+            with tracing.annotate(span):
+                res = verify(*staged)
             call_s = time.perf_counter() - t_call
+            out = torch.empty(res.shape, dtype=torch.bool, pin_memory=True)
+            out.copy_(res, non_blocking=True)
+            done.record()
+        return out, started, done, hosts, put_s, call_s, t_call
+
+    def _run_chunk(self, scheme_id: int, batch: int, verify, arrays: tuple, idxs, n,
+                   t_entry: float) -> list:
+        """Run verify on one chunk's staged numpy arrays, on this
+        verifier's device or slice by slice over its mesh; returns a
+        _Chunk per device. The copy in (bytes and host seconds) and the
+        launch wall, summed over the slices, go to the kernel and device
+        ledgers."""
+        acct = self.perf if self.perf is not None else perflib.get_kernel_accounting()
+        devacct = devlib.get_device_accounting()
+        dev_id = self._dispatch_device_id()
+        first = (scheme_id, batch) not in self._warm_shapes
+        span = f"corda_tpu.verify_dispatch.s{scheme_id}.b{batch}"
+        if self.mesh is None:
+            parts = [(self.device, 0, batch)]
         else:
-            with _device_faults("verify dispatch"), torch.cuda.device(self.device):
-                t_put = time.perf_counter()
-                hosts = tuple(_pinned(a) for a in arrays)
-                started = torch.cuda.Event(enable_timing=True)
-                done = torch.cuda.Event(enable_timing=True)
-                started.record()
-                staged = tuple(h.to(self.device, non_blocking=True) for h in hosts)
-                put_s = time.perf_counter() - t_put
-                t_call = time.perf_counter()
-                with tracing.annotate(span):
-                    res = verify(*staged)
-                call_s = time.perf_counter() - t_call
-                out = torch.empty(res.shape, dtype=torch.bool, pin_memory=True)
-                out.copy_(res, non_blocking=True)
-                done.record()
+            ranges = meshlib.batch_sharding(self.mesh, 1).row_ranges(batch)
+            parts = [(dev, lo, hi) for dev, (lo, hi) in zip(self.mesh.device_list(), ranges)]
+        chunks, nbytes, put_s, call_s, t_call = [], 0, 0.0, 0.0, None
+        for dev, lo, hi in parts:
+            if lo >= n:
+                break           # the rest hold only padding rows: no answer to compute
+            part = tuple(a[lo:hi] for a in arrays)
+            out, started, done, hosts, p, c, t = self._launch_on(dev, verify, part, span)
+            nbytes += sum(int(a.nbytes) for a in part)
+            put_s, call_s = put_s + p, call_s + c
+            t_call = t if t_call is None else t_call
+            chunks.append(_Chunk(out, idxs[lo:min(hi, n)], min(hi, n) - lo, started, done,
+                                 hosts))
         self._warm_shapes.add((scheme_id, batch))
         acct.record_transfer(scheme_id, batch, nbytes, put_s)
         devacct.record_transfer(dev_id, nbytes, put_s)
         acct.record_call(scheme_id, batch, call_s, first=first)
         devacct.record_dispatch(dev_id, n, call_s, queue_wait_seconds=t_call - t_entry)
-        return _Chunk(out, idxs, n, started, done, hosts)
+        return chunks
 
     def _dispatch(self, scheme_id: int, items: list, idxs: list):
         """Stage + launch one scheme bucket, chunking at the largest
@@ -263,7 +327,7 @@ class CudaBatchVerifier(BatchSignatureVerifier):
             t0 = time.perf_counter()
             arrays = stage(chunk, batch)
             stage_s += time.perf_counter() - t0
-            chunks.append(self._run_chunk(scheme_id, batch, verify, arrays,
+            chunks.extend(self._run_chunk(scheme_id, batch, verify, arrays,
                                           idxs[off : off + len(chunk)], len(chunk), t_entry))
         return chunks, stage_s
 
@@ -414,6 +478,30 @@ class DispatchFaultInjector(BatchSignatureVerifier):
         if inner_async is not None:
             return inner_async(requests)
         return PendingVerification(self.inner.verify_batch(requests), [])
+
+
+def per_shard_verifiers(
+    n_shards: int,
+    batch_sizes: tuple[int, ...] = (128, 1024, 4096),
+    devices: Optional[Sequence] = None,
+) -> list:
+    """One CudaBatchVerifier per commit-plane shard (notary.py
+    BatchingNotaryService shard_verifiers=): shard k is pinned to
+    devices[k % len(devices)], so N shard flushes drive N cards at once.
+    With one device every shard shares it unpinned, as in the reference
+    (shard k+1's staging still overlaps shard k's card work). `devices`
+    None means every card, and raises where there is none."""
+    devices = meshlib.cuda_devices() if devices is None else [torch.device(d) for d in devices]
+    if not devices:
+        raise RuntimeError("no devices for per-shard verifiers")
+    out = []
+    for k in range(max(1, n_shards)):
+        dev = devices[k % len(devices)]
+        out.append(CudaBatchVerifier(
+            batch_sizes=batch_sizes,
+            device=dev if len(devices) > 1 else torch.device(dev.type),
+        ))
+    return out
 
 
 _default: Optional[BatchSignatureVerifier] = None

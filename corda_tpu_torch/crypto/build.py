@@ -1,17 +1,22 @@
 """Build the port's CUDA sources with nvcc at first use.
 
 Each `csrc/*.cu` compiles on its own (one nvcc process per source, all
-started together) into a shared library with a plain C interface under
-`build/corda_tpu_torch/` beside the package, loaded with ctypes:
+started together) into a shared library with a plain C interface in the
+kernel store (crypto/aot_store.py: `build/corda_tpu_torch/` beside the
+package unless $CORDA_TPU_TORCH_KERNEL_DIR says otherwise), loaded with
+ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/corda_tpu_torch/lib<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v -o <store>/lib<name>-<hash>.so
 
 The library name carries a hash of the source, of every shared header
-(`csrc/*.cuh`) and of the flags, so an edited source or header rebuilds
-and an unchanged one is reused. ptxas's report
-(registers, spills, shared memory per kernel) is kept beside each
-library as `<lib>.log`. A missing nvcc or a failed compile raises
+(`csrc/*.cuh`), of the flags and of `nvcc --version`, so an edited
+source or header, or another toolkit, rebuilds and an unchanged one is
+reused. The key needs nvcc itself, so loading a library that is already
+built needs the toolkit too. ptxas's report (registers, spills, shared
+memory per kernel) is kept beside each library as `<lib>.log`. A
+library that does not load is deleted and rebuilt once. A missing nvcc,
+a failed compile or a library that still does not load raises
 KernelBuildError: there is no fallback to the torch path.
 """
 
@@ -25,8 +30,9 @@ import subprocess
 import threading
 from pathlib import Path
 
+from . import aot_store
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "corda_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,6 +63,25 @@ def nvcc_path() -> str:
     )
 
 
+_VERSIONS: dict[tuple, str] = {}
+
+
+def nvcc_version(nvcc: str | None = None) -> str:
+    """`nvcc --version` of `nvcc` (default: nvcc_path()), read once per
+    binary (path, size and mtime)."""
+    nvcc = nvcc or nvcc_path()
+    st = os.stat(nvcc)
+    key = (nvcc, st.st_size, st.st_mtime_ns)
+    if key not in _VERSIONS:
+        try:
+            out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                                 timeout=60, check=True).stdout
+        except (OSError, subprocess.SubprocessError) as e:
+            raise KernelBuildError(f"{nvcc} --version failed: {e}") from e
+        _VERSIONS[key] = out.strip()
+    return _VERSIONS[key]
+
+
 def sources() -> list[Path]:
     """The CUDA sources; KernelBuildError where csrc/ is no directory on
     the file system (a package run from a zip archive, tools/package.py),
@@ -74,13 +99,17 @@ def sources() -> list[Path]:
 
 
 def library_path(src: Path) -> Path:
-    """Content-addressed library path of one source: keyed on the source,
-    every header in its directory and the flags."""
+    """Content-addressed library path of one source in the kernel store:
+    keyed on the source, every header in its directory, the flags and
+    nvcc's version. It runs `nvcc --version` once per binary, so it
+    raises KernelBuildError where there is no nvcc, even for a library
+    that is already in the store."""
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(src.parent.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+    h.update(b"\0" + nvcc_version().encode())
+    return aot_store.store_dir() / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:
@@ -95,7 +124,7 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     if not todo:
         return out
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out[todo[0].stem].parent.mkdir(parents=True, exist_ok=True)
     procs = []
     for s in todo:
         tmp = out[s.stem].with_suffix(f".tmp{os.getpid()}.so")
@@ -123,11 +152,22 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of csrc/<name>.cu, built first if needed; one
+    that does not load is deleted and rebuilt once."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all([name])[name]))
+            path = build_all([name])[name]
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as first:
+                path.unlink(missing_ok=True)
+                path = build_all([name])[name]
+                try:
+                    lib = ctypes.CDLL(str(path))
+                except OSError as e:
+                    raise KernelBuildError(
+                        f"{path} does not load, rebuilt after {first}: {e}") from e
             _LIBS[name] = lib
         return lib
 

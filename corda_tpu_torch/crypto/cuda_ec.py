@@ -38,13 +38,18 @@ no serial round.
 for CPU tensors only; on CUDA tensors they launch the kernel or raise.
 Each launch adds one to the module's counter (`wei_ladder_launches`,
 `wei_ladder_windowed_launches`, `ed_ladder_launches`,
-`ed_ladder_windowed_launches`). `kernel_resources` reports a kernel's
-registers, stack, static shared memory and resident warps per SM.
+`ed_ladder_windowed_launches`) and to `launches_by_device[(kernel, card
+index)]`, under one lock: shard workers launch from several threads,
+on several cards. The launch runs on the current stream of the card its
+operands are on, so a library serves every card (the kernels take their
+parameters by value). `kernel_resources` reports a kernel's registers,
+stack, static shared memory and resident warps per SM.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -70,6 +75,14 @@ wei_ladder_launches = 0
 wei_ladder_windowed_launches = 0
 ed_ladder_launches = 0
 ed_ladder_windowed_launches = 0
+launches_by_device: dict[tuple[str, int], int] = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_device(kernel: str, dev: torch.device) -> None:
+    """One launch of `kernel` on card `dev` (caller holds _COUNT_LOCK)."""
+    key = (kernel, dev.index)
+    launches_by_device[key] = launches_by_device.get(key, 0) + 1
 
 
 class DeviceFaultError(RuntimeError):
@@ -286,7 +299,9 @@ def wei_ladder_cuda(curve: WeierstrassCurve, u1, u2, qx_m, qy_m):
     """Launch the plain-ladder kernel (CUDA tensors only)."""
     global wei_ladder_launches
     out = _launch("wei_ladder", False, kernel_params(curve), _WEI_NAMES, (u1, u2, qx_m, qy_m))
-    wei_ladder_launches += 1
+    with _COUNT_LOCK:
+        wei_ladder_launches += 1
+        _count_device("wei_ladder", u1.device)
     return out
 
 
@@ -294,7 +309,9 @@ def wei_ladder_windowed_cuda(curve: WeierstrassCurve, u1, u2, qx_m, qy_m):
     """Launch the windowed-ladder kernel (CUDA tensors only)."""
     global wei_ladder_windowed_launches
     out = _launch("wei_ladder", True, kernel_params(curve), _WEI_NAMES, (u1, u2, qx_m, qy_m))
-    wei_ladder_windowed_launches += 1
+    with _COUNT_LOCK:
+        wei_ladder_windowed_launches += 1
+        _count_device("wei_ladder_windowed", u1.device)
     return out
 
 
@@ -318,7 +335,9 @@ def ed_ladder_cuda(curve: EdwardsCurve, s, k, ax_m, ay_m):
     """Launch the plain Edwards ladder kernel (CUDA tensors only)."""
     global ed_ladder_launches
     out = _launch("ed_ladder", False, ed_kernel_params(curve), _ED_NAMES, (s, k, ax_m, ay_m))
-    ed_ladder_launches += 1
+    with _COUNT_LOCK:
+        ed_ladder_launches += 1
+        _count_device("ed_ladder", s.device)
     return out
 
 
@@ -326,7 +345,9 @@ def ed_ladder_windowed_cuda(curve: EdwardsCurve, s, k, ax_m, ay_m):
     """Launch the windowed Edwards ladder kernel (CUDA tensors only)."""
     global ed_ladder_windowed_launches
     out = _launch("ed_ladder", True, ed_kernel_params(curve), _ED_NAMES, (s, k, ax_m, ay_m))
-    ed_ladder_windowed_launches += 1
+    with _COUNT_LOCK:
+        ed_ladder_windowed_launches += 1
+        _count_device("ed_ladder_windowed", s.device)
     return out
 
 

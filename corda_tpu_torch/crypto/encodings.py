@@ -166,6 +166,45 @@ def _sqrt_mod(a: int, p: int) -> Optional[int]:
 # staging: signature tuples -> packed device records
 
 
+def stage_ecdsa_batch(
+    curve: WeierstrassCurve,
+    items: list[tuple[bytes, bytes, bytes]],  # (pubkey_sec1, der_sig, message)
+    batch: int,
+) -> dict:
+    """Host prefilter + limb staging for the limb-level
+    `ecdsa_verify_batch` API (parallel/dryrun.entry; the SPI serving
+    path uses `stage_ecdsa_packed`, which moves these checks to the
+    device). A dict of numpy arrays padded to `batch` rows: z, r, s, qx,
+    qy, c1 as [22, batch] int32 limbs, c1_ok and valid_in as [batch]
+    bool; padding and refused rows are valid_in=False with benign values
+    (s = 1, Q = G)."""
+    if len(items) > batch:
+        raise ValueError(f"{len(items)} items do not fit a batch of {batch}")
+    cols: dict[str, list] = {k: [] for k in ("z", "r", "s", "qx", "qy", "c1")}
+    c1_ok = np.zeros(batch, dtype=bool)
+    valid = np.zeros(batch, dtype=bool)
+    for i, (pub, sig, msg) in enumerate(items):
+        ok = True
+        rs_pair = parse_der_ecdsa(sig)
+        pt = parse_sec1_point(curve, pub)
+        if rs_pair is None or pt is None:
+            ok, (r, s), pt = False, (1, 1), (curve.gx, curve.gy)
+        else:
+            r, s = rs_pair
+            if not (1 <= r < curve.n and 1 <= s < curve.n):
+                ok, r, s = False, 1, 1
+        for k, v in zip(cols, (int.from_bytes(hashlib.sha256(msg).digest(), "big"),
+                               r, s, pt[0], pt[1], r + curve.n)):
+            cols[k].append(v)
+        c1_ok[i] = (r + curve.n) < curve.p
+        valid[i] = ok
+    for k, v in zip(cols, (0, 1, 1, curve.gx, curve.gy, 1 + curve.n)):
+        cols[k] += [v] * (batch - len(items))
+    out = {k: ints_to_batch(v) for k, v in cols.items()}
+    out.update(c1_ok=c1_ok, valid_in=valid)
+    return out
+
+
 ECDSA_RECORD_BYTES = 160    # z | r | s | qx | qy, 32-byte big-endian each
 
 

@@ -697,6 +697,26 @@ class Node:
         self.metrics.gauge("Statestore.Compactions", stat("compactions"))
         return store
 
+    def _per_card_verifiers(self, shards: int) -> Optional[list]:
+        """One card-pinned verifier per notary shard
+        (batch_verifier.per_shard_verifiers) where the notary has
+        several shards, the backend is the card, the node was handed no
+        batch verifier and this process sees several cards; None
+        otherwise, so every shard dispatches to the hub's verifier, as
+        on one card. D11: an error building them stops the boot, where
+        the reference serves on the shared verifier instead: a node must
+        not quietly serve on fewer cards than it found. Unlike the
+        reference, a verifier handed to the node is never bypassed."""
+        import torch
+
+        if (shards <= 1 or self.config.verifier_backend == "cpu"
+                or self.services._batch_verifier is not None
+                or torch.cuda.device_count() <= 1):
+            return None
+        from ..crypto.batch_verifier import per_shard_verifiers
+
+        return per_shard_verifiers(shards)
+
     def _gauge_committed_states(self, uniqueness) -> None:
         # set-growth without a scan: every backend maintains the count
         # O(1), so health/capacity can watch it for free
@@ -844,10 +864,17 @@ class Node:
                 uniqueness = PersistentUniquenessProvider(self.db)
             self._gauge_committed_states(uniqueness)
             if kind == "batching":
-                # one verifier shared by every shard (per-card verifiers
-                # are ROADMAP Queue 1 #7). D2: a card verifier takes no
-                # CPU fallback, so the flag holds off the card only
-                from .notary import _on_card
+                # D2: a card verifier takes no CPU fallback, so the flag
+                # holds only where neither the hub's verifier nor a
+                # shard's runs on the card
+                from .notary import _on_card, verifier_on_card
+
+                shard_verifiers = self._per_card_verifiers(shards)
+                degraded_fallback = (
+                    self.config.notary_degraded_fallback
+                    and not _on_card(self.services)
+                    and not any(map(verifier_on_card, shard_verifiers or ()))
+                )
 
                 if self.config.qos_enabled:
                     self._build_qos()
@@ -867,10 +894,8 @@ class Node:
                     qos=self.qos,
                     shards=max(shards, 1),
                     shard_workers=self.config.notary_shard_workers,
-                    degraded_fallback=(
-                        self.config.notary_degraded_fallback
-                        and not _on_card(self.services)
-                    ),
+                    shard_verifiers=shard_verifiers,
+                    degraded_fallback=degraded_fallback,
                     intent_journal=intent_journal,
                 )
                 self.services.notary_service.attach_txstory(self.txstory)

@@ -888,22 +888,24 @@ class _ShardAnswer:
 
 class _NotaryShard:
     """One slice of the sharded commit plane: a bounded pending queue,
-    its own flush state and per-shard metrics. The
-    BatchingNotaryService routes requests here by state-ref prefix
-    (shard_of_tx) and either flushes shards inline from the pump tick
-    or hands each one to a dedicated worker thread."""
+    its own flush state, a (possibly card-pinned) verifier handle and
+    per-shard metrics. The BatchingNotaryService routes requests here
+    by state-ref prefix (shard_of_tx) and either flushes shards inline
+    from the pump tick or hands each one to a dedicated worker
+    thread."""
 
     __slots__ = (
-        "id", "pending", "oldest_arrival", "cond",
+        "id", "pending", "oldest_arrival", "cond", "verifier",
         "queue_bound", "flushes", "requests", "answered", "wake", "busy",
         "heartbeat",
     )
 
-    def __init__(self, sid: int, queue_bound: int, metrics):
+    def __init__(self, sid: int, verifier, queue_bound: int, metrics):
         self.id = sid
         self.pending: list[_PendingNotarisation] = []
         self.oldest_arrival: Optional[int] = None
         self.cond = locks.make_condition("_NotaryShard.cond")
+        self.verifier = verifier       # None = the hub's shared verifier
         self.queue_bound = queue_bound
         self.flushes = metrics.counter(f"Notary.Shard{sid}.Flushes")
         self.requests = metrics.counter(f"Notary.Shard{sid}.Requests")
@@ -918,15 +920,26 @@ class _NotaryShard:
 
 
 def verifier_on_card(verifier) -> bool:
-    """True where `verifier` (or the one it wraps) runs on a CUDA device;
-    None stands for default_verifier(), which does."""
+    """True where `verifier` (or the one it wraps) runs on a CUDA device,
+    or on a mesh with one; None stands for default_verifier(), which
+    does."""
     if verifier is None:
         return True
     while verifier is not None:
-        if getattr(getattr(verifier, "device", None), "type", None) == "cuda":
+        devices = [getattr(verifier, "device", None)]
+        mesh = getattr(verifier, "mesh", None)
+        if mesh is not None:
+            devices += mesh.device_list()
+        if any(getattr(d, "type", None) == "cuda" for d in devices):
             return True
         verifier = getattr(verifier, "inner", None)
     return False
+
+
+def pinned_index(verifier) -> Optional[int]:
+    """The index of the device `verifier` is pinned to; None where it is
+    not pinned (an unpinned "cuda", the plain CPU, a mesh, None)."""
+    return getattr(getattr(verifier, "device", None), "index", None)
 
 
 def _on_card(services: ServiceHub) -> bool:
@@ -966,6 +979,7 @@ class BatchingNotaryService(NotaryService):
         qos=None,
         shards: int = 1,
         shard_workers: bool = False,
+        shard_verifiers: Optional[list] = None,
         shard_queue_depth: int = 0,
         degraded_fallback: bool = False,
         intent_journal=None,
@@ -992,16 +1006,21 @@ class BatchingNotaryService(NotaryService):
         `shards` > 1 partitions the COMMIT PLANE: requests route by
         state-ref prefix (shard_of_tx) onto N shards, each with its own
         bounded pending queue, flush pipeline and uniqueness partition
-        (pass a ShardedUniquenessProvider); every shard dispatches to
-        the hub's verifier. Cross-shard
+        (pass a ShardedUniquenessProvider) and, when `shard_verifiers`
+        is given (crypto/batch_verifier.py per_shard_verifiers: one
+        card-pinned CudaBatchVerifier per card, cycled over the
+        shards), its own verify dispatch, so each shard's batch lands on
+        its own card; without them every shard dispatches to the hub's
+        verifier. Cross-shard
         transactions take the provider's two-phase reserve→commit.
         `shard_workers=True` gives every shard a flush thread; False
         flushes due shards from the tick in a dispatch-all-then-consume
         wave. `shard_queue_depth` bounds each shard's queue (0 = 4x
         max_batch); a full queue triggers that shard's flush.
 
-        `degraded_fallback` (for a CPU-device verifier only; a verifier
-        on the card refuses it, so no flush moves to the host): a
+        `degraded_fallback` (for CPU-device verifiers only; a hub or
+        shard verifier on the card refuses it, so no flush moves to the
+        host): a
         verifier exception at the dispatch retries once, then serves
         THAT flush through the CPU reference verifier (bit-exact:
         CpuBatchVerifier is what the kernels are held against),
@@ -1022,6 +1041,13 @@ class BatchingNotaryService(NotaryService):
             raise ValueError(
                 "degraded_fallback moves a flush to the CPU: refused while "
                 "the hub's batch verifier runs on the card"
+            )
+        if degraded_fallback and any(
+            v is not None and verifier_on_card(v) for v in shard_verifiers or ()
+        ):
+            raise ValueError(
+                "degraded_fallback moves a flush to the CPU: refused while "
+                "a shard verifier runs on the card"
             )
         super().__init__(
             services, uniqueness, tolerance_micros, service_identity
@@ -1095,7 +1121,15 @@ class BatchingNotaryService(NotaryService):
                 )
             bound = shard_queue_depth or 4 * max_batch
             self._shards = [
-                _NotaryShard(k, bound, self.metrics)
+                _NotaryShard(
+                    k,
+                    (
+                        shard_verifiers[k % len(shard_verifiers)]
+                        if shard_verifiers else None
+                    ),
+                    bound,
+                    self.metrics,
+                )
                 for k in range(self.n_shards)
             ]
             self.metrics.gauge("Notary.Shards", lambda: self.n_shards)
@@ -1518,16 +1552,15 @@ class BatchingNotaryService(NotaryService):
         degraded-mode flag bridged as `device.fallback_active`
         evidence. The notary holds no reference back — the plane reads
         THROUGH the registered lambdas — so None is simply a no-op
-        (re-attach a different notary to repoint a plane). Every shard
-        verifies through the hub's one verifier (per-card verifiers are
-        ROADMAP Queue 1 #7), so no queue is pinned to a device: on one
-        card each counts toward it."""
+        (re-attach a different notary to repoint a plane). A shard's
+        queue maps to the index of the card its verifier is pinned to,
+        and to None where it has no pinned verifier."""
         if plane is None:
             return
         if self._shards is not None:
             plane.attach_queues(
                 [(lambda s=shard: s.depth()) for shard in self._shards],
-                [None] * len(self._shards),
+                [pinned_index(shard.verifier) for shard in self._shards],
             )
         else:
             plane.attach_queues([lambda: len(self._pending)], [None])
@@ -2002,9 +2035,9 @@ class BatchingNotaryService(NotaryService):
     def _stage_and_dispatch(self, pending, marks, shard=None):
         """Phase A of a flush: stage every pending transaction's
         signature requests and launch the (async) SPI dispatch on the
-        hub's verifier. Returns the flush context for _consume_flush, or
-        None when there is nothing left to consume (every future
-        already answered)."""
+        shard's verifier when it has one, the hub's otherwise. Returns
+        the flush context for _consume_flush, or None when there is
+        nothing left to consume (every future already answered)."""
         t = time.perf_counter()
         # Staging is per-tx-protected: one malformed transaction must
         # answer ITS future and leave the rest of the batch alive
@@ -2042,7 +2075,11 @@ class BatchingNotaryService(NotaryService):
             # inside the handler: the default verifier is built at first
             # use, and on a host without a card that raises the device
             # error, which answers this flush like a failed dispatch
-            verifier = self.services.batch_verifier
+            verifier = (
+                shard.verifier
+                if shard is not None and shard.verifier is not None
+                else self.services.batch_verifier
+            )
             try:
                 # a named region in a torch.profiler capture, so the
                 # host span lines up with the card's kernels

@@ -37,6 +37,7 @@ API_PACKAGES = (
     "corda_tpu_torch.testing",
     "corda_tpu_torch.tools",
     "corda_tpu_torch.experimental",
+    "corda_tpu_torch.parallel",
     "corda_tpu_torch.utils",
 )
 

@@ -216,12 +216,15 @@ class CudaDevice:
 
 class HostDevice:
     """The host CPU as the sampler reads it, for a node that verifies on
-    the CPU: one device, platform "cpu", no memory stats (its row's hbm
-    is null), as the reference samples its CPU backend."""
+    the CPU: one device (`index` 0; a CPU device of a mesh keeps its
+    own), platform "cpu", no memory stats (its row's hbm is null), as
+    the reference samples its CPU backend."""
 
-    id = 0
     platform = "cpu"
     device_kind = "cpu"
+
+    def __init__(self, index: int = 0):
+        self.id = int(index)
 
 
 def host_devices() -> list:

@@ -116,9 +116,11 @@ def test_kernel_request_without_cuda_raises(monkeypatch):
 
 
 def test_library_path_keys_on_shared_headers(tmp_path, monkeypatch):
-    """A library is keyed on its source, every csrc/*.cuh beside it and
-    the flags: editing a shared header (or adding one) moves the path of
-    every source that could include it; an unrelated file does not."""
+    """A library is keyed on its source, every csrc/*.cuh beside it, the
+    flags and nvcc's version (here a stand-in string: there is no nvcc):
+    editing a shared header (or adding one) moves the path of every
+    source that could include it; an unrelated file does not."""
+    monkeypatch.setattr(build, "nvcc_version", lambda nvcc=None: "nvcc 12.8")
     for name in ("a.cu", "b.cu", "field.cuh"):
         (tmp_path / name).write_text(f"// {name}\n")
     paths = {n: build.library_path(tmp_path / n) for n in ("a.cu", "b.cu")}
@@ -132,6 +134,9 @@ def test_library_path_keys_on_shared_headers(tmp_path, monkeypatch):
     assert build.library_path(tmp_path / "a.cu") != edited
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path(tmp_path / "a.cu") != edited
+    flagged = build.library_path(tmp_path / "a.cu")
+    monkeypatch.setattr(build, "nvcc_version", lambda nvcc=None: "nvcc 12.9")
+    assert build.library_path(tmp_path / "a.cu") != flagged
     assert [s.name for s in build.sources()] == ["ed_ladder.cu", "wei_ladder.cu"]
     assert (build.CSRC_DIR / "field256.cuh").exists()
     assert (build.CSRC_DIR / "field256_group.cuh").exists()

@@ -15,11 +15,13 @@ the reference.
   device_fault arc telling the telemetry story (testing/fleet.py over a
   CpuBatchVerifier: test_torch_fleet.FLEET_SUBS; the degraded fallback
   it needs runs only off the card, divergence D10).
-- Two cases read the device itself and get port-side versions: the
+- Three cases read the device itself and get port-side versions: the
   default sampler lists the card through torch.cuda (and raises where
   there is none, instead of the reference's empty CPU-backend list),
-  and the live-buffer census reads the caching allocator's active
-  blocks instead of walking jax.live_arrays().
+  the live-buffer census reads the caching allocator's active blocks
+  instead of walking jax.live_arrays(), and the multi-device dispatch
+  attribution pins its two verifiers to `torch.device("cpu", k)` where
+  the reference takes two of jax's virtual CPU devices.
 - The same TestClock drive (scripted memory stats, dispatches,
   transfers, queue depths, the degraded flag, the wire feed, what_if
   knobs) through both packages' DevicePlane, capacity model and
@@ -40,8 +42,6 @@ from test_torch_fleet import FLEET_SUBS, cpu_fleet_sim  # noqa: E402
 from test_torch_perf import BENCH, verifier_port_module  # noqa: E402
 
 LEFT_OUT = {
-    "test_multi_device_dispatch_attribution":
-        "verifiers pinned to several cards (ROADMAP Queue 1 #7)",
     "test_bench_quick_device_bounds_overhead_and_names_host_pump": BENCH,
 }
 
@@ -99,7 +99,63 @@ def _sampler_live_buffer_census_counts_resident_arrays(monkeypatch):
     del pin
 
 
+def _multi_device_dispatch_attribution(monkeypatch):
+    """Port version: two verifiers pinned to CPU devices 0 and 1 (the
+    sharded notary's per-card path) attribute busy wall, request counts,
+    queue wait and transfer to their device rows, and the plane windows
+    them into per-device busy fractions and mapped queue depths."""
+    import torch
+
+    mod = device_port_module()
+    dlib = importlib.import_module("corda_tpu_torch.utils.device_telemetry")
+    bv = importlib.import_module("corda_tpu_torch.crypto.batch_verifier")
+    devices = [torch.device("cpu", k) for k in range(8)]
+    mod._stub_kernels(monkeypatch)
+    devacct = dlib.DeviceAccounting()
+    dlib.set_device_accounting(devacct)
+    try:
+        v0 = bv.CudaBatchVerifier(batch_sizes=(4,), device=devices[0])
+        v1 = bv.CudaBatchVerifier(batch_sizes=(4,), device=devices[1])
+        assert all(v0.verify_batch(mod._p256_requests(3)))
+        for _ in range(3):
+            assert all(v1.verify_batch(mod._p256_requests(4)))
+    finally:
+        dlib.set_device_accounting(None)
+    snap = devacct.snapshot()["devices"]
+    d0, d1 = devices[0].index, devices[1].index
+    assert snap[d0]["dispatches"] == 1 and snap[d0]["requests"] == 3
+    assert snap[d1]["dispatches"] == 3 and snap[d1]["requests"] == 12
+    for did in (d0, d1):
+        assert snap[did]["busy_seconds"] > 0
+        assert snap[did]["queue_wait_seconds"] > 0
+        assert snap[did]["transfer_bytes"] > 0
+        assert snap[did]["transfer_seconds"] > 0
+
+    clock = mod.TestClock()
+    plane = dlib.DevicePlane(
+        clock=clock,
+        policy=dlib.DevicePolicy(sample_gap_micros=0, live_buffer_census=False),
+        sampler=dlib.DeviceSampler(lambda: [dlib.HostDevice(d.index) for d in devices[:2]]),
+        accounting=devacct,
+    )
+    depths = {d0: 5, d1: 11}
+    plane.attach_queues([lambda: depths[d0], lambda: depths[d1]], [d0, d1])
+    plane.tick()
+    clock.advance(1_000_000)
+    devacct.record_dispatch(d1, 4, 0.25, 0.001)   # busy inside window
+    plane.tick()
+    assert plane.queue_depth(d0) == 5
+    assert plane.queue_depth(d1) == 11
+    assert plane.backlog() == 16
+    body = plane.snapshot()
+    rows = {r["id"]: r for r in body["devices"]}
+    assert rows[d1]["busy_fraction"] == pytest.approx(0.25, rel=0.05)
+    assert rows[d1]["busy_fraction"] > rows[d0]["busy_fraction"]
+    assert rows[d1]["dispatch_totals"]["requests"] == 16
+
+
 PORT_CASES = {
+    "test_multi_device_dispatch_attribution": _multi_device_dispatch_attribution,
     "test_sampler_memory_stats_absent_not_fatal": _sampler_memory_stats_absent_not_fatal,
     "test_sampler_live_buffer_census_counts_resident_arrays":
         _sampler_live_buffer_census_counts_resident_arrays,
@@ -121,7 +177,7 @@ def test_reference_case_on_the_port(name, case, tmp_path, monkeypatch):
 
 
 def test_case_count():
-    assert len(port_cases("test_device_telemetry", LEFT_OUT)) == 15
+    assert len(port_cases("test_device_telemetry", LEFT_OUT)) == 16
     ref = vars(importlib.import_module("tests.test_device_telemetry"))
     assert set(LEFT_OUT) <= set(ref) and set(PORT_CASES) <= set(ref)
 

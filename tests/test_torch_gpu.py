@@ -149,3 +149,49 @@ def test_verifier_accounting_on_the_card(cuda):
     assert dev["dispatches"] == 2 and dev["requests"] == 192
     assert dev["busy_seconds"] > 0 and dev["queue_wait_seconds"] > 0
     assert dev["transfer_bytes"] == row["transfer_bytes"]
+
+
+def test_mesh_and_per_shard_verifiers_on_every_card(cuda):
+    """A chunk split over a mesh of every visible card, and one
+    per-shard verifier per card dispatched before any is read, answer
+    every row as CpuBatchVerifier does; each card launched its own
+    kernels (cuda_ec.launches_by_device), the mesh's dispatch is keyed -1
+    in the device ledger and each pinned verifier's by its card."""
+    from corda_tpu_torch.crypto import schemes
+    from corda_tpu_torch.crypto.batch_verifier import (
+        CpuBatchVerifier,
+        CudaBatchVerifier,
+        per_shard_verifiers,
+    )
+    from corda_tpu_torch.parallel import mesh as meshlib
+    from corda_tpu_torch.testing.selfcheck import build_requests
+    from corda_tpu_torch.utils import device_telemetry as dlib
+
+    cards = meshlib.cuda_devices()
+    n = len(cards)
+    reqs = []
+    for sid in (schemes.ECDSA_SECP256R1_SHA256, schemes.ECDSA_SECP256K1_SHA256,
+                schemes.EDDSA_ED25519_SHA512):
+        reqs += build_requests(16 * n, seed=sid, scheme_ids=(sid,))
+    want = CpuBatchVerifier().verify_batch(reqs)
+    devacct = dlib.DeviceAccounting()
+    dlib.set_device_accounting(devacct)
+    before = dict(cuda_ec.launches_by_device)
+    try:
+        got = CudaBatchVerifier(batch_sizes=(16 * n,), mesh=meshlib.make_mesh()).verify_batch(reqs)
+        shard_vs = per_shard_verifiers(n, batch_sizes=(128,), devices=cards)
+        handles = [v.verify_batch_async(reqs[k::n]) for k, v in enumerate(shard_vs)]
+        per_shard = [h.result() for h in handles]
+    finally:
+        dlib.set_device_accounting(None)
+    assert got == want and True in got and False in got
+    assert per_shard == [want[k::n] for k in range(n)]
+    launched = {idx for (kernel, idx), c in cuda_ec.launches_by_device.items()
+                if c > before.get((kernel, idx), 0)}
+    assert launched == set(range(n))
+    rows = devacct.snapshot()["devices"]
+    assert rows[-1]["dispatches"] == 3 and rows[-1]["requests"] == len(reqs)
+    if n > 1:
+        assert [rows[k]["dispatches"] for k in range(n)] == [3] * n
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        CudaBatchVerifier(mesh=meshlib.make_mesh(), device=cards[0])

@@ -270,9 +270,10 @@ def test_no_fallback_answers_verification_unavailable():
 
 
 def test_optional_planes_raise():
-    """Per-shard verifiers are not ported (ROADMAP Queue 1 #7): the
-    notary takes no argument for them, so passing one is refused rather
-    than ignored. The QoS plane and the intent journal are (`qos=`,
+    """The optional planes are taken as the reference takes them.
+    Per-shard verifiers (`shard_verifiers=`): shard k of a 4-shard notary
+    holds verifiers[k % n] in both packages, and a 1-shard notary ignores
+    them. The QoS plane and the intent journal (`qos=`,
     `intent_journal=`). Without a QoS plane a request's `deadline` is
     accepted, as the flows pass it, and ignored, as the reference
     ignores it: the answer is the one without it."""
@@ -281,8 +282,17 @@ def test_optional_planes_raise():
 
     fx = fixture()
     hub = notary_hub(fx, pbv.CpuBatchVerifier())
-    with pytest.raises(TypeError):
-        pnot.BatchingNotaryService(hub, shard_verifiers=[pbv.CpuBatchVerifier()])
+    r_hub = _reference_hub(fx, rbv.CpuBatchVerifier())[0]
+    p_vs = [pbv.CpuBatchVerifier() for _ in range(3)]
+    r_vs = [rbv.CpuBatchVerifier() for _ in range(3)]
+    p4 = pnot.BatchingNotaryService(hub, pnot.ShardedUniquenessProvider(4), shards=4,
+                                    shard_verifiers=p_vs)
+    r4 = rnot.BatchingNotaryService(r_hub, rnot.ShardedUniquenessProvider(4), shards=4,
+                                    shard_verifiers=r_vs)
+    assert [p_vs.index(s.verifier) for s in p4._shards] == [
+        r_vs.index(s.verifier) for s in r4._shards] == [0, 1, 2, 0]
+    assert pnot.BatchingNotaryService(hub, shard_verifiers=p_vs)._shards is None
+    assert rnot.BatchingNotaryService(r_hub, shard_verifiers=r_vs)._shards is None
     qos, journal = NotaryQos(), NotaryIntentJournal(NodeDatabase(":memory:"))
     planes = pnot.BatchingNotaryService(hub, qos=qos, intent_journal=journal)
     assert planes.qos is qos and planes.intent_journal is journal

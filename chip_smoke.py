@@ -16,7 +16,9 @@ keeps its context until all have finished. Walls and rates of phases
 3's parity and 5-19 are taken beside the other processes:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from corda_tpu_torch/csrc with nvcc (one
-     process per source, all started together) and, beside them, the
+     process per source, all started together: the ladders,
+     wei_ladder.cu and ed_ladder.cu, and the verify programs around
+     them, ed_ends.cu and wei_ends.cu) and, beside them, the
      native host library (corda_tpu_torch/native/cts_hash.cpp: the CTS
      codec, SHA-256, Merkle trees, the staging sweeps and the asset
      sweep) with g++; print the compiler, the seconds the build took and
@@ -31,11 +33,22 @@ keeps its context until all have finished. Walls and rates of phases
      one plain call at B=256 per kernel and curve, the smaller batches
      held against its first rows, as the plain version is row by row):
      equal normalised points, X*Y == Z*T for the Edwards outputs, and
-     the first 8 rows equal to refmath; time each kernel and its plain
-     version at the main path's chunk (4096, main-path scalars) and
-     hold them equal there too;
-  4. count and time the torch prologue and epilogue per 4096 chunk
-     (ecdsa_scalars; ed_decompress_neg_batch, ed_ext_to_affine);
+     the first 8 rows equal to refmath; hold each prologue and epilogue
+     kernel (ed_prologue, ed_epilogue; ecdsa_prologue, ecdsa_epilogue on
+     p256 and secp256k1) against its plain torch version at B=256, 130
+     and 1 over testing/selfcheck.py's rows, the crafted edge rows first
+     (A.y = 0, 1, p - 1, >= p, off the curve, each sign bit; z >= n, r
+     and s 0, n, 2^256 - 1, Q off the curve or >= p, the r + n row; for
+     the epilogues R.y + p, a flipped sign, r + n >= p, Z = 0):
+     verdicts and scalar digits exact, points equal mod p; time each
+     ladder kernel and its plain version at the main path's chunk (4096,
+     main-path scalars) and hold them equal there too;
+  4. time each prologue and epilogue kernel (CUDA events) and its plain
+     version at 4096 rows, held equal there, with its IMAD bound
+     (_ends_ops, the curve's cost per multiply; ENDS_BYTES); then one 4096-row
+     ed25519_verify_packed and ecdsa_verify_packed per curve on the
+     card: its time and its torch ops, which must be under 100 (a
+     handful of allocations beside the three launches);
   5. the main path through CudaBatchVerifier(batch_sizes=(128, 1024,
      4096)).verify_batch_async(...).chunks(): a 16,384-row p256 flush,
      a 4,096-row secp256k1 batch, a 16,384-row ed25519 flush, a
@@ -45,7 +58,8 @@ keeps its context until all have finished. Walls and rates of phases
      the ed25519 edge rows), tiled; every row must equal the CPU
      reference of its distinct request. The launch counters are set to 0
      just before each path and read just after; each path must have
-     launched its kernels;
+     launched its kernels: its ladder and its schemes' prologue and
+     epilogue;
   6. the batching notary (corda_tpu_torch.node.notary) over
      CudaBatchVerifier(batch_sizes=(4096,)): a 16,384-spend flush of
      single-input Cash spends (testing/notary_fixture.py: 3 in 4
@@ -257,7 +271,8 @@ keeps its context until all have finished. Walls and rates of phases
      answer its label under phase 6's checks: one compile per (scheme,
      batch) key on the first, executes only and 0 retraces after
      mark_warm() on the second; the card's device row (platform "gpu",
-     its name, its total memory as the limit, live buffers > 0), the
+     its name, its total memory as the limit, live buffers counting a
+     1 MiB tensor the phase holds on the card), the
      device ledger of cuda:0 (busy seconds, dispatches, queue wait,
      transfer bytes and seconds), the plane's busy fraction, the
      capacity model's binding constraint with every headroom fraction,
@@ -477,8 +492,9 @@ keeps its context until all have finished. Walls and rates of phases
      libraries phase 2 built, which it must reuse, one valid and one
      tampered row per scheme. The three kernels of 19a and the two of
      19b must launch; prints each part's seconds and the phase's wall;
- 20. print the kernel table as one JSON line (with each kernel's
-     launches in phase 10 as "clusters_launches", in 11a-11b as
+ 20. print the kernel table as one JSON line (all eight kernels, the
+     prologue and epilogue rows with phase 4's times and bounds, p256's
+     for the ECDSA ones; with each kernel's launches in phase 10 as "clusters_launches", in 11a-11b as
      "nodes_launches", in 12b-12d as "drives_launches", in 13a-13c as
      "telemetry_launches", in 14a-14d as "planes_launches", in 15a-15c
      as "xshard_launches", in 16a-16d as "web_launches", in 17a-17d as
@@ -746,6 +762,115 @@ def _ed_ops(windowed: bool, ss, ks) -> int:
     return _ladder_ops(ED_COST, 7, windowed, ss, ks)
 
 
+# The verify program's kernels around the ladders (csrc/ed_ends.cu,
+# csrc/wei_ends.cu): source, and what they replace (no Pallas kernel: the
+# reference's lax.scan programs, modmath.mont_pow_const)
+ENDS = {
+    "ed_prologue": ("corda_tpu_torch/csrc/ed_ends.cu",
+                    "corda_tpu/crypto/eddsa.py:100 (lax.scan program; no pallas_call)"),
+    "ed_epilogue": ("corda_tpu_torch/csrc/ed_ends.cu",
+                    "corda_tpu/crypto/ec.py:404 (lax.scan program; no pallas_call)"),
+    "ecdsa_prologue": ("corda_tpu_torch/csrc/wei_ends.cu",
+                       "corda_tpu/crypto/ecdsa.py:72 (lax.scan program; no pallas_call)"),
+    "ecdsa_epilogue": ("corda_tpu_torch/csrc/wei_ends.cu",
+                       "corda_tpu/crypto/ecdsa.py:97 (XLA program; no pallas_call)"),
+}
+# multiplies, squares and entry folds per row of each kernel, as the
+# source runs them: chain_250 is 249 squares + 10 multiplies, then the
+# square root's 2 + 1 or the inverse's 5 + 1; pow_n 256 squares and a
+# multiply per set bit of n - 2 (added in _ends_ops); load_coord a
+# multiply and a fold, store_coord a multiply
+ENDS_WORK = {
+    "ed_prologue": (23, 255, 0),
+    "ed_epilogue": (18, 254, 3),
+    "ecdsa_prologue": (11, 258, 0),
+    "ecdsa_epilogue": (5, 0, 2),
+}
+# bytes per row each kernel must move: the record bytes it reads, its
+# [22, B] int32 digit operands (88 bytes each), its [B] int32 signs and
+# bool masks, and its outputs
+ENDS_BYTES = {
+    "ed_prologue": 96 + 4 + 1 + 4 * 88 + 1,      # s | k | A.y, a_sign, valid_in; s, k, -A.x, A.y, ok
+    "ed_epilogue": 3 * 88 + 32 + 4 + 1 + 1,      # X, Y, Z, R.y, exp_sign, ok; verdict
+    "ecdsa_prologue": 160 + 1 + 4 * 88 + 1,      # z | r | s | qx | qy, valid_in; u1, u2, qx, qy, valid
+    "ecdsa_epilogue": 2 * 88 + 32 + 1 + 1,       # X, Z, r, valid; verdict
+}
+
+
+def _ends_ops(name: str, curve, batch: int) -> int:
+    """IMAD-rate instructions `batch` rows of kernel `name` need, at the
+    curve's costs per multiply and square (_ed_cost for ed25519's
+    special-form p, _cost for the ECDSA moduli, as the ladders' bounds)
+    and 4 x 8 products (2 IMAD each) per entry fold; the same for every
+    row (the kernels have no data-dependent branch)."""
+    mults, squares, folds = ENDS_WORK[name]
+    if name == "ecdsa_prologue":
+        mults += bin(curve.n - 2).count("1")
+    cost = _ed_cost if name in ED_ENDS else _cost
+    return batch * (cost(mults, squares) + folds * 4 * 8 * 2)
+
+
+def _ends_fns(name: str):
+    """(kernel, plain version) of `name`, each called as fn(curve, *args)."""
+    from corda_tpu_torch.crypto import cuda_ec, ecdsa, eddsa
+
+    kern = getattr(cuda_ec, name + "_cuda")
+    if name in ECDSA_ENDS:
+        return kern, getattr(ecdsa, name + "_plain")
+    plain = getattr(eddsa, name + "_plain")
+    return (lambda curve, *a: kern(*a)), (lambda curve, *a: plain(*a))
+
+
+def _ends_inputs(name: str, curve, batch: int, seed: int, device) -> tuple:
+    """Arguments of kernel `name` at `batch` rows on `device`:
+    testing/selfcheck.py's rows, the crafted edge rows first (rows(n)
+    are the first n rows of rows(m) for n <= m)."""
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.testing import selfcheck
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+    if name == "ed_prologue":
+        return tuple(dev(a) for a in selfcheck.ed25519_prologue_rows(batch, seed))
+    if name == "ecdsa_prologue":
+        return tuple(dev(a) for a in selfcheck.ecdsa_prologue_rows(curve, batch, seed))
+    if name == "ed_epilogue":
+        R, *rest = selfcheck.ed25519_epilogue_rows(batch, seed)
+    else:
+        R, *rest = selfcheck.ecdsa_epilogue_rows(curve, batch, seed)
+    return (tuple(dev(x) for x in R), *(dev(a) for a in rest))
+
+
+def _ends_equal(curve, got, want, label: str) -> int:
+    """0 where every output of a prologue or epilogue kernel equals its
+    plain version's first rows: verdicts and raw digits (s, k, u1, u2)
+    exactly, points (the plain version's lazily reduced) mod p, the
+    kernel's digits canonical; raises otherwise."""
+    import torch
+
+    from corda_tpu_torch.crypto import limbs as L
+
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.cpu()
+        w = w.cpu()[..., : g.shape[-1]]
+        if g.dtype == torch.bool or i < 2:
+            bad = (g != w).reshape(-1, g.shape[-1]).any(0).nonzero().flatten().tolist()
+        else:
+            a, b = L.batch_to_ints(g.numpy()), L.batch_to_ints(w.numpy())
+            bad = [j for j in range(len(a)) if a[j] >= curve.p or (a[j] - b[j]) % curve.p]
+            if int(g.min()) < 0 or int(g.max()) >= 4096:
+                bad = bad or [-1]
+        if bad:
+            raise RuntimeError(f"{label} output {i}: kernel != plain at rows {bad[:8]}")
+    return 0
+
+
 def phase_parity(device, report: dict) -> None:
     from corda_tpu_torch.crypto import cuda_ec, refmath
     from corda_tpu_torch.crypto.curves import ED25519, SECP256K1, SECP256R1
@@ -802,6 +927,17 @@ def phase_parity(device, report: dict) -> None:
             print(f"parity {name} ed25519 B={batch}: {batch} rows equal")
         _note_err(report, name, err)
 
+    for name in ENDS:
+        kern, plain = _ends_fns(name)
+        for curve in ((SECP256R1, SECP256K1) if name in ECDSA_ENDS else (ED25519,)):
+            # one plain call; the kernel at each size against its first rows
+            want = plain(curve, *_ends_inputs(name, curve, big, 7, device))
+            for batch in PARITY_SIZES:
+                label = f"{name} {curve.name} B={batch}"
+                got = kern(curve, *_ends_inputs(name, curve, batch, 7, device))
+                _note_err(report, name, _ends_equal(curve, got, want, label))
+                print(f"parity {label}: {batch} rows equal (edge rows first)")
+
 
 def _note_err(report: dict, name: str, err) -> None:
     """The largest error of `name` seen so far (parity and timing run in
@@ -816,13 +952,11 @@ def print_resources() -> None:
     from corda_tpu_torch.crypto import cuda_ec
     from corda_tpu_torch.crypto.curves import ED25519, SECP256K1, SECP256R1
 
-    libs = [("wei_ladder", c, cuda_ec.kernel_params(c)) for c in (SECP256R1, SECP256K1)]
-    libs.append(("ed_ladder", ED25519, cuda_ec.ed_kernel_params(ED25519)))
-    for lib, curve, params in libs:
-        for windowed in (True, False):
-            name = lib + ("_windowed" if windowed else "")
-            print(f"resources {name} {curve.name}: "
-                  f"{cuda_ec.kernel_resources(lib, windowed, params)}")
+    for kernel, curve in (("wei_ladder", SECP256R1), ("wei_ladder", SECP256K1), ("ed_ladder", ED25519)):
+        for name in (kernel + "_windowed", kernel):
+            print(f"resources {name} {curve.name}: {cuda_ec.kernel_resources(name, curve)}")
+    for name in ED_ENDS + ECDSA_ENDS:
+        print(f"resources {name}: {cuda_ec.kernel_resources(name)}")
 
 
 def _time_kernel(report: dict, name: str, curve, kern, plain, args, ops: int,
@@ -903,40 +1037,55 @@ def _count_torch_ops(fn) -> int:
     return Count.n
 
 
-def _torch_phase(label: str, fn) -> None:
-    ms = _cuda_ms(fn, reps=2)
-    ops = _count_torch_ops(fn)
-    print(f"time {label} B={CHUNK}: {ms:.1f} ms, {ops} torch ops = {ms * 1e3 / ops:.1f} us/op")
-
-
-def phase_prologue(device) -> None:
+def phase_prologue(device, report: dict) -> None:
+    """Phase 4: each prologue and epilogue kernel against its plain
+    version at the main path's chunk, with its IMAD bound; then the torch
+    ops of one whole verify call per scheme."""
     import torch
 
-    from corda_tpu_torch.crypto import limbs as L
-    from corda_tpu_torch.crypto import modmath as M
-    from corda_tpu_torch.crypto import refmath
-    from corda_tpu_torch.crypto.curves import ED25519, SECP256R1
-    from corda_tpu_torch.crypto.ec import ed_ext_to_affine
-    from corda_tpu_torch.crypto.ecdsa import ecdsa_scalars
-    from corda_tpu_torch.crypto.eddsa import ed_decompress_neg_batch
+    from corda_tpu_torch.crypto import ecdsa, eddsa
+    from corda_tpu_torch.crypto.curves import ED25519, SECP256K1, SECP256R1
 
-    rng = random.Random(3)
+    clock_mhz = float(_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rate = IMAD_PER_SM_PER_CLK * sms * clock_mhz * 1e6
+    for name, (source, replaces) in ENDS.items():
+        kern, plain = _ends_fns(name)
+        for curve in ((SECP256R1, SECP256K1) if name in ECDSA_ENDS else (ED25519,)):
+            args = _ends_inputs(name, curve, CHUNK, 11, device)
+            ms = _cuda_ms(lambda: kern(curve, *args), reps=20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(curve, *args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            got = kern(curve, *args)
+            _note_err(report, name, _ends_equal(curve, got, want, f"{name} {curve.name} B={CHUNK}"))
+            nbytes = ENDS_BYTES[name] * CHUNK
+            ops = _ends_ops(name, curve, CHUNK)
+            ops_ms, bytes_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            if curve is not SECP256K1:   # the table's row: p256 for the ECDSA kernels
+                report[name].update(
+                    route="cuda", source=source, replaces=replaces, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(ops_ms, bytes_ms),
+                    bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=None)
+            print(f"time {name} {curve.name} B={CHUNK}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+                  f"bound {max(ops_ms, bytes_ms):.4f} ms ({ops / CHUNK:.0f} IMAD/row, "
+                  f"{nbytes / CHUNK:.0f} bytes/row)")
 
-    def dev(xs):
-        return torch.from_numpy(L.ints_to_batch(xs)).to(device)
-
-    z, r, s = (dev([rng.randrange(1, SECP256R1.n) for _ in range(CHUNK)]) for _ in range(3))
-    _torch_phase("prologue ecdsa_scalars (mont_inv mod n as torch ops) p256",
-                 lambda: ecdsa_scalars(SECP256R1, z, r, s))
-    c = ED25519
-    pts = [refmath.ed_mul(c, rng.randrange(1, c.L), (c.gx, c.gy)) for _ in range(16)]
-    y_raw = dev([pts[i % 16][1] for i in range(CHUNK)])
-    a_sign = torch.tensor([pts[i % 16][0] & 1 for i in range(CHUNK)], dtype=torch.int32, device=device)
-    _torch_phase("prologue ed_decompress_neg_batch (252-bit sqrt pow as torch ops)",
-                 lambda: ed_decompress_neg_batch(y_raw, a_sign))
-    ext = tuple(M.to_mont(c.fp, dev([rng.randrange(1, c.p) for _ in range(CHUNK)])) for _ in range(4))
-    _torch_phase("epilogue ed_ext_to_affine (mont_inv mod p as torch ops)",
-                 lambda: ed_ext_to_affine(c.fp, ext))
+    packed, a_sign, valid = _ends_inputs("ed_prologue", ED25519, CHUNK, 11, device)
+    zeros = torch.zeros_like(a_sign)
+    calls = {"ed25519": lambda: eddsa.ed25519_verify_packed(packed, a_sign, zeros, valid)}
+    for tag, curve in (("p256", SECP256R1), ("secp256k1", SECP256K1)):
+        rec, ok = _ends_inputs("ecdsa_prologue", curve, CHUNK, 11, device)
+        calls[tag] = lambda curve=curve, rec=rec, ok=ok: ecdsa.ecdsa_verify_packed(curve, rec, ok)
+    for tag, fn in calls.items():
+        ms = _cuda_ms(fn, reps=5)
+        ops = _count_torch_ops(fn)
+        print(f"time verify_packed {tag} B={CHUNK}: {ms:.3f} ms (CUDA events), {ops} torch ops")
+        if ops >= 100:
+            raise RuntimeError(f"verify_packed {tag}: {ops} torch ops per {CHUNK}-row call, "
+                               "not a handful of launches")
 
 
 def _dispatch_order(reqs) -> list:
@@ -971,7 +1120,13 @@ COUNTERS = {
     "wei_ladder": "wei_ladder_launches",
     "ed_ladder_windowed": "ed_ladder_windowed_launches",
     "ed_ladder": "ed_ladder_launches",
+    "ed_prologue": "ed_prologue_launches",
+    "ed_epilogue": "ed_epilogue_launches",
+    "ecdsa_prologue": "ecdsa_prologue_launches",
+    "ecdsa_epilogue": "ecdsa_epilogue_launches",
 }
+ED_ENDS = ("ed_prologue", "ed_epilogue")
+ECDSA_ENDS = ("ecdsa_prologue", "ecdsa_epilogue")
 
 
 def spi_corpus():
@@ -1018,12 +1173,12 @@ def phase_main(device, report: dict) -> None:
     windowed = CudaBatchVerifier(batch_sizes=(128, 1024, 4096), device=device, windowed=True)
     # (label, verifier, schemes, rows, kernels that must launch)
     paths = [
-        ("p256 flush", plain, (p256,), FLUSH, ("wei_ladder_windowed",)),
-        ("secp256k1 batch", plain, (k1,), CHUNK, ("wei_ladder",)),
-        ("ed25519 flush", plain, (ed,), FLUSH, ("ed_ladder",)),
-        ("ed25519 windowed batch", windowed, (ed,), CHUNK, ("ed_ladder_windowed",)),
+        ("p256 flush", plain, (p256,), FLUSH, ("wei_ladder_windowed", *ECDSA_ENDS)),
+        ("secp256k1 batch", plain, (k1,), CHUNK, ("wei_ladder", *ECDSA_ENDS)),
+        ("ed25519 flush", plain, (ed,), FLUSH, ("ed_ladder", *ED_ENDS)),
+        ("ed25519 windowed batch", windowed, (ed,), CHUNK, ("ed_ladder_windowed", *ED_ENDS)),
         ("mixed flush (ed25519 / secp256k1 / p256)", plain, (ed, k1, p256), FLUSH,
-         ("ed_ladder", "wei_ladder", "wei_ladder_windowed")),
+         ("ed_ladder", "wei_ladder", "wei_ladder_windowed", *ED_ENDS, *ECDSA_ENDS)),
     ]
     for label, verifier, sids, _, _ in paths:    # warm-up: allocator, library load
         reqs, expect = tiled(sids, DISTINCT)
@@ -3695,6 +3850,7 @@ def profile_window(verifier, reqs, planes) -> dict:
         raise RuntimeError("profiler window (13b): no device time in the capture")
     kernel_us = sum(e - s for s, e, _ in kernels)
     ladder_us = sum(e - s for s, e, name in kernels if "ladder" in name)
+    ends_us = sum(e - s for s, e, name in kernels if "prologue" in name or "epilogue" in name)
     if ladder_us <= 0:
         raise RuntimeError("profiler window (13b): no ladder kernel in the capture")
     if window_plane.busy_fraction_max() <= 0:
@@ -3703,6 +3859,7 @@ def profile_window(verifier, reqs, planes) -> dict:
             "capture_s": t1 - t0, "stop_s": t2 - t1, "read_s": t3 - t2,
             "kernels": len(kernels), "kernel_ms": kernel_us / 1e3,
             "ladder_ms": ladder_us / 1e3, "ladder_share": ladder_us / kernel_us,
+            "ends_ms": ends_us / 1e3,
             "busy_share": _union_us(kernels) / window_us,
             "plane_busy_fraction": window_plane.busy_fraction_max()}
 
@@ -3826,6 +3983,10 @@ def phase_telemetry(device, card: str, fx, sampler=None, cpu_worker: bool = Fals
     ep.add_handler(TOPIC_SUBMIT, lambda m: received.append(ser.decode(m.payload)))
     wire = [ser.encode(stx) for stx in sub.spends]
     out, marks = {}, {}
+    # a tensor held on the card through the phase, which 13a's census must
+    # count: a verify call leaves nothing resident on the card (its three
+    # kernels take their constants by value)
+    resident = torch.ones(1 << 18, dtype=torch.int32, device=device) if sampler is None else None
 
     def accounting() -> tuple:
         kern = planes.perf.kernels.snapshot()
@@ -3867,7 +4028,8 @@ def phase_telemetry(device, card: str, fx, sampler=None, cpu_worker: bool = Fals
             print(f"telemetry (13b) profiler window over one warm {win['rows']}-row ed25519 "
                   f"chunk (batch {CHUNK}): window {win['window_ms']:.3f} ms, {win['kernels']} "
                   f"device activities, their time {win['kernel_ms']:.3f} ms, the ladder kernel "
-                  f"{win['ladder_ms']:.3f} ms = {100 * win['ladder_share']:.2f}% of it; the card "
+                  f"{win['ladder_ms']:.3f} ms = {100 * win['ladder_share']:.2f}% of it, the "
+                  f"prologue and epilogue kernels {win['ends_ms']:.3f} ms; the card "
                   f"busy {100 * win['busy_share']:.2f}% of the window; the device plane's busy "
                   f"fraction (launch wall) for the same window {win['plane_busy_fraction']:.4f}; "
                   f"capture {win['capture_s']:.3f} s, profiler stop {win['stop_s']:.3f} s, "
@@ -3914,8 +4076,11 @@ def phase_telemetry(device, card: str, fx, sampler=None, cpu_worker: bool = Fals
                 torch.cuda.get_device_properties(0).total_memory)
         if (row["platform"], row["kind"], row["hbm"]["bytes_limit"]) != want:
             raise RuntimeError(f"telemetry (13a): the device row {row} is not the card")
-        if not row["live_buffers"] or row["live_buffers"]["count"] <= 0:
-            raise RuntimeError(f"telemetry (13a): no live buffers on the card: {row}")
+        held = resident.numel() * resident.element_size()
+        if (not row["live_buffers"] or row["live_buffers"]["count"] <= 0
+                or row["live_buffers"]["bytes"] < held):
+            raise RuntimeError(f"telemetry (13a): the census misses the {held} bytes held on "
+                               f"the card: {row}")
     totals = row["dispatch_totals"]
     # the first and warm flushes dispatched one chunk per scheme each
     if not totals or totals["dispatches"] != 4 or totals["requests"] != rows_sent:
@@ -6324,7 +6489,7 @@ def run_phases(ids, device, card: str, report: dict) -> tuple:
         elif pid == "3 timing":
             phase_timing(device, report)
         elif pid == "4":
-            phase_prologue(device)
+            phase_prologue(device, report)
         elif pid == "5":
             phase_main(device, report)
         elif pid == "6":

@@ -1,5 +1,6 @@
-"""CUDA ladder kernels for the double-scalar multiplies of signature
-verification, and their plain torch versions.
+"""CUDA kernels of signature verification, and their plain torch
+versions: the ladders (the double-scalar multiplies) and the verify
+programs around them.
 
 Port of corda_tpu/crypto/pallas_ec.py:
 
@@ -9,22 +10,41 @@ Port of corda_tpu/crypto/pallas_ec.py:
   ed_ladder_windowed_kernel  (ed_ladder.cu)  pallas_ec.ed_ladder_windowed_pallas   ed_ladder_windowed_plain
   ed_ladder_kernel           (ed_ladder.cu)  pallas_ec.ed_ladder_pallas            ed_ladder_plain
 
-Interface, as the TPU kernels: R = u1*G + u2*Q (ECDSA) or R = s*B + k*A
-(ed25519) with canonical [22, B] int32 scalar digits and the affine Q
-or A in the R = 2^264 Montgomery domain; returns projective (X, Y, Z)
-or extended (X, Y, Z, T) in that domain. All scan every one of the 264
-digit bits (zero top bits add the identity, which the complete
+and of the device program around the ladders, which replaces no Pallas
+kernel: in the reference the whole verification is one jitted XLA
+program per scheme, whose Fermat powers and square root are lax.scan
+loops (modmath.mont_pow_const); the port ran them as host-issued torch
+ops, tens of thousands per chunk:
+
+  kernel                                 replaces (the lax.scan programs of)      plain version
+  ed_prologue_kernel    (ed_ends.cu)     eddsa.ed_decompress_neg_batch + unpack   eddsa.ed_prologue_plain
+  ed_epilogue_kernel    (ed_ends.cu)     ec.ed_ext_to_affine + the compare        eddsa.ed_epilogue_plain
+  ecdsa_prologue_kernel (wei_ends.cu)    ecdsa_verify_packed's checks, scalars    ecdsa.ecdsa_prologue_plain
+  ecdsa_epilogue_kernel (wei_ends.cu)    ecdsa_verify_packed's check after R      ecdsa.ecdsa_epilogue_plain
+
+What bounds those four: IMAD-rate 256-bit multiplies (~270-400 per row
+for the prologues and the ed25519 epilogue, 5 for the ECDSA epilogue)
+in a serial chain per row, at one row per thread: a 4,096-row chunk is
+128 warps, so the chain's latency, not the IMAD rate, sets the time.
+Their dispatching wrappers are eddsa.ed_prologue / ed_epilogue and
+ecdsa.ecdsa_prologue / ecdsa_epilogue.
+
+Ladder interface, as the TPU kernels: R = u1*G + u2*Q (ECDSA) or
+R = s*B + k*A (ed25519) with canonical [22, B] int32 scalar digits and
+the affine Q or A in the R = 2^264 Montgomery domain; returns
+projective (X, Y, Z) or extended (X, Y, Z, T) in that domain. All scan
+every one of the 264 digit bits (zero top bits add the identity, which the complete
 formulas absorb). The kernels return canonical digits, the plain
 versions lazily reduced ones: compare normalised points.
 
-What bounds them on the H100: the work is 256-bit modular multiplies
-(IMAD-rate instructions; 616-704 bytes per signature never bind), but
-at one signature per thread a 4,096-row chunk is 128 warps, one per
+What bounds the ladders on the H100: the work is 256-bit modular
+multiplies (IMAD-rate instructions; 616-704 bytes per signature never
+bind), but at one signature per thread a 4,096-row chunk is 128 warps, one per
 scheduler on a quarter of the card, and each warp's dependent carry
-chain sets the time. All four kernels therefore spread each signature
+chain sets the time. All four ladders therefore spread each signature
 over a group of 4 lanes (words 2g and 2g + 1 of every coordinate in
 lane g; `csrc/field256_group.cuh`): the chunk fills all 132 SMs with
-512 warps, and each lane's chain is a quarter as long. Each kernel has
+512 warps, and each lane's chain is a quarter as long. Each ladder has
 a dedicated doubling: the RCB15 add and doubling for the curve's a
 (kernel_params raises for any other a), and for ed25519 dbl-2008-hwcd
 with adds of cached table entries (ed_kernel_params holds the B table
@@ -36,9 +56,9 @@ no serial round.
 `wei_ladder`, `wei_ladder_windowed`, `ed_ladder` and
 `ed_ladder_windowed` dispatch on the tensors' device: the plain version
 for CPU tensors only; on CUDA tensors they launch the kernel or raise.
-Each launch adds one to the module's counter (`wei_ladder_launches`,
-`wei_ladder_windowed_launches`, `ed_ladder_launches`,
-`ed_ladder_windowed_launches`) and to `launches_by_device[(kernel, card
+Each launch of any of the eight kernels adds one to the module's
+counter (`<kernel>_launches`: `wei_ladder_launches`, ...,
+`ecdsa_epilogue_launches`) and to `launches_by_device[(kernel, card
 index)]`, under one lock: shard workers launch from several threads,
 on several cards. The launch runs on the current stream of the card its
 operands are on, so a library serves every card (the kernels take their
@@ -56,7 +76,7 @@ import numpy as np
 import torch
 
 from . import build
-from .curves import EdwardsCurve, WeierstrassCurve
+from .curves import ED25519, EdwardsCurve, WeierstrassCurve
 from .ec import (
     _b_table_mont,
     _g_table_mont,
@@ -67,6 +87,8 @@ from .ec import (
     wei_double_scalar_mul,
     wei_double_scalar_mul_windowed,
 )
+from .encodings import ECDSA_RECORD_BYTES as ECDSA_RECORD
+from .encodings import ED25519_RECORD_BYTES as ED_RECORD
 from .limbs import NLIMB, R_BITS
 
 LADDER_BITS = NLIMB * 12     # 264: every digit bit, as the TPU kernels scan
@@ -75,6 +97,10 @@ wei_ladder_launches = 0
 wei_ladder_windowed_launches = 0
 ed_ladder_launches = 0
 ed_ladder_windowed_launches = 0
+ed_prologue_launches = 0
+ed_epilogue_launches = 0
+ecdsa_prologue_launches = 0
+ecdsa_epilogue_launches = 0
 launches_by_device: dict[tuple[str, int], int] = {}
 _COUNT_LOCK = threading.Lock()
 
@@ -212,11 +238,59 @@ def _pinv32(p: int) -> int:
     return (-pow(p, -1, 1 << 32)) % (1 << 32)
 
 
-# per library: (launch entry, params-size entry, resources entry, number
-# of outputs)
+@lru_cache(maxsize=None)
+def ed_ends_params() -> np.ndarray:
+    """ed_ends.cu's EdEndsParams struct for ed25519 as uint32 words: p,
+    2^256 mod p (Montgomery 1 and load_coord's fold), 2^248 and 2^264
+    mod p (the ladder's 2^264 domain to the kernels' 2^256 one and back),
+    -p^-1 mod 2^32, 2^512 mod p (plain values in), and d and sqrt(-1) in
+    the 2^256 domain. The kernels' power chains are those of
+    p = 2^255 - 19."""
+    p, R = ED25519.p, 1 << 256
+    words = (
+        _words(p) + _words(_fold_constant(ED25519)) + _words(1 << 248) + _words((1 << R_BITS) % p)
+        + [_pinv32(p)]
+        + _words(R * R % p) + _words(ED25519.d * R % p)
+        + _words(pow(2, (p - 1) // 4, p) * R % p)
+    )
+    return np.array(words, dtype=np.uint32)
+
+
+@lru_cache(maxsize=None)
+def wei_ends_params(curve: WeierstrassCurve) -> np.ndarray:
+    """wei_ends.cu's WeiEndsParams struct as uint32 words: p, 2^256 mod p
+    (Montgomery 1 and load_coord's fold), 2^248 and 2^264 mod p (the
+    ladder's 2^264 domain to the kernels' 2^256 one and back), -p^-1 mod
+    2^32, 2^512 mod p (plain values in), a and b in the 2^256 domain, G
+    (plain), then the set for the arithmetic mod n: n, -n^-1 mod 2^32,
+    2^512 mod n, 2^256 mod n and the inverse's exponent n - 2."""
+    p, n, R = curve.p, curve.n, 1 << 256
+    if not (1 << 255) < n < R:
+        raise ValueError(f"{curve.name}: the ECDSA ends kernels need 2^255 < n < 2^256")
+    words = (
+        _words(p) + _words(_fold_constant(curve)) + _words(1 << 248) + _words((1 << R_BITS) % p)
+        + [_pinv32(p)]
+        + _words(R * R % p) + _words(curve.a % p * R % p) + _words(curve.b % p * R % p)
+        + _words(curve.gx) + _words(curve.gy)
+        + _words(n) + [_pinv32(n)] + _words(R * R % n) + _words(R % n) + _words(n - 2)
+    )
+    return np.array(words, dtype=np.uint32)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# per library: its launch entries {stage: (C entry, argument types)}, its
+# params-size entry and its resources entry; every entry returns an int
 _ENTRIES = {
-    "wei_ladder": ("corda_wei_ladder", "corda_wei_params_words", "corda_wei_kernel_info", 3),
-    "ed_ladder": ("corda_ed_ladder", "corda_ed_params_words", "corda_ed_kernel_info", 4),
+    "wei_ladder": ({"ladder": ("corda_wei_ladder", [_I] + [_P] * 8 + [_I, _P])},
+                   "corda_wei_params_words", "corda_wei_kernel_info"),
+    "ed_ladder": ({"ladder": ("corda_ed_ladder", [_I] + [_P] * 9 + [_I, _P])},
+                  "corda_ed_params_words", "corda_ed_kernel_info"),
+    "ed_ends": ({"prologue": ("corda_ed_prologue", [_P] * 9 + [_I, _P]),
+                 "epilogue": ("corda_ed_epilogue", [_P] * 8 + [_I, _P])},
+                "corda_ed_ends_params_words", "corda_ed_ends_kernel_info"),
+    "wei_ends": ({"prologue": ("corda_ecdsa_prologue", [_P] * 8 + [_I, _P]),
+                  "epilogue": ("corda_ecdsa_epilogue", [_P] * 7 + [_I, _P])},
+                 "corda_wei_ends_params_words", "corda_wei_ends_kernel_info"),
 }
 _SIGNED: set[str] = set()
 
@@ -224,70 +298,111 @@ _SIGNED: set[str] = set()
 def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     if name not in _SIGNED:
-        launch, words, info, n_out = _ENTRIES[name]
-        p = ctypes.c_void_p
-        getattr(lib, launch).argtypes = [ctypes.c_int] + [p] * (5 + n_out) + [ctypes.c_int, p]
-        getattr(lib, launch).restype = ctypes.c_int
+        launches, words, info = _ENTRIES[name]
+        for entry, argtypes in launches.values():
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
         getattr(lib, words).argtypes = []
         getattr(lib, words).restype = ctypes.c_int
-        getattr(lib, info).argtypes = [ctypes.c_int, p, p]
+        getattr(lib, info).argtypes = [_I, _P, _P]
         getattr(lib, info).restype = ctypes.c_int
-        lib.corda_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.corda_cuda_error_string.argtypes = [_I]
         lib.corda_cuda_error_string.restype = ctypes.c_char_p
         _SIGNED.add(name)
     return lib
 
 
-def _check_operands(names, tensors) -> None:
-    first = tensors[0]
-    for name, t in zip(names, tensors):
+# operand kinds: dtype and shape for a batch of B rows
+_DIGITS = (torch.int32, lambda b: (NLIMB, b))
+_INTS = (torch.int32, lambda b: (b,))
+_BOOLS = (torch.bool, lambda b: (b,))
+_ED_RECORDS = (torch.uint8, lambda b: (b, ED_RECORD))
+_ECDSA_RECORDS = (torch.uint8, lambda b: (b, ECDSA_RECORD))
+
+
+def _check_operands(stage: str, operands, batch: int) -> None:
+    """operands: (name, tensor, (dtype, shape of a B-row batch)); every
+    tensor a contiguous CUDA tensor on the first one's card, of its dtype
+    and shape at `batch` rows."""
+    first_name, first = operands[0][:2]
+    for name, t, (dtype, shape) in operands:
         if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; the CUDA ladder needs a CUDA tensor")
+            raise ValueError(f"{name} is on {t.device}; the CUDA {stage} needs a CUDA tensor")
         if t.device != first.device:
-            raise ValueError(f"{name} is on {t.device}, {names[0]} on {first.device}")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name} has dtype {t.dtype}, need int32")
-        if t.dim() != 2 or t.shape[0] != NLIMB or t.shape[1] != first.shape[1]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, need ({NLIMB}, {first.shape[1]})")
+            raise ValueError(f"{name} is on {t.device}, {first_name} on {first.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, need {dtype}")
+        if tuple(t.shape) != shape(batch):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, need {shape(batch)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    if first.shape[1] == 0:
+    if batch == 0:
         raise ValueError("empty batch")
 
 
-def _launch(name: str, windowed: bool, params: np.ndarray, names, ins):
-    """Launch csrc/<name>.cu's ladder on `ins` (four [22, B] int32 CUDA
-    tensors); returns the output tensors."""
-    _check_operands(names, ins)
+def _launch(name: str, stage: str, lead: tuple, params: np.ndarray, batch: int, operands,
+            outs):
+    """Launch stage `stage` of csrc/<name>.cu on `batch` rows: the C entry
+    takes `lead` (ints before the parameters), the parameters, the
+    operands' and then the outputs' pointers, the batch and the stream.
+    `operands` are checked (_check_operands); `outs` are the kinds of the
+    tensors to allocate. Returns the outputs."""
+    _check_operands(stage, operands, batch)
     lib = _lib(name)
-    launch, words, _, n_out = _ENTRIES[name]
+    launches, words, _ = _ENTRIES[name]
     if getattr(lib, words)() != params.size:
         raise build.KernelBuildError(f"{name}: parameter layout differs between kernel and wrapper")
-    outs = [torch.empty_like(ins[0]) for _ in range(n_out)]
-    dev = ins[0].device
+    dev = operands[0][1].device
+    out = [torch.empty(shape(batch), dtype=dtype, device=dev) for dtype, shape in outs]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, launch)(
-            int(windowed), params.ctypes.data,
-            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-            ins[0].shape[1], stream,
+        rc = getattr(lib, launches[stage][0])(
+            *lead, params.ctypes.data,
+            *(t.data_ptr() for _, t, _ in operands), *(t.data_ptr() for t in out),
+            batch, stream,
         )
     if rc != 0:
         msg = lib.corda_cuda_error_string(rc).decode()
-        raise DeviceFaultError(f"{name} launch failed: {msg} (cudaError {rc})")
-    return tuple(outs)
+        raise DeviceFaultError(f"{name} {stage} launch failed: {msg} (cudaError {rc})")
+    return tuple(out)
 
 
-def kernel_resources(name: str, windowed: bool, params: np.ndarray) -> dict:
+def _counted(kernel: str, dev: torch.device) -> None:
+    """One launch of `kernel` on `dev`: its module counter and its card's."""
+    counter = kernel + "_launches"
+    with _COUNT_LOCK:
+        globals()[counter] += 1
+        _count_device(kernel, dev)
+
+
+# kernel -> (library, which): `which` is the windowed flag of a ladder
+# library's entry, the stage (0 prologue, 1 epilogue) of an ends library's
+_KERNEL_ENTRY = {
+    "wei_ladder": ("wei_ladder", 0), "wei_ladder_windowed": ("wei_ladder", 1),
+    "ed_ladder": ("ed_ladder", 0), "ed_ladder_windowed": ("ed_ladder", 1),
+    "ed_prologue": ("ed_ends", 0), "ed_epilogue": ("ed_ends", 1),
+    "ecdsa_prologue": ("wei_ends", 0), "ecdsa_epilogue": ("wei_ends", 1),
+}
+
+
+def kernel_resources(kernel: str, curve: WeierstrassCurve | None = None) -> dict:
     """Registers, stack bytes, static shared bytes and resident warps per
-    SM of the kernel that csrc/<name>.cu launches for (windowed, params),
-    from the CUDA runtime on the current card."""
+    SM of `kernel` (a `<kernel>_launches` name), from the CUDA runtime on
+    the current card. `curve` picks a Weierstrass ladder's instantiation
+    (a = 0 or a = -3); the other kernels have one."""
+    name, which = _KERNEL_ENTRY[kernel]
+    params = None                       # the ends' entries read none
+    if name == "wei_ladder":
+        params = kernel_params(curve)
+    elif name == "ed_ladder":
+        params = ed_kernel_params(ED25519)
     lib = _lib(name)
     out = (ctypes.c_int * 4)()
-    rc = getattr(lib, _ENTRIES[name][2])(int(windowed), params.ctypes.data, out)
+    rc = getattr(lib, _ENTRIES[name][2])(which, None if params is None else params.ctypes.data,
+                                         out)
     if rc != 0:
         msg = lib.corda_cuda_error_string(rc).decode()
-        raise DeviceFaultError(f"{name} kernel attributes: {msg} (cudaError {rc})")
+        raise DeviceFaultError(f"{kernel} kernel attributes: {msg} (cudaError {rc})")
     return dict(zip(("registers", "stack_bytes", "shared_bytes", "warps_per_sm"), out))
 
 
@@ -295,24 +410,25 @@ _WEI_NAMES = ("u1", "u2", "qx_m", "qy_m")
 _ED_NAMES = ("s", "k", "ax_m", "ay_m")
 
 
+def _ladder(kernel: str, lib: str, params: np.ndarray, names, ins, n_out: int):
+    """Launch a ladder of csrc/<lib>.cu on four [22, B] int32 CUDA tensors."""
+    batch = ins[0].shape[-1] if ins[0].dim() else 0
+    out = _launch(lib, "ladder", (int(kernel.endswith("_windowed")),), params, batch,
+                  [(n, t, _DIGITS) for n, t in zip(names, ins)], [_DIGITS] * n_out)
+    _counted(kernel, ins[0].device)
+    return out
+
+
 def wei_ladder_cuda(curve: WeierstrassCurve, u1, u2, qx_m, qy_m):
     """Launch the plain-ladder kernel (CUDA tensors only)."""
-    global wei_ladder_launches
-    out = _launch("wei_ladder", False, kernel_params(curve), _WEI_NAMES, (u1, u2, qx_m, qy_m))
-    with _COUNT_LOCK:
-        wei_ladder_launches += 1
-        _count_device("wei_ladder", u1.device)
-    return out
+    return _ladder("wei_ladder", "wei_ladder", kernel_params(curve), _WEI_NAMES,
+                   (u1, u2, qx_m, qy_m), 3)
 
 
 def wei_ladder_windowed_cuda(curve: WeierstrassCurve, u1, u2, qx_m, qy_m):
     """Launch the windowed-ladder kernel (CUDA tensors only)."""
-    global wei_ladder_windowed_launches
-    out = _launch("wei_ladder", True, kernel_params(curve), _WEI_NAMES, (u1, u2, qx_m, qy_m))
-    with _COUNT_LOCK:
-        wei_ladder_windowed_launches += 1
-        _count_device("wei_ladder_windowed", u1.device)
-    return out
+    return _ladder("wei_ladder_windowed", "wei_ladder", kernel_params(curve), _WEI_NAMES,
+                   (u1, u2, qx_m, qy_m), 3)
 
 
 def wei_ladder(curve: WeierstrassCurve, u1, u2, qx_m, qy_m):
@@ -333,22 +449,14 @@ def wei_ladder_windowed(curve: WeierstrassCurve, u1, u2, qx_m, qy_m):
 
 def ed_ladder_cuda(curve: EdwardsCurve, s, k, ax_m, ay_m):
     """Launch the plain Edwards ladder kernel (CUDA tensors only)."""
-    global ed_ladder_launches
-    out = _launch("ed_ladder", False, ed_kernel_params(curve), _ED_NAMES, (s, k, ax_m, ay_m))
-    with _COUNT_LOCK:
-        ed_ladder_launches += 1
-        _count_device("ed_ladder", s.device)
-    return out
+    return _ladder("ed_ladder", "ed_ladder", ed_kernel_params(curve), _ED_NAMES,
+                   (s, k, ax_m, ay_m), 4)
 
 
 def ed_ladder_windowed_cuda(curve: EdwardsCurve, s, k, ax_m, ay_m):
     """Launch the windowed Edwards ladder kernel (CUDA tensors only)."""
-    global ed_ladder_windowed_launches
-    out = _launch("ed_ladder", True, ed_kernel_params(curve), _ED_NAMES, (s, k, ax_m, ay_m))
-    with _COUNT_LOCK:
-        ed_ladder_windowed_launches += 1
-        _count_device("ed_ladder_windowed", s.device)
-    return out
+    return _ladder("ed_ladder_windowed", "ed_ladder", ed_kernel_params(curve), _ED_NAMES,
+                   (s, k, ax_m, ay_m), 4)
 
 
 def ed_ladder(curve: EdwardsCurve, s, k, ax_m, ay_m):
@@ -365,3 +473,60 @@ def ed_ladder_windowed(curve: EdwardsCurve, s, k, ax_m, ay_m):
     if s.device.type == "cpu":
         return ed_ladder_windowed_plain(curve, s, k, ax_m, ay_m)
     return ed_ladder_windowed_cuda(curve, s, k, ax_m, ay_m)
+
+
+# ---------------------------------------------------------------------------
+# the verify programs around the ladders (csrc/ed_ends.cu, csrc/wei_ends.cu);
+# their plain versions and dispatching wrappers are in eddsa.py and ecdsa.py
+
+
+def ed_prologue_cuda(packed, a_sign, valid_in):
+    """Launch ed_prologue_kernel on [B, 128] records (CUDA tensors only):
+    (s, k, -A.x, A.y, ok), the points in the ladder's 2^264 domain."""
+    batch = packed.shape[0] if packed.dim() else 0
+    out = _launch("ed_ends", "prologue", (), ed_ends_params(), batch,
+                  [("packed", packed, _ED_RECORDS), ("a_sign", a_sign, _INTS),
+                   ("valid_in", valid_in, _BOOLS)],
+                  [_DIGITS] * 4 + [_BOOLS])
+    _counted("ed_prologue", packed.device)
+    return out
+
+
+def ed_epilogue_cuda(R, packed, exp_sign, ok):
+    """Launch ed_epilogue_kernel on the ladder's extended R (CUDA tensors
+    only): the [B] verdicts."""
+    X, Y, Z = R[:3]
+    batch = packed.shape[0] if packed.dim() else 0
+    (verdict,) = _launch(
+        "ed_ends", "epilogue", (), ed_ends_params(), batch,
+        [("X", X, _DIGITS), ("Y", Y, _DIGITS), ("Z", Z, _DIGITS),
+         ("packed", packed, _ED_RECORDS), ("exp_sign", exp_sign, _INTS),
+         ("ok", ok, _BOOLS)],
+        [_BOOLS])
+    _counted("ed_epilogue", packed.device)
+    return verdict
+
+
+def ecdsa_prologue_cuda(curve: WeierstrassCurve, packed, valid_in):
+    """Launch ecdsa_prologue_kernel on [B, 160] records (CUDA tensors
+    only): (u1, u2, qx_m, qy_m, valid), Q in the ladder's 2^264 domain."""
+    batch = packed.shape[0] if packed.dim() else 0
+    out = _launch("wei_ends", "prologue", (), wei_ends_params(curve), batch,
+                  [("packed", packed, _ECDSA_RECORDS), ("valid_in", valid_in, _BOOLS)],
+                  [_DIGITS] * 4 + [_BOOLS])
+    _counted("ecdsa_prologue", packed.device)
+    return out
+
+
+def ecdsa_epilogue_cuda(curve: WeierstrassCurve, R, packed, valid):
+    """Launch ecdsa_epilogue_kernel on the ladder's projective R (CUDA
+    tensors only): the [B] verdicts."""
+    X, Y, Z = R
+    batch = packed.shape[0] if packed.dim() else 0
+    (verdict,) = _launch(
+        "wei_ends", "epilogue", (), wei_ends_params(curve), batch,
+        [("X", X, _DIGITS), ("Y", Y, _DIGITS), ("Z", Z, _DIGITS),
+         ("packed", packed, _ECDSA_RECORDS), ("valid", valid, _BOOLS)],
+        [_BOOLS])
+    _counted("ecdsa_epilogue", packed.device)
+    return verdict

@@ -1,24 +1,30 @@
 """Batched ECDSA verification (secp256r1 / secp256k1), torch + CUDA.
 
-Port of corda_tpu/crypto/ecdsa.py with the same semantics:
+Port of corda_tpu/crypto/ecdsa.py with the same semantics.
+ecdsa_verify_packed runs three stages on the device of its input
+tensors, each a CUDA kernel on the card and its plain torch version on
+CPU tensors:
 
-  * ecdsa_verify_packed unpacks [B, 160] byte records (z|r|s|qx|qy)
-    into limbs, checks 0 < r < n, 0 < s < n, coordinates < p and Q on
-    the curve, substitutes benign values in failed rows (s=1, r=1, Q=G)
-    and builds the second x-candidate c1 = r + n with its c1 < p gate.
-  * ecdsa_verify_batch computes u1 = z/s, u2 = r/s mod n with a Fermat
-    inverse (torch ops: the prologue), runs the ladder R = u1*G + u2*Q
-    (the CUDA kernel on the card, its plain version on CPU tensors), and
-    accepts iff R is not infinity and x_R == c (mod n) for c in
-    {r, r+n}, checked as c*Z == X (mod p) without an inversion.
+  * ecdsa_prologue: unpacks [B, 160] byte records (z|r|s|qx|qy),
+    checks 0 < r < n, 0 < s < n, coordinates < p and Q on the curve,
+    substitutes benign values in failed rows (s=1, r=1, Q=G) and
+    computes u1 = z/s, u2 = r/s mod n with a Fermat inverse
+    (ecdsa_scalars; kernel: csrc/wei_ends.cu ecdsa_prologue_kernel);
+  * the ladder R = u1*G + u2*Q (cuda_ec.wei_ladder or
+    wei_ladder_windowed);
+  * ecdsa_epilogue: accepts iff R is not infinity and x_R == c (mod n)
+    for c in {r, r+n}, the second only where r + n < p, checked as
+    c*Z == X (mod p) without an inversion (kernel:
+    ecdsa_epilogue_kernel).
 
-Everything runs on the device of the input tensors.
+ecdsa_scalars stays as a plain function.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import cuda_ec
 from .cuda_ec import curve_tag, use_windowed_ladder, wei_ladder, wei_ladder_windowed
 from .curves import WeierstrassCurve
 from .ec import wei_is_infinity
@@ -53,62 +59,47 @@ def ecdsa_scalars(curve: WeierstrassCurve, z, r, s):
     return u1, u2
 
 
-def ecdsa_verify_batch(
-    curve: WeierstrassCurve,
-    z,          # [22,B] hash ints (not reduced mod n; to_mont reduces)
-    r,          # [22,B] canonical, checked 1 <= r < n
-    s,          # [22,B] canonical, checked 1 <= s < n
-    qx,         # [22,B] canonical affine pubkey (checked on curve)
-    qy,         # [22,B]
-    c1,         # [22,B] r + n (second x-candidate)
-    c1_ok,      # [B] bool: r + n < p
-    valid_in,   # [B] bool prefilter result
-    windowed: bool | None = None,   # None = the curve's default ladder
-):
-    """[B] bool: SEC1 ECDSA verification, bit-exact accept/reject."""
+def _ladder(curve: WeierstrassCurve, windowed: bool | None):
+    return (wei_ladder_windowed if use_windowed_ladder(curve_tag(curve), windowed)
+            else wei_ladder)
+
+
+def _x_check(curve: WeierstrassCurve, R, r, c1, c1_ok, valid):
+    """[B] bool: valid, R not infinity and x_R == c (mod n) for c in {r,
+    c1 = r + n where c1_ok}, as c*Z == X (mod p) without an inversion."""
     fp = curve.fp
-    batch = z.shape[1]
-    u1, u2 = ecdsa_scalars(curve, z, r, s)
-    qx_m, qy_m = to_mont(fp, qx), to_mont(fp, qy)
-    ladder = (
-        wei_ladder_windowed
-        if use_windowed_ladder(curve_tag(curve), windowed)
-        else wei_ladder
-    )
-    R = ladder(curve, u1, u2, qx_m, qy_m)
     X, _Y, Z = R
     not_inf = ~wei_is_infinity(fp, R)
-
-    # x_R == c (mod n)  <=>  c*Z == X (mod p)
-    one = mont_one(fp, batch, z.device)
+    one = mont_one(fp, r.shape[1], r.device)
     rhs = mont_canon(fp, mont_mul(fp, X, one))
     chk0 = eq(mont_canon(fp, mont_mul(fp, to_mont(fp, r), Z)), rhs)
     chk1 = eq(mont_canon(fp, mont_mul(fp, to_mont(fp, c1), Z)), rhs)
-    return valid_in & not_inf & (chk0 | (chk1 & c1_ok))
+    return valid & not_inf & (chk0 | (chk1 & c1_ok))
 
 
-def ecdsa_verify_packed(
-    curve: WeierstrassCurve, packed, valid_in, windowed: bool | None = None
-):
-    """[B] bool from [B, 160] uint8 records (z|r|s|qx|qy, 32-byte
-    big-endian each; see encodings.stage_ecdsa_packed).
+def _limbs(x: int) -> tuple[int, ...]:
+    return tuple(int(v) for v in int_to_limbs(x))
 
-    Device-side validation replicates the host prefilter bit-exactly:
-    0 < r < n, 0 < s < n, coordinates < p, point on curve. Rows failing
-    any check verify as False; their values are replaced with benign
-    ones (s=1, Q=G) so the shared ladder still runs on defined inputs.
+
+def _unpack(packed):
+    """[B, 160] uint8 records -> (z, r, s, qx, qy) as [22, B] digits."""
+    pb = packed.t().to(torch.int32)                   # [160, B]
+    return tuple(unpack_be32(pb[32 * i : 32 * i + 32]) for i in range(5))
+
+
+def ecdsa_prologue_plain(curve: WeierstrassCurve, packed, valid_in):
+    """The plain version of ecdsa_prologue_kernel: (u1, u2, qx_m, qy_m,
+    valid), Q in the ladder's 2^264 Montgomery domain (lazily reduced).
+
+    The checks replicate the host prefilter bit-exactly: 0 < r < n,
+    0 < s < n, coordinates < p, point on curve. Rows failing any check
+    have valid False and benign values (s=1, r=1, Q=G), so the ladder
+    still runs on defined inputs.
     """
     fp = curve.fp
-    pb = packed.t().to(torch.int32)                   # [160, B]
-    batch, device = pb.shape[1], pb.device
-    z = unpack_be32(pb[0:32])
-    r = unpack_be32(pb[32:64])
-    s = unpack_be32(pb[64:96])
-    qx = unpack_be32(pb[96:128])
-    qy = unpack_be32(pb[128:160])
-
-    n_limbs = tuple(int(v) for v in int_to_limbs(curve.n))
-    p_limbs = tuple(int(v) for v in int_to_limbs(curve.p))
+    batch, device = packed.shape[0], packed.device
+    z, r, s, qx, qy = _unpack(packed)
+    n_limbs, p_limbs = _limbs(curve.n), _limbs(curve.p)
     r_ok = nonzero(r) & lex_lt(r, n_limbs)
     s_ok = nonzero(s) & lex_lt(s, n_limbs)
 
@@ -132,15 +123,45 @@ def ecdsa_verify_packed(
     r_use = select(r_ok, r, one)
     qx_use = select(q_ok, qx, const_batch(curve.gx, batch, device))
     qy_use = select(q_ok, qy, const_batch(curve.gy, batch, device))
+    u1, u2 = ecdsa_scalars(curve, z, r_use, s_use)
+    valid = valid_in & r_ok & s_ok & q_ok
+    return u1, u2, to_mont(fp, qx_use), to_mont(fp, qy_use), valid
 
+
+def ecdsa_epilogue_plain(curve: WeierstrassCurve, R, packed, valid):
+    """The plain version of ecdsa_epilogue_kernel: [B] verdicts from the
+    ladder's projective R and the records' r."""
+    r = _unpack(packed)[1]
     # second x-candidate c1 = r + n and its c1 < p gate; exact carry
     # only (bound_mul=1): c1 may exceed p by design
-    c1 = canon(fp, r_use + _const_col(n_limbs, device), bound_mul=1)
-    c1_ok = lex_lt(c1, p_limbs)
+    c1 = canon(curve.fp, r + _const_col(_limbs(curve.n), r.device), bound_mul=1)
+    return _x_check(curve, R, r, c1, lex_lt(c1, _limbs(curve.p)), valid)
 
-    valid = valid_in & r_ok & s_ok & q_ok
-    return ecdsa_verify_batch(
-        curve, z, r_use, s_use, qx_use, qy_use, c1, c1_ok, valid,
-        windowed=windowed,
-    )
 
+def ecdsa_prologue(curve: WeierstrassCurve, packed, valid_in):
+    """The ladder's operands and the checks' verdict from [B, 160]
+    records: the plain version for CPU tensors, the CUDA kernel
+    otherwise (or raise)."""
+    if packed.device.type == "cpu":
+        return ecdsa_prologue_plain(curve, packed, valid_in)
+    return cuda_ec.ecdsa_prologue_cuda(curve, packed, valid_in)
+
+
+def ecdsa_epilogue(curve: WeierstrassCurve, R, packed, valid):
+    """[B] verdicts from the ladder's R: the plain version for CPU
+    tensors, the CUDA kernel otherwise (or raise)."""
+    if packed.device.type == "cpu":
+        return ecdsa_epilogue_plain(curve, R, packed, valid)
+    return cuda_ec.ecdsa_epilogue_cuda(curve, R, packed, valid)
+
+
+def ecdsa_verify_packed(
+    curve: WeierstrassCurve, packed, valid_in, windowed: bool | None = None
+):
+    """[B] bool from [B, 160] uint8 records (z|r|s|qx|qy, 32-byte
+    big-endian each; see encodings.stage_ecdsa_packed): prologue,
+    ladder, epilogue, on the records' device. Rows failing a check
+    verify as False."""
+    u1, u2, qx_m, qy_m, valid = ecdsa_prologue(curve, packed, valid_in)
+    R = _ladder(curve, windowed)(curve, u1, u2, qx_m, qy_m)
+    return ecdsa_epilogue(curve, R, packed, valid)

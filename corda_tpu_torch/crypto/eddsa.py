@@ -11,19 +11,28 @@ refmath.ed25519_verify:
     so s + L verifies like s;
   * small-order A is not rejected.
 
-ed25519_verify_packed unpacks [B, 128] byte records, decodes A on the
-device (ed_decompress_neg_batch: RFC 8032 decoding, returning -A), runs
-the ladder R' = s*B + k*(-A) (the CUDA kernel on the card, its plain
-version on CPU tensors), maps R' to affine (a Fermat inverse as torch
-ops) and compares the canonical y with the raw R.y and the parity of x
-with the R sign bit. Everything runs on the device of the input
-tensors.
+ed25519_verify_packed runs three stages on the device of its input
+tensors, each a CUDA kernel on the card and its plain torch version on
+CPU tensors:
+
+  * ed_prologue: unpacks [B, 128] byte records and decodes A (RFC 8032
+    decoding, returning -A: ed_decompress_neg_batch) into the ladder's
+    operands (kernel: csrc/ed_ends.cu ed_prologue_kernel);
+  * the ladder R' = s*B + k*(-A) (cuda_ec.ed_ladder or
+    ed_ladder_windowed);
+  * ed_epilogue: maps R' to affine (a Fermat inverse) and compares the
+    canonical y with the raw R.y and the parity of x with the R sign bit
+    (kernel: ed_epilogue_kernel).
+
+ed_decompress_neg_batch and the limb-level ed25519_verify_batch (host-
+decoded -A; its affine map as torch ops) stay as plain functions.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import cuda_ec
 from .cuda_ec import ed_ladder, ed_ladder_windowed, use_windowed_ladder
 from .curves import ED25519
 from .ec import ed_ext_to_affine
@@ -63,6 +72,23 @@ _SQRT_EXP_BITS = tuple(
 )
 
 
+def _ladder(windowed: bool | None):
+    return ed_ladder_windowed if use_windowed_ladder("ed25519", windowed) else ed_ladder
+
+
+def _affine_check(R, exp_y, exp_sign, valid):
+    """[B] bool: valid, and the affine R' (a Fermat inverse) with the
+    canonical y equal to the raw exp_y and x's parity equal to exp_sign."""
+    fp = ED25519.fp
+    xm, ym = ed_ext_to_affine(fp, R)
+    x_std = from_mont(fp, xm)
+    y_std = from_mont(fp, ym)
+    sign = x_std[0] & 1
+    # canonical y' vs raw y-from-bytes: a non-canonical encoding (y >= p)
+    # never equals a canonical y', matching encode-and-compare
+    return valid & eq(y_std, exp_y) & (sign == exp_sign)
+
+
 def ed25519_verify_batch(
     s,            # [22,B] signature scalar (raw 256-bit little-endian int)
     k,            # [22,B] SHA512(R||A||M) mod L
@@ -73,18 +99,11 @@ def ed25519_verify_batch(
     valid_in,     # [B] bool prefilter (decoding succeeded etc.)
     windowed: bool | None = None,   # None = the ed25519 default ladder
 ):
-    """[B] bool: cofactorless ed25519 verification."""
+    """[B] bool: cofactorless ed25519 verification (the affine map as
+    torch ops on either device)."""
     fp = ED25519.fp
-    nax_m, nay_m = to_mont(fp, nax), to_mont(fp, nay)
-    ladder = ed_ladder_windowed if use_windowed_ladder("ed25519", windowed) else ed_ladder
-    R = ladder(ED25519, s, k, nax_m, nay_m)
-    xm, ym = ed_ext_to_affine(fp, R)
-    x_std = from_mont(fp, xm)
-    y_std = from_mont(fp, ym)
-    sign = x_std[0] & 1
-    # canonical y' vs raw y-from-bytes: a non-canonical encoding (y >= p)
-    # never equals a canonical y', matching encode-and-compare
-    return valid_in & eq(y_std, exp_y) & (sign == exp_sign)
+    R = _ladder(windowed)(ED25519, s, k, to_mont(fp, nax), to_mont(fp, nay))
+    return _affine_check(R, exp_y, exp_sign, valid_in)
 
 
 def _p_minus(x_canon):
@@ -147,16 +166,49 @@ def ed_decompress_neg_batch(y_raw, a_sign):
     return nax, y_std, ok
 
 
+def _unpack(packed):
+    """[B, 128] uint8 records -> (s, k, A.y, R.y) as [22, B] digits."""
+    pb = packed.t().to(torch.int32)
+    return tuple(unpack_be32(pb[32 * i : 32 * i + 32]) for i in range(4))
+
+
+def ed_prologue_plain(packed, a_sign, valid_in):
+    """The plain version of ed_prologue_kernel: (s, k, -A.x, A.y, ok),
+    the points in the ladder's 2^264 Montgomery domain (lazily
+    reduced), ok = valid_in and the decoding's verdict."""
+    fp = ED25519.fp
+    s, k, ay_raw, _ = _unpack(packed)
+    nax, nay, ok_a = ed_decompress_neg_batch(ay_raw, a_sign)
+    return s, k, to_mont(fp, nax), to_mont(fp, nay), valid_in & ok_a
+
+
+def ed_epilogue_plain(R, packed, exp_sign, ok):
+    """The plain version of ed_epilogue_kernel: [B] verdicts from the
+    ladder's extended R and the records' R.y."""
+    return _affine_check(R, _unpack(packed)[3], exp_sign, ok)
+
+
+def ed_prologue(packed, a_sign, valid_in):
+    """The ladder's operands and the decoding's verdict from [B, 128]
+    records: the plain version for CPU tensors, the CUDA kernel
+    otherwise (or raise)."""
+    if packed.device.type == "cpu":
+        return ed_prologue_plain(packed, a_sign, valid_in)
+    return cuda_ec.ed_prologue_cuda(packed, a_sign, valid_in)
+
+
+def ed_epilogue(R, packed, exp_sign, ok):
+    """[B] verdicts from the ladder's R: the plain version for CPU
+    tensors, the CUDA kernel otherwise (or raise)."""
+    if packed.device.type == "cpu":
+        return ed_epilogue_plain(R, packed, exp_sign, ok)
+    return cuda_ec.ed_epilogue_cuda(R, packed, exp_sign, ok)
+
+
 def ed25519_verify_packed(packed, a_sign, exp_sign, valid_in, windowed: bool | None = None):
     """[B] bool from [B, 128] uint8 records (s|k|A.y|R.y, 32-byte
-    big-endian each; see encodings.stage_ed25519_packed), with limb
-    expansion and the decoding of A on the device."""
-    pb = packed.t().to(torch.int32)
-    s = unpack_be32(pb[0:32])
-    k = unpack_be32(pb[32:64])
-    ay_raw = unpack_be32(pb[64:96])
-    exp_y = unpack_be32(pb[96:128])
-    nax, nay, ok_a = ed_decompress_neg_batch(ay_raw, a_sign)
-    return ed25519_verify_batch(
-        s, k, nax, nay, exp_y, exp_sign, valid_in & ok_a, windowed=windowed
-    )
+    big-endian each; see encodings.stage_ed25519_packed): prologue,
+    ladder, epilogue, on the records' device."""
+    s, k, nax_m, nay_m, ok = ed_prologue(packed, a_sign, valid_in)
+    R = _ladder(windowed)(ED25519, s, k, nax_m, nay_m)
+    return ed_epilogue(R, packed, exp_sign, ok)

@@ -1,7 +1,9 @@
 // 256-bit prime-field arithmetic for one thread: the domain conversions
 // at entry and exit of the ladder kernels (wei_ladder.cu, ed_ladder.cu),
 // which run them on lane 0 of each group (field256_group.cuh holds the
-// arithmetic spread over the group).
+// arithmetic spread over the group), and the whole of the verify
+// prologue and epilogue kernels (ed_ends.cu, wei_ends.cu), one row per
+// thread.
 //
 // A field element is 8 x 32-bit words, always fully reduced to [0, p);
 // fe_mul is the R = 2^256 Montgomery product. The functions are
@@ -127,12 +129,9 @@ __device__ __forceinline__ void load_coord(uint32_t r[NW], const int32_t* src,
     fe_mul(r, red, P.c_in, P);   // e.g. x * 2^264 * 2^248 / 2^256 = x * 2^256
 }
 
-// 8 words (the kernel's domain) -> canonical [22, B] digits (R = 2^264 domain)
-template <class Params>
-__device__ __forceinline__ void store_coord(int32_t* dst, const uint32_t a[NW],
-                                            int batch, int col, const Params& P) {
-    uint32_t r[NW];
-    fe_mul(r, a, P.c_out, P);    // e.g. x * 2^256 * 2^264 / 2^256 = x * 2^264
+// 8 words (any value < 2^256) -> canonical [22, B] digits of that value
+__device__ __forceinline__ void store_digits(int32_t* dst, const uint32_t r[NW], int batch,
+                                             int col) {
 #pragma unroll
     for (int i = 0; i < NLIMB; ++i) {
         const int bit = 12 * i;
@@ -142,4 +141,119 @@ __device__ __forceinline__ void store_coord(int32_t* dst, const uint32_t a[NW],
         if (s > 20 && w + 1 < NW) d |= r[w + 1] << (32 - s);
         dst[i * batch + col] = (int32_t)(d & 0xFFF);
     }
+}
+
+// 8 words (the kernel's domain) -> canonical [22, B] digits (R = 2^264 domain)
+template <class Params>
+__device__ __forceinline__ void store_coord(int32_t* dst, const uint32_t a[NW],
+                                            int batch, int col, const Params& P) {
+    uint32_t r[NW];
+    fe_mul(r, a, P.c_out, P);    // e.g. x * 2^256 * 2^264 / 2^256 = x * 2^264
+    store_digits(dst, r, batch, col);
+}
+
+// ---------------------------------------------------------------------------
+// one thread's helpers for the verify prologues and epilogues
+// (ed_ends.cu, wei_ends.cu): byte records in, comparisons, selects, and
+// the add, subtract and negation mod p of values < p
+
+// 32 big-endian bytes -> 8 little-endian words
+__device__ __forceinline__ void load_be32(uint32_t r[NW], const uint8_t* b) {
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+        const uint8_t* q = b + 28 - 4 * j;
+        r[j] = (uint32_t)q[3] | (uint32_t)q[2] << 8 | (uint32_t)q[1] << 16 | (uint32_t)q[0] << 24;
+    }
+}
+
+__device__ __forceinline__ void fe_small(uint32_t r[NW], uint32_t v) {
+#pragma unroll
+    for (int j = 0; j < NW; ++j) r[j] = j == 0 ? v : 0;
+}
+
+__device__ __forceinline__ void fe_copy(uint32_t r[NW], const uint32_t a[NW]) {
+#pragma unroll
+    for (int j = 0; j < NW; ++j) r[j] = a[j];
+}
+
+// r = c ? a : b (r may alias either)
+__device__ __forceinline__ void fe_select(uint32_t r[NW], bool c, const uint32_t a[NW],
+                                          const uint32_t b[NW]) {
+#pragma unroll
+    for (int j = 0; j < NW; ++j) r[j] = c ? a[j] : b[j];
+}
+
+__device__ __forceinline__ bool fe_lt(const uint32_t a[NW], const uint32_t b[NW]) {
+    uint64_t br = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) br = (((uint64_t)a[j] - b[j] - br) >> 32) & 1;
+    return br != 0;
+}
+
+__device__ __forceinline__ bool fe_eq(const uint32_t a[NW], const uint32_t b[NW]) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) x |= a[j] ^ b[j];
+    return x == 0;
+}
+
+__device__ __forceinline__ bool fe_is_zero(const uint32_t a[NW]) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) x |= a[j];
+    return x == 0;
+}
+
+// r = a + b mod p for a, b < p
+template <class Params>
+__device__ __forceinline__ void fe_add(uint32_t r[NW], const uint32_t a[NW],
+                                       const uint32_t b[NW], const Params& P) {
+    uint32_t t[NW];
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+        c += (uint64_t)a[j] + b[j];
+        t[j] = (uint32_t)c;
+        c >>= 32;
+    }
+    cond_sub_p(r, t, (uint32_t)c, P);
+}
+
+// r = a - b mod p for a, b < p
+template <class Params>
+__device__ __forceinline__ void fe_sub(uint32_t r[NW], const uint32_t a[NW],
+                                       const uint32_t b[NW], const Params& P) {
+    uint32_t t[NW];
+    uint64_t br = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+        const uint64_t x = (uint64_t)a[j] - b[j] - br;
+        t[j] = (uint32_t)x;
+        br = (x >> 32) & 1;
+    }
+    const uint32_t mask = 0u - (uint32_t)br;   // add p back where a < b
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+        c += (uint64_t)t[j] + (P.p[j] & mask);
+        r[j] = (uint32_t)c;
+        c >>= 32;
+    }
+}
+
+// r = -a mod p for a < p (0 stays 0)
+template <class Params>
+__device__ __forceinline__ void fe_neg(uint32_t r[NW], const uint32_t a[NW], const Params& P) {
+    uint32_t zero[NW];
+    fe_small(zero, 0);
+    fe_sub(r, zero, a, P);
+}
+
+// r = a^(2^k), k >= 1 squarings in the kernel's Montgomery domain (r may alias a)
+template <class Params>
+__device__ __forceinline__ void fe_sqr_n(uint32_t r[NW], const uint32_t a[NW], int k,
+                                         const Params& P) {
+    fe_mul(r, a, a, P);
+#pragma unroll 1
+    for (int i = 1; i < k; ++i) fe_mul(r, r, r, P);
 }

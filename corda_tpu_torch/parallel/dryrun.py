@@ -45,7 +45,7 @@ NOTARY_SPENDS = 4096
 NOTARY_SHARDS = 4
 
 
-def _staged_example(batch: int) -> dict:
+def _staged_example(batch: int):
     from ..crypto import encodings, schemes
     from ..crypto.curves import SECP256R1
 
@@ -55,22 +55,21 @@ def _staged_example(batch: int) -> dict:
         kp = schemes.generate_keypair(schemes.ECDSA_SECP256R1_SHA256, seed=rng.getrandbits(64))
         msg = rng.randbytes(32)
         items.append((kp.public.data, kp.private.sign(msg), msg))
-    return encodings.stage_ecdsa_batch(SECP256R1, items, batch)
+    return encodings.stage_ecdsa_packed(SECP256R1, items, batch)
 
 
 def entry(device="cuda"):
     """(fn, example_args) for the flagship forward step: ECDSA p256
-    verification of 8 staged rows (`ecdsa_verify_batch`), the operands
-    on `device`."""
+    verification of 8 staged rows (`ecdsa_verify_packed` on [8, 160]
+    records and their [8] mask), the operands on `device`."""
     from ..crypto.curves import SECP256R1
-    from ..crypto.ecdsa import ecdsa_verify_batch
+    from ..crypto.ecdsa import ecdsa_verify_packed
 
     if torch.device(device).type == "cuda":
         meshlib.cuda_devices()          # raises where there is no card
-    staged = _staged_example(8)
-    names = ("z", "r", "s", "qx", "qy", "c1", "c1_ok", "valid_in")
-    args = tuple(torch.from_numpy(staged[k]).to(device) for k in names)
-    return partial(ecdsa_verify_batch, SECP256R1), args
+    packed, valid = _staged_example(8)
+    args = (torch.from_numpy(packed.copy()).to(device), torch.from_numpy(valid).to(device))
+    return partial(ecdsa_verify_packed, SECP256R1), args
 
 
 def devices_for(n: int, device: str = "cuda") -> list:

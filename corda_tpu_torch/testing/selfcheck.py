@@ -112,6 +112,203 @@ def ed25519_edge_requests(seed: int = 5):
     return rows
 
 
+def _tile(rows: list, n: int) -> list:
+    return [rows[i % len(rows)] for i in range(n)]
+
+
+def _digits(vals, curve, rng, lazy_every: int = 0):
+    """[22, n] int32 digits of vals in the ladder's 2^264 Montgomery
+    domain: canonical, or on every lazy_every-th row plus p, 2p or 3p
+    (below 4p, the plain ladders' bound), as a lazily reduced plain
+    ladder leaves them."""
+    from ..crypto.limbs import R_BITS, ints_to_batch
+
+    p = curve.p
+    out = []
+    for i, v in enumerate(vals):
+        m = (v << R_BITS) % p
+        if lazy_every and i % lazy_every == 1:
+            m += rng.randrange(1, 4) * p
+        out.append(m)
+    return ints_to_batch(out)
+
+
+def ed25519_prologue_rows(n: int, seed: int = 7):
+    """n rows for the ed25519 prologue (eddsa.ed_prologue): ([n, 128]
+    uint8 records s|k|A.y|R.y, [n] int32 A-sign bits, [n] bool
+    valid_in). First the crafted rows, each with sign 0 and 1: A.y = 0
+    (x = sqrt(-1) or its negative), 1 (x = 0), p - 1 (x = 0), p, p + 5
+    and 2^255 - 1 (y >= p), a y off the curve, s = 2^256 - 1 and a
+    row with valid_in False; then the staged build_requests and
+    ed25519_edge_requests rows; then valid points (either square-root
+    branch) with random s and k; tiled to n."""
+    import numpy as np
+
+    from ..crypto import refmath, schemes
+    from ..crypto.curves import ED25519 as c
+    from ..crypto.encodings import stage_ed25519_packed_py
+
+    rng = random.Random(seed)
+
+    def rec(s: int, k: int, y: int, ry: int) -> bytes:
+        return b"".join(v.to_bytes(32, "big") for v in (s, k, y, ry))
+
+    y_off = 2
+    while refmath.ed_decompress(c, y_off.to_bytes(32, "little")) is not None:
+        y_off += 1
+    rows = []
+    for y in (0, 1, c.p - 1, c.p, c.p + 5, (1 << 255) - 1, y_off):
+        for sign in (0, 1):
+            rows.append((rec(rng.randrange(c.L), rng.randrange(c.L), y, 1), sign, True))
+    rows.append((rec((1 << 256) - 1, c.L - 1, 1, 1), 0, True))
+    rows.append((rec(5, 7, 1, 1), 0, False))
+    reqs = build_requests(24, seed=seed, scheme_ids=(schemes.EDDSA_ED25519_SHA512,))
+    reqs += [r for _, r in ed25519_edge_requests(seed)]
+    packed, a_sign, _, valid = stage_ed25519_packed_py(
+        [(r.key.data, r.signature, r.message) for r in reqs], len(reqs))
+    rows += [(bytes(packed[i]), int(a_sign[i]), bool(valid[i])) for i in range(len(reqs))]
+    for _ in range(24):
+        x, y = refmath.ed_mul(c, rng.randrange(1, c.L), (c.gx, c.gy))
+        rows.append((rec(rng.getrandbits(256), rng.randrange(c.L), y, rng.randrange(c.p)),
+                     x & 1, True))
+    rows = _tile(rows, n)
+    return (np.frombuffer(b"".join(r for r, _, _ in rows), np.uint8).reshape(n, 128).copy(),
+            np.array([sg for _, sg, _ in rows], np.int32), np.array([v for _, _, v in rows], bool))
+
+
+def ed25519_epilogue_rows(n: int, seed: int = 7):
+    """n rows for the ed25519 epilogue (eddsa.ed_epilogue): ((X, Y, Z,
+    T) as [22, n] int32 digits of an extended point in the 2^264
+    Montgomery domain, some lazily reduced; [n, 128] uint8 records whose
+    R.y the check reads; [n] int32 R-sign bits; [n] bool ok). Rows per
+    point: R.y and the sign matching (accepted), the sign flipped, R.y +
+    p (non-canonical), ok False; and Z = 0 (x = y = 0 after the
+    inverse); tiled to n."""
+    import numpy as np
+
+    from ..crypto import refmath
+    from ..crypto.curves import ED25519 as c
+
+    rng = random.Random(seed)
+    p = c.p
+    rows = []                 # (x, y, z, R.y, sign, ok)
+    for _ in range(16):
+        x, y = refmath.ed_mul(c, rng.randrange(1, c.L), (c.gx, c.gy))
+        z = rng.randrange(1, p)
+        rows += [(x, y, z, y, x & 1, True), (x, y, z, y, 1 - (x & 1), True),
+                 (x, y, z, y + p, x & 1, True), (x, y, z, y, x & 1, False)]
+    rows.append((5, 7, 0, 0, 0, True))
+    rows = _tile(rows, n)
+    X = _digits([x * z % p for x, _, z, _, _, _ in rows], c, rng, 5)
+    Y = _digits([y * z % p for _, y, z, _, _, _ in rows], c, rng, 5)
+    Z = _digits([z for _, _, z, _, _, _ in rows], c, rng, 5)
+    T = _digits([x * y * z % p for x, y, z, _, _, _ in rows], c, rng)
+    packed = np.zeros((n, 128), np.uint8)
+    for i, row in enumerate(rows):
+        packed[i, 96:] = np.frombuffer(row[3].to_bytes(32, "big"), np.uint8)
+    return ((X, Y, Z, T), packed, np.array([r[4] for r in rows], np.int32),
+            np.array([r[5] for r in rows], bool))
+
+
+def ecdsa_prologue_rows(curve, n: int, seed: int = 7):
+    """n rows for the ECDSA prologue (ecdsa.ecdsa_prologue) on `curve`:
+    ([n, 160] uint8 records z|r|s|qx|qy, [n] bool valid_in). First the
+    crafted rows: a valid signature, z >= n and z = 2^256 - 1, r = 0,
+    r = n, r = n - 1, s = 0, s = n, s = 2^256 - 1, qx >= p (on the
+    curve mod p), qy >= p, Q off the curve, Q = G, a row accepted only
+    through r + n, and one with valid_in False; then 24 signatures over
+    seeded keys, hashes and nonces with build_requests' kinds (row i has
+    kind i % 8: 5 a wrong hash, 6 a flipped byte of s, 7 a truncated
+    signature, staged as the benign record with valid_in False); tiled
+    to n. Every value comes from the seed, so rows(n) are the first n
+    rows of rows(m) for n <= m."""
+    import numpy as np
+
+    from ..crypto import refmath
+    from ..crypto.encodings import _sqrt_mod
+
+    rng = random.Random(seed)
+    c = curve
+    G = (c.gx, c.gy)
+
+    def rec(z, r, s, qx, qy) -> bytes:
+        return b"".join(v.to_bytes(32, "big") for v in (z, r, s, qx, qy))
+
+    def y_of(x):
+        return _sqrt_mod((x ** 3 + c.a * x + c.b) % c.p, c.p)
+
+    def signed():
+        d = rng.randrange(1, c.n)
+        z = rng.randrange(1 << 256)
+        k = rng.randrange(1, c.n)
+        r = refmath.wei_mul(c, k, G)[0] % c.n
+        return z, r, pow(k, -1, c.n) * (z + r * d) % c.n, refmath.wei_mul(c, d, G)
+
+    z, r, s, Q = signed()
+    x0 = 0
+    while y_of(x0) is None:
+        x0 += 1
+    rows = [rec(z, r, s, *Q), rec(c.n + 5, r, s, *Q), rec((1 << 256) - 1, r, s, *Q),
+            rec(z, 0, s, *Q), rec(z, c.n, s, *Q), rec(z, c.n - 1, s, *Q),
+            rec(z, r, 0, *Q), rec(z, r, c.n, *Q), rec(z, r, (1 << 256) - 1, *Q),
+            rec(z, r, s, x0 + c.p, y_of(x0)), rec(z, r, s, Q[0], c.p),
+            rec(z, r, s, Q[0], (Q[1] + 1) % c.p), rec(z, r, s, *G)]
+    # the c1 = r + n candidate: a point R with n <= x_R < p, r = x_R - n,
+    # z = 0 and Q = (s / r) * R make u2 * Q = R: x_R == r + n (mod p)
+    x = c.n + rng.randrange(1, 1 << 64)
+    while y_of(x) is None or x >= c.p:
+        x += 1
+    r1, s1 = x - c.n, rng.randrange(1, c.n)
+    rows.append(rec(0, r1, s1, *refmath.wei_mul(c, s1 * pow(r1, -1, c.n) % c.n, (x, y_of(x)))))
+    valid = [True] * len(rows)
+    rows.append(rows[0])
+    valid.append(False)
+    for i in range(24):
+        z, r, s, Q = signed()
+        kind = i % 8
+        if kind == 7:
+            rows.append(rec(0, 1, 1, G[0], G[1]))
+        else:
+            rows.append(rec(z + (kind == 5), r, s ^ (1 << 128) * (kind == 6), *Q))
+        valid.append(kind != 7)
+    rows, valid = _tile(rows, n), _tile(valid, n)
+    return (np.frombuffer(b"".join(rows), np.uint8).reshape(n, 160).copy(),
+            np.array(valid, bool))
+
+
+def ecdsa_epilogue_rows(curve, n: int, seed: int = 7):
+    """n rows for the ECDSA epilogue (ecdsa.ecdsa_epilogue) on `curve`:
+    ((X, Y, Z) as [22, n] int32 digits in the 2^264 Montgomery domain,
+    some lazily reduced; [n, 160] uint8 records whose r the check reads;
+    [n] bool valid). Rows: x_R = r (accepted), x_R = r + n < p
+    (accepted through r + n only), r + n >= p with X = (r + n) Z
+    (refused by the gate), r = 2^256 - 1 with X = r Z (r + n past
+    2^256), a wrong r, Z = 0 (infinity), valid False; tiled to n."""
+    import numpy as np
+
+    rng = random.Random(seed)
+    c, p = curve, curve.p
+    rows = []                 # (x_R, z, r, valid)
+    for _ in range(8):
+        zz = rng.randrange(1, p)
+        xr = rng.randrange(c.n)
+        rows += [(xr, zz, xr, True), (xr, zz, (xr + 1) % c.n, True), (xr, zz, xr, False)]
+        x1 = c.n + rng.randrange(p - c.n)
+        rows += [(x1, zz, x1 - c.n, True)]
+        r2 = p - c.n + rng.randrange(1, 1 << 16)
+        rows += [(r2 + c.n - p, zz, r2, True)]
+        rows += [(((1 << 256) - 1) % p, zz, (1 << 256) - 1, True)]
+    rows += [(0, 0, 5, True), (0, 0, 0, True)]
+    rows = _tile(rows, n)
+    X = _digits([xr * zz % p for xr, zz, _, _ in rows], c, rng, 3)
+    Y = _digits([rng.randrange(p) for _ in rows], c, rng)
+    Z = _digits([zz for _, zz, _, _ in rows], c, rng, 3)
+    packed = np.zeros((n, 160), np.uint8)
+    for i, (_, _, r, _) in enumerate(rows):
+        packed[i, 32:64] = np.frombuffer(r.to_bytes(32, "big"), np.uint8)
+    return (X, Y, Z), packed, np.array([v for _, _, _, v in rows], bool)
+
+
 def run(n: int = 256, batch_size: int = 256, device: str = "cuda") -> dict:
     """Verify n adversarial requests and the ed25519 edge rows on
     `device` with the plain and the windowed ladders and compare against

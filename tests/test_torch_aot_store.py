@@ -99,22 +99,23 @@ def test_library_roundtrip_and_reuse(store):
     valid and one tampered row per scheme (on CPU devices here)."""
     d, cc = store
     libs = build.build_all()
-    assert sorted(libs) == ["ed_ladder", "wei_ladder"] and cc.compiles() == 2
+    stems = ["ed_ends", "ed_ladder", "wei_ends", "wei_ladder"]
+    assert sorted(libs) == stems and cc.compiles() == 4
     assert all(p.parent == d and p.exists() for p in libs.values())
     assert build.load("wei_ladder").corda_stand_in() == 18
     assert build.ptxas_report("wei_ladder").startswith("ptxas info")
     build._LIBS.clear()
     assert build.build_all() == libs and build.load("ed_ladder").corda_stand_in() == 18
-    assert cc.compiles() == 2 and len(_libs(d)) == 2       # reused, not rebuilt
+    assert cc.compiles() == 4 and len(_libs(d)) == 4       # reused, not rebuilt
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         warm = aot_store.prewarm(batch=4, device="cpu")
     finally:
         torch.set_num_threads(saved)
-    assert warm["libraries"] == {"ed_ladder": "reused", "wei_ladder": "reused"}
+    assert warm["libraries"] == {stem: "reused" for stem in stems}
     assert sorted(warm["seconds"]) == ["ed25519", "k1", "p256"] and warm["store"] == str(d)
-    assert cc.compiles() == 2
+    assert cc.compiles() == 4
 
 
 def test_corrupt_library_is_deleted_and_rebuilt(store):
@@ -176,7 +177,7 @@ def test_kill_switch(store, monkeypatch):
     private = aot_store.store_dir()
     assert private != d and private.is_dir() and aot_store.store_dir() == private
     libs = build.build_all()
-    assert cc.compiles() == 4 and all(p.parent == private for p in libs.values())
+    assert cc.compiles() == 8 and all(p.parent == private for p in libs.values())
     assert build.load("ed_ladder").corda_stand_in() == 18
     assert _libs(d) == before
     build._LIBS.clear()

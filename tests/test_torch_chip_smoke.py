@@ -91,6 +91,80 @@ def test_formula_costs():
         cs._wei_cost(SimpleNamespace(name="a=1", a=1, p=SECP256R1.p))
 
 
+def _chain_250():
+    """csrc/ed_ends.cu's chain_250 run on exponents: (exponent of z^11,
+    of its result, squares, multiplies)."""
+    count = {"sq": 0, "mul": 0}
+
+    def sqr_n(e, k):
+        count["sq"] += k
+        return e << k
+
+    def mul(a, b):
+        count["mul"] += 1
+        return a + b
+
+    t0 = sqr_n(1, 1)
+    t1 = mul(sqr_n(t0, 2), 1)
+    z11 = mul(t0, t1)
+    t0 = mul(sqr_n(z11, 1), t1)
+    t0 = mul(sqr_n(t0, 5), t0)
+    t1 = mul(sqr_n(t0, 10), t0)
+    t1 = mul(sqr_n(t1, 20), t1)
+    t0 = mul(sqr_n(t1, 10), t0)
+    t1 = mul(sqr_n(t0, 50), t0)
+    t1 = mul(sqr_n(t1, 100), t1)
+    return z11, mul(sqr_n(t1, 50), t0), count["sq"], count["mul"]
+
+
+def test_ends_work_by_hand():
+    """The prologue and epilogue kernels' multiplies, squares and entry
+    folds per row (ENDS_WORK), by hand from the sources: ed25519's
+    chains reach (p - 5)/8 and p - 2 from z^11 and z^(2^250 - 1) (249
+    squares, 10 multiplies); the decoding's 12 other multiplies and 4
+    squares; the epilogue's 3 loads, 4 affine multiplies, 1 more in the
+    chain; the ECDSA prologue's 11 multiplies and 2 squares beside
+    s^(n - 2), which _ends_ops adds per set bit; the ECDSA epilogue's 2
+    loads and 3 multiplies."""
+    p = ED25519.p
+    z11, t250, sq, mul = _chain_250()
+    assert (z11, t250, sq, mul) == (11, (1 << 250) - 1, 249, 10)
+    assert (t250 << 2) + 1 == (p - 5) // 8 and (t250 << 5) + z11 == p - 2
+    assert cs.ENDS_WORK == {
+        "ed_prologue": (12 + mul + 1, 4 + sq + 2, 0),
+        "ed_epilogue": (3 + mul + 1 + 4, sq + 5, 3),
+        "ecdsa_prologue": (11, 2 + 256, 0),
+        "ecdsa_epilogue": (2 + 3, 0, 2),
+    }
+    for curve in (SECP256R1, SECP256K1):
+        bits = bin(curve.n - 2).count("1")
+        assert cs._ends_ops("ecdsa_prologue", curve, 3) == 3 * cs._cost(11 + bits, 258)
+    # ed25519 at the special-form costs of p = 2^255 - 19 (144, 88)
+    assert (cs.ED_MUL_OPS, cs.ED_SQR_OPS) == (144, 88)
+    assert cs._ends_ops("ed_epilogue", ED25519, 2) == 2 * (18 * 144 + 254 * 88 + 3 * 64)
+    assert cs._ends_ops("ed_prologue", ED25519, 1) == 23 * 144 + 255 * 88
+    assert cs._ends_ops("ecdsa_epilogue", SECP256R1, 1) == 5 * cs.MUL_OPS + 2 * 64
+    assert set(cs.ENDS) == set(cs.ENDS_WORK) == set(cs.ENDS_BYTES) == set(cs.ED_ENDS + cs.ECDSA_ENDS)
+    assert set(cs.ENDS) < set(cs.COUNTERS)
+
+
+def test_ends_bytes_by_hand():
+    """The bytes each prologue and epilogue kernel moves per row
+    (ENDS_BYTES), by hand from the sources: the ed prologue reads s, k
+    and A.y of its 128-byte record (not R.y), its int32 sign and bool
+    mask, and writes four [22, B] int32 digit tensors and ok; the ed
+    epilogue reads X, Y, Z (not T), R.y, the sign and ok; the ECDSA
+    prologue reads the whole 160-byte record and writes four digit
+    tensors; the ECDSA epilogue reads X and Z (not Y), r and valid."""
+    digits = 22 * 4
+    assert cs.ENDS_BYTES == {
+        "ed_prologue": 3 * 32 + 4 + 1 + 4 * digits + 1,
+        "ed_epilogue": 3 * digits + 32 + 4 + 1 + 1,
+        "ecdsa_prologue": 5 * 32 + 1 + 4 * digits + 1,
+        "ecdsa_epilogue": 2 * digits + 32 + 1 + 1,
+    }
+
+
 def test_dispatch_order():
     def req(sid):
         return SimpleNamespace(key=SimpleNamespace(scheme_id=sid))
@@ -137,17 +211,18 @@ def _counted_plain_versions(monkeypatch):
     """The kernels' plain versions stand in for the kernels and count a
     launch each; the counts are restored afterwards, for the tests that
     read the counters later in this process."""
-    from corda_tpu_torch.crypto import cuda_ec
+    from corda_tpu_torch.crypto import cuda_ec, ecdsa, eddsa
 
     for name, counter in cs.COUNTERS.items():
         monkeypatch.setattr(cuda_ec, counter, getattr(cuda_ec, counter))
-        plain = getattr(cuda_ec, name + "_plain")
+        module = next(m for m in (cuda_ec, eddsa, ecdsa) if hasattr(m, name + "_plain"))
+        plain = getattr(module, name + "_plain")
 
         def counted(*args, _plain=plain, _counter=counter):
             setattr(cuda_ec, _counter, getattr(cuda_ec, _counter) + 1)
             return _plain(*args)
 
-        monkeypatch.setattr(cuda_ec, name + "_plain", counted)
+        monkeypatch.setattr(module, name + "_plain", counted)
 
 
 @pytest.fixture

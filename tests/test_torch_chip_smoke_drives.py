@@ -110,7 +110,7 @@ def _fake_window(verifier, reqs, planes):
     return {"rows": len(reqs), "verdicts": verdicts, "window_ms": 400.0,
             "capture_s": 0.4, "stop_s": 0.1, "read_s": 0.1,
             "kernels": 3, "kernel_ms": 2.0, "ladder_ms": 1.5, "ladder_share": 0.75,
-            "busy_share": 0.005, "plane_busy_fraction": 0.9}
+            "ends_ms": 0.4, "busy_share": 0.005, "plane_busy_fraction": 0.9}
 
 
 def test_telemetry_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread):

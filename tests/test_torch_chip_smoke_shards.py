@@ -56,7 +56,8 @@ def test_shards_phase_rehearsed_on_the_cpu(small, capsys):
                  "per_shard_verifiers(devices=[cpu]) (cpu/cpu/cpu/cpu)",
                  "every answer its label",
                  "refusal (19c): CudaBatchVerifier(mesh=..., device=...) raised ValueError",
-                 'prewarm (19d): {"ed_ladder": "reused", "wei_ladder": "reused"}'):
+                 'prewarm (19d): {"ed_ends": "reused", "ed_ladder": "reused", '
+                 '"wei_ends": "reused", "wei_ladder": "reused"}'):
         assert line in out, line
 
 

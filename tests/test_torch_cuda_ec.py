@@ -137,7 +137,8 @@ def test_library_path_keys_on_shared_headers(tmp_path, monkeypatch):
     flagged = build.library_path(tmp_path / "a.cu")
     monkeypatch.setattr(build, "nvcc_version", lambda nvcc=None: "nvcc 12.9")
     assert build.library_path(tmp_path / "a.cu") != flagged
-    assert [s.name for s in build.sources()] == ["ed_ladder.cu", "wei_ladder.cu"]
+    assert [s.name for s in build.sources()] == [
+        "ed_ends.cu", "ed_ladder.cu", "wei_ends.cu", "wei_ladder.cu"]
     assert (build.CSRC_DIR / "field256.cuh").exists()
     assert (build.CSRC_DIR / "field256_group.cuh").exists()
     assert (build.CSRC_DIR / "group_points.cuh").exists()

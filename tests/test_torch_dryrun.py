@@ -1,10 +1,10 @@
 """parallel/dryrun.py against __graft_entry__.py: the flagship step and
 the several-device dry run.
 
-- `entry`: the limb staging (`encodings.stage_ecdsa_batch`) equals the
-  reference's on the same signed rows, malformed ones included, and the
-  step accepts the 8 staged rows; the reference's own step (its XLA
-  ladder) runs beside it in a slow case.
+- `entry`: the packed staging (`encodings.stage_ecdsa_packed`) equals
+  the reference's on the same signed rows, malformed ones included, and
+  the step (`ecdsa_verify_packed`) accepts the 8 staged rows; the
+  reference's own step (its XLA ladder) runs beside it in a slow case.
 - `dryrun_multigpu(4, device="cpu")` at a small serving size and a
   small notary fixture: every pass's answers held against
   CpuBatchVerifier and the labels inside, each CPU device's ledger row
@@ -58,14 +58,17 @@ def _items():
 
 def test_entry_staging_equals_the_references():
     items = _items()
-    got = penc.stage_ecdsa_batch(P_P256, items, 12)
-    want = renc.stage_ecdsa_batch(R_P256, items, 12)
-    assert sorted(got) == sorted(want)
-    for k in want:
-        assert np.array_equal(got[k], np.asarray(want[k])), k
-    assert got["valid_in"].tolist() == [True] * 5 + [False] * 7
+    got = penc.stage_ecdsa_packed(P_P256, items, 12)
+    want = renc.stage_ecdsa_packed(R_P256, items, 12)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert np.array_equal(g, np.asarray(w))
+    # the packed staging leaves the point and range checks to the device
+    assert got[1].tolist() == [True] * 5 + [False] + [True] * 2 + [False] * 4
     fn, args = dryrun.entry("cpu")
-    assert [a.shape[-1] for a in args] == [8] * 8
+    rows = (torch.from_numpy(got[0].copy()), torch.from_numpy(got[1]))
+    assert fn(*rows).tolist() == [True] * 4 + [False] * 8
+    assert [tuple(a.shape) for a in args] == [(8, 160), (8,)]
     assert fn(*args).tolist() == [True] * 8
 
 

@@ -195,3 +195,79 @@ def test_mesh_and_per_shard_verifiers_on_every_card(cuda):
         assert [rows[k]["dispatches"] for k in range(n)] == [3] * n
     with pytest.raises(ValueError, match="mutually exclusive"):
         CudaBatchVerifier(mesh=meshlib.make_mesh(), device=cards[0])
+
+
+def _reduced(a, p):
+    return [v % p for v in L.batch_to_ints(a.cpu().numpy())]
+
+
+def _same_outputs(got, want, p, exact: int):
+    """The first `exact` outputs and every bool output equal, the other
+    digit outputs canonical and equal mod p."""
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i < exact or g.dtype == torch.bool:
+            assert torch.equal(g.cpu(), w.cpu()), i
+        else:
+            assert int(g.min()) >= 0 and int(g.max()) < 4096, i   # canonical digits
+            assert _reduced(g, p) == _reduced(w, p), i
+
+
+@pytest.mark.parametrize("B", [130, 1])
+def test_ed_ends_kernels_match_plain(cuda, B):
+    """ed_prologue_kernel and ed_epilogue_kernel equal their plain
+    versions at B=130 and B=1 on the crafted rows of
+    selfcheck.ed25519_prologue_rows / ed25519_epilogue_rows (A.y = 0, 1,
+    p - 1, >= p, off the curve; R.y + p, a flipped sign, Z = 0); exact."""
+    from corda_tpu_torch.crypto import eddsa
+    from corda_tpu_torch.testing import selfcheck
+
+    def dev(a):
+        return torch.from_numpy(a.copy()).to(cuda)
+
+    packed, a_sign, valid = selfcheck.ed25519_prologue_rows(B, seed=31)
+    args = (dev(packed), dev(a_sign), dev(valid))
+    _same_outputs(cuda_ec.ed_prologue_cuda(*args), eddsa.ed_prologue_plain(*args), ED25519.p, 2)
+    R, packed, r_sign, ok = selfcheck.ed25519_epilogue_rows(B, seed=32)
+    args = (tuple(dev(x) for x in R), dev(packed), dev(r_sign), dev(ok))
+    _same_outputs([cuda_ec.ed_epilogue_cuda(*args)], [eddsa.ed_epilogue_plain(*args)], ED25519.p, 1)
+
+
+@pytest.mark.parametrize("curve", [SECP256R1, SECP256K1], ids=["p256", "k1"])
+@pytest.mark.parametrize("B", [130, 1])
+def test_ecdsa_ends_kernels_match_plain(cuda, curve, B):
+    """ecdsa_prologue_kernel and ecdsa_epilogue_kernel equal their plain
+    versions at B=130 and B=1 on the crafted rows of
+    selfcheck.ecdsa_prologue_rows / ecdsa_epilogue_rows (z >= n, r and s
+    out of range, Q off the curve or >= p, the r + n row; r + n >= p,
+    r = 2^256 - 1, Z = 0); exact."""
+    from corda_tpu_torch.crypto import ecdsa
+    from corda_tpu_torch.testing import selfcheck
+
+    def dev(a):
+        return torch.from_numpy(a.copy()).to(cuda)
+
+    packed, valid = selfcheck.ecdsa_prologue_rows(curve, B, seed=33)
+    args = (dev(packed), dev(valid))
+    _same_outputs(cuda_ec.ecdsa_prologue_cuda(curve, *args),
+                  ecdsa.ecdsa_prologue_plain(curve, *args), curve.p, 2)
+    R, packed, valid = selfcheck.ecdsa_epilogue_rows(curve, B, seed=34)
+    args = (tuple(dev(x) for x in R), dev(packed), dev(valid))
+    _same_outputs([cuda_ec.ecdsa_epilogue_cuda(curve, *args)],
+                  [ecdsa.ecdsa_epilogue_plain(curve, *args)], curve.p, 1)
+
+
+def test_verify_on_the_card_launches_the_ends(cuda):
+    """A CudaBatchVerifier call over every scheme answers as
+    CpuBatchVerifier does and launches each scheme's prologue and
+    epilogue kernels once per chunk."""
+    from corda_tpu_torch.crypto.batch_verifier import CpuBatchVerifier, CudaBatchVerifier
+    from corda_tpu_torch.testing.selfcheck import build_requests, ed25519_edge_requests
+
+    reqs = build_requests(96, seed=35) + [r for _, r in ed25519_edge_requests(seed=35)]
+    names = ("ed_prologue", "ed_epilogue", "ecdsa_prologue", "ecdsa_epilogue")
+    before = {n: getattr(cuda_ec, n + "_launches") for n in names}
+    got = CudaBatchVerifier(batch_sizes=(128,), device=cuda).verify_batch(reqs)
+    assert got == CpuBatchVerifier().verify_batch(reqs) and True in got and False in got
+    moved = {n: getattr(cuda_ec, n + "_launches") - before[n] for n in names}
+    assert moved == {"ed_prologue": 1, "ed_epilogue": 1, "ecdsa_prologue": 2, "ecdsa_epilogue": 2}

@@ -97,7 +97,8 @@ def test_ast_scan_finds_no_banned_import():
                  "node/registration.py"):
         assert PKG / must in files
     assert sorted(p.name for p in (PKG / "csrc").iterdir()) == [
-        "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh", "wei_ladder.cu"
+        "ed_ends.cu", "ed_ladder.cu", "field256.cuh", "field256_group.cuh", "group_points.cuh",
+        "wei_ends.cu", "wei_ladder.cu",
     ]
     assert sorted(p.name for p in (PKG / "native").iterdir() if p.name != "__pycache__") == [
         "__init__.py", "build.py", "cts_hash.cpp"

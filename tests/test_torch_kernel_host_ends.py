@@ -1,0 +1,247 @@
+"""The verify prologue and epilogue kernels, compiled as host C++.
+
+There is no nvcc and no card on the CPU test machines, so this test
+compiles `corda_tpu_torch/csrc/ed_ends.cu` and `wei_ends.cu` (with
+field256.cuh) with the host C++ compiler behind a small shim
+(`__device__`, `__global__`, `threadIdx`, ... defined away; the
+CUDA-runtime launcher section cut off) and runs each kernel body, one
+row per thread as on the card, on the rows of
+`testing/selfcheck.py`'s `*_prologue_rows` and `*_epilogue_rows` (the
+crafted edge rows first, then staged requests) at B = 1 and B = 130
+(a partial block). Every output must equal the plain torch version's
+on the same rows: verdicts and raw digits exactly, points after
+reduction mod p (the kernels return canonical digits, the plain
+versions lazily reduced ones); the kernels' digits must be canonical.
+
+It checks the arithmetic, the power chains, the domain conversions,
+the byte order and the ragged edge, not the GPU's compiler, which only
+chip_smoke.py and tests/test_torch_gpu.py reach. Skips where no C++
+compiler is installed.
+"""
+
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from corda_tpu_torch.crypto import cuda_ec  # noqa: E402
+from corda_tpu_torch.crypto import ecdsa as TE  # noqa: E402
+from corda_tpu_torch.crypto import eddsa as TD  # noqa: E402
+from corda_tpu_torch.crypto import limbs as L  # noqa: E402
+from corda_tpu_torch.crypto.build import CSRC_DIR  # noqa: E402
+from corda_tpu_torch.crypto.curves import ED25519, SECP256K1, SECP256R1  # noqa: E402
+from corda_tpu_torch.testing import selfcheck  # noqa: E402
+
+SHIM = r"""
+#include <stdint.h>
+#include <string.h>
+#include <stdio.h>
+#include <stdlib.h>
+#define __device__
+#define __forceinline__ inline
+#define __global__
+#define __launch_bounds__(x)
+#define __restrict__
+struct Dim3 { int x; };
+static Dim3 threadIdx, blockIdx;
+"""
+
+# per source: (params struct, the prologue's call, the epilogue's call);
+# in[i] and out[i] are the i-th input and output buffers
+SOURCES = {
+    "ed_ends": ("EdEndsParams",
+                "ed_prologue_kernel(P, (const uint8_t*)in[0], (const int32_t*)in[1], "
+                "(const bool*)in[2], (int32_t*)out[0], (int32_t*)out[1], (int32_t*)out[2], "
+                "(int32_t*)out[3], (bool*)out[4], batch)",
+                "ed_epilogue_kernel(P, (const int32_t*)in[0], (const int32_t*)in[1], "
+                "(const int32_t*)in[2], (const uint8_t*)in[3], (const int32_t*)in[4], "
+                "(const bool*)in[5], (bool*)out[0], batch)"),
+    "wei_ends": ("WeiEndsParams",
+                 "ecdsa_prologue_kernel(P, (const uint8_t*)in[0], (const bool*)in[1], "
+                 "(int32_t*)out[0], (int32_t*)out[1], (int32_t*)out[2], (int32_t*)out[3], "
+                 "(bool*)out[4], batch)",
+                 "ecdsa_epilogue_kernel(P, (const int32_t*)in[0], (const int32_t*)in[1], "
+                 "(const int32_t*)in[2], (const uint8_t*)in[3], (const bool*)in[4], "
+                 "(bool*)out[0], batch)"),
+}
+
+MAIN = r"""
+static PARAMS P;
+
+static void* read_buf(FILE* f, int* len) {
+  if (fread(len, 4, 1, f) != 1) exit(3);
+  void* b = calloc(*len + 1, 1);
+  if (*len && fread(b, 1, *len, f) != (size_t)*len) exit(3);
+  return b;
+}
+
+int main(int argc, char** argv) {
+  const int mode = atoi(argv[1]);   // 0 prologue, 1 epilogue
+  FILE* f = fopen(argv[2], "rb");
+  int batch, words, n_in, n_out, len, out_len[8];
+  void *in[8], *out[8];
+  if (fread(&batch, 4, 1, f) != 1 || fread(&words, 4, 1, f) != 1) return 3;
+  if (words != (int)(sizeof(P) / 4) || fread(&P, sizeof(P), 1, f) != 1) return 4;
+  if (fread(&n_in, 4, 1, f) != 1) return 3;
+  for (int i = 0; i < n_in; ++i) in[i] = read_buf(f, &len);
+  if (fread(&n_out, 4, 1, f) != 1) return 3;
+  for (int i = 0; i < n_out; ++i) {
+    if (fread(&out_len[i], 4, 1, f) != 1) return 3;
+    out[i] = calloc(out_len[i] + 1, 1);
+  }
+  fclose(f);
+  for (int blk = 0; blk * BLOCK < batch; ++blk)
+    for (int t = 0; t < BLOCK; ++t) {
+      blockIdx.x = blk;
+      threadIdx.x = t;
+      if (mode == 0) PROLOGUE; else EPILOGUE;
+    }
+  f = fopen(argv[3], "wb");
+  for (int i = 0; i < n_out; ++i) fwrite(out[i], 1, out_len[i], f);
+  fclose(f);
+  return 0;
+}
+"""
+
+
+def _build(cxx, name, d):
+    params, prologue, epilogue = SOURCES[name]
+    src = (CSRC_DIR / f"{name}.cu").read_text()
+    src = src.split("// C interface")[0].replace("#include <cuda_runtime.h>", "")
+    main = MAIN.replace("PARAMS", params).replace("PROLOGUE", prologue).replace("EPILOGUE", epilogue)
+    (d / f"{name}.cpp").write_text(SHIM + src + main)
+    exe = d / name
+    subprocess.run(
+        [cxx, "-O1", "-std=c++17", "-w", "-I", str(CSRC_DIR), "-o", str(exe), str(d / f"{name}.cpp")],
+        check=True, capture_output=True, timeout=300,
+    )
+    return exe
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    """{source name: (host executable, work dir)}; field256.cuh is
+    included from csrc/ as nvcc includes it."""
+    cxx = shutil.which("g++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    d = tmp_path_factory.mktemp("ends_host")
+    return {name: (_build(cxx, name, d), d) for name in SOURCES}
+
+
+def _run(host, name, mode, params, batch, ins, outs):
+    """The kernel body on `batch` rows: ins are numpy arrays (their
+    bytes in order), outs (dtype, shape) of the outputs; returns them."""
+    exe, d = host[name]
+    with open(d / "in.bin", "wb") as f:
+        f.write(np.int32(batch).tobytes() + np.int32(params.size).tobytes() + params.tobytes())
+        f.write(np.int32(len(ins)).tobytes())
+        for a in ins:
+            b = np.ascontiguousarray(a).tobytes()
+            f.write(np.int32(len(b)).tobytes() + b)
+        f.write(np.int32(len(outs)).tobytes())
+        for dtype, shape in outs:
+            f.write(np.int32(np.dtype(dtype).itemsize * int(np.prod(shape))).tobytes())
+    subprocess.run([str(exe), str(mode), str(d / "in.bin"), str(d / "out.bin")],
+                   check=True, timeout=300)
+    raw = (d / "out.bin").read_bytes()
+    got, off = [], 0
+    for dtype, shape in outs:
+        size = np.dtype(dtype).itemsize * int(np.prod(shape))
+        got.append(np.frombuffer(raw[off:off + size], dtype).reshape(shape))
+        off += size
+    assert off == len(raw)
+    return got
+
+
+def _reduced(a, p):
+    return [v % p for v in L.batch_to_ints(np.asarray(a))]
+
+
+def _canonical(a, p):
+    a = np.asarray(a)
+    return a.min() >= 0 and a.max() < 4096 and max(L.batch_to_ints(a)) < p
+
+
+BATCHES = [1, 130]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+def test_ed_prologue_kernel_on_host_matches_plain(host, batch):
+    """ed_prologue_kernel on ed25519_prologue_rows (A.y = 0, 1, p - 1,
+    y >= p, a y off the curve, each with sign 0 and 1; s = 2^256 - 1;
+    valid_in False; staged requests with the edge rows; valid points of
+    either square-root branch): s and k digits and ok exact, -A.x and
+    A.y equal mod p and canonical; exact."""
+    c = ED25519
+    packed, a_sign, valid = selfcheck.ed25519_prologue_rows(batch, seed=11)
+    d = (np.int32, (22, batch))
+    got = _run(host, "ed_ends", 0, cuda_ec.ed_ends_params(), batch, [packed, a_sign, valid],
+               [d, d, d, d, (np.bool_, (batch,))])
+    want = [o.numpy() for o in TD.ed_prologue_plain(_t(packed), _t(a_sign), _t(valid))]
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    for g, w in zip(got[2:4], want[2:4]):
+        assert _canonical(g, c.p)
+        assert _reduced(g, c.p) == _reduced(w, c.p)
+    assert got[4].tolist() == want[4].tolist()
+    if batch > 1:
+        assert 0 < int(got[4].sum()) < batch          # both verdicts occur
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+def test_ed_epilogue_kernel_on_host_matches_plain(host, batch):
+    """ed_epilogue_kernel on ed25519_epilogue_rows (matching R.y and
+    sign, the sign flipped, R.y + p, ok False, Z = 0; lazily reduced
+    digits on some rows): verdicts equal to the plain version's; exact."""
+    c = ED25519
+    R, packed, r_sign, ok = selfcheck.ed25519_epilogue_rows(batch, seed=12)
+    (got,) = _run(host, "ed_ends", 1, cuda_ec.ed_ends_params(), batch,
+                  [R[0], R[1], R[2], packed, r_sign, ok], [(np.bool_, (batch,))])
+    want = TD.ed_epilogue_plain(tuple(_t(x) for x in R), _t(packed), _t(r_sign), _t(ok))
+    assert got.tolist() == want.tolist()
+    if batch > 1:
+        assert 0 < int(got.sum()) < batch
+
+
+@pytest.mark.parametrize("curve", [SECP256R1, SECP256K1], ids=["p256", "k1"])
+@pytest.mark.parametrize("batch", BATCHES)
+def test_ecdsa_prologue_kernel_on_host_matches_plain(host, curve, batch):
+    """ecdsa_prologue_kernel on ecdsa_prologue_rows (z >= n, r or s 0,
+    n, n - 1 or 2^256 - 1, coordinates >= p, Q off the curve, Q = G, the
+    r + n row, valid_in False, staged requests): u1, u2 digits and valid
+    exact, Q equal mod p and canonical; exact."""
+    packed, valid = selfcheck.ecdsa_prologue_rows(curve, batch, seed=13)
+    d = (np.int32, (22, batch))
+    got = _run(host, "wei_ends", 0, cuda_ec.wei_ends_params(curve), batch, [packed, valid],
+               [d, d, d, d, (np.bool_, (batch,))])
+    want = [o.numpy() for o in TE.ecdsa_prologue_plain(curve, _t(packed), _t(valid))]
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    for g, w in zip(got[2:4], want[2:4]):
+        assert _canonical(g, curve.p)
+        assert _reduced(g, curve.p) == _reduced(w, curve.p)
+    assert got[4].tolist() == want[4].tolist()
+    if batch > 1:
+        assert 0 < int(got[4].sum()) < batch
+
+
+@pytest.mark.parametrize("curve", [SECP256R1, SECP256K1], ids=["p256", "k1"])
+@pytest.mark.parametrize("batch", BATCHES)
+def test_ecdsa_epilogue_kernel_on_host_matches_plain(host, curve, batch):
+    """ecdsa_epilogue_kernel on ecdsa_epilogue_rows (x_R = r, x_R = r +
+    n < p, r + n >= p gated, r = 2^256 - 1, a wrong r, Z = 0, valid
+    False; lazily reduced digits on some rows): verdicts equal to the
+    plain version's; exact."""
+    R, packed, valid = selfcheck.ecdsa_epilogue_rows(curve, batch, seed=14)
+    (got,) = _run(host, "wei_ends", 1, cuda_ec.wei_ends_params(curve), batch,
+                  [R[0], R[1], R[2], packed, valid], [(np.bool_, (batch,))])
+    want = TE.ecdsa_epilogue_plain(curve, tuple(_t(x) for x in R), _t(packed), _t(valid))
+    assert got.tolist() == want.tolist()
+    if batch > 1:
+        assert 0 < int(got.sum()) < batch

@@ -530,6 +530,9 @@ SCHEME_BATCHES = (128, 4096)
 PARITY_B = 256
 RAGGED_B = 130
 PARITY_SIZES = (PARITY_B, RAGGED_B, 1)
+# the ed25519 ends run a row per group of 4 lanes: also a partial group
+# and a ragged group at the chunk's end
+ED_ENDS_PARITY_SIZES = PARITY_SIZES + (3, CHUNK + 1)
 DISTINCT = 256
 IMAD_PER_SM_PER_CLK = 64     # CUDA C Programming Guide, throughput table, cc 9.0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -779,10 +782,11 @@ ENDS = {
 # source runs them: chain_250 is 249 squares + 10 multiplies, then the
 # square root's 2 + 1 or the inverse's 5 + 1; pow_n 256 squares and a
 # multiply per set bit of n - 2 (added in _ends_ops); load_coord a
-# multiply and a fold, store_coord a multiply
+# multiply and a fold, store_coord a multiply. The ed25519 pair works on
+# plain values: no multiply into a Montgomery domain or out of it
 ENDS_WORK = {
-    "ed_prologue": (23, 255, 0),
-    "ed_epilogue": (18, 254, 3),
+    "ed_prologue": (21, 255, 0),
+    "ed_epilogue": (16, 254, 3),
     "ecdsa_prologue": (11, 258, 0),
     "ecdsa_epilogue": (5, 0, 2),
 }
@@ -929,10 +933,11 @@ def phase_parity(device, report: dict) -> None:
 
     for name in ENDS:
         kern, plain = _ends_fns(name)
+        sizes = ED_ENDS_PARITY_SIZES if name in ED_ENDS else PARITY_SIZES
         for curve in ((SECP256R1, SECP256K1) if name in ECDSA_ENDS else (ED25519,)):
             # one plain call; the kernel at each size against its first rows
-            want = plain(curve, *_ends_inputs(name, curve, big, 7, device))
-            for batch in PARITY_SIZES:
+            want = plain(curve, *_ends_inputs(name, curve, max(sizes), 7, device))
+            for batch in sizes:
                 label = f"{name} {curve.name} B={batch}"
                 got = kern(curve, *_ends_inputs(name, curve, batch, 7, device))
                 _note_err(report, name, _ends_equal(curve, got, want, label))

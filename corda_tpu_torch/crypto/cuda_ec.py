@@ -24,8 +24,10 @@ ops, tens of thousands per chunk:
 
 What bounds those four: IMAD-rate 256-bit multiplies (~270-400 per row
 for the prologues and the ed25519 epilogue, 5 for the ECDSA epilogue)
-in a serial chain per row, at one row per thread: a 4,096-row chunk is
-128 warps, so the chain's latency, not the IMAD rate, sets the time.
+in a serial chain per row. The ECDSA pair runs one row per thread, so a
+4,096-row chunk is 128 warps and the chain's latency, not the IMAD rate,
+sets the time; the ed25519 pair runs a row per group of 4 lanes on the
+ladders' special-form field (512 warps).
 Their dispatching wrappers are eddsa.ed_prologue / ed_epilogue and
 ecdsa.ecdsa_prologue / ecdsa_epilogue.
 
@@ -241,17 +243,17 @@ def _pinv32(p: int) -> int:
 @lru_cache(maxsize=None)
 def ed_ends_params() -> np.ndarray:
     """ed_ends.cu's EdEndsParams struct for ed25519 as uint32 words: p,
-    2^256 mod p (Montgomery 1 and load_coord's fold), 2^248 and 2^264
-    mod p (the ladder's 2^264 domain to the kernels' 2^256 one and back),
-    -p^-1 mod 2^32, 2^512 mod p (plain values in), and d and sqrt(-1) in
-    the 2^256 domain. The kernels' power chains are those of
-    p = 2^255 - 19."""
-    p, R = ED25519.p, 1 << 256
+    2^256 mod p (load_coord's fold), 2^-8 and 2^520 mod p (the one-thread
+    Montgomery multiplies at entry and exit take the ladder's 2^264 domain
+    to the kernels' plain one and back), -p^-1 mod 2^32, d and sqrt(-1).
+    The kernels' field is plain integers mod p (special-form multiply and
+    square), so no constant here is in a Montgomery domain; their power
+    chains are those of p = 2^255 - 19."""
+    p = ED25519.p
     words = (
-        _words(p) + _words(_fold_constant(ED25519)) + _words(1 << 248) + _words((1 << R_BITS) % p)
+        _words(p) + _words(_fold_constant(ED25519)) + _words(pow(2, -8, p)) + _words(pow(2, 520, p))
         + [_pinv32(p)]
-        + _words(R * R % p) + _words(ED25519.d * R % p)
-        + _words(pow(2, (p - 1) // 4, p) * R % p)
+        + _words(ED25519.d % p) + _words(pow(2, (p - 1) // 4, p))
     )
     return np.array(words, dtype=np.uint32)
 

@@ -1,9 +1,9 @@
 // 256-bit prime-field arithmetic for one thread: the domain conversions
-// at entry and exit of the ladder kernels (wei_ladder.cu, ed_ladder.cu),
-// which run them on lane 0 of each group (field256_group.cuh holds the
-// arithmetic spread over the group), and the whole of the verify
-// prologue and epilogue kernels (ed_ends.cu, wei_ends.cu), one row per
-// thread.
+// at entry and exit of the lane-group kernels (wei_ladder.cu,
+// ed_ladder.cu, ed_ends.cu), which run them on lane 0 of each group
+// (field256_group.cuh holds the arithmetic spread over the group), and
+// the whole of the ECDSA verify prologue and epilogue (wei_ends.cu), one
+// row per thread.
 //
 // A field element is 8 x 32-bit words, always fully reduced to [0, p);
 // fe_mul is the R = 2^256 Montgomery product. The functions are
@@ -12,7 +12,8 @@
 //   one[NW]    2^256 mod p: the fold constant
 //   c_in[NW]   the multiplier from the interface's 2^264 domain to the
 //              kernel's: 2^248 for the 2^256 Montgomery domain
-//              (wei_ladder.cu), 2^-8 mod p for plain values (ed_ladder.cu)
+//              (wei_ladder.cu), 2^-8 mod p for plain values (ed_ladder.cu,
+//              ed_ends.cu)
 //   c_out[NW]  back: 2^264 mod p, or 2^520 mod p
 //   pinv       -p^-1 mod 2^32
 //
@@ -154,8 +155,8 @@ __device__ __forceinline__ void store_coord(int32_t* dst, const uint32_t a[NW],
 
 // ---------------------------------------------------------------------------
 // one thread's helpers for the verify prologues and epilogues
-// (ed_ends.cu, wei_ends.cu): byte records in, comparisons, selects, and
-// the add, subtract and negation mod p of values < p
+// (wei_ends.cu; ed_ends.cu's raw scalars): byte records in, comparisons,
+// selects, and the add mod p of values < p
 
 // 32 big-endian bytes -> 8 little-endian words
 __device__ __forceinline__ void load_be32(uint32_t r[NW], const uint8_t* b) {
@@ -217,43 +218,4 @@ __device__ __forceinline__ void fe_add(uint32_t r[NW], const uint32_t a[NW],
         c >>= 32;
     }
     cond_sub_p(r, t, (uint32_t)c, P);
-}
-
-// r = a - b mod p for a, b < p
-template <class Params>
-__device__ __forceinline__ void fe_sub(uint32_t r[NW], const uint32_t a[NW],
-                                       const uint32_t b[NW], const Params& P) {
-    uint32_t t[NW];
-    uint64_t br = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-        const uint64_t x = (uint64_t)a[j] - b[j] - br;
-        t[j] = (uint32_t)x;
-        br = (x >> 32) & 1;
-    }
-    const uint32_t mask = 0u - (uint32_t)br;   // add p back where a < b
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-        c += (uint64_t)t[j] + (P.p[j] & mask);
-        r[j] = (uint32_t)c;
-        c >>= 32;
-    }
-}
-
-// r = -a mod p for a < p (0 stays 0)
-template <class Params>
-__device__ __forceinline__ void fe_neg(uint32_t r[NW], const uint32_t a[NW], const Params& P) {
-    uint32_t zero[NW];
-    fe_small(zero, 0);
-    fe_sub(r, zero, a, P);
-}
-
-// r = a^(2^k), k >= 1 squarings in the kernel's Montgomery domain (r may alias a)
-template <class Params>
-__device__ __forceinline__ void fe_sqr_n(uint32_t r[NW], const uint32_t a[NW], int k,
-                                         const Params& P) {
-    fe_mul(r, a, a, P);
-#pragma unroll 1
-    for (int i = 1; i < k; ++i) fe_mul(r, r, r, P);
 }

@@ -1,5 +1,5 @@
 // 256-bit prime-field arithmetic spread over a group of TPI lanes of a
-// warp (wei_ladder.cu, ed_ladder.cu): one field element per group, lane
+// warp (wei_ladder.cu, ed_ladder.cu, ed_ends.cu): one field element per group, lane
 // g holding words g*WPL .. g*WPL + WPL - 1 of it.
 //
 // The representation and contracts are field256.cuh's (8 x 32-bit words,
@@ -10,10 +10,11 @@
 // p * 2^256: the contract holds for the secp moduli close to 2^256 and
 // for p = 2^255 - 19 (where a + b < 2p < 2^256 never carries out of the
 // top word either). gfe_add and gfe_sub serve any domain; the Edwards
-// kernels (ed_ladder.cu) multiply with gfe_mul_25519, the special-form
-// product mod 2^255 - 19 of plain (not Montgomery) values. Nothing is
-// kept in memory: every function works in registers, and lanes exchange
-// words by shuffle within the group.
+// kernels (ed_ladder.cu, ed_ends.cu) multiply with gfe_mul_25519, the
+// special-form product mod 2^255 - 19 of plain (not Montgomery) values,
+// and ed_ends.cu squares with gfe_sqr_25519. Nothing is kept in memory:
+// every function works in registers, and lanes exchange words by shuffle
+// within the group.
 //
 // Carries between lanes. Each operation first adds (or subtracts) within
 // every lane, then resolves the carries between lanes once: a lane reports
@@ -31,10 +32,12 @@
 // broadcast, the accumulator's shift down one lane) and 2 * WPL 32x32->64
 // multiply-adds, then 1 shuffle and 4 ballots (the carries, the
 // conditional subtract of p); gfe_mul_25519 16 independent shuffles (the
-// operands), 8 * WPL products, 2 shuffles and 4 ballots; gfe_add and
-// gfe_sub 4 ballots each. TPI = 4 serves two words per lane with the same
-// shuffles and ran 5-16% faster than TPI = 8 on the H100 (PERF.md);
-// gfe_mul_25519 needs WPL >= 2. ptxas already overlaps independent calls:
+// operands), 8 * WPL products, 2 shuffles and 4 ballots; gfe_sqr_25519
+// 8 shuffles (the operand), 16 selects, 4.5 * WPL products, 2 shuffles
+// and 4 ballots; gfe_add and gfe_sub 4 ballots each. TPI = 4 serves two
+// words per lane with the same shuffles and ran 5-16% faster than TPI =
+// 8 on the H100 (PERF.md); gfe_mul_25519 needs WPL >= 2, gfe_sqr_25519
+// an even WPL. ptxas already overlaps independent calls:
 // interleaving them by hand measured slower.
 //
 // Every lane of the warp must reach every call (the shuffles and ballots
@@ -44,7 +47,7 @@
 
 #include "field256.cuh"
 
-#define TPI 4                        // lanes per field element: 4 (8: not gfe_mul_25519)
+#define TPI 4                        // lanes per field element: 4 (8: not the 25519 ops)
 #define WPL (NW / TPI)               // words per lane
 #define FULL_WARP 0xffffffffu
 
@@ -226,30 +229,78 @@ __device__ __forceinline__ void gfe_mul(uint32_t r[WPL], const uint32_t a[WPL],
     gfe_cond_sub_p(r, t, (cin >> TPI) & 1, F);
 }
 
+// The special form p = 2^255 - 19 (gfe_mul_25519, gfe_sqr_25519): each
+// lane forms its own columns c = g*WPL + j of the product with the high
+// half folded in (2^256 = 38 mod p), f_c < 2^74, and sums them into
+// L[WPL + 2] = sum_j f_c 2^(32j) (< 2^(32 WPL + 42)).
+
+// L += f 2^(32j), f's four words
+__device__ __forceinline__ void add_column_25519(uint32_t L[WPL + 2], const uint32_t f[4], int j) {
+    uint64_t z = 0;
+#pragma unroll
+    for (int w = j; w < WPL + 2; ++w) {
+        z += (uint64_t)L[w] + (w - j < 4 ? f[w - j] : 0u);
+        L[w] = (uint32_t)z;
+        z >>= 32;
+    }
+}
+
+// r = the group's sum of every lane's L mod p, below p: each lane keeps
+// its WPL words and hands the rest to the lane above; the top lane splits
+// at 2^255 and hands lane 0 19 times the rest. One carry resolution
+// leaves the value below 2^255 + 2^235 < 2p, one conditional subtract
+// below p.
+__device__ __forceinline__ void fold_25519(uint32_t r[WPL], uint32_t L[WPL + 2],
+                                           const GroupField& F) {
+    static_assert(WPL >= 2, "a lane's carry to the next must fit its words");
+    uint64_t hi = (uint64_t)L[WPL] | ((uint64_t)L[WPL + 1] << 32);
+    if (F.g == TPI - 1) {    // split at 2^255
+        hi = (hi << 1) | (L[WPL - 1] >> 31);
+        L[WPL - 1] &= 0x7fffffffu;
+    }
+    const int below = (F.g + TPI - 1) % TPI;
+    uint64_t in = __shfl_sync(FULL_WARP, (uint32_t)hi, below, TPI) |
+                  ((uint64_t)__shfl_sync(FULL_WARP, (uint32_t)(hi >> 32), below, TPI) << 32);
+    if (F.g == 0) in *= 19;   // the top lane's rest, at 2^255
+    uint32_t t[WPL];
+    uint64_t z = (uint64_t)L[0] + (uint32_t)in;
+    t[0] = (uint32_t)z;
+    z = (z >> 32) + L[1] + (in >> 32);
+    t[1] = (uint32_t)z;
+    z >>= 32;
+    uint32_t ones = t[0] & t[1];
+#pragma unroll
+    for (int k = 2; k < WPL; ++k) {
+        z += L[k];
+        t[k] = (uint32_t)z;
+        z >>= 32;
+        ones &= t[k];
+    }
+    const bool gen = z != 0;
+    const uint32_t cin = group_carries(gen, !gen && ones == FULL_WARP, F);
+    add_bit(t, (cin >> F.g) & 1);
+    gfe_cond_sub_p(r, t, 0, F);
+}
+
 // Product a*b mod p for p = 2^255 - 19 in the plain domain (no 2^-256;
 // a, b < p, result < p), with no serial round. Every lane gathers all of
 // a and b by shuffle, a rotated to start at its own words
-// (a'_k = a_((g*WPL + k) mod 8)), and forms its own columns c = g*WPL + j
-// of the product with the high half folded in (2^256 = 38 mod p):
+// (a'_k = a_((g*WPL + k) mod 8)), and forms its own columns c = g*WPL + j:
 //   f_c = sum_k m_k a'_k b_((j - k) mod 8),  m_k = 38 where the term lies
 // in the high half (g*WPL + k < 8 and k > j), else 1,
 // 8 products per column, the same work in every lane. The factor of a
 // product group k in [h*WPL, h*WPL + WPL) with h >= 1 is the lane's m_h
 // = 38 if g + h < TPI, so a lane sums each group first and scales it
-// once. Each lane's sum_j f_c 2^(32j) (< 2^(32 WPL + 42)) keeps its WPL
-// words and hands the rest to the lane above; the top lane splits at
-// 2^255 and hands lane 0 19 times the rest. One carry resolution leaves
-// the value below 2^255 + 2^235 < 2p, one conditional subtract below p.
+// once. Then fold_25519.
 __device__ __forceinline__ void gfe_mul_25519(uint32_t r[WPL], const uint32_t a[WPL],
                                               const uint32_t b[WPL], const GroupField& F) {
-    static_assert(WPL >= 2, "a lane's carry to the next must fit its words");
     uint32_t A[NW], B[NW];
 #pragma unroll
     for (int k = 0; k < NW; ++k) {
         A[k] = __shfl_sync(FULL_WARP, a[k % WPL], (F.g + k / WPL) % TPI, TPI);
         B[k] = __shfl_sync(FULL_WARP, b[k % WPL], k / WPL, TPI);
     }
-    uint32_t L[WPL + 2];   // the lane's sum; below 2^(32 WPL + 42)
+    uint32_t L[WPL + 2];
 #pragma unroll
     for (int w = 0; w < WPL + 2; ++w) L[w] = 0;
 #pragma unroll
@@ -281,41 +332,92 @@ __device__ __forceinline__ void gfe_mul_25519(uint32_t r[WPL], const uint32_t a[
         w1 += w0 >> 32;
         w2 += w1 >> 32;
         const uint32_t f[4] = {(uint32_t)w0, (uint32_t)w1, (uint32_t)w2, (uint32_t)(w2 >> 32)};
-        uint64_t z = 0;
+        add_column_25519(L, f, j);
+    }
+    fold_25519(r, L, F);
+}
+
+// Square a^2 mod p for p = 2^255 - 19 in the plain domain (a < p, result
+// < p): gfe_mul_25519's columns from one gather, each cross product
+// formed once. Every lane gathers a (8 shuffles) and rotates it by half
+// its first column, rot = g*WPL/2, with selects: A_k = a_((rot + k) mod 8).
+// Then a_i a_i' with i + i' = c (mod 8), c = 2 rot + j, is A_k A_k' with
+// k + k' = j (mod 8), the same pairs in every lane:
+//   f_c = sum over k <= k', k + k' = j (mod 8) of m A_k A_k',
+// 5 products for even j and 4 for odd (36 over the 8 columns), each
+// cross product (k < k') doubled, and m = 38 where the pair lies in the
+// high half: k + k' = j + 8 with neither index wrapped, rot + k' < 8
+// (per lane for k' > 7 - rot, known for the rest). Then fold_25519.
+__device__ __forceinline__ void gfe_sqr_25519(uint32_t r[WPL], const uint32_t a[WPL],
+                                              const GroupField& F) {
+    static_assert(WPL % 2 == 0, "the rotation is half a lane's first column");
+    const int rot = F.g * WPL / 2;
+    uint32_t A[NW];
 #pragma unroll
-        for (int w = j; w < WPL + 2; ++w) {
-            z += (uint64_t)L[w] + (w - j < 4 ? f[w - j] : 0u);
-            L[w] = (uint32_t)z;
-            z >>= 32;
+    for (int k = 0; k < NW; ++k) A[k] = __shfl_sync(FULL_WARP, a[k % WPL], k / WPL, TPI);
+#pragma unroll
+    for (int step = 1; step < NW / 2; step <<= 1) {   // rot < TPI * WPL / 2 = 4
+        uint32_t R[NW];
+#pragma unroll
+        for (int k = 0; k < NW; ++k) R[k] = (rot & step) ? A[(k + step) % NW] : A[k];
+#pragma unroll
+        for (int k = 0; k < NW; ++k) A[k] = R[k];
+    }
+    uint32_t L[WPL + 2];
+#pragma unroll
+    for (int w = 0; w < WPL + 2; ++w) L[w] = 0;
+#pragma unroll
+    for (int j = 0; j < WPL; ++j) {
+        uint64_t w0 = 0, w1 = 0;   // f_c by 32-bit words of its terms
+#pragma unroll
+        for (int k = 0; k < NW; ++k) {
+            const int k2 = (j - k + NW) % NW;
+            if (k > k2) continue;
+            const uint64_t pr = (uint64_t)A[k] * A[k2];
+            const uint32_t twice = k < k2 ? 2u : 1u;
+            uint32_t m = twice;
+            if (k + k2 == j + NW) m = rot + k2 < NW ? 38u * twice : twice;
+            w0 += (uint64_t)(uint32_t)pr * m;
+            w1 += (pr >> 32) * m;
         }
+        w1 += w0 >> 32;
+        const uint32_t f[4] = {(uint32_t)w0, (uint32_t)w1, (uint32_t)(w1 >> 32), 0u};
+        add_column_25519(L, f, j);
     }
-    uint64_t hi = (uint64_t)L[WPL] | ((uint64_t)L[WPL + 1] << 32);
-    if (F.g == TPI - 1) {    // split at 2^255
-        hi = (hi << 1) | (L[WPL - 1] >> 31);
-        L[WPL - 1] &= 0x7fffffffu;
-    }
-    const int below = (F.g + TPI - 1) % TPI;
-    uint64_t in = __shfl_sync(FULL_WARP, (uint32_t)hi, below, TPI) |
-                  ((uint64_t)__shfl_sync(FULL_WARP, (uint32_t)(hi >> 32), below, TPI) << 32);
-    if (F.g == 0) in *= 19;   // the top lane's rest, at 2^255
-    uint32_t t[WPL];
-    uint64_t z = (uint64_t)L[0] + (uint32_t)in;
-    t[0] = (uint32_t)z;
-    z = (z >> 32) + L[1] + (in >> 32);
-    t[1] = (uint32_t)z;
-    z >>= 32;
-    uint32_t ones = t[0] & t[1];
+    fold_25519(r, L, F);
+}
+
+// ---------------------------------------------------------------------------
+// comparisons, the same answer in every lane of the group (one ballot;
+// gfe_lt two)
+
+__device__ __forceinline__ bool gfe_is_zero(const uint32_t a[WPL], const GroupField& F) {
+    uint32_t x = 0;
 #pragma unroll
-    for (int k = 2; k < WPL; ++k) {
-        z += L[k];
-        t[k] = (uint32_t)z;
-        z >>= 32;
-        ones &= t[k];
+    for (int k = 0; k < WPL; ++k) x |= a[k];
+    return ((__ballot_sync(FULL_WARP, x != 0) >> F.base) & ((1u << TPI) - 1)) == 0;
+}
+
+__device__ __forceinline__ bool gfe_eq(const uint32_t a[WPL], const uint32_t b[WPL],
+                                       const GroupField& F) {
+    uint32_t x[WPL];
+#pragma unroll
+    for (int k = 0; k < WPL; ++k) x[k] = a[k] ^ b[k];
+    return gfe_is_zero(x, F);
+}
+
+// a < b for any a, b < 2^256: the borrow out of a - b
+__device__ __forceinline__ bool gfe_lt(const uint32_t a[WPL], const uint32_t b[WPL],
+                                       const GroupField& F) {
+    uint64_t br = 0;
+    uint32_t nz = 0;
+#pragma unroll
+    for (int k = 0; k < WPL; ++k) {
+        const uint64_t x = (uint64_t)a[k] - b[k] - br;
+        nz |= (uint32_t)x;
+        br = (x >> 32) & 1;
     }
-    const bool gen = z != 0;
-    const uint32_t cin = group_carries(gen, !gen && ones == FULL_WARP, F);
-    add_bit(t, (cin >> F.g) & 1);
-    gfe_cond_sub_p(r, t, 0, F);
+    return (group_carries(br != 0, nz == 0, F) >> TPI) & 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -359,4 +461,14 @@ __device__ __forceinline__ void group_store_coord(int32_t* dst, const uint32_t a
     uint32_t w[NW];
     group_gather(w, a, F);
     if (F.g == 0 && live) store_coord(dst, w, batch, col, P);
+}
+
+// 32 big-endian bytes -> this lane's words of the value
+__device__ __forceinline__ void group_load_be32(uint32_t r[WPL], const uint8_t* b,
+                                                const GroupField& F) {
+#pragma unroll
+    for (int k = 0; k < WPL; ++k) {
+        const uint8_t* q = b + 28 - 4 * (F.g * WPL + k);
+        r[k] = (uint32_t)q[3] | (uint32_t)q[2] << 8 | (uint32_t)q[1] << 16 | (uint32_t)q[0] << 24;
+    }
 }

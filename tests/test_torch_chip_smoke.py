@@ -121,9 +121,10 @@ def test_ends_work_by_hand():
     """The prologue and epilogue kernels' multiplies, squares and entry
     folds per row (ENDS_WORK), by hand from the sources: ed25519's
     chains reach (p - 5)/8 and p - 2 from z^11 and z^(2^250 - 1) (249
-    squares, 10 multiplies); the decoding's 12 other multiplies and 4
-    squares; the epilogue's 3 loads, 4 affine multiplies, 1 more in the
-    chain; the ECDSA prologue's 11 multiplies and 2 squares beside
+    squares, 10 multiplies); on plain values, the decoding's 10 other
+    multiplies (2 of them the exits) and 4 squares; the epilogue's 3
+    loads, 2 affine multiplies, 1 more in the chain; the ECDSA
+    prologue's 11 multiplies and 2 squares beside
     s^(n - 2), which _ends_ops adds per set bit; the ECDSA epilogue's 2
     loads and 3 multiplies."""
     p = ED25519.p
@@ -131,8 +132,8 @@ def test_ends_work_by_hand():
     assert (z11, t250, sq, mul) == (11, (1 << 250) - 1, 249, 10)
     assert (t250 << 2) + 1 == (p - 5) // 8 and (t250 << 5) + z11 == p - 2
     assert cs.ENDS_WORK == {
-        "ed_prologue": (12 + mul + 1, 4 + sq + 2, 0),
-        "ed_epilogue": (3 + mul + 1 + 4, sq + 5, 3),
+        "ed_prologue": (10 + mul + 1, 4 + sq + 2, 0),
+        "ed_epilogue": (3 + mul + 1 + 2, sq + 5, 3),
         "ecdsa_prologue": (11, 2 + 256, 0),
         "ecdsa_epilogue": (2 + 3, 0, 2),
     }
@@ -141,8 +142,8 @@ def test_ends_work_by_hand():
         assert cs._ends_ops("ecdsa_prologue", curve, 3) == 3 * cs._cost(11 + bits, 258)
     # ed25519 at the special-form costs of p = 2^255 - 19 (144, 88)
     assert (cs.ED_MUL_OPS, cs.ED_SQR_OPS) == (144, 88)
-    assert cs._ends_ops("ed_epilogue", ED25519, 2) == 2 * (18 * 144 + 254 * 88 + 3 * 64)
-    assert cs._ends_ops("ed_prologue", ED25519, 1) == 23 * 144 + 255 * 88
+    assert cs._ends_ops("ed_epilogue", ED25519, 2) == 2 * (16 * 144 + 254 * 88 + 3 * 64)
+    assert cs._ends_ops("ed_prologue", ED25519, 1) == 21 * 144 + 255 * 88
     assert cs._ends_ops("ecdsa_epilogue", SECP256R1, 1) == 5 * cs.MUL_OPS + 2 * 64
     assert set(cs.ENDS) == set(cs.ENDS_WORK) == set(cs.ENDS_BYTES) == set(cs.ED_ENDS + cs.ECDSA_ENDS)
     assert set(cs.ENDS) < set(cs.COUNTERS)

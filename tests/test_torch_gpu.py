@@ -213,12 +213,14 @@ def _same_outputs(got, want, p, exact: int):
             assert _reduced(g, p) == _reduced(w, p), i
 
 
-@pytest.mark.parametrize("B", [130, 1])
+@pytest.mark.parametrize("B", [130, 1, 3, 4097])
 def test_ed_ends_kernels_match_plain(cuda, B):
-    """ed_prologue_kernel and ed_epilogue_kernel equal their plain
-    versions at B=130 and B=1 on the crafted rows of
-    selfcheck.ed25519_prologue_rows / ed25519_epilogue_rows (A.y = 0, 1,
-    p - 1, >= p, off the curve; R.y + p, a flipped sign, Z = 0); exact."""
+    """ed_prologue_kernel and ed_epilogue_kernel (a row per group of 4
+    lanes) equal their plain versions at B=130, B=1, B=3 (a partial
+    group) and B=4097 (a ragged group at the chunk's end) on the crafted
+    rows of selfcheck.ed25519_prologue_rows / ed25519_epilogue_rows (A.y
+    = 0, 1, p - 1, >= p, off the curve; R.y + p, a flipped sign, Z = 0);
+    exact."""
     from corda_tpu_torch.crypto import eddsa
     from corda_tpu_torch.testing import selfcheck
 

@@ -2,24 +2,16 @@
 
 There is no nvcc and no card on the CPU test machines, so this test
 compiles `corda_tpu_torch/csrc/wei_ladder.cu` and `ed_ladder.cu` (with
-their headers) with the host C++ compiler behind a small shim
-(`__device__`, `__global__`, `__shared__`, `threadIdx`, ... defined
-away; the CUDA-runtime launcher section cut off) and runs each kernel
-body on a small batch. The results must equal refmath after
-normalisation and be canonical 12-bit digits: exact, as integer
-arithmetic is.
+their headers) with the host C++ compiler behind the lane-group
+emulator of `lane_group_emulator.py` and runs each kernel body on a
+small batch. The results must equal refmath after normalisation and be
+canonical 12-bit digits: exact, as integer arithmetic is.
 
 Every kernel spreads a signature over a group of TPI lanes
-(`field256_group.cuh`). The shim runs each group's lanes as coroutines
-(ucontext), one group at a time, in turn: a lane that reaches a
-`__shfl*_sync`, `__ballot_sync` or `__syncwarp` deposits its value and
-passes to the next lane, so it reads only once every lane of the group
-has deposited, as on the card. A ballot's bits of the warp's other
-groups are noise, so a lane that fails to mask them out gets wrong
-carries. Groups exchange no field words, so one group at a time
-suffices; the Edwards windowed kernel's constant B table, which thread
-0 writes for the whole block, is written before the first group's
-first exchange.
+(`field256_group.cuh`), each lane a coroutine of the emulator; it runs
+every group of the grid, those past the ragged edge too. The Edwards
+windowed kernel's constant B table, which thread 0 writes for the
+whole block, is written before the first group's first exchange.
 
 It checks the field arithmetic, the carry resolution between lanes, the
 domain conversions, the table conventions, the schedules and the ragged
@@ -29,7 +21,6 @@ installed.
 """
 
 import random
-import shutil
 import subprocess
 
 import numpy as np
@@ -40,125 +31,8 @@ torch = pytest.importorskip("torch")
 from corda_tpu_torch.crypto import cuda_ec, refmath  # noqa: E402
 from corda_tpu_torch.crypto import limbs as L  # noqa: E402
 from corda_tpu_torch.crypto import modmath as M  # noqa: E402
-from corda_tpu_torch.crypto.build import CSRC_DIR  # noqa: E402
 from corda_tpu_torch.crypto.curves import ED25519, SECP256K1, SECP256R1  # noqa: E402
-
-SHIM = r"""
-#include <stdint.h>
-#include <string.h>
-#include <stdio.h>
-#include <stdlib.h>
-#include <ucontext.h>
-#define __device__
-#define __forceinline__ inline
-#define __global__
-#define __launch_bounds__(x)
-#define __restrict__
-#define __shared__ static
-struct Dim3 { int x; };
-static Dim3 threadIdx, blockIdx;
-static inline void __syncthreads() {}
-
-// One group of lanes, each a coroutine, run in turn. A lane at an
-// exchange deposits its value in slot set gen % 2 and passes on; when it
-// runs again, every lane has deposited (a lane runs ahead by at most one
-// exchange, hence two slot sets).
-#define EMU_MAX 32
-#define EMU_STACK (1 << 20)
-static ucontext_t emu_main, emu_ctx[EMU_MAX];
-static char* emu_stacks[EMU_MAX];
-static int emu_lanes, emu_first, emu_cur, emu_done;
-static bool emu_fin[EMU_MAX];
-static long emu_gen[EMU_MAX];
-static uint32_t emu_slot[2][EMU_MAX];
-static void (*emu_body)();
-
-static void emu_pass(int me) {   // run the next unfinished lane
-  int next = me;
-  do next = (next + 1) % emu_lanes; while (emu_fin[next]);
-  emu_cur = next;
-  threadIdx.x = emu_first + next;
-  swapcontext(&emu_ctx[me], &emu_ctx[next]);
-}
-
-static void emu_entry() {
-  emu_body();
-  const int me = emu_cur;
-  emu_fin[me] = true;
-  if (++emu_done == emu_lanes) setcontext(&emu_main);
-  emu_pass(me);
-}
-
-static void emu_run_group(int block, int first, int lanes, void (*body)()) {
-  emu_lanes = lanes; emu_first = first; emu_done = 0; emu_body = body;
-  blockIdx.x = block;
-  for (int i = 0; i < lanes; ++i) {
-    if (!emu_stacks[i]) emu_stacks[i] = (char*)malloc(EMU_STACK);
-    emu_fin[i] = false; emu_gen[i] = 0;
-    getcontext(&emu_ctx[i]);
-    emu_ctx[i].uc_stack.ss_sp = emu_stacks[i];
-    emu_ctx[i].uc_stack.ss_size = EMU_STACK;
-    emu_ctx[i].uc_link = 0;
-    makecontext(&emu_ctx[i], emu_entry, 0);
-  }
-  emu_cur = 0; threadIdx.x = first;
-  swapcontext(&emu_main, &emu_ctx[0]);
-  for (int i = 1; i < lanes; ++i)
-    if (emu_gen[i] != emu_gen[0]) { fprintf(stderr, "lanes disagree on exchanges\n"); exit(5); }
-}
-
-static const uint32_t* emu_exchange(uint32_t v, long* gen) {
-  const int me = emu_cur;
-  if (emu_done) { fprintf(stderr, "lane %d exchanges after another lane ended\n", me); exit(5); }
-  *gen = emu_gen[me]++;
-  emu_slot[*gen & 1][me] = v;
-  emu_pass(me);
-  return emu_slot[*gen & 1];
-}
-
-static void emu_check_width(int width) {
-  if (width != emu_lanes) { fprintf(stderr, "shuffle width %d, group %d\n", width, emu_lanes); exit(5); }
-}
-
-static uint32_t __shfl_sync(uint32_t, uint32_t v, int src, int width) {
-  emu_check_width(width);
-  long gen;
-  return emu_exchange(v, &gen)[src % width];
-}
-
-static uint32_t __shfl_down_sync(uint32_t, uint32_t v, int delta, int width) {
-  emu_check_width(width);
-  long gen;
-  const int me = emu_cur;
-  const uint32_t* s = emu_exchange(v, &gen);
-  return me + delta < width ? s[me + delta] : s[me];
-}
-
-static uint32_t __shfl_up_sync(uint32_t, uint32_t v, int delta, int width) {
-  emu_check_width(width);
-  long gen;
-  const int me = emu_cur;
-  const uint32_t* s = emu_exchange(v, &gen);
-  return me >= delta ? s[me - delta] : s[me];
-}
-
-// the warp's other lanes answer noise, the same for every lane of the group
-static uint32_t __ballot_sync(uint32_t, int pred) {
-  long gen;
-  const uint32_t* s = emu_exchange(pred != 0, &gen);
-  uint32_t m = (uint32_t)(((uint64_t)gen + 1) * 0x9E3779B97F4A7C15ull >> 32);
-  for (int i = 0; i < emu_lanes; ++i) {
-    const int bit = (emu_first + i) % 32;
-    m = (m & ~(1u << bit)) | ((s[i] ? 1u : 0u) << bit);
-  }
-  return m;
-}
-
-static void __syncwarp(uint32_t = 0xffffffffu) {
-  long gen;
-  emu_exchange(0, &gen);
-}
-"""
+from lane_group_emulator import FIELD_BODY, build, compiler  # noqa: E402
 
 # per source: (params struct, its size in words, number of outputs,
 # plain kernel, windowed kernel, field multiply); the Weierstrass
@@ -191,26 +65,7 @@ static void ladder_body() {
 }
 
 #ifdef TPI
-// mode 2: per group, one field operation on 8-word operands a, b, both
-// ways: (a op b, b op a)
-static uint32_t *fa, *fb, *fr;
-static void field_body() {
-  const GroupField F = group_field(P);
-  const int col = (blockIdx.x * BLOCK + threadIdx.x) / TPI;
-  const int c = col < batch ? col : batch - 1;
-  uint32_t a[WPL], b[WPL], r[WPL], s[WPL], w[NW];
-  lane_words(a, fa + 8 * c, F.g);
-  lane_words(b, fb + 8 * c, F.g);
-  switch (in[c]) {
-    case 0: FIELD_MUL(r, a, b, F); FIELD_MUL(s, b, a, F); break;
-    case 1: gfe_add(r, a, b, F); gfe_add(s, b, a, F); break;
-    default: gfe_sub(r, a, b, F); gfe_sub(s, b, a, F); break;
-  }
-  group_gather(w, r, F);
-  if (F.g == 0 && col < batch) memcpy(fr + 16 * col, w, sizeof(w));
-  group_gather(w, s, F);
-  if (F.g == 0 && col < batch) memcpy(fr + 16 * col + 8, w, sizeof(w));
-}
+FIELD_BODY
 #endif
 
 int main(int argc, char** argv) {
@@ -226,7 +81,7 @@ int main(int argc, char** argv) {
   for (int i = 0; i < 4; ++i) o[i] = out + 22 * batch * i;
   void (*body)() = ladder_body;
 #ifdef TPI
-  fa = (uint32_t*)in + batch; fb = fa + 8 * batch; fr = (uint32_t*)out;
+  fop = in; fa = (uint32_t*)in + batch; fb = fa + 8 * batch; fr = (uint32_t*)out;
   if (mode == 2) body = field_body;
 #endif
   const int blocks = (batch * EMU_LANES + BLOCK - 1) / BLOCK;
@@ -242,29 +97,19 @@ int main(int argc, char** argv) {
 
 def _build(cxx, name, d):
     params, words, n_out, plain, windowed, mul = SOURCES[name]
-    src = (CSRC_DIR / f"{name}.cu").read_text()
-    src = src.split("// C interface")[0]
-    src = src.replace("#include <cuda_runtime.h>", "")
-    main = (MAIN.replace("PARAMS", params).replace("WORDS", str(words))
+    main = (MAIN.replace("FIELD_BODY", FIELD_BODY)
+            .replace("PARAMS", params).replace("WORDS", str(words))
             .replace("NOUT", str(n_out)).replace("PLAIN", plain).replace("WINDOWED", windowed)
             .replace("OUTS", ", ".join(f"o[{i}]" for i in range(n_out)))
             .replace("FIELD_MUL", mul))
-    (d / f"{name}.cpp").write_text(SHIM + src + main)
-    exe = d / name
-    subprocess.run(
-        [cxx, "-O1", "-std=c++17", "-w", "-I", str(CSRC_DIR), "-o", str(exe), str(d / f"{name}.cpp")],
-        check=True, capture_output=True, timeout=300,
-    )
-    return exe
+    return build(cxx, name, main, d)
 
 
 @pytest.fixture(scope="module")
 def emulator(tmp_path_factory):
     """{source name: (host executable, work dir)}; the headers are
     included from csrc/ as nvcc includes them."""
-    cxx = shutil.which("g++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
+    cxx = compiler()
     d = tmp_path_factory.mktemp("ladder_host")
     return {name: (_build(cxx, name, d), d) for name in SOURCES}
 

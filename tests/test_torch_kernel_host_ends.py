@@ -1,25 +1,28 @@
 """The verify prologue and epilogue kernels, compiled as host C++.
 
 There is no nvcc and no card on the CPU test machines, so this test
-compiles `corda_tpu_torch/csrc/ed_ends.cu` and `wei_ends.cu` (with
-field256.cuh) with the host C++ compiler behind a small shim
-(`__device__`, `__global__`, `threadIdx`, ... defined away; the
-CUDA-runtime launcher section cut off) and runs each kernel body, one
-row per thread as on the card, on the rows of
+compiles `corda_tpu_torch/csrc/ed_ends.cu` and `wei_ends.cu` (with their
+headers) with the host C++ compiler behind the shim of
+`lane_group_emulator.py` and runs each kernel body as on the card: the
+ed25519 pair one row per group of TPI lanes, each lane a coroutine of
+the emulator (every group of the grid, those past the ragged edge too),
+the ECDSA pair one row per thread. The rows are those of
 `testing/selfcheck.py`'s `*_prologue_rows` and `*_epilogue_rows` (the
-crafted edge rows first, then staged requests) at B = 1 and B = 130
-(a partial block). Every output must equal the plain torch version's
-on the same rows: verdicts and raw digits exactly, points after
-reduction mod p (the kernels return canonical digits, the plain
+crafted edge rows first, then staged requests) at B = 1 and B = 130 (a
+partial group, warp and block). Every output must equal the plain torch
+version's on the same rows: verdicts and raw digits exactly, points
+after reduction mod p (the kernels return canonical digits, the plain
 versions lazily reduced ones); the kernels' digits must be canonical.
+The ed25519 source's dedicated squaring is held against its multiply
+and Python ints on edge operands.
 
 It checks the arithmetic, the power chains, the domain conversions,
-the byte order and the ragged edge, not the GPU's compiler, which only
-chip_smoke.py and tests/test_torch_gpu.py reach. Skips where no C++
-compiler is installed.
+the byte order, the exchanges between lanes and the ragged edge, not
+the GPU's compiler, which only chip_smoke.py and tests/test_torch_gpu.py
+reach. Skips where no C++ compiler is installed.
 """
 
-import shutil
+import random
 import subprocess
 
 import numpy as np
@@ -31,23 +34,9 @@ from corda_tpu_torch.crypto import cuda_ec  # noqa: E402
 from corda_tpu_torch.crypto import ecdsa as TE  # noqa: E402
 from corda_tpu_torch.crypto import eddsa as TD  # noqa: E402
 from corda_tpu_torch.crypto import limbs as L  # noqa: E402
-from corda_tpu_torch.crypto.build import CSRC_DIR  # noqa: E402
 from corda_tpu_torch.crypto.curves import ED25519, SECP256K1, SECP256R1  # noqa: E402
 from corda_tpu_torch.testing import selfcheck  # noqa: E402
-
-SHIM = r"""
-#include <stdint.h>
-#include <string.h>
-#include <stdio.h>
-#include <stdlib.h>
-#define __device__
-#define __forceinline__ inline
-#define __global__
-#define __launch_bounds__(x)
-#define __restrict__
-struct Dim3 { int x; };
-static Dim3 threadIdx, blockIdx;
-"""
+from lane_group_emulator import FIELD_BODY, build, compiler  # noqa: E402
 
 # per source: (params struct, the prologue's call, the epilogue's call);
 # in[i] and out[i] are the i-th input and output buffers
@@ -70,6 +59,16 @@ SOURCES = {
 
 MAIN = r"""
 static PARAMS P;
+static int mode, batch;
+static void *in[8], *out[8];
+
+static void row_body() {
+  if (mode == 0) PROLOGUE; else EPILOGUE;
+}
+
+#ifdef TPI
+FIELD_BODY
+#endif
 
 static void* read_buf(FILE* f, int* len) {
   if (fread(len, 4, 1, f) != 1) exit(3);
@@ -79,10 +78,9 @@ static void* read_buf(FILE* f, int* len) {
 }
 
 int main(int argc, char** argv) {
-  const int mode = atoi(argv[1]);   // 0 prologue, 1 epilogue
+  mode = atoi(argv[1]);   // 0 prologue, 1 epilogue, 2 field operations (lane groups)
   FILE* f = fopen(argv[2], "rb");
-  int batch, words, n_in, n_out, len, out_len[8];
-  void *in[8], *out[8];
+  int words, n_in, n_out, len, out_len[8];
   if (fread(&batch, 4, 1, f) != 1 || fread(&words, 4, 1, f) != 1) return 3;
   if (words != (int)(sizeof(P) / 4) || fread(&P, sizeof(P), 1, f) != 1) return 4;
   if (fread(&n_in, 4, 1, f) != 1) return 3;
@@ -93,12 +91,23 @@ int main(int argc, char** argv) {
     out[i] = calloc(out_len[i] + 1, 1);
   }
   fclose(f);
+#ifdef TPI
+  void (*body)() = row_body;
+  if (mode == 2) {
+    fop = (const int32_t*)in[0]; fa = (uint32_t*)in[1]; fb = (uint32_t*)in[2]; fr = (uint32_t*)out[0];
+    body = field_body;
+  }
+  for (int blk = 0; blk * BLOCK < batch * TPI; ++blk)
+    for (int t = 0; t < BLOCK; t += TPI) emu_run_group(blk, t, TPI, body);
+#else
+  if (mode == 2) return 5;
   for (int blk = 0; blk * BLOCK < batch; ++blk)
     for (int t = 0; t < BLOCK; ++t) {
       blockIdx.x = blk;
       threadIdx.x = t;
-      if (mode == 0) PROLOGUE; else EPILOGUE;
+      row_body();
     }
+#endif
   f = fopen(argv[3], "wb");
   for (int i = 0; i < n_out; ++i) fwrite(out[i], 1, out_len[i], f);
   fclose(f);
@@ -109,25 +118,16 @@ int main(int argc, char** argv) {
 
 def _build(cxx, name, d):
     params, prologue, epilogue = SOURCES[name]
-    src = (CSRC_DIR / f"{name}.cu").read_text()
-    src = src.split("// C interface")[0].replace("#include <cuda_runtime.h>", "")
-    main = MAIN.replace("PARAMS", params).replace("PROLOGUE", prologue).replace("EPILOGUE", epilogue)
-    (d / f"{name}.cpp").write_text(SHIM + src + main)
-    exe = d / name
-    subprocess.run(
-        [cxx, "-O1", "-std=c++17", "-w", "-I", str(CSRC_DIR), "-o", str(exe), str(d / f"{name}.cpp")],
-        check=True, capture_output=True, timeout=300,
-    )
-    return exe
+    main = (MAIN.replace("FIELD_BODY", FIELD_BODY).replace("FIELD_MUL", "gfe_mul_25519")
+            .replace("PARAMS", params).replace("PROLOGUE", prologue).replace("EPILOGUE", epilogue))
+    return build(cxx, name, main, d)
 
 
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
-    """{source name: (host executable, work dir)}; field256.cuh is
-    included from csrc/ as nvcc includes it."""
-    cxx = shutil.which("g++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
+    """{source name: (host executable, work dir)}; the headers are
+    included from csrc/ as nvcc includes them."""
+    cxx = compiler()
     d = tmp_path_factory.mktemp("ends_host")
     return {name: (_build(cxx, name, d), d) for name in SOURCES}
 
@@ -208,6 +208,33 @@ def test_ed_epilogue_kernel_on_host_matches_plain(host, batch):
     assert got.tolist() == want.tolist()
     if batch > 1:
         assert 0 < int(got.sum()) < batch
+
+
+def test_gfe_sqr_25519_on_host_matches_mul_and_ints(host):
+    """field256_group.cuh's gfe_sqr_25519, each lane of a group holding
+    its words (built in ed_ends.cu, which squares with it), on 0, 1,
+    p - 1 = 2^255 - 20, p - 2, values of all-ones words below p (2^32k -
+    1, p - 2^32k, 2^255 - 2^32k), 19, 38, values around 2^254 and
+    seeded ones: equal to gfe_mul_25519(a, a) and to a^2 mod p from
+    Python ints for every operand; exact."""
+    p = ED25519.p
+    rng = random.Random(29)
+    vals = {0, 1, 2, p - 1, p - 2, (1 << 255) - 20, 19, 38, (1 << 254) - 1, 1 << 254,
+            (p - 1) // 2, (p + 1) // 2}
+    vals |= {(1 << (32 * k)) - 1 for k in range(1, 8)}
+    vals |= {p - (1 << (32 * k)) for k in range(1, 8)}
+    vals |= {(1 << 255) - (1 << (32 * k)) for k in range(1, 7)}
+    vals |= {rng.randrange(p) for _ in range(64)}
+    vals = sorted(v for v in vals if v < p)
+    n = len(vals)
+    words = np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for v in vals], np.uint32)
+    (got,) = _run(host, "ed_ends", 2, cuda_ec.ed_ends_params(), n,
+                  [np.full(n, 3, np.int32), words, words], [(np.uint32, (n, 16))])
+    ints = [[sum(int(w) << (32 * i) for i, w in enumerate(half)) for half in (row[:8], row[8:])]
+            for row in got]
+    bad = [(v, sq, mul) for v, (sq, mul) in zip(vals, ints) if not sq == mul == v * v % p]
+    assert not bad, bad[:4]
+    assert n > 90
 
 
 @pytest.mark.parametrize("curve", [SECP256R1, SECP256K1], ids=["p256", "k1"])

@@ -35,15 +35,18 @@ keeps its context until all have finished. Walls and rates of phases
      equal normalised points, X*Y == Z*T for the Edwards outputs, and
      the first 8 rows equal to refmath; hold each prologue and epilogue
      kernel (ed_prologue, ed_epilogue; ecdsa_prologue, ecdsa_epilogue on
-     p256 and secp256k1) against its plain torch version at B=256, 130
-     and 1 over testing/selfcheck.py's rows, the crafted edge rows first
+     p256 and secp256k1; each a row per group of 4 lanes) against its
+     plain torch version at B=256, 130, 1, 3 and 4097 (a partial and a
+     ragged lane group) over testing/selfcheck.py's rows, the crafted
+     edge rows first
      (A.y = 0, 1, p - 1, >= p, off the curve, each sign bit; z >= n, r
      and s 0, n, 2^256 - 1, Q off the curve or >= p, the r + n row; for
      the epilogues R.y + p, a flipped sign, r + n >= p, Z = 0):
      verdicts and scalar digits exact, points equal mod p; time each
      ladder kernel and its plain version at the main path's chunk (4096,
      main-path scalars) and hold them equal there too;
-  4. time each prologue and epilogue kernel (CUDA events) and its plain
+  4. time each prologue and epilogue kernel (CUDA events, and its device
+     time per launch from torch.profiler) and its plain
      version at 4096 rows, held equal there, with its IMAD bound
      (_ends_ops, the curve's cost per multiply; ENDS_BYTES); then one 4096-row
      ed25519_verify_packed and ecdsa_verify_packed per curve on the
@@ -530,9 +533,9 @@ SCHEME_BATCHES = (128, 4096)
 PARITY_B = 256
 RAGGED_B = 130
 PARITY_SIZES = (PARITY_B, RAGGED_B, 1)
-# the ed25519 ends run a row per group of 4 lanes: also a partial group
-# and a ragged group at the chunk's end
-ED_ENDS_PARITY_SIZES = PARITY_SIZES + (3, CHUNK + 1)
+# the prologues and epilogues run a row per group of 4 lanes: also a
+# partial group and a ragged group at the chunk's end
+ENDS_PARITY_SIZES = PARITY_SIZES + (3, CHUNK + 1)
 DISTINCT = 256
 IMAD_PER_SM_PER_CLK = 64     # CUDA C Programming Guide, throughput table, cc 9.0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -780,16 +783,19 @@ ENDS = {
 }
 # multiplies, squares and entry folds per row of each kernel, as the
 # source runs them: chain_250 is 249 squares + 10 multiplies, then the
-# square root's 2 + 1 or the inverse's 5 + 1; pow_n 256 squares and a
-# multiply per set bit of n - 2 (added in _ends_ops); load_coord a
-# multiply and a fold, store_coord a multiply. The ed25519 pair works on
-# plain values: no multiply into a Montgomery domain or out of it
+# square root's 2 + 1 or the inverse's 5 + 1; pow_n's table s^2 (a
+# square) and s^3 .. s^15 (13 multiplies), then 4 squares per window
+# below the top one (252) and a multiply per such window that is not 0
+# (added in _ends_ops); load_coord a multiply and a fold, store_coord a
+# multiply. The ed25519 pair works on plain values: no multiply into a
+# Montgomery domain or out of it
 ENDS_WORK = {
     "ed_prologue": (21, 255, 0),
     "ed_epilogue": (16, 254, 3),
-    "ecdsa_prologue": (11, 258, 0),
+    "ecdsa_prologue": (11 + 13, 2 + 1 + 252, 0),
     "ecdsa_epilogue": (5, 0, 2),
 }
+INV_WINDOW = 4               # bits per window of the ECDSA prologue's s^(n - 2)
 # bytes per row each kernel must move: the record bytes it reads, its
 # [22, B] int32 digit operands (88 bytes each), its [B] int32 signs and
 # bool masks, and its outputs
@@ -801,6 +807,13 @@ ENDS_BYTES = {
 }
 
 
+def _window_mults(e: int) -> int:
+    """Multiplies of a fixed-window power with exponent e (256 bits):
+    one per INV_WINDOW-bit window below the top one that is not 0."""
+    mask = (1 << INV_WINDOW) - 1
+    return sum(1 for i in range(256 // INV_WINDOW - 1) if (e >> (INV_WINDOW * i)) & mask)
+
+
 def _ends_ops(name: str, curve, batch: int) -> int:
     """IMAD-rate instructions `batch` rows of kernel `name` need, at the
     curve's costs per multiply and square (_ed_cost for ed25519's
@@ -809,7 +822,7 @@ def _ends_ops(name: str, curve, batch: int) -> int:
     row (the kernels have no data-dependent branch)."""
     mults, squares, folds = ENDS_WORK[name]
     if name == "ecdsa_prologue":
-        mults += bin(curve.n - 2).count("1")
+        mults += _window_mults(curve.n - 2)
     cost = _ed_cost if name in ED_ENDS else _cost
     return batch * (cost(mults, squares) + folds * 4 * 8 * 2)
 
@@ -933,11 +946,10 @@ def phase_parity(device, report: dict) -> None:
 
     for name in ENDS:
         kern, plain = _ends_fns(name)
-        sizes = ED_ENDS_PARITY_SIZES if name in ED_ENDS else PARITY_SIZES
         for curve in ((SECP256R1, SECP256K1) if name in ECDSA_ENDS else (ED25519,)):
             # one plain call; the kernel at each size against its first rows
-            want = plain(curve, *_ends_inputs(name, curve, max(sizes), 7, device))
-            for batch in sizes:
+            want = plain(curve, *_ends_inputs(name, curve, max(ENDS_PARITY_SIZES), 7, device))
+            for batch in ENDS_PARITY_SIZES:
                 label = f"{name} {curve.name} B={batch}"
                 got = kern(curve, *_ends_inputs(name, curve, batch, 7, device))
                 _note_err(report, name, _ends_equal(curve, got, want, label))
@@ -1042,10 +1054,33 @@ def _count_torch_ops(fn) -> int:
     return Count.n
 
 
+def _device_us(fn, kernel: str, reps: int) -> float:
+    """Mean device time (µs) per launch of the CUDA kernel whose name
+    holds `kernel` over `reps` calls of fn, from one torch.profiler
+    window: the kernel alone, without the host time between launches
+    that CUDA events around a loop also take in (a few-µs kernel's
+    wrapper is slower than the kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    _, kernels = _kernel_intervals(prof.profiler.kineto_results.events())
+    times = [end - start for start, end, name in kernels if kernel in name]
+    if not times:
+        raise RuntimeError(f"profiler: no device time for {kernel}")
+    return sum(times) / len(times)
+
+
 def phase_prologue(device, report: dict) -> None:
     """Phase 4: each prologue and epilogue kernel against its plain
-    version at the main path's chunk, with its IMAD bound; then the torch
-    ops of one whole verify call per scheme."""
+    version at the main path's chunk, with its IMAD bound and its device
+    time per launch (torch.profiler); then the torch ops of one whole
+    verify call per scheme."""
     import torch
 
     from corda_tpu_torch.crypto import ecdsa, eddsa
@@ -1059,6 +1094,7 @@ def phase_prologue(device, report: dict) -> None:
         for curve in ((SECP256R1, SECP256K1) if name in ECDSA_ENDS else (ED25519,)):
             args = _ends_inputs(name, curve, CHUNK, 11, device)
             ms = _cuda_ms(lambda: kern(curve, *args), reps=20)
+            dev_us = _device_us(lambda: kern(curve, *args), name + "_kernel", reps=20)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             want = plain(curve, *args)
@@ -1074,7 +1110,8 @@ def phase_prologue(device, report: dict) -> None:
                     route="cuda", source=source, replaces=replaces, ms=ms, plain_ms=plain_ms,
                     bound_ms=max(ops_ms, bytes_ms),
                     bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=None)
-            print(f"time {name} {curve.name} B={CHUNK}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+            print(f"time {name} {curve.name} B={CHUNK}: kernel {ms:.3f} ms (device {dev_us:.1f} "
+                  f"µs/launch, torch.profiler), plain {plain_ms:.1f} ms, "
                   f"bound {max(ops_ms, bytes_ms):.4f} ms ({ops / CHUNK:.0f} IMAD/row, "
                   f"{nbytes / CHUNK:.0f} bytes/row)")
 

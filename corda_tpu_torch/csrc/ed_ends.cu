@@ -65,13 +65,6 @@ struct EdEndsParams {
     uint32_t sqrt_m1[NW];    // sqrt(-1) = 2^((p - 1)/4)
 };
 
-// r = c ? a : b, c the same in every lane of the group (r may alias either)
-__device__ __forceinline__ void lane_select(uint32_t r[WPL], bool c, const uint32_t a[WPL],
-                                            const uint32_t b[WPL]) {
-#pragma unroll
-    for (int k = 0; k < WPL; ++k) r[k] = c ? a[k] : b[k];
-}
-
 // r = a^(2^k), k >= 1 squarings (r may alias a)
 __device__ __forceinline__ void sqr_n(uint32_t r[WPL], const uint32_t a[WPL], int k,
                                       const GroupField& F) {

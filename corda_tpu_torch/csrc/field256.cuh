@@ -1,9 +1,8 @@
 // 256-bit prime-field arithmetic for one thread: the domain conversions
 // at entry and exit of the lane-group kernels (wei_ladder.cu,
-// ed_ladder.cu, ed_ends.cu), which run them on lane 0 of each group
-// (field256_group.cuh holds the arithmetic spread over the group), and
-// the whole of the ECDSA verify prologue and epilogue (wei_ends.cu), one
-// row per thread.
+// ed_ladder.cu, ed_ends.cu, wei_ends.cu), which run them on lane 0 of each
+// group (field256_group.cuh holds the arithmetic spread over the group),
+// and the byte and digit formats they read and write.
 //
 // A field element is 8 x 32-bit words, always fully reduced to [0, p);
 // fe_mul is the R = 2^256 Montgomery product. The functions are
@@ -154,9 +153,7 @@ __device__ __forceinline__ void store_coord(int32_t* dst, const uint32_t a[NW],
 }
 
 // ---------------------------------------------------------------------------
-// one thread's helpers for the verify prologues and epilogues
-// (wei_ends.cu; ed_ends.cu's raw scalars): byte records in, comparisons,
-// selects, and the add mod p of values < p
+// a record's bytes in, for lane 0's raw values (ed_ends.cu's scalars)
 
 // 32 big-endian bytes -> 8 little-endian words
 __device__ __forceinline__ void load_be32(uint32_t r[NW], const uint8_t* b) {
@@ -165,57 +162,4 @@ __device__ __forceinline__ void load_be32(uint32_t r[NW], const uint8_t* b) {
         const uint8_t* q = b + 28 - 4 * j;
         r[j] = (uint32_t)q[3] | (uint32_t)q[2] << 8 | (uint32_t)q[1] << 16 | (uint32_t)q[0] << 24;
     }
-}
-
-__device__ __forceinline__ void fe_small(uint32_t r[NW], uint32_t v) {
-#pragma unroll
-    for (int j = 0; j < NW; ++j) r[j] = j == 0 ? v : 0;
-}
-
-__device__ __forceinline__ void fe_copy(uint32_t r[NW], const uint32_t a[NW]) {
-#pragma unroll
-    for (int j = 0; j < NW; ++j) r[j] = a[j];
-}
-
-// r = c ? a : b (r may alias either)
-__device__ __forceinline__ void fe_select(uint32_t r[NW], bool c, const uint32_t a[NW],
-                                          const uint32_t b[NW]) {
-#pragma unroll
-    for (int j = 0; j < NW; ++j) r[j] = c ? a[j] : b[j];
-}
-
-__device__ __forceinline__ bool fe_lt(const uint32_t a[NW], const uint32_t b[NW]) {
-    uint64_t br = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) br = (((uint64_t)a[j] - b[j] - br) >> 32) & 1;
-    return br != 0;
-}
-
-__device__ __forceinline__ bool fe_eq(const uint32_t a[NW], const uint32_t b[NW]) {
-    uint32_t x = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) x |= a[j] ^ b[j];
-    return x == 0;
-}
-
-__device__ __forceinline__ bool fe_is_zero(const uint32_t a[NW]) {
-    uint32_t x = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) x |= a[j];
-    return x == 0;
-}
-
-// r = a + b mod p for a, b < p
-template <class Params>
-__device__ __forceinline__ void fe_add(uint32_t r[NW], const uint32_t a[NW],
-                                       const uint32_t b[NW], const Params& P) {
-    uint32_t t[NW];
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-        c += (uint64_t)a[j] + b[j];
-        t[j] = (uint32_t)c;
-        c >>= 32;
-    }
-    cond_sub_p(r, t, (uint32_t)c, P);
 }

@@ -1,20 +1,23 @@
 // 256-bit prime-field arithmetic spread over a group of TPI lanes of a
-// warp (wei_ladder.cu, ed_ladder.cu, ed_ends.cu): one field element per group, lane
-// g holding words g*WPL .. g*WPL + WPL - 1 of it.
+// warp (wei_ladder.cu, ed_ladder.cu, ed_ends.cu, wei_ends.cu): one field
+// element per group, lane g holding words g*WPL .. g*WPL + WPL - 1 of it.
 //
 // The representation and contracts are field256.cuh's (8 x 32-bit words,
-// fully reduced to [0, p); gfe_mul, the R = 2^256 Montgomery product,
-// needs a * b < p * 2^256), with the words spread over the group instead
-// of held by one thread. Every gfe_* result is < p and the kernels
-// multiply only such results and host constants < p, so a * b < p^2 <
-// p * 2^256: the contract holds for the secp moduli close to 2^256 and
+// fully reduced to [0, m) for the modulus m, p or the group order n;
+// gfe_mul, the R = 2^256 Montgomery product, needs a * b < m * 2^256),
+// with the words spread over the group instead of held by one thread.
+// Every gfe_* result is < m; gfe_mul takes one operand up to 2^256 - 1
+// if the other is < m (wei_ends.cu multiplies raw record values so), and
+// gfe_sqr needs a < m. That holds for the secp moduli close to 2^256 and
 // for p = 2^255 - 19 (where a + b < 2p < 2^256 never carries out of the
 // top word either). gfe_add and gfe_sub serve any domain; the Edwards
 // kernels (ed_ladder.cu, ed_ends.cu) multiply with gfe_mul_25519, the
 // special-form product mod 2^255 - 19 of plain (not Montgomery) values,
-// and ed_ends.cu squares with gfe_sqr_25519. Nothing is kept in memory:
-// every function works in registers, and lanes exchange words by shuffle
-// within the group.
+// and ed_ends.cu squares with gfe_sqr_25519. gfe_sqr, the Montgomery
+// square, is held against gfe_mul on the host, but no kernel takes it:
+// in wei_ends.cu's power it ran ~5% slower than gfe_mul(a, a) on the
+// H100 (PERF.md). Nothing is kept in memory: every function works in
+// registers, and lanes exchange words by shuffle within the group.
 //
 // Carries between lanes. Each operation first adds (or subtracts) within
 // every lane, then resolves the carries between lanes once: a lane reports
@@ -31,14 +34,18 @@
 // Cost per lane: gfe_mul is 8 rounds of 3 shuffles (b[i] broadcast, m
 // broadcast, the accumulator's shift down one lane) and 2 * WPL 32x32->64
 // multiply-adds, then 1 shuffle and 4 ballots (the carries, the
-// conditional subtract of p); gfe_mul_25519 16 independent shuffles (the
+// conditional subtract of p): 16 dependent shuffles. gfe_sqr gathers the
+// operand (8 independent shuffles), forms 4.5 * WPL products, and reduces
+// a lane's WPL words per round: TPI rounds of 2 * WPL shuffles (m
+// broadcast, the shift down one lane), 8 dependent shuffles in all, then
+// 2 shuffles and 4 ballots; gfe_mul_25519 16 independent shuffles (the
 // operands), 8 * WPL products, 2 shuffles and 4 ballots; gfe_sqr_25519
 // 8 shuffles (the operand), 16 selects, 4.5 * WPL products, 2 shuffles
 // and 4 ballots; gfe_add and gfe_sub 4 ballots each. TPI = 4 serves two
 // words per lane with the same shuffles and ran 5-16% faster than TPI =
-// 8 on the H100 (PERF.md); gfe_mul_25519 needs WPL >= 2, gfe_sqr_25519
-// an even WPL. ptxas already overlaps independent calls:
-// interleaving them by hand measured slower.
+// 8 on the H100 (PERF.md); gfe_mul_25519 needs WPL >= 2, the squarings
+// an even WPL. ptxas already overlaps independent calls: interleaving
+// them by hand measured slower.
 //
 // Every lane of the warp must reach every call (the shuffles and ballots
 // use the full mask): no call may sit behind a lane-dependent branch.
@@ -76,6 +83,13 @@ __device__ __forceinline__ GroupField group_field(const Params& P) {
     F.pinv = P.pinv;
     lane_words(F.p, P.p, F.g);
     return F;
+}
+
+// r = c ? a : b, c the same in every lane of the group (r may alias either)
+__device__ __forceinline__ void lane_select(uint32_t r[WPL], bool c, const uint32_t a[WPL],
+                                            const uint32_t b[WPL]) {
+#pragma unroll
+    for (int k = 0; k < WPL; ++k) r[k] = c ? a[k] : b[k];
 }
 
 // carry into each lane of the group (bit i for lane i, bit TPI out of the
@@ -235,7 +249,7 @@ __device__ __forceinline__ void gfe_mul(uint32_t r[WPL], const uint32_t a[WPL],
 // L[WPL + 2] = sum_j f_c 2^(32j) (< 2^(32 WPL + 42)).
 
 // L += f 2^(32j), f's four words
-__device__ __forceinline__ void add_column_25519(uint32_t L[WPL + 2], const uint32_t f[4], int j) {
+__device__ __forceinline__ void add_column(uint32_t L[WPL + 2], const uint32_t f[4], int j) {
     uint64_t z = 0;
 #pragma unroll
     for (int w = j; w < WPL + 2; ++w) {
@@ -332,7 +346,7 @@ __device__ __forceinline__ void gfe_mul_25519(uint32_t r[WPL], const uint32_t a[
         w1 += w0 >> 32;
         w2 += w1 >> 32;
         const uint32_t f[4] = {(uint32_t)w0, (uint32_t)w1, (uint32_t)w2, (uint32_t)(w2 >> 32)};
-        add_column_25519(L, f, j);
+        add_column(L, f, j);
     }
     fold_25519(r, L, F);
 }
@@ -382,9 +396,135 @@ __device__ __forceinline__ void gfe_sqr_25519(uint32_t r[WPL], const uint32_t a[
         }
         w1 += w0 >> 32;
         const uint32_t f[4] = {(uint32_t)w0, (uint32_t)w1, (uint32_t)(w1 >> 32), 0u};
-        add_column_25519(L, f, j);
+        add_column(L, f, j);
     }
     fold_25519(r, L, F);
+}
+
+// Montgomery square a^2 * 2^-256 mod p for the secp moduli (a < p, result
+// < p), in place of gfe_mul(a, a): gfe_sqr_25519's pairs, unfolded, and a
+// reduction a lane's digit at a time. Lane g gathers a rotated by rot =
+// g*WPL/2 (A_k = a_((rot + k) mod 8)) and forms the product's low columns
+// c = g*WPL + j and high columns c + 8 from the same pairs in every lane,
+// k <= k' with k + k' = j (mod 8), each cross product doubled: a pair is
+// in the high column where k + k' = j + 8 and neither index wrapped, rot +
+// k' < 8 (36 products over the 16 columns). A lane's low columns sum to
+// lo at word g*WPL with its excess c at the word above, its high columns
+// to hi at word 8 + g*WPL. Then TPI rounds of Montgomery reduction by a
+// digit of WPL words: lane 0 forms m = D * (-p^-1) mod 2^(32 WPL) from its
+// digit D (exact: nothing lies below it), every lane adds m times its
+// words of p, and the sum moves down one lane, each lane's words above
+// its digit and its lazy carry c joining the low words of the lane above
+// as they come down. After the rounds the lanes hold (low half + M p) /
+// 2^256, and adding hi gives (a^2 + M p) / 2^256 < a^2 / 2^256 + p < 2p;
+// then gfe_mul's carry resolution and conditional subtract.
+__device__ __forceinline__ void gfe_sqr(uint32_t r[WPL], const uint32_t a[WPL],
+                                        const GroupField& F) {
+    static_assert(WPL == 2, "the reduction's digit is a lane's two words (64-bit m)");
+    const int rot = F.g * WPL / 2;
+    uint32_t A[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) A[k] = __shfl_sync(FULL_WARP, a[k % WPL], k / WPL, TPI);
+#pragma unroll
+    for (int step = 1; step < NW / 2; step <<= 1) {   // rot < TPI * WPL / 2 = 4
+        uint32_t R[NW];
+#pragma unroll
+        for (int k = 0; k < NW; ++k) R[k] = (rot & step) ? A[(k + step) % NW] : A[k];
+#pragma unroll
+        for (int k = 0; k < NW; ++k) A[k] = R[k];
+    }
+    uint32_t lo[WPL + 2], hi[WPL + 2];
+#pragma unroll
+    for (int w = 0; w < WPL + 2; ++w) lo[w] = hi[w] = 0;
+#pragma unroll
+    for (int j = 0; j < WPL; ++j) {
+        uint64_t l0 = 0, l1 = 0, h0 = 0, h1 = 0;   // the columns by 32-bit words of their terms
+#pragma unroll
+        for (int k = 0; k < NW; ++k) {
+            const int k2 = (j - k + NW) % NW;
+            if (k > k2) continue;
+            const uint64_t pr = (uint64_t)A[k] * A[k2];
+            const uint32_t twice = k < k2 ? 2u : 1u;
+            const uint64_t w0 = (uint64_t)(uint32_t)pr * twice, w1 = (pr >> 32) * twice;
+            if (k + k2 == j + NW && rot + k2 < NW) {
+                h0 += w0;
+                h1 += w1;
+            } else {
+                l0 += w0;
+                l1 += w1;
+            }
+        }
+        l1 += l0 >> 32;
+        h1 += h0 >> 32;
+        const uint32_t fl[4] = {(uint32_t)l0, (uint32_t)l1, (uint32_t)(l1 >> 32), 0u};
+        const uint32_t fh[4] = {(uint32_t)h0, (uint32_t)h1, (uint32_t)(h1 >> 32), 0u};
+        add_column(lo, fl, j);
+        add_column(hi, fh, j);
+    }
+
+    uint32_t t[WPL] = {lo[0], lo[1]};
+    uint64_t c = (uint64_t)lo[WPL + 1] << 32 | lo[WPL];   // < 2^37
+    // -p^-1 mod 2^64 in lane 0 (its words of p are p's low ones), by one
+    // Newton step on p^-1 mod 2^32
+    const uint64_t p64 = (uint64_t)F.p[1] << 32 | F.p[0], x = 0u - F.pinv;
+    const uint64_t pinv = 0 - x * (2 - p64 * x);
+#pragma unroll
+    for (int i = 0; i < TPI; ++i) {
+        const uint64_t m64 = ((uint64_t)t[1] << 32 | t[0]) * pinv;   // lane 0's is m
+        const uint32_t m[WPL] = {__shfl_sync(FULL_WARP, (uint32_t)m64, 0, TPI),
+                                 __shfl_sync(FULL_WARP, (uint32_t)(m64 >> 32), 0, TPI)};
+        uint32_t s[2 * WPL];   // t + m * (this lane's words of p) < 2^128
+#pragma unroll
+        for (int k = 0; k < WPL; ++k) {
+            s[k] = t[k];
+            s[WPL + k] = 0;
+        }
+#pragma unroll
+        for (int i2 = 0; i2 < WPL; ++i2) {
+            uint64_t x = 0;
+#pragma unroll
+            for (int k = 0; k < WPL; ++k) {
+                x += (uint64_t)m[i2] * F.p[k] + s[i2 + k];
+                s[i2 + k] = (uint32_t)x;
+                x >>= 32;
+            }
+            s[i2 + WPL] = (uint32_t)x;
+        }
+        uint64_t z = 0;
+#pragma unroll
+        for (int k = 0; k < WPL; ++k) {   // the lane above's low words come down
+            const uint32_t up = __shfl_down_sync(FULL_WARP, s[k], 1, TPI);
+            z += (uint64_t)(F.g == TPI - 1 ? 0u : up) + s[WPL + k] + (uint32_t)(c >> (32 * k));
+            t[k] = (uint32_t)z;
+            z >>= 32;
+        }
+        c = z;
+    }
+
+    // + the high half, then the value is sum(u) + sum(L at the word above
+    // each lane) < 2p: add the lane below's L and resolve, the top lane's
+    // L being the bit at 2^256, as in gfe_mul
+    uint32_t u[WPL];
+    uint64_t z = 0;
+#pragma unroll
+    for (int k = 0; k < WPL; ++k) {
+        z += (uint64_t)t[k] + hi[k];
+        u[k] = (uint32_t)z;
+        z >>= 32;
+    }
+    const uint64_t L = c + z + ((uint64_t)hi[WPL + 1] << 32 | hi[WPL]);
+    const uint32_t b0 = __shfl_up_sync(FULL_WARP, (uint32_t)L, 1, TPI);
+    const uint32_t b1 = __shfl_up_sync(FULL_WARP, (uint32_t)(L >> 32), 1, TPI);
+    z = F.g == 0 ? 0u : b0;
+    z += u[0];
+    u[0] = (uint32_t)z;
+    z = (z >> 32) + (F.g == 0 ? 0u : b1) + u[1];
+    u[1] = (uint32_t)z;
+    z >>= 32;
+    const bool gen = z != 0 || (F.g == TPI - 1 && L != 0);
+    const uint32_t cin = group_carries(gen, !gen && (u[0] & u[1]) == FULL_WARP, F);
+    add_bit(u, (cin >> F.g) & 1);
+    gfe_cond_sub_p(r, u, (cin >> TPI) & 1, F);
 }
 
 // ---------------------------------------------------------------------------

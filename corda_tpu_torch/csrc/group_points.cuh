@@ -1,6 +1,8 @@
 // Points over a group of TPI lanes (field256_group.cuh), shared by the
-// ladder kernels (wei_ladder.cu, ed_ladder.cu): per-lane point tables in
-// shared memory, a constant point's lane words, and the group's column.
+// lane-group kernels (wei_ladder.cu, ed_ladder.cu, ed_ends.cu,
+// wei_ends.cu): per-lane tables in shared memory (the ladders' points,
+// wei_ends.cu's powers of s), a constant point's lane words, and the
+// group's column.
 // A point of C coordinates is C * WPL words in each lane (LPT words).
 
 #pragma once

@@ -1,7 +1,7 @@
 // The ECDSA verify program around its ladder (wei_ladder.cu) on
-// secp256r1 and secp256k1 for Hopper (sm_90a), one row per thread: the
-// prologue checks a record and computes the ladder's scalars, the
-// epilogue checks the ladder's result against r.
+// secp256r1 and secp256k1 for Hopper (sm_90a), one row per group of TPI =
+// 4 lanes: the prologue checks a record and computes the ladder's
+// scalars, the epilogue checks the ladder's result against r.
 //
 // Replaces no Pallas kernel. In the reference the whole verification is
 // one jitted XLA program (corda_tpu/crypto/batch_verifier.py:9-11,
@@ -27,34 +27,46 @@
 // == X or (r + n) * Z == X (mod p), the second only where r + n < p: x_R
 // == r (mod n) without an inversion.
 //
-// Inside, field elements are 8 x 32-bit words in the R = 2^256
-// Montgomery domain mod p or mod n, fully reduced (field256.cuh's fe_mul
-// and helpers, one parameter set per modulus); load_coord and store_coord
-// convert from and to the ladder's 2^264 domain. A Montgomery product of
-// a plain value < 2^256 by a Montgomery one is plain and reduced: so z,
-// raw, multiplies 1/s straight to u1, and r and r + n multiply Z straight
-// to the values compared with X. The inverse of s is s^(n - 2), the
-// exponent's bits read from the parameters, most significant first: 256
-// squarings and a multiply per set bit.
+// Inside, as in wei_ladder.cu, field elements are 8 x 32-bit words in the
+// R = 2^256 Montgomery domain, fully reduced, spread over the row's group
+// (field256_group.cuh: lane g holds words 2g and 2g + 1), on two fields:
+// Fp (mod p) and Fn (mod n), multiplied and squared by gfe_mul (the
+// group's dedicated gfe_sqr ran ~5% slower here on the H100, PERF.md).
+// Each lane loads its own words of the record; the entries of X
+// and Z and the exits of Q convert on the group's lane 0
+// (group_load_coord, group_store_coord: field256.cuh's one-thread
+// conversions, c_in = 2^248, c_out = 2^264 mod p); comparisons are
+// ballots over the group (gfe_lt, gfe_eq, gfe_is_zero); lane 0 writes
+// u1, u2, valid and verdict. A Montgomery product of a plain value <
+// 2^256 by a Montgomery one is plain and reduced: so z, raw, multiplies
+// 1/s straight to u1, and r and r + n multiply Z straight to the values
+// compared with X. The inverse of s is s^(n - 2) by fixed 4-bit windows,
+// most significant first: a table of s^0 .. s^15 per lane in shared
+// memory (group_points.cuh's tab_put / tab_get: no bank conflict, no
+// barrier), then per window 4 squarings and, where the window is not 0,
+// a multiply by its entry; the windows are parameters, the same in every
+// thread. 252 squarings, 14 table products and 55 (p256) or 61 (k1)
+// multiplies, against 256 squarings and 169 or 196 multiplies bit by bit.
 //
-// What bounds them on this card: IMAD-rate multiplies, ~400 per row in
-// the prologue in a serial chain (each power step needs the last), 5 in
-// the epilogue. At one row per thread a 4,096-row chunk is 128 warps, one
-// per scheduler on a quarter of the card, so each warp's dependent chain
-// sets the time, not the IMAD rate. The ~350-550 bytes per row never
-// bind. Spreading a row over a lane group, as the ladders do, a window
-// for the power, or fusing these into the ladders' entry and exit is
-// later work.
+// What bounds them on this card: the prologue's dependent chain of ~340
+// field operations per row (each power step needs the last), the
+// epilogue's 5. A 4,096-row chunk is 512 warps on all 132 SMs; each
+// lane's share of an operation is a quarter, but a multiply is 16
+// dependent shuffle rounds and 4 ballots. The 210-514 bytes per row
+// never bind. Past the ragged edge a group computes on the last row
+// (every lane must reach every exchange) and writes nothing.
 
 #include <cuda_runtime.h>
 #include <string.h>
 
-#include "field256.cuh"
+#include "group_points.cuh"
 
 #define REC 160              // bytes per record
-#define BLOCK 64
+#define BLOCK 64             // threads: 16 rows
+#define WARPS (BLOCK / 32)
+#define WIN 4                // bits per window of the inverse's exponent
 
-// arithmetic mod n: fe_mul's p and pinv, and the inverse's constants
+// arithmetic mod n: group_field's p and pinv, and the inverse's constants
 struct ModN {
     uint32_t p[NW];          // n
     uint32_t pinv;           // -n^-1 mod 2^32
@@ -77,23 +89,53 @@ struct WeiEndsParams {
     ModN n;
 };
 
-// r = a^e mod n, Montgomery domain, for the exponent N.e (r must not alias a)
-__device__ __forceinline__ void pow_n(uint32_t r[NW], const uint32_t a[NW], const ModN& N) {
-    fe_copy(r, N.one);
-#pragma unroll
-    for (int j = NW - 1; j >= 0; --j) {          // unrolled: constant indices into N.e
-        const uint32_t w = N.e[j];
+// r = a^e mod n, Montgomery domain, for the exponent N.e by WIN-bit
+// windows; tab holds this warp's (1 << WIN) entries of WPL words per lane
+__device__ __forceinline__ void pow_n(uint32_t r[WPL], const uint32_t a[WPL], const ModN& N,
+                                      const GroupField& F, uint32_t* tab) {
+    uint32_t t[WPL];
+    lane_words(t, N.one, F.g);
+    tab_put<WPL>(tab, 0, t);
+    tab_put<WPL>(tab, 1, a);
+    gfe_mul(t, a, a, F);
+    tab_put<WPL>(tab, 2, t);
 #pragma unroll 1
-        for (int b = 31; b >= 0; --b) {
-            fe_mul(r, r, r, N);
-            if ((w >> b) & 1) fe_mul(r, r, a, N);  // the same branch in every thread
+    for (int e = 3; e < (1 << WIN); ++e) {
+        gfe_mul(t, t, a, F);
+        tab_put<WPL>(tab, e, t);
+    }
+    tab_get<WPL>(r, tab, N.e[NW - 1] >> (32 - WIN));
+#pragma unroll 1
+    for (int i = 256 / WIN - 2; i >= 0; --i) {
+        uint32_t w = 0;                              // the exponent's word: selects, not
+#pragma unroll                                       // an index into the parameters
+        for (int j = 0; j < NW; ++j)
+            if (j == i * WIN / 32) w = N.e[j];
+        const uint32_t d = (w >> (i * WIN % 32)) & ((1u << WIN) - 1);
+#pragma unroll
+        for (int q = 0; q < WIN; ++q) gfe_mul(r, r, r, F);
+        if (d) {                                     // the same branch in every thread
+            tab_get<WPL>(t, tab, d);
+            gfe_mul(r, r, t, F);
         }
     }
 }
 
-// 0 < v < n
-__device__ __forceinline__ bool in_range_n(const uint32_t v[NW], const ModN& N) {
-    return !fe_is_zero(v) && fe_lt(v, N.p);
+// 0 < v < n, in every lane
+__device__ __forceinline__ bool in_range(const uint32_t v[WPL], const GroupField& F) {
+    const bool zero = gfe_is_zero(v, F);
+    const bool lt = gfe_lt(v, F.p, F);
+    return !zero && lt;
+}
+
+// this lane's words -> canonical [22, B] digits of that value, by lane 0
+// where `live`
+__device__ __forceinline__ void group_store_digits(int32_t* dst, const uint32_t a[WPL],
+                                                   int batch, int col, bool live,
+                                                   const GroupField& F) {
+    uint32_t w[NW];
+    group_gather(w, a, F);
+    if (F.g == 0 && live) store_digits(dst, w, batch, col);
 }
 
 // ---------------------------------------------------------------------------
@@ -104,51 +146,63 @@ ecdsa_prologue_kernel(const WeiEndsParams P, const uint8_t* __restrict__ packed,
                       const bool* __restrict__ valid_in, int32_t* __restrict__ u1,
                       int32_t* __restrict__ u2, int32_t* __restrict__ qx,
                       int32_t* __restrict__ qy, bool* __restrict__ valid, int batch) {
-    const int col = blockIdx.x * BLOCK + threadIdx.x;
-    if (col >= batch) return;
+    __shared__ uint32_t tsh[WARPS][(1 << WIN) * WPL * 32];   // s^0 .. s^15, per lane
+    const GroupField Fp = group_field(P), Fn = group_field(P.n);
+    bool live;
+    const int col = group_col<BLOCK>(batch, &live);
     const uint8_t* rec = packed + (size_t)col * REC;
-    uint32_t z[NW], r[NW], s[NW], x[NW], y[NW];
-    load_be32(z, rec);
-    load_be32(r, rec + 32);
-    load_be32(s, rec + 64);
-    load_be32(x, rec + 96);
-    load_be32(y, rec + 128);
-    const bool r_ok = in_range_n(r, P.n);
-    const bool s_ok = in_range_n(s, P.n);
+    uint32_t z[WPL], r[WPL], s[WPL], x[WPL], y[WPL];
+    group_load_be32(z, rec, Fp);
+    group_load_be32(r, rec + 32, Fp);
+    group_load_be32(s, rec + 64, Fp);
+    group_load_be32(x, rec + 96, Fp);
+    group_load_be32(y, rec + 128, Fp);
+    const bool r_ok = in_range(r, Fn);
+    const bool s_ok = in_range(s, Fn);
 
-    // on the curve: y^2 == x^3 + a x + b (mod p), Montgomery domain
-    uint32_t xm[NW], ym[NW], lhs[NW], rhs[NW], t[NW];
-    fe_mul(xm, x, P.r2, P);
-    fe_mul(ym, y, P.r2, P);
-    fe_mul(lhs, ym, ym, P);
-    fe_mul(t, xm, xm, P);
-    fe_mul(rhs, t, xm, P);
-    fe_mul(t, xm, P.am, P);
-    fe_add(rhs, rhs, t, P);
-    fe_add(rhs, rhs, P.bm, P);
-    const bool q_ok = fe_lt(x, P.p) && fe_lt(y, P.p) && fe_eq(lhs, rhs);
+    // on the curve: y^2 == x^3 + a x + b (mod p), Montgomery domain; x
+    // and y raw (< 2^256) times r2 (< p) keep gfe_mul's contract
+    uint32_t c[WPL], xm[WPL], ym[WPL], lhs[WPL], rhs[WPL], t[WPL];
+    lane_words(c, P.r2, Fp.g);
+    gfe_mul(xm, x, c, Fp);
+    gfe_mul(ym, y, c, Fp);
+    gfe_mul(lhs, ym, ym, Fp);
+    gfe_mul(t, xm, xm, Fp);
+    gfe_mul(rhs, t, xm, Fp);
+    lane_words(c, P.am, Fp.g);
+    gfe_mul(t, xm, c, Fp);
+    gfe_add(rhs, rhs, t, Fp);
+    lane_words(c, P.bm, Fp.g);
+    gfe_add(rhs, rhs, c, Fp);
+    const bool x_ok = gfe_lt(x, Fp.p, Fp);            // every lane reaches every ballot
+    const bool y_ok = gfe_lt(y, Fp.p, Fp);
+    const bool on_curve = gfe_eq(lhs, rhs, Fp);
+    const bool q_ok = x_ok && y_ok && on_curve;
 
-    // the benign substitution
-    uint32_t one[NW];
-    fe_small(one, 1);
-    fe_select(s, s_ok, s, one);
-    fe_select(r, r_ok, r, one);
-    fe_select(x, q_ok, x, P.gx);
-    fe_select(y, q_ok, y, P.gy);
-    fe_mul(xm, x, P.r2, P);
-    fe_mul(ym, y, P.r2, P);
-    store_coord(qx, xm, batch, col, P);
-    store_coord(qy, ym, batch, col, P);
+    // the benign substitution, and Q to the 2^256 domain and out
+    const uint32_t one[WPL] = {Fp.g == 0};             // this lane's words of 1
+    lane_select(s, s_ok, s, one);
+    lane_select(r, r_ok, r, one);
+    lane_words(c, P.gx, Fp.g);
+    lane_select(x, q_ok, x, c);
+    lane_words(c, P.gy, Fp.g);
+    lane_select(y, q_ok, y, c);
+    lane_words(c, P.r2, Fp.g);
+    gfe_mul(xm, x, c, Fp);
+    gfe_mul(ym, y, c, Fp);
+    group_store_coord(qx, xm, batch, col, live, P, Fp);
+    group_store_coord(qy, ym, batch, col, live, P, Fp);
 
-    // u1 = z/s, u2 = r/s (mod n)
-    uint32_t sm[NW], w[NW], u[NW];
-    fe_mul(sm, s, P.n.r2, P.n);                          // s * 2^256 mod n
-    pow_n(w, sm, P.n);                                   // 2^256 / s mod n
-    fe_mul(u, z, w, P.n);                                // z / s, plain, reduced
-    store_digits(u1, u, batch, col);
-    fe_mul(u, r, w, P.n);
-    store_digits(u2, u, batch, col);
-    valid[col] = valid_in[col] && r_ok && s_ok && q_ok;
+    // u1 = z/s, u2 = r/s (mod n); z raw (< 2^256) times w (< n)
+    uint32_t w[WPL], u[WPL];
+    lane_words(c, P.n.r2, Fn.g);
+    gfe_mul(t, s, c, Fn);                              // s * 2^256 mod n
+    pow_n(w, t, P.n, Fn, tsh[threadIdx.x / 32]);       // 2^256 / s mod n
+    gfe_mul(u, z, w, Fn);                              // z / s, plain, reduced
+    group_store_digits(u1, u, batch, col, live, Fn);
+    gfe_mul(u, r, w, Fn);
+    group_store_digits(u2, u, batch, col, live, Fn);
+    if (Fp.g == 0 && live) valid[col] = valid_in[col] && r_ok && s_ok && q_ok;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -157,28 +211,41 @@ ecdsa_epilogue_kernel(const WeiEndsParams P, const int32_t* __restrict__ X,
                       const uint8_t* __restrict__ packed, const bool* __restrict__ valid,
                       bool* __restrict__ verdict, int batch) {
     (void)Y;
-    const int col = blockIdx.x * BLOCK + threadIdx.x;
-    if (col >= batch) return;
-    uint32_t xm[NW], zm[NW], x[NW], one[NW];
-    load_coord(xm, X, batch, col, P);
-    load_coord(zm, Z, batch, col, P);
-    fe_small(one, 1);
-    fe_mul(x, xm, one, P);                               // X, plain
-    uint32_t r[NW], c1[NW], t[NW];
-    load_be32(r, packed + (size_t)col * REC + 32);
+    const GroupField F = group_field(P);
+    bool live;
+    const int col = group_col<BLOCK>(batch, &live);
+    uint32_t xm[WPL], zm[WPL], x[WPL];
+    group_load_coord(xm, X, batch, col, P, F);
+    group_load_coord(zm, Z, batch, col, P, F);
+    const uint32_t one[WPL] = {F.g == 0};
+    gfe_mul(x, xm, one, F);                            // X, plain
+
+    // c1 = r + n, its carries resolved: the carry out of 2^256 and c1 < p
+    // gate the second candidate
+    uint32_t r[WPL], n[WPL], c1[WPL], t[WPL];
+    group_load_be32(r, packed + (size_t)col * REC + 32, F);
+    lane_words(n, P.n.p, F.g);
     uint64_t c = 0;
+    uint32_t ones = FULL_WARP;
 #pragma unroll
-    for (int j = 0; j < NW; ++j) {                       // c1 = r + n
-        c += (uint64_t)r[j] + P.n.p[j];
-        c1[j] = (uint32_t)c;
+    for (int k = 0; k < WPL; ++k) {
+        c += (uint64_t)r[k] + n[k];
+        c1[k] = (uint32_t)c;
         c >>= 32;
+        ones &= c1[k];
     }
-    const bool c1_ok = c == 0 && fe_lt(c1, P.p);
-    fe_mul(t, r, zm, P);                                 // r * Z, plain
-    const bool chk0 = fe_eq(t, x);
-    fe_mul(t, c1, zm, P);                                // (r + n) * Z, plain
-    const bool chk1 = c1_ok && fe_eq(t, x);
-    verdict[col] = valid[col] && !fe_is_zero(zm) && (chk0 || chk1);
+    const uint32_t cin = group_carries(c != 0, ones == FULL_WARP, F);
+    add_bit(c1, (cin >> F.g) & 1);
+    const bool c1_lt = gfe_lt(c1, F.p, F);
+    const bool c1_ok = ((cin >> TPI) & 1) == 0 && c1_lt;
+
+    // r and c1 (< 2^256, raw) times Z (< p); both checks in every row
+    gfe_mul(t, r, zm, F);                              // r * Z, plain
+    const bool chk0 = gfe_eq(t, x, F);
+    gfe_mul(t, c1, zm, F);                             // (r + n) * Z, plain
+    const bool chk1 = gfe_eq(t, x, F);
+    const bool z_zero = gfe_is_zero(zm, F);
+    if (F.g == 0 && live) verdict[col] = valid[col] && !z_zero && (chk0 || (c1_ok && chk1));
 }
 
 // ---------------------------------------------------------------------------
@@ -209,7 +276,10 @@ extern "C" int corda_wei_ends_kernel_info(int which, const uint32_t* params, int
     return (int)e;
 }
 
-static dim3 grid_of(int batch) { return dim3((unsigned)((batch + BLOCK - 1) / BLOCK)); }
+// TPI threads per row
+static dim3 grid_of(int batch) {
+    return dim3((unsigned)(((long long)batch * TPI + BLOCK - 1) / BLOCK));
+}
 
 extern "C" int corda_ecdsa_prologue(const uint32_t* params, const uint8_t* packed,
                                     const bool* valid_in, int32_t* u1, int32_t* u2, int32_t* qx,

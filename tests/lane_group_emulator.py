@@ -22,7 +22,8 @@ exchange is written before the first group reads it.
 
 FIELD_BODY is a group body for one field operation per row (a `main`'s
 mode 2): op 0 the source's multiply FIELD_MUL, 1 gfe_add, 2 gfe_sub, 3
-gfe_sqr_25519 beside FIELD_MUL(a, a).
+its square FIELD_SQR (gfe_sqr_25519 beside gfe_mul_25519, gfe_sqr beside
+gfe_mul) beside FIELD_MUL(a, a).
 
 It checks arithmetic, carries between lanes, conversions and ragged
 edges, not the GPU's compiler or memory model, which only chip_smoke.py
@@ -154,9 +155,9 @@ static void __syncwarp(uint32_t = 0xffffffffu) {
 """
 
 # One field operation per row for mode 2, on 8-word operands fa, fb:
-# fr gets (a op b, b op a), or for op 3 (a^2 by gfe_sqr_25519, a * a by
+# fr gets (a op b, b op a), or for op 3 (a^2 by FIELD_SQR, a * a by
 # FIELD_MUL). The including main declares P and batch and sets the
-# buffers.
+# buffers, and names FIELD_MUL and FIELD_SQR.
 FIELD_BODY = r"""
 static const int32_t* fop;
 static uint32_t *fa, *fb, *fr;
@@ -171,7 +172,7 @@ static void field_body() {
     case 0: FIELD_MUL(r, a, b, F); FIELD_MUL(s, b, a, F); break;
     case 1: gfe_add(r, a, b, F); gfe_add(s, b, a, F); break;
     case 2: gfe_sub(r, a, b, F); gfe_sub(s, b, a, F); break;
-    default: gfe_sqr_25519(r, a, F); FIELD_MUL(s, a, a, F); break;
+    default: FIELD_SQR(r, a, F); FIELD_MUL(s, a, a, F); break;
   }
   group_gather(w, r, F);
   if (F.g == 0 && col < batch) memcpy(fr + 16 * col, w, sizeof(w));

@@ -1,10 +1,11 @@
 """chip_smoke.py's host-side arithmetic, on the CPU: the bound model
-(`_ladder_ops`, the IMAD count a ladder needs for given scalars) and the
-dispatch order a streamed flush is checked against; and rehearsals of
-its notary phases (6: the flush with its codec check; 7: every scheme
-and attachment code, against the reference notary's answers; 8: the
-flows) at a small size, with counted plain versions standing in for
-the kernels. Phases 9, 10 and 11 are rehearsed in
+(`_ladder_ops`, the IMAD count a ladder needs for given scalars;
+`_ends_ops` for the prologues and epilogues) and the dispatch order a
+streamed flush is checked against; and rehearsals of its notary phases
+(6: the flush with its codec check; 7: every scheme and attachment
+code, against the reference notary's answers) at a small size, with
+counted plain versions standing in for the kernels. Phase 8 (the flows)
+is rehearsed in test_torch_chip_smoke_flows.py, 9, 10 and 11 in
 test_torch_chip_smoke_nodes.py, 12 and 13 in
 test_torch_chip_smoke_drives.py, 14 in test_torch_chip_smoke_planes.py."""
 
@@ -117,6 +118,30 @@ def _chain_250():
     return z11, mul(sqr_n(t1, 50), t0), count["sq"], count["mul"]
 
 
+def _window_power(s: int, e: int, n: int):
+    """s^e mod n by wei_ends.cu's pow_n schedule, counting: a table of
+    s^0 .. s^15 (s^2 a square, s^3 .. s^15 a multiply each), the top
+    4-bit window's entry, then per window below it 4 squares and a
+    multiply by its entry where it is not 0; (value, squares,
+    multiplies)."""
+    count = {"sq": 0, "mul": 0}
+    tab = [1, s, s * s % n]
+    count["sq"] += 1
+    for _ in range(3, 16):
+        tab.append(tab[-1] * s % n)
+        count["mul"] += 1
+    r = tab[e >> 252]
+    for i in range(62, -1, -1):
+        for _ in range(4):
+            r = r * r % n
+            count["sq"] += 1
+        d = (e >> (4 * i)) & 15
+        if d:
+            r = r * tab[d] % n
+            count["mul"] += 1
+    return r, count["sq"], count["mul"]
+
+
 def test_ends_work_by_hand():
     """The prologue and epilogue kernels' multiplies, squares and entry
     folds per row (ENDS_WORK), by hand from the sources: ed25519's
@@ -124,9 +149,11 @@ def test_ends_work_by_hand():
     squares, 10 multiplies); on plain values, the decoding's 10 other
     multiplies (2 of them the exits) and 4 squares; the epilogue's 3
     loads, 2 affine multiplies, 1 more in the chain; the ECDSA
-    prologue's 11 multiplies and 2 squares beside
-    s^(n - 2), which _ends_ops adds per set bit; the ECDSA epilogue's 2
-    loads and 3 multiplies."""
+    prologue's 11 multiplies and 2 squares beside s^(n - 2), whose
+    4-bit windows take 253 squares and 13 multiplies (the table's s^2
+    .. s^15, 4 squares per window below the top one), and a multiply
+    per such window that is not 0 (55 for p256, 61 for k1, which
+    _ends_ops adds); the ECDSA epilogue's 2 loads and 3 multiplies."""
     p = ED25519.p
     z11, t250, sq, mul = _chain_250()
     assert (z11, t250, sq, mul) == (11, (1 << 250) - 1, 249, 10)
@@ -134,12 +161,15 @@ def test_ends_work_by_hand():
     assert cs.ENDS_WORK == {
         "ed_prologue": (10 + mul + 1, 4 + sq + 2, 0),
         "ed_epilogue": (3 + mul + 1 + 2, sq + 5, 3),
-        "ecdsa_prologue": (11, 2 + 256, 0),
+        "ecdsa_prologue": (11 + 13, 2 + 1 + 252, 0),
         "ecdsa_epilogue": (2 + 3, 0, 2),
     }
-    for curve in (SECP256R1, SECP256K1):
-        bits = bin(curve.n - 2).count("1")
-        assert cs._ends_ops("ecdsa_prologue", curve, 3) == 3 * cs._cost(11 + bits, 258)
+    for curve, windows in ((SECP256R1, 55), (SECP256K1, 61)):
+        n = curve.n
+        w, sq, mul = _window_power(12345, n - 2, n)
+        assert w * 12345 % n == 1 and (sq, mul) == (1 + 252, 13 + windows)
+        assert cs._window_mults(n - 2) == windows
+        assert cs._ends_ops("ecdsa_prologue", curve, 3) == 3 * cs._cost(11 + mul, 2 + sq)
     # ed25519 at the special-form costs of p = 2^255 - 19 (144, 88)
     assert (cs.ED_MUL_OPS, cs.ED_SQR_OPS) == (144, 88)
     assert cs._ends_ops("ed_epilogue", ED25519, 2) == 2 * (16 * 144 + 254 * 88 + 3 * 64)
@@ -312,29 +342,6 @@ def test_every_scheme_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread
     r_answers = tn._drive(r_svc, [tn.rser.decode(tn.pser.encode(s)) for s in sf.spends],
                           requester)
     assert [answer_kind(a) for a in r_answers] == sf.labels
-
-
-def test_flow_phase_rehearsed_on_the_cpu(monkeypatch, capsys, one_thread):
-    """chip_smoke.phase_flows on the CPU: drive 1 (8a) in full, the
-    batching notary's flush (8b) at 2 payers of one coin each for shards
-    1 and 4, and 8a again over CpuBatchVerifier (8c), whose ledger must
-    equal the device path's; the kernels' plain versions stand in for
-    the kernels and count a launch each, so the phase's launch check of
-    ed_ladder, wei_ladder_windowed and wei_ladder runs too."""
-    import torch
-
-    _counted_plain_versions(monkeypatch)
-    monkeypatch.setattr(cs, "FLOW_PAYERS", 2)
-    monkeypatch.setattr(cs, "FLOW_COINS", 1)
-    monkeypatch.setattr(cs, "FLOW_BATCHES", (4,))
-    launches = cs.phase_flows(torch.device("cpu"), "cpu rehearsal")
-    assert launches["ed_ladder"] and launches["wei_ladder_windowed"] and launches["wei_ladder"]
-    out = capsys.readouterr().out
-    assert "flow drive (8a): 6 flows completed and 3 refused" in out
-    assert "'double spend Alice -> Carol', 'NotaryException', 'conflict'" in out
-    assert "flow flush (8b) shards=1: 2 payments" in out and "1 dispatch(es), 2 rows" in out
-    assert "flow flush (8b) shards=4: 2 payments" in out
-    assert "flow drive (8c) over CpuBatchVerifier" in out
 
 
 class _RecordingCpu:

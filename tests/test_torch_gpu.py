@@ -236,13 +236,14 @@ def test_ed_ends_kernels_match_plain(cuda, B):
 
 
 @pytest.mark.parametrize("curve", [SECP256R1, SECP256K1], ids=["p256", "k1"])
-@pytest.mark.parametrize("B", [130, 1])
+@pytest.mark.parametrize("B", [130, 1, 3, 4097])
 def test_ecdsa_ends_kernels_match_plain(cuda, curve, B):
-    """ecdsa_prologue_kernel and ecdsa_epilogue_kernel equal their plain
-    versions at B=130 and B=1 on the crafted rows of
-    selfcheck.ecdsa_prologue_rows / ecdsa_epilogue_rows (z >= n, r and s
-    out of range, Q off the curve or >= p, the r + n row; r + n >= p,
-    r = 2^256 - 1, Z = 0); exact."""
+    """ecdsa_prologue_kernel and ecdsa_epilogue_kernel (a row per group
+    of 4 lanes) equal their plain versions at B=130, B=1, B=3 (a partial
+    group) and B=4097 (a ragged group at the chunk's end) on the crafted
+    rows of selfcheck.ecdsa_prologue_rows / ecdsa_epilogue_rows (z >= n,
+    r and s out of range, Q off the curve or >= p, the r + n row; r + n
+    >= p, r = 2^256 - 1, Z = 0); exact."""
     from corda_tpu_torch.crypto import ecdsa
     from corda_tpu_torch.testing import selfcheck
 

@@ -101,7 +101,7 @@ def _build(cxx, name, d):
             .replace("PARAMS", params).replace("WORDS", str(words))
             .replace("NOUT", str(n_out)).replace("PLAIN", plain).replace("WINDOWED", windowed)
             .replace("OUTS", ", ".join(f"o[{i}]" for i in range(n_out)))
-            .replace("FIELD_MUL", mul))
+            .replace("FIELD_MUL", mul).replace("FIELD_SQR", mul.replace("mul", "sqr")))
     return build(cxx, name, main, d)
 
 

@@ -3,23 +3,25 @@
 There is no nvcc and no card on the CPU test machines, so this test
 compiles `corda_tpu_torch/csrc/ed_ends.cu` and `wei_ends.cu` (with their
 headers) with the host C++ compiler behind the shim of
-`lane_group_emulator.py` and runs each kernel body as on the card: the
-ed25519 pair one row per group of TPI lanes, each lane a coroutine of
-the emulator (every group of the grid, those past the ragged edge too),
-the ECDSA pair one row per thread. The rows are those of
-`testing/selfcheck.py`'s `*_prologue_rows` and `*_epilogue_rows` (the
-crafted edge rows first, then staged requests) at B = 1 and B = 130 (a
-partial group, warp and block). Every output must equal the plain torch
-version's on the same rows: verdicts and raw digits exactly, points
-after reduction mod p (the kernels return canonical digits, the plain
-versions lazily reduced ones); the kernels' digits must be canonical.
-The ed25519 source's dedicated squaring is held against its multiply
-and Python ints on edge operands.
+`lane_group_emulator.py` and runs each kernel body as on the card, one
+row per group of TPI lanes, each lane a coroutine of the emulator (every
+group of the grid, those past the ragged edge too). The rows are those
+of `testing/selfcheck.py`'s `*_prologue_rows` and `*_epilogue_rows`
+(the crafted edge rows first, then staged requests) at B = 1 and B = 130
+(a partial group, warp and block), the ECDSA prologue at B = 41 (its 39
+distinct rows, and a partly filled last block; its 340 field operations
+per row are the emulator's slowest). Every output must equal the plain
+torch version's on the same rows: verdicts and raw digits exactly,
+points after reduction mod p (the kernels return canonical digits, the
+plain versions lazily reduced ones); the kernels' digits must be
+canonical. Each source's dedicated squaring (gfe_sqr_25519 mod 2^255 -
+19; the Montgomery gfe_sqr mod p and mod n of both secp curves) is held
+against its multiply and Python ints on edge operands.
 
-It checks the arithmetic, the power chains, the domain conversions,
-the byte order, the exchanges between lanes and the ragged edge, not
-the GPU's compiler, which only chip_smoke.py and tests/test_torch_gpu.py
-reach. Skips where no C++ compiler is installed.
+It checks the arithmetic, the power chains and windows, the domain
+conversions, the byte order, the exchanges between lanes and the ragged
+edge, not the GPU's compiler, which only chip_smoke.py and
+tests/test_torch_gpu.py reach. Skips where no C++ compiler is installed.
 """
 
 import random
@@ -38,8 +40,9 @@ from corda_tpu_torch.crypto.curves import ED25519, SECP256K1, SECP256R1  # noqa:
 from corda_tpu_torch.testing import selfcheck  # noqa: E402
 from lane_group_emulator import FIELD_BODY, build, compiler  # noqa: E402
 
-# per source: (params struct, the prologue's call, the epilogue's call);
-# in[i] and out[i] are the i-th input and output buffers
+# per source: (params struct, the prologue's call, the epilogue's call,
+# its field multiply and square); in[i] and out[i] are the i-th input and
+# output buffers
 SOURCES = {
     "ed_ends": ("EdEndsParams",
                 "ed_prologue_kernel(P, (const uint8_t*)in[0], (const int32_t*)in[1], "
@@ -47,14 +50,16 @@ SOURCES = {
                 "(int32_t*)out[3], (bool*)out[4], batch)",
                 "ed_epilogue_kernel(P, (const int32_t*)in[0], (const int32_t*)in[1], "
                 "(const int32_t*)in[2], (const uint8_t*)in[3], (const int32_t*)in[4], "
-                "(const bool*)in[5], (bool*)out[0], batch)"),
+                "(const bool*)in[5], (bool*)out[0], batch)",
+                "gfe_mul_25519", "gfe_sqr_25519"),
     "wei_ends": ("WeiEndsParams",
                  "ecdsa_prologue_kernel(P, (const uint8_t*)in[0], (const bool*)in[1], "
                  "(int32_t*)out[0], (int32_t*)out[1], (int32_t*)out[2], (int32_t*)out[3], "
                  "(bool*)out[4], batch)",
                  "ecdsa_epilogue_kernel(P, (const int32_t*)in[0], (const int32_t*)in[1], "
                  "(const int32_t*)in[2], (const uint8_t*)in[3], (const bool*)in[4], "
-                 "(bool*)out[0], batch)"),
+                 "(bool*)out[0], batch)",
+                 "gfe_mul", "gfe_sqr"),
 }
 
 MAIN = r"""
@@ -66,9 +71,7 @@ static void row_body() {
   if (mode == 0) PROLOGUE; else EPILOGUE;
 }
 
-#ifdef TPI
 FIELD_BODY
-#endif
 
 static void* read_buf(FILE* f, int* len) {
   if (fread(len, 4, 1, f) != 1) exit(3);
@@ -78,7 +81,7 @@ static void* read_buf(FILE* f, int* len) {
 }
 
 int main(int argc, char** argv) {
-  mode = atoi(argv[1]);   // 0 prologue, 1 epilogue, 2 field operations (lane groups)
+  mode = atoi(argv[1]);   // 0 prologue, 1 epilogue, 2 field operations
   FILE* f = fopen(argv[2], "rb");
   int words, n_in, n_out, len, out_len[8];
   if (fread(&batch, 4, 1, f) != 1 || fread(&words, 4, 1, f) != 1) return 3;
@@ -91,7 +94,6 @@ int main(int argc, char** argv) {
     out[i] = calloc(out_len[i] + 1, 1);
   }
   fclose(f);
-#ifdef TPI
   void (*body)() = row_body;
   if (mode == 2) {
     fop = (const int32_t*)in[0]; fa = (uint32_t*)in[1]; fb = (uint32_t*)in[2]; fr = (uint32_t*)out[0];
@@ -99,15 +101,6 @@ int main(int argc, char** argv) {
   }
   for (int blk = 0; blk * BLOCK < batch * TPI; ++blk)
     for (int t = 0; t < BLOCK; t += TPI) emu_run_group(blk, t, TPI, body);
-#else
-  if (mode == 2) return 5;
-  for (int blk = 0; blk * BLOCK < batch; ++blk)
-    for (int t = 0; t < BLOCK; ++t) {
-      blockIdx.x = blk;
-      threadIdx.x = t;
-      row_body();
-    }
-#endif
   f = fopen(argv[3], "wb");
   for (int i = 0; i < n_out; ++i) fwrite(out[i], 1, out_len[i], f);
   fclose(f);
@@ -117,9 +110,10 @@ int main(int argc, char** argv) {
 
 
 def _build(cxx, name, d):
-    params, prologue, epilogue = SOURCES[name]
-    main = (MAIN.replace("FIELD_BODY", FIELD_BODY).replace("FIELD_MUL", "gfe_mul_25519")
-            .replace("PARAMS", params).replace("PROLOGUE", prologue).replace("EPILOGUE", epilogue))
+    params, prologue, epilogue, mul, sqr = SOURCES[name]
+    main = (MAIN.replace("FIELD_BODY", FIELD_BODY).replace("FIELD_MUL", mul)
+            .replace("FIELD_SQR", sqr).replace("PARAMS", params).replace("PROLOGUE", prologue)
+            .replace("EPILOGUE", epilogue))
     return build(cxx, name, main, d)
 
 
@@ -167,6 +161,8 @@ def _canonical(a, p):
 
 
 BATCHES = [1, 130]
+# the ECDSA prologue: its 39 distinct rows once, the last block part filled
+ECDSA_PROLOGUE_BATCHES = [1, 41]
 
 
 def _t(a):
@@ -237,13 +233,52 @@ def test_gfe_sqr_25519_on_host_matches_mul_and_ints(host):
     assert n > 90
 
 
+def _square_operands(m: int, rng) -> list[int]:
+    """0, 1, m - 1, m - 2, values of all-ones words below m (2^32k - 1,
+    m - 2^32k, 2^256 - 2^32k mod m), 2^256 mod m, halves of m and 64
+    seeded values."""
+    vals = {0, 1, 2, m - 1, m - 2, (m - 1) // 2, (m + 1) // 2, (1 << 256) % m}
+    vals |= {(1 << (32 * k)) - 1 for k in range(1, 8)}
+    vals |= {m - (1 << (32 * k)) for k in range(1, 8)}
+    vals |= {((1 << 256) - (1 << (32 * k))) % m for k in range(1, 8)}
+    vals |= {rng.randrange(m) for _ in range(64)}
+    return sorted(v for v in vals if v < m)
+
+
+@pytest.mark.parametrize("modulus", ["p", "n"])
 @pytest.mark.parametrize("curve", [SECP256R1, SECP256K1], ids=["p256", "k1"])
-@pytest.mark.parametrize("batch", BATCHES)
+def test_gfe_sqr_on_host_matches_mul_and_ints(host, curve, modulus):
+    """field256_group.cuh's gfe_sqr, the Montgomery square (built in
+    wei_ends.cu, which squares with it mod p and mod n), each lane of a
+    group holding its words, on 0, 1, m - 1, m - 2, values of all-ones
+    words below m, halves of m and 64 seeded values, for m = p and m = n:
+    equal to gfe_mul(a, a) and to a^2 2^-256 mod m from Python ints for
+    every operand; exact."""
+    m = curve.p if modulus == "p" else curve.n
+    vals = _square_operands(m, random.Random(31))
+    n = len(vals)
+    # WeiEndsParams with m in place of p: p is its first 8 words, pinv word 32
+    params = cuda_ec.wei_ends_params(curve).copy()
+    params[:8] = [(m >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+    params[32] = (-pow(m, -1, 1 << 32)) % (1 << 32)
+    words = np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for v in vals], np.uint32)
+    (got,) = _run(host, "wei_ends", 2, params, n,
+                  [np.full(n, 3, np.int32), words, words], [(np.uint32, (n, 16))])
+    ints = [[sum(int(w) << (32 * i) for i, w in enumerate(half)) for half in (row[:8], row[8:])]
+            for row in got]
+    rinv = pow(1 << 256, -1, m)
+    bad = [(v, sq, mul) for v, (sq, mul) in zip(vals, ints) if not sq == mul == v * v * rinv % m]
+    assert not bad, bad[:4]
+    assert n > 90
+
+
+@pytest.mark.parametrize("curve", [SECP256R1, SECP256K1], ids=["p256", "k1"])
+@pytest.mark.parametrize("batch", ECDSA_PROLOGUE_BATCHES)
 def test_ecdsa_prologue_kernel_on_host_matches_plain(host, curve, batch):
-    """ecdsa_prologue_kernel on ecdsa_prologue_rows (z >= n, r or s 0,
-    n, n - 1 or 2^256 - 1, coordinates >= p, Q off the curve, Q = G, the
-    r + n row, valid_in False, staged requests): u1, u2 digits and valid
-    exact, Q equal mod p and canonical; exact."""
+    """ecdsa_prologue_kernel on ecdsa_prologue_rows (z >= n and z =
+    2^256 - 1, r or s 0, n, n - 1 or 2^256 - 1, coordinates >= p, Q off
+    the curve, Q = G, the r + n row, valid_in False, staged requests):
+    u1, u2 digits and valid exact, Q equal mod p and canonical; exact."""
     packed, valid = selfcheck.ecdsa_prologue_rows(curve, batch, seed=13)
     d = (np.int32, (22, batch))
     got = _run(host, "wei_ends", 0, cuda_ec.wei_ends_params(curve), batch, [packed, valid],

@@ -8,8 +8,10 @@ timing and 4 run first, in this process alone. Then the phases run in
 five processes at once on the one card (QUIET, HOME and LANES below
 main): here 3's parity, 5, 6, 8 and 14; in four lanes (this script with
 `--lane`, each printing what it prints into a file, relayed after this
-process's own lines) 11, 13, 15 and 7; 16 and 10; 12, 17 and 9; 18 and 19. A lane
-without phase 6 builds the same fixture itself. The parts that count
+process's own lines) 11, 13, 15 and 7; 16 and 10; 12, 17 and 9; 18 and
+19. Once every lane has finished, 20 runs here alone (LAST): its CPU
+reference pass would load the host under the phases it overlapped. A
+lane without phase 6 builds the same fixture itself. The parts that count
 the card's CUDA contexts (11c, 11d, 12a, 18c) hold a lock that no other part
 starting or stopping a card process holds meanwhile, and every lane
 keeps its context until all have finished. Walls and rates of phases
@@ -232,8 +234,9 @@ keeps its context until all have finished. Walls and rates of phases
      quarter is answered worker 0 gets SIGKILL; its unanswered nonces
      re-dispatch to the survivor when its lease expires. Every answer
      must be its label, every future answered once and only worker 0
-     lost (the pool's attempt and request deadlines and its lease are
-     set past the burst); prints the survivor's longest silence at the
+     lost, at the pool's default lease (its attempt and request
+     deadlines are set past the burst); prints the survivor's longest
+     gap between two of its frames (answers or WorkerReady) at the
      node beside the lease,
      verified transactions/s, the seconds to deliver the frames
      through the journals against the seconds to answer them, gc
@@ -495,14 +498,26 @@ keeps its context until all have finished. Walls and rates of phases
      libraries phase 2 built, which it must reuse, one valid and one
      tampered row per scheme. The three kernels of 19a and the two of
      19b must launch; prints each part's seconds and the phase's wall;
- 20. print the kernel table as one JSON line (all eight kernels, the
+ 20. the full-width parity record: selfcheck.run_full(2048) on the card
+     (testing/selfcheck.py; the reference's tpu_selfcheck.run_full), the
+     launch counters set to 0 before it and read after: 2,048
+     adversarial rows of p256, secp256k1 and ed25519 (1 in 8 each a
+     wrong message, a flipped byte, a truncated signature) through
+     CudaBatchVerifier(batch_sizes=(4096,)) with the windowed and then
+     the bit ladders, every row equal to one CPU reference pass, the
+     record written to a temporary file (never the committed
+     KERNEL_PARITY_FULL_TORCH.json). Both generations' tallies must be
+     equal and every one of the eight kernels must launch; prints the
+     tallies, the walls and the launches;
+ 21. print the kernel table as one JSON line (all eight kernels, the
      prologue and epilogue rows with phase 4's times and bounds, p256's
      for the ECDSA ones; with each kernel's launches in phase 10 as "clusters_launches", in 11a-11b as
      "nodes_launches", in 12b-12d as "drives_launches", in 13a-13c as
      "telemetry_launches", in 14a-14d as "planes_launches", in 15a-15c
      as "xshard_launches", in 16a-16d as "web_launches", in 17a-17d as
-     "samples_launches", in 18a-18b as "fleet_launches" and in 19a-19b
-     as "shards_launches"), then the result line {"ok": true, "device":
+     "samples_launches", in 18a-18b as "fleet_launches", in 19a-19b
+     as "shards_launches" and in 20 as "parity_launches"), then the
+     result line {"ok": true, "device":
      {...}}.
 
 Imports nothing of JAX or of the corda_tpu package.
@@ -2693,8 +2708,6 @@ TCP_POOL_WINDOW = 256        # 11d: a worker's --batch-window (requests per hand
 TCP_POOL_KILL_AT = 0.25      # 11d: share of answers after which worker 0 gets SIGKILL
 TCP_POOL_DEADLINE = 600_000_000   # 11d: the pool's attempt and request deadlines (µs)
 TCP_POOL_REQUESTS = 2048     # 11d: the first phase-6 spends as requests (16,384, 4,096 cut)
-TCP_POOL_LEASE = 30_000_000  # 11d: the pool's lease (µs) for the burst; the default 10 s
-#                              is shorter than a heartbeat's wait behind the burst's frames
 
 
 class _NodeRig:
@@ -3167,8 +3180,8 @@ def _pool_state(svc, root: str) -> str:
 
 
 def _silence(heard: dict, worker: str, t0: float) -> float:
-    """The longest time since `t0` in which the node processed no
-    heartbeat of `worker`, the gap after its last one included."""
+    """The longest time since `t0` in which the node processed no frame
+    of `worker`, the gap after its last one included."""
     last, longest = heard.get(worker, (t0, 0.0))
     return max(longest, time.perf_counter() - last)
 
@@ -3184,19 +3197,19 @@ def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
     share of the batch unanswered whatever the timing, and every (ltx,
     stx) goes through the pool over the durable journals. Once
     TCP_POOL_KILL_AT of the answers are in, worker 0 gets SIGKILL: its
-    nonces re-dispatch to the survivor when its lease expires. A
-    worker's heartbeats ride the same journaled frames as its answers,
-    so under the burst the node processes them further apart than the
-    default 10 s lease and can detach the survivor too (ROADMAP Queue
-    3): the burst runs with a lease of TCP_POOL_LEASE. Raises unless
-    every future is answered exactly once and only worker 0 was lost;
-    returns the answers and the figures, with the survivor's longest
-    silence at the node (seconds between two of its heartbeats that
-    the node processed)."""
+    nonces re-dispatch to the survivor when its lease expires. The pool
+    keeps its default lease: a worker's heartbeats ride the same
+    journaled frames as its answers, and each answer renews the lease
+    too. Raises unless every future is answered exactly once and only
+    worker 0 was lost (the survivor attached once); returns the answers
+    and the figures, with the survivor's longest silence at the node
+    (seconds between two of its frames, answers or heartbeats, that the
+    node processed)."""
     import dataclasses
     import os
     import signal
 
+    from corda_tpu_torch.node import messaging as msglib
     from corda_tpu_torch.node.config import NodeConfig
     from corda_tpu_torch.node.node import Node
     from corda_tpu_torch.node.verifier import TOPIC_READY
@@ -3208,11 +3221,9 @@ def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
                            verifier_type="out_of_process")).start()
     svc = node.verifier_service
     # a burst of thousands of requests queues past the pool's default
-    # 5 s attempt and 30 s request deadlines, and can hold the survivor's
-    # heartbeats back past the default 10 s lease
+    # 5 s attempt and 30 s request deadlines
     svc.policy = dataclasses.replace(svc.policy, attempt_timeout_micros=TCP_POOL_DEADLINE,
-                                     request_timeout_micros=TCP_POOL_DEADLINE,
-                                     lease_micros=TCP_POOL_LEASE)
+                                     request_timeout_micros=TCP_POOL_DEADLINE)
     workers = []
     base = _cuda_contexts() if check_contexts else 0
     contexts = None
@@ -3240,14 +3251,15 @@ def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
                 raise RuntimeError(f"{label}: {contexts - base} new CUDA contexts for "
                                    f"{POOL_WORKERS} workers ({_smi_apps().strip()!r})")
         workers[0].send_signal(signal.SIGSTOP)
-        heard: dict = {}       # worker -> (last heartbeat processed, longest silence)
+        heard: dict = {}       # worker -> (last frame processed, longest silence)
 
-        def on_ready(msg):
+        def on_frame(msg):
             now = time.perf_counter()
             last, longest = heard.get(msg.sender, (now, 0.0))
             heard[msg.sender] = (now, max(longest, now - last))
 
-        node.messaging.add_handler(TOPIC_READY, on_ready)
+        for topic in (TOPIC_READY, msglib.TOPIC_VERIFIER_RES):
+            node.messaging.add_handler(topic, on_frame)
         m = svc.metrics
         success = m.meter("TransactionVerifierService.Verification.Success")
         failure = m.meter("TransactionVerifierService.Verification.Failure")
@@ -3288,9 +3300,11 @@ def pool_tcp_drive(root: str, ltxs, stxs, cpu_workers: bool = False,
         if accepted != n or svc.in_flight:
             raise RuntimeError(f"{label}: {accepted} answers accepted for {n} requests; "
                                f"{_pool_state(svc, root)}")
-        if killed_at is None or lost != 1 or redispatched == 0:
+        attached = [svc.incarnation_of(f"w{k}") for k in range(POOL_WORKERS)]
+        if killed_at is None or lost != 1 or redispatched == 0 or attached[1:] != [1]:
             raise RuntimeError(f"{label}: killed at {killed_at}, workers lost {lost}, "
-                               f"redispatched {redispatched}; {_pool_state(svc, root)}")
+                               f"redispatched {redispatched}, attachments by worker "
+                               f"{attached}; {_pool_state(svc, root)}")
         stop_s = _stop_process(workers[1], f"{label} w1", signal.SIGINT)
         with open(os.path.join(root, "w1.err")) as f:
             summary = [line.strip() for line in f if line.startswith("verifier worker")]
@@ -3406,8 +3420,9 @@ def phase_nodes(device, card: str, fx) -> dict:
           f"worker 0 frozen before the batch and killed after {pool['killed_at'][1]} answers "
           f"at {pool['killed_at'][0]:.3f} "
           f"s, workers lost {pool['lost']}, redispatched {pool['redispatched']}; the "
-          f"survivor's longest silence at the node {pool['silence_s']:.3f} s of its "
-          f"{pool['lease_s']:g} s lease; survivor "
+          f"survivor's longest gap between two of its frames at the node "
+          f"{pool['silence_s']:.3f} s of its {pool['lease_s']:g} s lease (the default), "
+          f"attached once; survivor "
           f"{pool['survivor']}, SIGINT exit 0 in {pool['stop_s']:.3f} s; CUDA contexts "
           f"{pool['contexts'][0]} before the workers, {pool['contexts'][1]} after their warm-up "
           f"requests; {card}")
@@ -6496,19 +6511,61 @@ def phase_shards(device, card: str) -> dict:
     return {"launches": launches, "notary": out, "prewarm": warm}
 
 
+# -- phase 20: the full-width parity record --------------------------------
+
+PARITY_FULL_N = 2048         # 20: selfcheck.run_full's rows (the reference's default)
+
+
+def phase_parity_full(device, card: str) -> dict:
+    """Phase 20 (module docstring): selfcheck.run_full on the card into a
+    temporary file; returns the record and the launches."""
+    import tempfile
+
+    from corda_tpu_torch.testing import selfcheck
+
+    t_phase = time.perf_counter()
+    _zero_counters()
+    with tempfile.TemporaryDirectory(prefix="parity-") as tmp:
+        path = os.path.join(tmp, "parity.json")
+        record = selfcheck.run_full(PARITY_FULL_N, device=str(device), out_path=path,
+                                    generated_by="chip_smoke.py phase 20")
+        with open(path) as f:
+            if json.load(f) != record:
+                raise RuntimeError("full parity (20): the written record is not run_full's")
+    launches = _read_counters()
+    tallies = {(r["accepts"], r["rejects"]) for r in record["runs"]}
+    if record["result"] != "bit-exact" or len(record["runs"]) != 2 or len(tallies) != 1:
+        raise RuntimeError(f"full parity (20): {json.dumps(record)}")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise RuntimeError(f"full parity (20): {idle} never launched")
+    for r in record["runs"]:
+        print(f"full parity (20): windowed={r['windowed']}: {r['accepts']} accepted, "
+              f"{r['rejects']} rejected of {record['n']} rows at batch {record['batch_size']}, "
+              f"every row the CPU reference's, in {r['device_wall_s']} s; launches "
+              f"{json.dumps(r['launches'])}")
+    print(f"full parity (20): the CPU reference pass {record['cpu_reference_wall_s']} s; "
+          f"backend {record['backend']}, {record['result']}, card {record['card']}")
+    print(f"parity (ph. 20) launches: {json.dumps(launches)}; wall "
+          f"{time.perf_counter() - t_phase:.3f} s; {card}")
+    return {"launches": launches, "record": record}
+
+
 # Where each phase runs. The card is idle most of a phase's wall (its
 # time goes to torch-op launches on the host, node processes and
 # timeouts: PERF.md section 5), so after QUIET, which runs alone (the
 # kernel table's times, the host's torch-op rate), the phases run in
 # five processes at once on the one card: this one (HOME) and four
-# lanes, each this script with `--lane`.
+# lanes, each this script with `--lane`. LAST runs here once they
+# have all finished.
 QUIET = ("3 timing", "4")
 HOME = ("3 parity", "5", "6", "8", "14")
 LANES = (("11", "13", "15", "7"), ("16", "10"), ("12", "17", "9"), ("18", "19"))
+LAST = ("20",)               # here, after the lanes: nothing measured runs beside it
 LANE_TIMEOUT = 1100.0        # s a lane may take before the run fails
 COLUMNS = ("clusters_launches", "nodes_launches", "drives_launches", "telemetry_launches",
            "planes_launches", "xshard_launches", "web_launches", "samples_launches",
-           "fleet_launches", "shards_launches")
+           "fleet_launches", "shards_launches", "parity_launches")
 
 
 def run_phases(ids, device, card: str, report: dict) -> tuple:
@@ -6562,6 +6619,8 @@ def run_phases(ids, device, card: str, report: dict) -> tuple:
             columns["fleet_launches"] = phase_tools(device, card)["launches"]
         elif pid == "19":
             columns["shards_launches"] = phase_shards(device, card)["launches"]
+        elif pid == "20":
+            columns["parity_launches"] = phase_parity_full(device, card)["launches"]
         else:
             raise ValueError(f"no phase {pid!r}")
         walls[pid] = round(time.perf_counter() - t, 1)
@@ -6712,6 +6771,9 @@ def main(argv=None) -> int:
             for lane in lanes:
                 lane.kill()
     walls.update(home)
+    last, last_columns = run_phases(LAST, device, card, report)
+    walls.update(last)
+    columns.update(last_columns)
     for lane, result in zip(lanes, finished):
         print(f"--- lane {', '.join(lane.ids)} (its own process, beside phases "
               f"{', '.join(HOME)} here) ---")

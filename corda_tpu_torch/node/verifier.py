@@ -160,15 +160,15 @@ class WorkerLostError(Exception):
 class RedispatchPolicy:
     """Self-healing knobs for the out-of-process pool.
 
-    `lease_micros` — a worker that has not re-announced `WorkerReady`
-    within this window is considered dead and detached (its in-flight
-    nonces re-dispatch to survivors). `attempt_timeout_micros` — one
-    dispatch's answer deadline: past it the nonce re-dispatches (the
-    bound worker may be alive but its answer lost, or it restarted
-    within its lease), bumping the attempt so the late original answer
-    is rejected. `request_timeout_micros` — the OVERALL per-nonce
-    deadline; past it the future fails with a typed error instead of
-    hanging. Redispatch after a worker LOSS waits a capped exponential
+    `lease_micros` — a worker from which no frame (a `WorkerReady` or
+    an answer) has arrived within this window is considered dead and
+    detached (its in-flight nonces re-dispatch to survivors).
+    `attempt_timeout_micros` — one dispatch's answer deadline: past it
+    the nonce re-dispatches (the bound worker may be alive but its
+    answer lost, or it restarted within its lease), bumping the attempt
+    so the late original answer is rejected. `request_timeout_micros`
+    — the OVERALL per-nonce deadline; past it the future fails with a
+    typed error instead of hanging. Redispatch after a worker LOSS waits a capped exponential
     backoff with +/- `backoff_jitter` (seeded, deterministic) so a
     flapping pool is not hammered in lockstep. `hedge_quantile` > 0
     additionally duplicates straggler nonces (older than that quantile
@@ -695,7 +695,14 @@ class OutOfProcessTransactionVerifierService(TransactionVerifierService):
 
     def _on_response(self, msg: msglib.Message) -> None:
         res: TxVerificationResponse = ser.decode(msg.payload)
+        now = self._now_micros()
         with self._lock:
+            # any frame of an attached worker proves it alive: under a
+            # burst its WorkerReady waits behind its answers, so an answer
+            # renews the lease too. A detached worker stays detached
+            # until it re-announces (only _on_ready attaches).
+            if msg.sender in self._workers:
+                self._leases[msg.sender] = now
             entry = self._pending.get(res.nonce)
             if entry is None:
                 return   # duplicate / already answered (at-least-once)

@@ -11,6 +11,17 @@ reference. Run it on a machine with a CUDA card:
 
 It refuses a non-CUDA device: on the CPU the kernels would not run and
 the check would pass vacuously.
+
+`--full` is the full-width parity record (`run_full`): 2,048 adversarial
+rows through both ladder generations at the bench's batch of 4,096, each
+row held against one CPU reference pass, every kernel of each generation
+required to launch, the record written to KERNEL_PARITY_FULL_TORCH.json:
+
+    python -m corda_tpu_torch.testing.selfcheck --full [--n 2048] [--out FILE] [--allow-cpu]
+
+`--allow-cpu` runs both generations' plain torch versions on the CPU
+(no kernel runs; the record says `"backend": "cpu"`), and may write only
+another file than the default one.
 """
 
 from __future__ import annotations
@@ -357,17 +368,143 @@ def run(n: int = 256, batch_size: int = 256, device: str = "cuda") -> dict:
     }
 
 
+# the kernels a verify call of each ladder generation launches: its two
+# ladders and the four ends kernels, by their cuda_ec launch counters
+GENERATION_KERNELS = {
+    windowed: (f"wei_ladder{tag}", f"ed_ladder{tag}", "ed_prologue", "ed_epilogue",
+               "ecdsa_prologue", "ecdsa_epilogue")
+    for windowed, tag in ((True, "_windowed"), (False, ""))
+}
+FULL_OUT = "KERNEL_PARITY_FULL_TORCH.json"
+FULL_N = 2048
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them."""
+    import subprocess
+
+    import torch
+
+    index = torch.device(device).index or 0
+    try:
+        return subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi: {e}"
+
+
+def run_full(n: int = FULL_N, device: str = "cuda", out_path: str = None,
+             generated_by: str = None, batch_size: int = 4096) -> dict:
+    """The full-width parity record (the reference's
+    tpu_selfcheck.run_full): one set of n adversarial rows and one CPU
+    reference pass, held against CudaBatchVerifier(batch_sizes=
+    (batch_size,)) with the windowed and then the bit ladders. Raises
+    RuntimeError on any mismatch, on a kernel of either generation that
+    did not launch, or on an unavailable CUDA device. On `device="cpu"`
+    both generations' plain versions run and no kernel does: the record
+    says `"backend": "cpu"` and its launches are empty. Writes the record
+    to `out_path` when given."""
+    import json
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from .. import native
+    from ..crypto import build, cuda_ec
+    from ..crypto.batch_verifier import CpuBatchVerifier, CudaBatchVerifier
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device is available")
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"device {device!r} is neither a CUDA device nor the CPU")
+    record: dict = {
+        "check": "kernel parity vs CPU reference",
+        "generated_by": generated_by
+        or f"python -m corda_tpu_torch.testing.selfcheck --full --n {n}",
+        "utc": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "n": n,
+        "batch_size": batch_size,
+        "card": card_line(dev) if on_card else None,
+        "runs": [],
+    }
+    reqs = build_requests(n)
+    with ThreadPoolExecutor(1) as pool:
+        # the kernels (nvcc) and the native staging library (g++) build
+        # where the stores have none, and the CUDA context starts, beside
+        # the CPU pass, so that no generation's wall holds them
+        built = pool.submit(lambda: (build.build_all(), native.get(),
+                                     torch.zeros(1, device=dev))) if on_card else None
+        t0 = time.perf_counter()
+        cpu = CpuBatchVerifier().verify_batch(reqs)
+        cpu_wall = round(time.perf_counter() - t0, 2)
+        if built is not None:
+            built.result()
+    # the generation is the verifier's own argument: nothing process-wide
+    # is switched, so nothing is left to restore after a run
+    for windowed, kernels in GENERATION_KERNELS.items():
+        counters = [f"{k}_launches" for k in kernels] if on_card else []
+        before = [getattr(cuda_ec, c) for c in counters]
+        t0 = time.perf_counter()
+        got = CudaBatchVerifier(batch_sizes=(batch_size,), device=dev,
+                                windowed=windowed).verify_batch(reqs)
+        wall = round(time.perf_counter() - t0, 2)
+        launches = {k: getattr(cuda_ec, c) - b for k, c, b in zip(kernels, counters, before)}
+        mismatches = [i for i, (a, b) in enumerate(zip(got, cpu)) if a != b]
+        if len(got) != n or mismatches:   # explicit raise: must fire under python -O too
+            raise RuntimeError(f"windowed={windowed}: device != CPU at rows {mismatches[:10]} "
+                               f"({len(got)} answers for {n} rows)")
+        idle = [k for k, v in launches.items() if v == 0]
+        if idle:
+            raise RuntimeError(f"windowed={windowed}: {idle} never launched")
+        record["runs"].append({"windowed": windowed, "accepts": sum(got),
+                               "rejects": n - sum(got), "device_wall_s": wall,
+                               "launches": launches})
+    record["cpu_reference_wall_s"] = cpu_wall
+    record["backend"] = dev.type
+    record["result"] = "bit-exact"   # any mismatch raised above
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(record, f, indent=1, sort_keys=True)
+            f.write("\n")
+    return record
+
+
 def main(argv=None) -> int:
     import argparse
     import json
+    import os
 
     parser = argparse.ArgumentParser(prog="corda_tpu_torch.testing.selfcheck")
-    parser.add_argument("--n", type=int, default=256)
-    parser.add_argument("--batch-size", type=int, default=256)
+    parser.add_argument("--n", type=int, default=None,
+                        help=f"rows (default 256; {FULL_N} with --full)")
+    parser.add_argument("--batch-size", type=int, default=256,
+                        help="the verifier's batch (--full runs at the bench's 4096)")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--full", action="store_true",
+                        help="both ladder generations at full width; writes --out")
+    parser.add_argument("--out", default=FULL_OUT)
+    parser.add_argument("--allow-cpu", action="store_true",
+                        help="with --full: the plain versions on the CPU, no kernel")
     args = parser.parse_args(argv)
+    if args.allow_cpu and not args.full:
+        parser.error("--allow-cpu goes with --full: the plain check refuses the CPU, where "
+                     "no kernel would run")
+    n = args.n if args.n is not None else (FULL_N if args.full else 256)
+    device = "cpu" if args.allow_cpu else args.device
+    if args.full and os.path.basename(args.out) == FULL_OUT and (n < FULL_N or device == "cpu"):
+        # the file name is the invariant: it only ever holds a full-width
+        # record from the card
+        raise SystemExit(f"refusing to write {FULL_OUT} from a reduced (n {n}) or CPU run: "
+                         "pass --out <other file> for spot checks")
     try:
-        print(json.dumps(run(args.n, args.batch_size, args.device)))
+        if args.full:
+            print(json.dumps(run_full(n, device, args.out)))
+        else:
+            print(json.dumps(run(n, args.batch_size, device)))
     except RuntimeError as e:
         raise SystemExit(str(e))
     return 0

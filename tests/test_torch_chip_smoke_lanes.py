@@ -15,7 +15,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 
 ALL_PHASES = ["3 parity", "3 timing", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13",
-              "14", "15", "16", "17", "18", "19"]
+              "14", "15", "16", "17", "18", "19", "20"]
 
 
 @pytest.fixture
@@ -54,12 +54,13 @@ def stub_phases(monkeypatch):
     monkeypatch.setattr(cs, "phase_samples", rec("17", {"launches": launches}))
     monkeypatch.setattr(cs, "phase_tools", rec("18", {"launches": launches}))
     monkeypatch.setattr(cs, "phase_shards", rec("19", {"launches": launches}))
+    monkeypatch.setattr(cs, "phase_parity_full", rec("20", {"launches": launches}))
     return calls, built
 
 
 def test_every_phase_runs_once_with_every_column(stub_phases):
     calls, built = stub_phases
-    groups = [cs.QUIET, cs.HOME, *cs.LANES]
+    groups = [cs.QUIET, cs.HOME, *cs.LANES, cs.LAST]
     flat = [p for g in groups for p in g]
     assert sorted(flat) == sorted(ALL_PHASES) and len(flat) == len(set(flat))
     columns, walls = {}, {}
@@ -81,8 +82,8 @@ def test_every_phase_runs_once_with_every_column(stub_phases):
 
 
 def test_an_unknown_phase_raises(stub_phases):
-    with pytest.raises(ValueError, match="no phase '20'"):
-        cs.run_phases(["20"], "cpu", "cpu rehearsal", {})
+    with pytest.raises(ValueError, match="no phase '21'"):
+        cs.run_phases(["21"], "cpu", "cpu rehearsal", {})
 
 
 def test_lane_main_writes_its_result_and_waits_for_stdin(stub_phases, monkeypatch, tmp_path):

@@ -166,14 +166,6 @@ def _pool_inputs(n: int):
     return fx, [stx.to_ledger_transaction(hub) for stx in fx.spends]
 
 
-def _default_lease(monkeypatch):
-    """11d at a few dozen requests holds no heartbeat back: the pool's
-    default lease, so that worker 0 is detached in seconds."""
-    from corda_tpu_torch.node.verifier import RedispatchPolicy
-
-    monkeypatch.setattr(cs, "TCP_POOL_LEASE", RedispatchPolicy().lease_micros)
-
-
 def test_node_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
     """chip_smoke's phase 11 on the CPU at small depth: (a) the trio over
     verifier_backend "cpu" nodes twice, with one concurrent payment per
@@ -182,7 +174,9 @@ def test_node_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
     under the new one) and the BFT cluster; (c) the two CLI node
     processes over RPC; (d) 32 phase-6 spends through two `--cpu` worker
     processes over TCP, worker 0 killed mid-batch. Every check of each
-    part runs and passes."""
+    part runs and passes; 11d at the pool's default lease."""
+    from corda_tpu_torch.node.verifier import RedispatchPolicy
+
     monkeypatch.setattr(cs, "NODE_CONCURRENT", 1)
     one = cs.node_trio_drive(str(tmp_path / "a1"), "cpu")
     two = cs.node_trio_drive(str(tmp_path / "a2"), "cpu")
@@ -197,12 +191,11 @@ def test_node_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
     cli = cs.cli_drive(str(tmp_path / "cli"), backend="cpu", check_contexts=False)
     assert cli["balances"] == {"CliHub": 300, "CliBob": 700}
     fx, ltxs = _pool_inputs(32)
-    _default_lease(monkeypatch)
     pool = cs.pool_tcp_drive(str(tmp_path / "pool"), ltxs, fx.spends, cpu_workers=True,
                              check_contexts=False)
     cs._check_pool_answers(pool["answers"], fx.labels, "t")
     assert pool["lost"] == 1 and pool["redispatched"] > 0 and pool["deliver_s"] is not None
-    assert 0 < pool["silence_s"] < pool["lease_s"]
+    assert 0 < pool["silence_s"] < pool["lease_s"] == RedispatchPolicy().lease_micros / 1e6
     assert pool["survivor"][0].startswith("verifier worker w1: ")
 
 
@@ -245,7 +238,6 @@ def test_node_checks_raise_on_a_wrong_answer(monkeypatch, tmp_path):
         cs.cli_drive(str(tmp_path / "cli"), backend="cpu")
     # 11d: worker 0 is never killed (its lease still expires)
     monkeypatch.setattr(cs, "TCP_POOL_KILL_AT", 2.0)
-    _default_lease(monkeypatch)
     fx, ltxs = _pool_inputs(16)
     with pytest.raises(RuntimeError, match="killed at None, workers lost 1"):
         cs.pool_tcp_drive(str(tmp_path / "pool"), ltxs, fx.spends, cpu_workers=True,

@@ -6,10 +6,11 @@ until a worker attaches, an invalid signature, round robin, one dispatch
 per batched drain, a malformed transaction, worker churn, a lost answer,
 the buffer drained exactly once, the signature gate before contract
 execution, failures delivered before sends), the typed timeout of
-`wait` and the lease fault both packages share (a worker whose drain
-outlasts its lease is re-dispatched onto itself until a drain fits) run
-on the same seeded MockNetwork in each package over
-CpuBatchVerifier. Required equal between the packages: every frame on
+`wait`, an answer from a detached worker (refused, the worker not
+re-attached) and the lease fault both packages share (a worker whose
+single verify call outlasts its lease is re-dispatched onto itself
+until a drain fits) run on the same seeded MockNetwork in each package
+over CpuBatchVerifier. Required equal between the packages: every frame on
 the verifier topics (sender, target, topic, payload bytes: requests,
 responses, WorkerReady), every answer (its exception class and message),
 and the pool's and workers' metrics (success and failure counts,
@@ -17,7 +18,11 @@ Verified, Failed, BatchSize, Redispatched, WorkersLost). One case runs
 the port's worker on CudaBatchVerifier(device="cpu"); the port's worker
 with a failing card dispatch answers VerifierDispatchError for every
 request and never verifies on the host, and with no verifier it raises
-where there is no card.
+where there is no card. The repair of fault D7 is pinned in both
+packages side by side: the port's pool renews a worker's lease on its
+answers too, so a burst's answers that reach the node more than a lease
+after the worker's last WorkerReady keep the worker attached, where the
+reference detaches it; every answer is the same.
 """
 
 from __future__ import annotations
@@ -306,15 +311,53 @@ def case_lost_answer_redispatched(P):
     return _outcome(rig, svc, [fut], [w1, w2])
 
 
+def case_answer_from_a_detached_worker(P):
+    """A worker silent past its lease is detached; its answer, landing
+    after that, is refused and does not re-attach it (only WorkerReady
+    attaches, in both packages). Its re-announcement attaches it again
+    and the re-dispatched nonce is answered once."""
+    rig = Rig(P)
+    clock = rig.net.clock
+    svc = _churn_pool(rig)
+    w = rig.worker("worker-1", clock=clock, heartbeat_micros=0, batch_window=100)
+    rig.run()
+    fut = svc.verify(rig.ltx, rig.stx)
+    rig.run()
+    clock.advance(150_000)
+    svc.tick()                             # silent past its lease: detached
+    assert svc.worker_count == 0
+    assert w.drain() == 1
+    rig.run()                              # its answer lands after the detach
+    assert svc.worker_count == 0 and not fut.done
+    clock.advance(150_000)
+    svc.tick()
+    assert svc.worker_count == 0 and svc.incarnation_of("worker-1") == 1
+    w._send_ready()
+    rig.run()                              # a re-announcement attaches it
+    assert svc.worker_count == 1 and svc.incarnation_of("worker-1") == 2
+    for _ in range(4):
+        w.drain()
+        rig.run()
+        if fut.done:
+            break
+        clock.advance(60_000)
+        svc.tick()
+        rig.run()
+    assert _answer(fut) == "ok" and svc.in_flight == 0
+    return _outcome(rig, svc, [fut], [w])
+
+
 def case_drain_outlasting_its_lease(P):
-    """The lease fault both packages share: a worker renews its lease
-    only when a drain starts (`maybe_heartbeat`), so a drain longer than
+    """The lease fault neither package's renewals remove: a worker
+    renews its lease when a drain starts (`maybe_heartbeat`) and, in the
+    port, with each answer, so a single verify call longer than
     `lease_micros` (a slow verifier: the TestClock moves 250 ms inside
-    each verify_batch, against a 100 ms lease) detaches it before its
-    answers land. The answers are refused as stale, the nonces
+    each verify_batch, against a 100 ms lease) still detaches it before
+    its answers land. The answers are refused as stale, the nonces
     re-dispatched onto the same worker when it re-announces, and so on:
     no future is answered while the drains stay slow. Once a drain fits
-    in the lease, every future is answered."""
+    in the lease, every future is answered. The lease must exceed one
+    verify call."""
     rig = Rig(P)
     clock = rig.net.clock
     svc = _churn_pool(rig)
@@ -475,6 +518,53 @@ def test_case_equals_the_reference(case):
     assert frames == ref.pop("frames")
     assert frames or case == "wait_typed_timeout"   # that one never attaches a worker
     assert port == ref
+
+
+def late_burst(P) -> dict:
+    """A burst whose first answers reach the node 120 ms after the
+    worker's last WorkerReady, against a 100 ms lease (the worker's
+    answers waited in the node's FIFO), then a tick and the rest of the
+    burst."""
+    rig = Rig(P)
+    clock = rig.net.clock
+    svc = _churn_pool(rig)
+    w = rig.worker("worker-1", clock=clock, heartbeat_micros=50_000, batch_window=100)
+    rig.run()                  # WorkerReady at 0 ms
+    futs = [svc.verify(rig.ltx, rig.stx) for _ in range(3)]
+    rig.run()
+    clock.advance(40_000)
+    assert w.drain() == 3      # inside the heartbeat cadence: answers only
+    clock.advance(80_000)
+    rig.run()                  # the answers reach the node at 120 ms
+    svc.tick()
+    lost_at_tick = _pool_metrics(svc)["workers_lost"]
+    futs += [svc.verify(rig.ltx, rig.stx) for _ in range(3)]
+    rig.run()
+    for _ in range(4):
+        w.drain()
+        rig.run()
+        if all(f.done for f in futs):
+            break
+        clock.advance(60_000)
+        svc.tick()
+        rig.run()
+    responses = [f for f in rig.frames if f[2] == "verifier.responses"]
+    return {**_outcome(rig, svc, futs, [w]), "lost_at_tick": lost_at_tick,
+            "incarnation": svc.incarnation_of("worker-1"), "responses": len(responses)}
+
+
+def test_d7_answers_past_the_lease_keep_their_worker_attached():
+    """D7, side by side: the reference detaches a worker whose answers
+    it is processing when its last WorkerReady is older than the lease;
+    the port's answers renew the lease, so the worker stays attached.
+    Both answer every future once, every answer the same."""
+    ref, port = (late_burst(_package(p)) for p in PACKAGES)
+    for out in (ref, port):
+        assert out["answers"] == ["ok"] * 6 and out["pool"]["in_flight"] == 0
+        assert (out["pool"]["success"], out["pool"]["failure"]) == (6, 0)
+    assert (ref["lost_at_tick"], ref["pool"]["workers_lost"], ref["incarnation"]) == (1, 1, 2)
+    assert (port["lost_at_tick"], port["pool"]["workers_lost"], port["incarnation"]) == (0, 0, 1)
+    assert port["responses"] == 6 and port["pool"]["redispatched"] == 0
 
 
 def test_wire_frames_byte_equal():
